@@ -1,0 +1,231 @@
+// K8 fuse: association, merge arbitration and append of one frame's surfels.
+//
+// Replaces: multimotionfusion_tpu/model/fusion.py:54 fuse.
+// Bound on an H100: bytes. The map is copied once ([16, B] in and out: the
+//   function returns a new map), each of the 76,800 checkerboard pixels reads
+//   its frame surfel and a 4x4 window of the index map, and each write-back
+//   touches one 16-channel surfel column.
+// Design (five launches on one stream, no host round trip):
+//   1. copy the map into the output (cudaMemcpy2DAsync) and fill the
+//      slot -> source inverse map with n_src;
+//   2. assoc: one thread per pixel of the [H/2, W/2] subgrid of time parity
+//      (x % 2 == y % 2 == time % 2) evaluates participation and the 4x4 window
+//      search (offsets -2..+1; |zdiff * lambda| gate, ray distance, normal
+//      conformance), reading candidates through the index map straight from
+//      data_local; it writes the target id and merge/new flags;
+//   3. scan: one block forms the exclusive prefix sum of the new flags in
+//      source order (NOT an atomic counter, so append slots, and with them
+//      every later surfel id, match the reference) and the new count;
+//   4. arbitrate: each source (merges 0..n_cb-1, then appends n_cb..2n_cb-1)
+//      atomicMin's its id into inv[dst]: the lowest source id wins a slot,
+//      whatever order the threads run in;
+//   5. apply: the source that won its slot computes its column (the
+//      confidence-weighted merge in the global frame, or the new surfel) and
+//      writes it.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int CH = 16;
+enum {
+  PX = 0, PY = 1, PZ = 2, CONF = 3, CR = 4, CG = 5, CB = 6, INIT_T = 7, LAST_T = 8,
+  NX = 9, NY = 10, NZ = 11, RADIUS = 12
+};
+constexpr int SCAN_THREADS = 1024;
+
+struct Pose {
+  float r[9];
+  float t[3];
+};
+
+__global__ void fill_int(int* __restrict__ a, int n, int v) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) a[i] = v;
+}
+
+__global__ void assoc(const float* __restrict__ frame, const uint8_t* __restrict__ fvalid,
+                      const int* __restrict__ mask, int mask_id, const int* __restrict__ index,
+                      const float* __restrict__ dl, int B, float fx, float fy, float cx, float cy,
+                      int W, int H, int par, float depth_cutoff, float gate, int window,
+                      int* __restrict__ target, int* __restrict__ flags) {
+  int wc = W / 2, hc = H / 2;
+  int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= wc * hc) return;
+  int y = 2 * (k / wc) + par, x = 2 * (k % wc) + par;
+  int N = W * H;
+  int p = y * W + x;
+  float fz = frame[PZ * N + p];
+  float fnx = frame[NX * N + p], fny = frame[NY * N + p], fnz = frame[NZ * N + p];
+  bool neigh = (x > 0 && frame[PZ * N + p - 1] > 0.f) && (x + 1 < W && frame[PZ * N + p + 1] > 0.f) &&
+               (y > 0 && frame[PZ * N + p - W] > 0.f) && (y + 1 < H && frame[PZ * N + p + W] > 0.f);
+  bool part = (mask[p] == mask_id) && neigh && fvalid[p] && fz > 0.f && fz <= depth_cutoff;
+
+  float xl = ((float)x - cx) / fx;
+  float yl = ((float)y - cy) / fy;
+  float lam = sqrtf(xl * xl + yl * yl + 1.0f);
+  float best_dist = 1000.0f;
+  int best = -1;
+  int r = window / 2;
+  for (int dy = -r; dy < window - r; ++dy) {
+    int yy = y + dy;
+    if (yy < 0 || yy >= H) continue;
+    for (int dx = -r; dx < window - r; ++dx) {
+      int xx = x + dx;
+      if (xx < 0 || xx >= W) continue;
+      int c = index[yy * W + xx];
+      if (c < 0) continue;
+      float cpx = dl[PX * B + c], cpy = dl[PY * B + c], cpz = dl[PZ * B + c];
+      bool z_ok = fabsf((cpz - fz) * lam) < gate;
+      float rx = yl * cpz - cpy;
+      float ry = cpx - xl * cpz;
+      float rz = xl * cpy - yl * cpx;
+      float dist = sqrtf(rx * rx + ry * ry + rz * rz);
+      float cnx = dl[NX * B + c], cny = dl[NY * B + c], cnz = dl[NZ * B + c];
+      float cosang = fminf(fmaxf(cnx * fnx + cny * fny + cnz * fnz, -1.0f), 1.0f);
+      bool n_ok = (fabsf(cnz) < 0.75f) || (fabsf(acosf(cosang)) < 0.5f);
+      if (z_ok && n_ok && dist < best_dist) {
+        best_dist = dist;
+        best = c;
+      }
+    }
+  }
+  bool merging = part && best >= 0;
+  target[k] = best;
+  flags[k] = (merging ? 1 : 0) | ((part && !merging) ? 2 : 0);
+}
+
+// exclusive prefix sum of the "new" flags over the subgrid in source order
+__global__ void scan_new(const int* __restrict__ flags, int n, const int* __restrict__ count,
+                         int cap, int* __restrict__ prefix, int* __restrict__ count_out) {
+  __shared__ int sh[SCAN_THREADS];
+  int tid = threadIdx.x;
+  int chunk = (n + SCAN_THREADS - 1) / SCAN_THREADS;
+  int lo = min(tid * chunk, n), hi = min(lo + chunk, n);
+  int s = 0;
+  for (int i = lo; i < hi; ++i) s += (flags[i] >> 1) & 1;
+  sh[tid] = s;
+  __syncthreads();
+  for (int off = 1; off < SCAN_THREADS; off <<= 1) {  // inclusive Hillis-Steele
+    int v = (tid >= off) ? sh[tid - off] : 0;
+    __syncthreads();
+    sh[tid] += v;
+    __syncthreads();
+  }
+  int run = sh[tid] - s;
+  for (int i = lo; i < hi; ++i) {
+    prefix[i] = run;
+    run += (flags[i] >> 1) & 1;
+  }
+  if (tid == SCAN_THREADS - 1) {
+    int c = *count;
+    *count_out = c + min(sh[tid], cap - c);
+  }
+}
+
+__device__ inline int dest(int k, int n_cb, const int* target, const int* flags,
+                           const int* prefix, int count, int cap) {
+  if (k < n_cb) return (flags[k] & 1) ? target[k] : -1;
+  int j = k - n_cb;
+  if (!(flags[j] & 2)) return -1;
+  int d = count + prefix[j];
+  return d < cap ? d : -1;
+}
+
+__global__ void arbitrate(const int* __restrict__ target, const int* __restrict__ flags,
+                          const int* __restrict__ prefix, const int* __restrict__ count, int n_cb,
+                          int cap, int* __restrict__ inv) {
+  int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= 2 * n_cb) return;
+  int d = dest(k, n_cb, target, flags, prefix, *count, cap);
+  if (d >= 0) atomicMin(&inv[d], k);
+}
+
+__device__ inline void transform(float* s, const Pose& T) {
+  float p0 = s[PX], p1 = s[PY], p2 = s[PZ];
+  float n0 = s[NX], n1 = s[NY], n2 = s[NZ];
+  for (int r = 0; r < 3; ++r) {
+    s[PX + r] = T.r[3 * r] * p0 + T.r[3 * r + 1] * p1 + T.r[3 * r + 2] * p2 + T.t[r];
+    s[NX + r] = T.r[3 * r] * n0 + T.r[3 * r + 1] * n1 + T.r[3 * r + 2] * n2;
+  }
+}
+
+__global__ void apply(const float* __restrict__ frame, const float* __restrict__ dl, int B,
+                      const int* __restrict__ target, const int* __restrict__ flags,
+                      const int* __restrict__ prefix, const int* __restrict__ count,
+                      const int* __restrict__ inv, int n_cb, int cap, Pose T, int W, int H, int par,
+                      float time, float* __restrict__ out) {
+  int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= 2 * n_cb) return;
+  int d = dest(k, n_cb, target, flags, prefix, *count, cap);
+  if (d < 0 || inv[d] != k) return;
+  int j = k < n_cb ? k : k - n_cb;
+  int wc = W / 2;
+  int p = (2 * (j / wc) + par) * W + 2 * (j % wc) + par;
+  int N = W * H;
+  float nw[CH];
+  for (int c = 0; c < CH; ++c) nw[c] = frame[c * N + p];
+  transform(nw, T);
+  if (k >= n_cb) {
+    for (int c = 0; c < CH; ++c) out[c * cap + d] = nw[c];
+    return;
+  }
+  int t = target[j];
+  float old[CH];
+  for (int c = 0; c < CH; ++c) old[c] = dl[c * B + t];
+  transform(old, T);
+  float ck = old[CONF], a = nw[CONF];
+  float csum = fmaxf(ck + a, 1e-12f);
+  bool rad_ok = nw[RADIUS] < 1.5f * old[RADIUS];
+  float m[CH];
+  for (int c = 0; c < CH; ++c) m[c] = old[c];
+  if (rad_ok) {
+    const int lin[6] = {PX, PY, PZ, CR, CG, CB};
+    for (int q = 0; q < 6; ++q) {
+      int c = lin[q];
+      m[c] = (ck * old[c] + a * nw[c]) / csum;
+    }
+    float nmx = (ck * old[NX] + a * nw[NX]) / csum;
+    float nmy = (ck * old[NY] + a * nw[NY]) / csum;
+    float nmz = (ck * old[NZ] + a * nw[NZ]) / csum;
+    float nn = sqrtf(fmaxf(nmx * nmx + nmy * nmy + nmz * nmz, 1e-12f));
+    m[NX] = nmx / nn;
+    m[NY] = nmy / nn;
+    m[NZ] = nmz / nn;
+    m[RADIUS] = (ck * old[RADIUS] + a * nw[RADIUS]) / csum;
+  }
+  m[CONF] = ck + a;
+  m[LAST_T] = time;
+  for (int c = 0; c < CH; ++c) out[c * cap + d] = m[c];
+}
+
+}  // namespace
+
+extern "C" int mmf_fuse(const float* data, int row_stride, int cap, const int* count,
+                        const float* frame, const uint8_t* frame_valid, const int* mask,
+                        int mask_id, const int* index, const float* data_local, float r00,
+                        float r01, float r02, float r10, float r11, float r12, float r20,
+                        float r21, float r22, float t0, float t1, float t2, float fx, float fy,
+                        float cx, float cy, int W, int H, float time, int par,
+                        float depth_cutoff, float gate, int window, int* target, int* flags,
+                        int* prefix, int* inv, int* count_out, float* out,
+                        cudaStream_t stream) {
+  Pose T = {{r00, r01, r02, r10, r11, r12, r20, r21, r22}, {t0, t1, t2}};
+  const int threads = 256;
+  int n_cb = (W / 2) * (H / 2);
+  int n_src = 2 * n_cb;
+  cudaMemcpy2DAsync(out, sizeof(float) * cap, data, sizeof(float) * row_stride,
+                    sizeof(float) * cap, CH, cudaMemcpyDeviceToDevice, stream);
+  fill_int<<<(cap + threads - 1) / threads, threads, 0, stream>>>(inv, cap, n_src);
+  assoc<<<(n_cb + threads - 1) / threads, threads, 0, stream>>>(
+      frame, frame_valid, mask, mask_id, index, data_local, cap, fx, fy, cx, cy, W, H, par,
+      depth_cutoff, gate, window, target, flags);
+  scan_new<<<1, SCAN_THREADS, 0, stream>>>(flags, n_cb, count, cap, prefix, count_out);
+  arbitrate<<<(n_src + threads - 1) / threads, threads, 0, stream>>>(target, flags, prefix,
+                                                                      count, n_cb, cap, inv);
+  apply<<<(n_src + threads - 1) / threads, threads, 0, stream>>>(
+      frame, data_local, cap, target, flags, prefix, count, inv, n_cb, cap, T, W, H, par, time,
+      out);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,110 @@
+// K10 splat_resolve: the 5x5 ray-disk resolve of the next frame's prediction.
+//
+// Replaces: multimotionfusion_tpu/ops/rasterize.py:366 splat_resolve
+//   (pre_gated=False, the static frame step's call; fill_in stays plain).
+// Bound on an H100: bytes. Per pixel: the 5x5 window of the index map (served
+//   from L1/L2: neighbouring threads share 24 of 25 taps), one 10-channel
+//   gather of each distinct winner surfel in data_local, and 49 bytes of
+//   output (colour, vertex+conf, normal+radius, time, valid).
+// Design: one thread per pixel walks the taps in the reference order (dy
+//   outer, dx inner) and keeps the candidate whose ray-plane hit is strictly
+//   nearer (`<`, so ties resolve as in the reference), after the per-candidate
+//   gates conf >= threshold, time - last_t <= time_delta, last_t <= max_time,
+//   the disk test |hit - p|^2 <= r^2 and hz > 0. It carries the winner's
+//   colour, confidence, normal, radius and init time, so no attribute image
+//   is materialised.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+enum {
+  PX = 0, PY = 1, PZ = 2, CONF = 3, CR = 4, CG = 5, CB = 6, INIT_T = 7, LAST_T = 8,
+  NX = 9, NY = 10, NZ = 11, RADIUS = 12
+};
+
+__global__ void resolve(const int* __restrict__ index, const float* __restrict__ dl, int B,
+                        int H, int W, float fx, float fy, float cx, float cy, float conf_t,
+                        float time, float max_time, float time_delta, int window,
+                        float* __restrict__ color, float* __restrict__ vertex_conf,
+                        float* __restrict__ normal_rad, int* __restrict__ tmap,
+                        uint8_t* __restrict__ valid) {
+  int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= H * W) return;
+  int y = p / W, x = p % W;
+  float lx = ((float)x - cx) / fx;
+  float ly = ((float)y - cy) / fy;
+  float lnorm = sqrtf(lx * lx + ly * ly + 1.0f);
+  float l0 = lx / lnorm, l1 = ly / lnorm, l2 = 1.0f / lnorm;
+
+  float best_z = 3.4e38f;
+  int best = -1;
+  float att[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  int r = window / 2;
+  for (int dy = -r; dy < window - r; ++dy) {
+    int yy = y + dy;
+    if (yy < 0 || yy >= H) continue;
+    for (int dx = -r; dx < window - r; ++dx) {
+      int xx = x + dx;
+      if (xx < 0 || xx >= W) continue;
+      int c = index[yy * W + xx];
+      if (c < 0) continue;
+      float conf = dl[CONF * B + c];
+      float last = dl[LAST_T * B + c];
+      if (!(conf >= conf_t && time - last <= time_delta && last <= max_time)) continue;
+      float px = dl[PX * B + c], py = dl[PY * B + c], pz = dl[PZ * B + c];
+      float nx = dl[NX * B + c], ny = dl[NY * B + c], nz = dl[NZ * B + c];
+      float rad = dl[RADIUS * B + c];
+      float ln = l0 * nx + l1 * ny + l2 * nz;
+      float pn = px * nx + py * ny + pz * nz;
+      float t = pn / (fabsf(ln) > 1e-12f ? ln : 1e-12f);
+      float hx = t * l0, hy = t * l1, hz = t * l2;
+      float ex = hx - px, ey = hy - py, ez = hz - pz;
+      float d2 = ex * ex + ey * ey + ez * ez;
+      if (d2 <= rad * rad && hz > 0.f && hz < best_z) {
+        best_z = hz;
+        best = c;
+        att[0] = dl[CR * B + c];
+        att[1] = dl[CG * B + c];
+        att[2] = dl[CB * B + c];
+        att[3] = conf;
+        att[4] = nx;
+        att[5] = ny;
+        att[6] = nz;
+        att[7] = rad;
+        att[8] = dl[INIT_T * B + c];
+      }
+    }
+  }
+  bool ok = best >= 0;
+  float zc = ok ? best_z : 0.f;
+  color[3 * p + 0] = att[0];
+  color[3 * p + 1] = att[1];
+  color[3 * p + 2] = att[2];
+  vertex_conf[4 * p + 0] = lx * zc;
+  vertex_conf[4 * p + 1] = ly * zc;
+  vertex_conf[4 * p + 2] = zc;
+  vertex_conf[4 * p + 3] = att[3];
+  normal_rad[4 * p + 0] = att[4];
+  normal_rad[4 * p + 1] = att[5];
+  normal_rad[4 * p + 2] = att[6];
+  normal_rad[4 * p + 3] = att[7];
+  tmap[p] = (int)att[8];
+  valid[p] = ok ? 1 : 0;
+}
+
+}  // namespace
+
+extern "C" int mmf_splat_resolve(const int* index, const float* data_local, int B, int H, int W,
+                                 float fx, float fy, float cx, float cy, float conf_threshold,
+                                 float time, float max_time, float time_delta, int window,
+                                 float* color, float* vertex_conf, float* normal_rad, int* tmap,
+                                 uint8_t* valid, cudaStream_t stream) {
+  const int threads = 256;
+  int npix = H * W;
+  resolve<<<(npix + threads - 1) / threads, threads, 0, stream>>>(
+      index, data_local, B, H, W, fx, fy, cx, cy, conf_threshold, time, max_time, time_delta,
+      window, color, vertex_conf, normal_rad, tmap, valid);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,304 @@
+"""Surfel fusion and map maintenance (port of the reference package's ``model/fusion.py``).
+
+- ``fuse`` (kernel K8, ``csrc/fuse.cu``): per-pixel data association against
+  the index map (data.vert 4x4 window search with the zdiff*lambda, ray
+  distance and normal gates) on the time-parity checkerboard, a
+  confidence-weighted merge into the winning surfel (update.vert) and an
+  append of unmatched pixels after the high-water mark. Pixels that pick the
+  same surfel are arbitrated deterministically: the lowest source id wins,
+  where source ids run row-major over the [H/2, W/2] checkerboard subgrid,
+  merges first, then appends; append slots are ``count`` + an exclusive prefix
+  sum over the same order.
+- ``clean`` (plain PyTorch, K9): redundancy / see-through / unstable-age culls
+  and the periodic order-preserving compaction (copy_unstable.vert).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from multimotionfusion_tpu_torch import kernels as K
+from multimotionfusion_tpu_torch.config import CameraModel, SurfelConfig
+from multimotionfusion_tpu_torch.model import surfel_map as sm
+from multimotionfusion_tpu_torch.ops.image import _shift2d
+from multimotionfusion_tpu_torch.ops.rasterize import (
+    INVALID,
+    IndexMap,
+    _pixel_rays,
+    _pose_args,
+    gather_attr_images,
+)
+
+
+def _window_offsets(window: int):
+    r = window // 2
+    return [(dy, dx) for dy in range(-r, window - r) for dx in range(-r, window - r)]
+
+
+def fuse_plain(data, count, frame_data, frame_valid, index, data_local, mask, mask_id,
+               pose, cam: CameraModel, time, cfg: SurfelConfig):
+    """Plain PyTorch K8. Returns (data [16, B] new array, count [] int32,
+    assoc [H/2 * W/2] int32: per checkerboard pixel the merge target, -1 for a
+    new surfel, -2 where the pixel does not participate)."""
+    h, w = cam.height, cam.width
+    dev = data.device
+    lx, ly = _pixel_rays(cam, dev)
+    xl, yl = lx, ly
+    lam = torch.sqrt(xl * xl + yl * yl + 1.0)
+
+    fz = frame_data[sm.PZ].reshape(h, w)
+    fnx = frame_data[sm.NX].reshape(h, w)
+    fny = frame_data[sm.NY].reshape(h, w)
+    fnz = frame_data[sm.NZ].reshape(h, w)
+
+    ti = int(time)
+    par = ti % 2
+    xi = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
+    yi = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
+    checker = ((xi % 2) == par) & ((yi % 2) == par)
+    neigh_ok = (
+        (_shift2d(fz, 0, -1, 0.0) > 0)
+        & (_shift2d(fz, 0, 1, 0.0) > 0)
+        & (_shift2d(fz, -1, 0, 0.0) > 0)
+        & (_shift2d(fz, 1, 0, 0.0) > 0)
+    )
+    participate = (
+        checker & (mask == mask_id) & neigh_ok & frame_valid.reshape(h, w)
+        & (fz > 0) & (fz <= cfg.depth_cutoff)
+    )
+
+    attrs = gather_attr_images(data_local, index)
+    best_dist = torch.full((h, w), 1000.0, dtype=torch.float32, device=dev)
+    best_tgt = torch.full((h, w), INVALID, dtype=torch.int32, device=dev)
+    for dy, dx in _window_offsets(cfg.assoc_window):
+        cand = _shift2d(index, dy, dx, INVALID)
+        cdat = _shift2d(attrs, dy, dx, 0.0)
+        cpx, cpy, cpz = cdat[sm.PX], cdat[sm.PY], cdat[sm.PZ]
+        z_ok = torch.abs((cpz - fz) * lam) < cfg.assoc_depth_gate
+        rx = yl * cpz - cpy
+        ry = cpx - xl * cpz
+        rz = xl * cpy - yl * cpx
+        dist = torch.sqrt(rx * rx + ry * ry + rz * rz)
+        cnx, cny, cnz = cdat[sm.NX], cdat[sm.NY], cdat[sm.NZ]
+        cosang = torch.clamp(cnx * fnx + cny * fny + cnz * fnz, -1.0, 1.0)
+        n_ok = (torch.abs(cnz) < 0.75) | (torch.abs(torch.arccos(cosang)) < 0.5)
+        better = (cand >= 0) & z_ok & n_ok & (dist < best_dist)
+        best_dist = torch.where(better, dist, best_dist)
+        best_tgt = torch.where(better, cand, best_tgt)
+
+    # every participating pixel lies on the [par::2, par::2] subgrid
+    n_cb = (h // 2) * (w // 2)
+    merging = (participate & (best_tgt >= 0))[par::2, par::2].reshape(n_cb)
+    target = best_tgt[par::2, par::2].reshape(n_cb)
+    part = participate[par::2, par::2].reshape(n_cb)
+    fdat = frame_data.reshape(sm.CHANNELS, h, w)[:, par::2, par::2].reshape(sm.CHANNELS, n_cb)
+
+    pose = pose.to(dev)
+    new_global = sm.transform_surfels(fdat, pose)
+    old = sm.transform_surfels(gather_attr_images(data_local, target), pose)
+    c_k = old[sm.CONF]
+    a = new_global[sm.CONF]
+    csum = torch.clamp(c_k + a, min=1e-12)
+    rad_ok = new_global[sm.RADIUS] < 1.5 * old[sm.RADIUS]
+
+    def wavg(ch):
+        return (c_k * old[ch] + a * new_global[ch]) / csum
+
+    merged = old.clone()
+    for ch in (sm.PX, sm.PY, sm.PZ, sm.CR, sm.CG, sm.CB):
+        merged[ch] = torch.where(rad_ok, wavg(ch), old[ch])
+    nmx, nmy, nmz = wavg(sm.NX), wavg(sm.NY), wavg(sm.NZ)
+    nn = torch.sqrt(torch.clamp(nmx * nmx + nmy * nmy + nmz * nmz, min=1e-12))
+    merged[sm.NX] = torch.where(rad_ok, nmx / nn, old[sm.NX])
+    merged[sm.NY] = torch.where(rad_ok, nmy / nn, old[sm.NY])
+    merged[sm.NZ] = torch.where(rad_ok, nmz / nn, old[sm.NZ])
+    merged[sm.RADIUS] = torch.where(rad_ok, wavg(sm.RADIUS), old[sm.RADIUS])
+    merged[sm.CONF] = c_k + a
+    merged[sm.LAST_T] = float(time)
+
+    cap = data.shape[1]
+    merge_dst = torch.where(merging, target, torch.full_like(target, cap))
+    new_mask = part & ~merging
+    new_i = new_mask.to(torch.int32)
+    append_dst = count + torch.cumsum(new_i, 0, dtype=torch.int32) - 1
+    append_dst = torch.where(new_mask & (append_dst < cap), append_dst, torch.full_like(append_dst, cap))
+    dst = torch.cat([merge_dst, append_dst]).long()
+    vals = torch.cat([merged, new_global], dim=1)
+    n_src = 2 * n_cb
+    src_ids = torch.arange(n_src, dtype=torch.int32, device=dev)
+    inv = torch.full((cap + 1,), n_src, dtype=torch.int32, device=dev)
+    inv.scatter_reduce_(0, dst, src_ids, reduce="amin", include_self=True)
+    inv = inv[:cap]
+    updated = inv < n_src
+    upd = vals[:, torch.clamp(inv, max=n_src - 1).long()]
+    out = torch.where(updated[None], upd, data)
+    n_new = torch.minimum(torch.sum(new_i).to(torch.int32), cap - count)
+    assoc = torch.where(merging, target, torch.where(part, -1, -2).to(torch.int32))
+    return out, (count + n_new).to(torch.int32), assoc
+
+
+_FUSE_ARGS = (
+    [K.P, K.I, K.I, K.P]  # data, row stride, capacity, count
+    + [K.P, K.P, K.P, K.I]  # frame data, frame valid, mask, mask id
+    + [K.P, K.P]  # index, data_local
+    + [K.F] * 12 + [K.F] * 4 + [K.I, K.I]  # pose, intrinsics, W, H
+    + [K.F, K.I, K.F, K.F, K.I]  # time, parity, depth cutoff, depth gate, window
+    + [K.P] * 6  # target, flags, prefix, inv, count out, data out
+)
+
+
+def fuse_cuda(data, count, frame_data, frame_valid, index, data_local, mask, mask_id,
+              pose, cam: CameraModel, time, cfg: SurfelConfig):
+    """K8 on the card: ``csrc/fuse.cu`` (same contract as ``fuse_plain``)."""
+    K.check(data, torch.float32, "data", contiguous=False)
+    K.check(count, torch.int32, "count")
+    K.check(frame_data, torch.float32, "frame_data")
+    K.check(frame_valid, torch.bool, "frame_valid")
+    K.check(mask, torch.int32, "mask")
+    K.check(index, torch.int32, "index")
+    K.check(data_local, torch.float32, "data_local")
+    h, w = cam.height, cam.width
+    cap = data.shape[1]
+    if data.stride(1) != 1 or tuple(data_local.shape) != (sm.CHANNELS, cap):
+        raise ValueError("data must be [16, B] (unit column stride) and data_local [16, B]")
+    if h % 2 or w % 2:
+        raise ValueError("fuse needs an even image size (checkerboard subgrid)")
+    n_cb = (h // 2) * (w // 2)
+    dev = data.device
+    target = torch.empty((n_cb,), dtype=torch.int32, device=dev)
+    flags = torch.empty((n_cb,), dtype=torch.int32, device=dev)
+    prefix = torch.empty((n_cb,), dtype=torch.int32, device=dev)
+    inv = torch.empty((cap,), dtype=torch.int32, device=dev)
+    count_out = torch.empty((), dtype=torch.int32, device=dev)
+    out = torch.empty((sm.CHANNELS, cap), dtype=torch.float32, device=dev)
+    f = K.fn("fuse", "mmf_fuse", _FUSE_ARGS)
+    K.call(
+        "fuse", f, K.ptr(data), data.stride(0), cap, K.ptr(count),
+        K.ptr(frame_data), K.ptr(frame_valid), K.ptr(mask), int(mask_id),
+        K.ptr(index), K.ptr(data_local),
+        *_pose_args(pose), cam.fx, cam.fy, cam.cx, cam.cy, w, h,
+        float(time), int(time) % 2, float(cfg.depth_cutoff), float(cfg.assoc_depth_gate),
+        int(cfg.assoc_window),
+        K.ptr(target), K.ptr(flags), K.ptr(prefix), K.ptr(inv), K.ptr(count_out), K.ptr(out),
+    )
+    merging = (flags & 1) > 0
+    assoc = torch.where(merging, target, torch.where(flags > 0, -1, -2).to(torch.int32))
+    return out, count_out, assoc
+
+
+def fuse(
+    smap: sm.SurfelMap,
+    frame: sm.FrameSurfels,
+    index_map: IndexMap,
+    mask: torch.Tensor,  # [H, W] int32 model-id mask
+    mask_id,
+    pose: torch.Tensor,  # [4,4] camera -> global (host)
+    cam: CameraModel,
+    time,
+    cfg: SurfelConfig,
+) -> sm.SurfelMap:
+    """One fusion step: associate -> merge -> append new unstable surfels."""
+    args = (smap.data, smap.count, frame.data, frame.valid, index_map.index,
+            index_map.data_local, mask, mask_id, pose, cam, time, cfg)
+    K.record("fuse", data=smap.data, count=smap.count, frame_data=frame.data,
+             frame_valid=frame.valid, index=index_map.index,
+             data_local=index_map.data_local, mask=mask, mask_id=mask_id, pose=pose,
+             cam=cam, time=time, cfg=cfg)
+    impl = fuse_cuda if smap.data.is_cuda else fuse_plain
+    data, count, _ = impl(*args)
+    return sm.SurfelMap(data=data, count=count)
+
+
+def clean(
+    smap: sm.SurfelMap,
+    index_map: IndexMap,  # the frame's (pre-fusion) index map
+    depth_input: torch.Tensor,  # [H, W] filtered frame depth (m)
+    mask: torch.Tensor,
+    mask_id,
+    cam: CameraModel,
+    time,
+    time_delta,
+    conf_threshold,
+    cfg: SurfelConfig,
+    compact: bool = False,
+) -> sm.SurfelMap:
+    """Outlier / redundancy / unstable-age culls, then either a compaction
+    (``compact``) or a flag clear of the culled slots (copy_unstable.vert).
+
+    The visual tests run in image space for each pixel's index-map winner and
+    scatter their verdicts back to the winning surfel ids."""
+    h, w = cam.height, cam.width
+    cap = smap.capacity
+    dev = smap.data.device
+    last_t = smap.data[sm.LAST_T]
+    idx_img = index_map.index
+    attrs = gather_attr_images(index_map.data_local, idx_img)
+    qx, qy, qz = attrs[sm.PX], attrs[sm.PY], attrs[sm.PZ]
+    q_init = attrs[sm.INIT_T]
+    q_rad = attrs[sm.RADIUS]
+    q_nz = torch.abs(attrs[sm.NZ])
+    has_winner = idx_img >= 0
+    tf = float(time)
+
+    count = torch.zeros((h, w), dtype=torch.int32, device=dev)
+    z_count = torch.zeros((h, w), dtype=torch.int32, device=dev)
+    for dy, dx in _window_offsets(cfg.assoc_window):
+        cand = _shift2d(idx_img, dy, dx, INVALID)
+        cdat = _shift2d(attrs, dy, dx, 0.0)
+        cvalid = (cand >= 0) & (cand != idx_img) & has_winner
+        czp, cconf = cdat[sm.PZ], cdat[sm.CONF]
+        cinit, clast = cdat[sm.INIT_T], cdat[sm.LAST_T]
+        xy_dist = torch.sqrt((cdat[sm.PX] - qx) ** 2 + (cdat[sm.PY] - qy) ** 2)
+        red = (
+            cvalid & (cinit < q_init) & (cconf > conf_threshold) & (czp > qz)
+            & (czp - qz < 0.01) & (xy_dist < q_rad * 1.4)
+        )
+        count = count + red.to(torch.int32)
+        zc = (
+            cvalid & (clast == tf) & (cconf > conf_threshold) & (czp > qz)
+            & (czp - qz > 0.01) & (q_nz > 0.85)
+        )
+        z_count = z_count + zc.to(torch.int32)
+
+    violations = torch.zeros((h, w), dtype=torch.int32, device=dev)
+    viol_sum = torch.zeros((h, w), dtype=torch.float32, device=dev)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            d = _shift2d(depth_input, dy, dx, 0.0)
+            delta = d - qz
+            hit = has_winner & (d > 0) & (delta > cfg.clean_see_through_gate)
+            violations = violations + hit.to(torch.int32)
+            viol_sum = viol_sum + torch.where(hit, delta, torch.zeros_like(delta))
+
+    viol = violations > 0
+    avg_v = viol_sum / torch.clamp(violations.to(torch.float32), min=1.0)
+    one = torch.ones_like(avg_v)
+    pen = torch.where(viol, 1.0 / (1.0 + cfg.outlier_coeff * avg_v), one)
+    mask_pen = (
+        viol & (mask != mask_id) & (depth_input > qz - 0.05) & (depth_input < qz + 0.05)
+    )
+    pen = torch.where(mask_pen, pen * (0.5 + 0.5 * (1.0 - cfg.outlier_coeff / 10.0)), pen)
+    cull_vis = has_winner & ((count > 8) | (z_count > 4))
+
+    # one scatter-min carries both verdicts: a cull vote is -1, else the penalty
+    ids = torch.where(has_winner, idx_img, torch.full_like(idx_img, cap)).reshape(-1).long()
+    verdict = torch.where(cull_vis, -one, pen).reshape(-1)
+    per_surfel = torch.ones((cap + 1,), dtype=torch.float32, device=dev)
+    per_surfel.scatter_reduce_(0, ids, verdict, reduce="amin", include_self=True)
+    per_surfel = per_surfel[:cap]
+    culled = per_surfel < 0.0
+    pen_per_surfel = torch.where(culled, torch.ones_like(per_surfel), per_surfel)
+
+    alive = smap.alive_mask()
+    keep = alive & ~culled
+    unstable_dead = ((tf - last_t) > cfg.unstable_grace) & (smap.data[sm.CONF] < conf_threshold)
+    keep = keep & ~unstable_dead
+    keep = keep | (alive & (last_t > 0) & (tf - last_t > time_delta))
+
+    data = smap.data.clone()
+    data[sm.CONF] = data[sm.CONF] * pen_per_surfel
+    if compact:
+        packed, new_count = sm.compact(data, keep, cap)
+        return sm.SurfelMap(data=packed, count=new_count)
+    data[sm.ALIVE] = torch.where(keep, data[sm.ALIVE], torch.zeros_like(data[sm.ALIVE]))
+    return sm.SurfelMap(data=data, count=smap.count)

@@ -1,0 +1,129 @@
+"""Surfel map: one fixed-capacity ``[16, capacity]`` float32 array + a count.
+
+Port of the reference package's ``model/surfel_map.py``, same channel layout.
+``count`` is the high-water mark (a 0-dim int32 tensor on the map's device):
+slots [0, count) have ever been used; a slot is live iff its ALIVE channel is
+set. Culls clear the flag; ``compact`` repacks live surfels to the front.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from multimotionfusion_tpu_torch.config import CameraModel
+
+# channel indices of the surfel attribute array
+PX, PY, PZ, CONF = 0, 1, 2, 3
+CR, CG, CB = 4, 5, 6
+INIT_T, LAST_T = 7, 8
+NX, NY, NZ, RADIUS = 9, 10, 11, 12
+ALIVE = 13  # 1.0 = live, 0.0 = culled/free
+CHANNELS = 16
+
+
+class SurfelMap(NamedTuple):
+    data: torch.Tensor  # [CHANNELS, capacity] float32
+    count: torch.Tensor  # [] int32, high-water mark
+
+    @property
+    def capacity(self) -> int:
+        return self.data.shape[1]
+
+    def alive_mask(self) -> torch.Tensor:
+        in_prefix = torch.arange(self.capacity, dtype=torch.int32, device=self.data.device) < self.count
+        return in_prefix & (self.data[ALIVE] > 0)
+
+    def alive_count(self) -> torch.Tensor:
+        return torch.sum(self.alive_mask().to(torch.int32))
+
+    def bucketed(self, bucket: int) -> "SurfelMap":
+        """View of the first ``bucket`` slots (requires count <= bucket)."""
+        return SurfelMap(data=self.data[:, :bucket], count=self.count)
+
+
+def radius_from_depth(depth: torch.Tensor, norm_z: torch.Tensor, cam: CameraModel) -> torch.Tensor:
+    """r = sqrt(2) z / mean_focal, inflated by 1/|n_z| capped at 2x (getRadius)."""
+    mean_focal = (abs(cam.fx) + abs(cam.fy)) / 2.0
+    radius = depth * (1.4142135623730951 / mean_focal)
+    radius_n = radius / torch.clamp(torch.abs(norm_z), min=1e-6)
+    return torch.minimum(2.0 * radius, radius_n)
+
+
+def pixel_confidence(cam: CameraModel, weighting, device=None) -> torch.Tensor:
+    """Radial Gaussian confidence prior [H, W] (surfels.glsl confidence)."""
+    ys = torch.arange(cam.height, dtype=torch.float32, device=device)[:, None] - cam.cy
+    xs = torch.arange(cam.width, dtype=torch.float32, device=device)[None, :] - cam.cx
+    radial = torch.sqrt(ys * ys + xs * xs) / 400.0
+    return torch.exp(-(radial * radial) / 0.72) * weighting
+
+
+class FrameSurfels(NamedTuple):
+    """Per-pixel surfel candidates of one frame (camera frame)."""
+
+    data: torch.Tensor  # [CHANNELS, H*W] float32
+    valid: torch.Tensor  # [H*W] bool
+
+
+def compute_frame_surfels(
+    rgb: torch.Tensor,  # [H, W, 3] float32 0..255
+    vmap_raw: torch.Tensor,  # [H, W, 3] from raw depth
+    vmap_filt: torch.Tensor,  # [H, W, 3] from filtered depth
+    nmap_filt: torch.Tensor,  # [H, W, 3]
+    cam: CameraModel,
+    time,
+    max_depth: float,
+    weighting=1.0,
+) -> FrameSurfels:
+    h, w = rgb.shape[:2]
+    n = h * w
+    dev = rgb.device
+    z = vmap_raw[..., 2]
+    valid = (z > 0) & (z <= max_depth) & (torch.sum(nmap_filt * nmap_filt, dim=-1) > 0)
+    conf = pixel_confidence(cam, weighting, device=dev)
+    rad = radius_from_depth(vmap_filt[..., 2], nmap_filt[..., 2], cam)
+    data = torch.zeros((CHANNELS, n), dtype=torch.float32, device=dev)
+    data[PX] = vmap_raw[..., 0].reshape(n)
+    data[PY] = vmap_raw[..., 1].reshape(n)
+    data[PZ] = z.reshape(n)
+    data[CONF] = conf.reshape(n)
+    data[CR] = rgb[..., 0].reshape(n)
+    data[CG] = rgb[..., 1].reshape(n)
+    data[CB] = rgb[..., 2].reshape(n)
+    data[INIT_T] = float(time)
+    data[LAST_T] = float(time)
+    data[NX] = nmap_filt[..., 0].reshape(n)
+    data[NY] = nmap_filt[..., 1].reshape(n)
+    data[NZ] = nmap_filt[..., 2].reshape(n)
+    data[RADIUS] = rad.reshape(n)
+    data[ALIVE] = valid.reshape(n).to(torch.float32)
+    return FrameSurfels(data=data, valid=valid.reshape(n))
+
+
+def transform_surfels(data: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """Rigidly transform positions and rotate normals ([C, N]; returns a new array)."""
+    R = T[:3, :3].to(data.dtype)
+    t = T[:3, 3].to(data.dtype)
+    px, py, pz = data[PX], data[PY], data[PZ]
+    nx, ny, nz = data[NX], data[NY], data[NZ]
+    out = data.clone()
+    for i, (row_p, row_n) in enumerate(((PX, NX), (PY, NY), (PZ, NZ))):
+        out[row_p] = R[i, 0] * px + R[i, 1] * py + R[i, 2] * pz + t[i]
+        out[row_n] = R[i, 0] * nx + R[i, 1] * ny + R[i, 2] * nz
+    return out
+
+
+def compact(data: torch.Tensor, keep: torch.Tensor, capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Keep surfels where ``keep``, packed densely to the front in order."""
+    kept = data[:, keep]
+    out = torch.zeros((data.shape[0], capacity), dtype=data.dtype, device=data.device)
+    n = min(kept.shape[1], capacity)
+    out[:, :n] = kept[:, :n]
+    return out, torch.sum(keep.to(torch.int32)).to(torch.int32)
+
+
+def init_from_frame(frame: FrameSurfels, capacity: int) -> SurfelMap:
+    """First-frame initialisation (Model::initialise)."""
+    data, count = compact(frame.data, frame.valid, capacity)
+    return SurfelMap(data=data, count=count)

@@ -1,0 +1,297 @@
+"""Point rasterisation of surfel maps: the index map and the splat resolve.
+
+Port of the reference package's ``ops/rasterize.py`` (static path):
+
+- ``predict_indices`` (kernel K6, ``csrc/zbuffer.cu``): transform, gate and
+  project every surfel, then one int32 min of the packed key
+  ``(log-depth << id_bits) | id`` per pixel; the front-most surfel wins and
+  depth ties resolve to the lowest id.
+- ``splat_resolve`` (kernel K10, ``csrc/splat_resolve.cu``): a 5x5 ray-disk
+  resolve over the index map that carries the nearest hit's attributes into
+  the predicted colour / vertex / normal / time images.
+
+Each kernel's wrapper launches the CUDA kernel for CUDA tensors and takes the
+plain PyTorch version (``*_plain``, same module) only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from multimotionfusion_tpu_torch import kernels as K
+from multimotionfusion_tpu_torch.config import CameraModel
+from multimotionfusion_tpu_torch.model import surfel_map as sm
+from multimotionfusion_tpu_torch.ops.image import _shift2d
+from multimotionfusion_tpu_torch.utils import se3
+
+INVALID = -1
+_BIG = 3.4e38
+_ID_BITS = 20
+_KEY_INVALID = 2**31 - 1
+
+
+class IndexMap(NamedTuple):
+    index: torch.Tensor  # [H, W] int32 surfel id, -1 = none
+    data_local: torch.Tensor  # [CHANNELS, bucket] camera-frame surfel attributes
+
+
+class PredictedMaps(NamedTuple):
+    color: torch.Tensor  # [H, W, 3] 0..255, zeros where empty
+    vertex_conf: torch.Tensor  # [H, W, 4] camera-frame vertex + confidence
+    normal_rad: torch.Tensor  # [H, W, 4] camera-frame normal + radius
+    time: torch.Tensor  # [H, W] int32 init time of covering surfel
+    valid: torch.Tensor  # [H, W] bool
+
+
+def gather_attr_images(data_local: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """[CHANNELS, H, W] winner-surfel attributes per pixel (zeros where none)."""
+    img = data_local[:, torch.clamp(index, min=0).long()]
+    return torch.where((index >= 0)[None], img, torch.zeros_like(img))
+
+
+def _id_bits_for(n: int) -> int:
+    bits = _ID_BITS
+    while (1 << bits) < n:
+        bits += 1
+    if bits > 24:
+        raise ValueError("surfel bucket exceeds packed id range")
+    return bits
+
+
+def _pack_depth_id(z, ids, valid, id_bits: int = _ID_BITS):
+    levels = 1 << (31 - id_bits)
+    zq = (torch.log2(torch.clamp(z, min=1e-6)) + 4.0) * (levels / 8.0)
+    zq = torch.clamp(zq.to(torch.int32), 0, levels - 2)
+    key = (zq << id_bits) | ids
+    return torch.where(valid, key, torch.full_like(key, _KEY_INVALID))
+
+
+def _unpack_zmin(kmin, id_bits: int = _ID_BITS):
+    levels = 1 << (31 - id_bits)
+    won = kmin != _KEY_INVALID
+    idx = torch.where(won, kmin & ((1 << id_bits) - 1), torch.full_like(kmin, INVALID))
+    zmin = torch.where(
+        won,
+        torch.exp2((kmin >> id_bits).to(torch.float32) * (8.0 / levels) - 4.0),
+        torch.full(kmin.shape, _BIG, dtype=torch.float32, device=kmin.device),
+    )
+    return idx, zmin
+
+
+def _pose_args(T: torch.Tensor):
+    """12 floats (row-major R, then t) of a host [4, 4] transform."""
+    T = T.detach().to("cpu", torch.float32)
+    return [float(v) for v in T[:3, :3].reshape(-1)] + [float(v) for v in T[:3, 3]]
+
+
+def _gates(data_local, alive, time, time_delta, max_depth):
+    z = data_local[sm.PZ]
+    return alive & (z > 0) & (z <= max_depth) & (float(time) - data_local[sm.LAST_T] <= time_delta)
+
+
+def packed_keys(data, count, T_inv, cam: CameraModel, time, time_delta, max_depth):
+    """(pixel [B] int64 with H*W for rejected surfels, packed key [B] int32,
+    data_local [16, B]) of the z-buffer; ``T_inv`` is world -> camera."""
+    h, w = cam.height, cam.width
+    n = data.shape[1]
+    data_local = sm.transform_surfels(data, T_inv.to(data.device))
+    alive = (torch.arange(n, dtype=torch.int32, device=data.device) < count) & (data[sm.ALIVE] > 0)
+    ok = _gates(data_local, alive, time, time_delta, max_depth)
+    x, y, z = data_local[sm.PX], data_local[sm.PY], data_local[sm.PZ]
+    safe_z = torch.where(z > 0, z, torch.ones_like(z))
+    # round-half-even like jnp.rint; clamp before the int cast (no overflow UB)
+    u = torch.round(torch.clamp(x * cam.fx / safe_z + cam.cx, -2.0**30, 2.0**30)).to(torch.int32)
+    v = torch.round(torch.clamp(y * cam.fy / safe_z + cam.cy, -2.0**30, 2.0**30)).to(torch.int32)
+    valid = ok & (u >= 0) & (v >= 0) & (u < w) & (v < h)
+    ids = torch.arange(n, dtype=torch.int32, device=data.device)
+    key = _pack_depth_id(z, ids, valid, _id_bits_for(n))
+    pix = torch.where(valid, v * w + u, torch.full_like(u, h * w)).long()
+    return pix, key, data_local
+
+
+def zbuffer_plain(data, count, T_inv, cam: CameraModel, time, time_delta, max_depth):
+    """Plain PyTorch K6: (index [H, W] int32, data_local [16, B])."""
+    h, w = cam.height, cam.width
+    pix, key, data_local = packed_keys(data, count, T_inv, cam, time, time_delta, max_depth)
+    kmin = torch.full((h * w + 1,), _KEY_INVALID, dtype=torch.int32, device=data.device)
+    kmin.scatter_reduce_(0, pix, key, reduce="amin", include_self=True)
+    idx, _ = _unpack_zmin(kmin[: h * w], _id_bits_for(data.shape[1]))
+    return idx.reshape(h, w), data_local
+
+
+_ZB_ARGS = [K.P, K.I, K.I, K.P] + [K.F] * 12 + [K.F] * 4 + [K.I, K.I] + [K.F] * 3 + [K.I, K.P, K.P, K.P]
+
+
+def zbuffer_cuda(data, count, T_inv, cam: CameraModel, time, time_delta, max_depth):
+    """K6 on the card: ``csrc/zbuffer.cu`` (same contract as ``zbuffer_plain``)."""
+    K.check(data, torch.float32, "data", contiguous=False)
+    K.check(count, torch.int32, "count")
+    if data.shape[0] != sm.CHANNELS or data.stride(1) != 1:
+        raise ValueError("data must be [16, B] with unit column stride")
+    h, w = cam.height, cam.width
+    n = data.shape[1]
+    dev = data.device
+    keys = torch.empty((h * w,), dtype=torch.int32, device=dev)
+    data_local = torch.empty((sm.CHANNELS, n), dtype=torch.float32, device=dev)
+    index = torch.empty((h, w), dtype=torch.int32, device=dev)
+    f = K.fn("zbuffer", "mmf_zbuffer", _ZB_ARGS)
+    K.call(
+        "zbuffer", f, K.ptr(data), data.stride(0), n, K.ptr(count),
+        *_pose_args(T_inv), cam.fx, cam.fy, cam.cx, cam.cy, w, h,
+        float(time), float(time_delta), float(max_depth), _id_bits_for(n),
+        K.ptr(keys), K.ptr(data_local), K.ptr(index),
+    )
+    return index, data_local
+
+
+def zbuffer(data, count, T_inv, cam: CameraModel, time, time_delta, max_depth):
+    K.record("zbuffer", data=data, count=count, T_inv=T_inv, cam=cam, time=time,
+             time_delta=time_delta, max_depth=max_depth)
+    impl = zbuffer_cuda if data.is_cuda else zbuffer_plain
+    return impl(data, count, T_inv, cam, time, time_delta, max_depth)
+
+
+def predict_indices(
+    smap: sm.SurfelMap,
+    pose: torch.Tensor,  # [4,4] camera -> global (host)
+    cam: CameraModel,
+    time,
+    time_delta,
+    max_depth: float,
+) -> IndexMap:
+    """Data-association index map (index_map.vert gates: 0 < z <= maxDepth and
+    time - last_update <= timeDelta; no confidence gate)."""
+    index, data_local = zbuffer(
+        smap.data, smap.count, se3.inverse_T(pose), cam, time, time_delta, max_depth
+    )
+    return IndexMap(index=index, data_local=data_local)
+
+
+_WIN_CH = (sm.CR, sm.CG, sm.CB, sm.CONF, sm.NX, sm.NY, sm.NZ, sm.RADIUS, sm.INIT_T)
+
+
+def div(a: torch.Tensor, s: float) -> torch.Tensor:
+    """a / s rounded once, as the kernels round it: on the card PyTorch
+    computes ``tensor / python_scalar`` as a multiply by the reciprocal, which
+    can differ in the last bit (enough to flip a tie between coplanar surfels)."""
+    return a / torch.full((), s, dtype=a.dtype, device=a.device)
+
+
+def _pixel_rays(cam: CameraModel, device):
+    ys = torch.arange(cam.height, dtype=torch.float32, device=device)[:, None]
+    xs = torch.arange(cam.width, dtype=torch.float32, device=device)[None, :]
+    return div(xs - cam.cx, cam.fx), div(ys - cam.cy, cam.fy)
+
+
+def splat_resolve_plain(index, data_local, cam: CameraModel, conf_threshold, time,
+                        max_time, time_delta, window: int = 5) -> PredictedMaps:
+    """Plain PyTorch K10 (combo_splat.frag ray-disk resolve, gates per candidate)."""
+    h, w = cam.height, cam.width
+    dev = index.device
+    lx, ly = _pixel_rays(cam, dev)
+    lnorm = torch.sqrt(lx * lx + ly * ly + 1.0)
+    l0, l1, l2 = lx / lnorm, ly / lnorm, 1.0 / lnorm
+    attrs = gather_attr_images(data_local, index)
+    best_z = torch.full((h, w), _BIG, dtype=torch.float32, device=dev)
+    best_idx = torch.full((h, w), INVALID, dtype=torch.int32, device=dev)
+    best_att = [torch.zeros((h, w), dtype=torch.float32, device=dev) for _ in _WIN_CH]
+    r = window // 2
+    for dy in range(-r, window - r):
+        for dx in range(-r, window - r):
+            cand = _shift2d(index, dy, dx, INVALID)
+            cdat = _shift2d(attrs, dy, dx, 0.0)
+            cvalid = (
+                (cand >= 0)
+                & (cdat[sm.CONF] >= conf_threshold)
+                & (float(time) - cdat[sm.LAST_T] <= time_delta)
+                & (cdat[sm.LAST_T] <= max_time)
+            )
+            cpx, cpy, cpz = cdat[sm.PX], cdat[sm.PY], cdat[sm.PZ]
+            cnx, cny, cnz = cdat[sm.NX], cdat[sm.NY], cdat[sm.NZ]
+            crad = cdat[sm.RADIUS]
+            ln = l0 * cnx + l1 * cny + l2 * cnz
+            pn = cpx * cnx + cpy * cny + cpz * cnz
+            t = pn / torch.where(torch.abs(ln) > 1e-12, ln, torch.full_like(ln, 1e-12))
+            hx, hy, hz = t * l0, t * l1, t * l2
+            d2 = (hx - cpx) ** 2 + (hy - cpy) ** 2 + (hz - cpz) ** 2
+            disk = (d2 <= crad * crad) & (hz > 0)
+            closer = cvalid & disk & (hz < best_z)
+            best_z = torch.where(closer, hz, best_z)
+            best_idx = torch.where(closer, cand, best_idx)
+            best_att = [torch.where(closer, cdat[ch], acc) for ch, acc in zip(_WIN_CH, best_att)]
+    valid = best_idx >= 0
+    win = dict(zip(_WIN_CH, best_att))
+    zero = torch.zeros((h, w), dtype=torch.float32, device=dev)
+
+    def g(ch):
+        return torch.where(valid, win[ch], zero)
+
+    zc = torch.where(valid, best_z, zero)
+    return PredictedMaps(
+        color=torch.stack([g(sm.CR), g(sm.CG), g(sm.CB)], dim=-1),
+        vertex_conf=torch.stack([lx * zc, ly * zc, zc, g(sm.CONF)], dim=-1),
+        normal_rad=torch.stack([g(sm.NX), g(sm.NY), g(sm.NZ), g(sm.RADIUS)], dim=-1),
+        time=g(sm.INIT_T).to(torch.int32),
+        valid=valid,
+    )
+
+
+_SR_ARGS = [K.P, K.P, K.I, K.I, K.I] + [K.F] * 4 + [K.F] * 4 + [K.I] + [K.P] * 5
+
+
+def splat_resolve_cuda(index, data_local, cam: CameraModel, conf_threshold, time,
+                       max_time, time_delta, window: int = 5) -> PredictedMaps:
+    """K10 on the card: ``csrc/splat_resolve.cu``."""
+    K.check(index, torch.int32, "index")
+    K.check(data_local, torch.float32, "data_local")
+    h, w = cam.height, cam.width
+    if tuple(index.shape) != (h, w) or data_local.shape[0] != sm.CHANNELS:
+        raise ValueError("index must be [H, W] and data_local [16, B]")
+    dev = index.device
+    color = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
+    vertex_conf = torch.empty((h, w, 4), dtype=torch.float32, device=dev)
+    normal_rad = torch.empty((h, w, 4), dtype=torch.float32, device=dev)
+    tmap = torch.empty((h, w), dtype=torch.int32, device=dev)
+    valid = torch.empty((h, w), dtype=torch.bool, device=dev)
+    f = K.fn("splat_resolve", "mmf_splat_resolve", _SR_ARGS)
+    K.call(
+        "splat_resolve", f, K.ptr(index), K.ptr(data_local), data_local.shape[1], h, w,
+        cam.fx, cam.fy, cam.cx, cam.cy,
+        float(conf_threshold), float(time), float(max_time), float(time_delta), int(window),
+        K.ptr(color), K.ptr(vertex_conf), K.ptr(normal_rad), K.ptr(tmap), K.ptr(valid),
+    )
+    return PredictedMaps(color, vertex_conf, normal_rad, tmap, valid)
+
+
+def splat_resolve(index_map: IndexMap, cam: CameraModel, conf_threshold, time, max_time,
+                  time_delta, window: int = 5) -> PredictedMaps:
+    """combo_splat.frag ray-disk resolve over the data-association index map.
+
+    The index map has no confidence gate; the splat.vert gates (confidence,
+    time window, max time) apply per candidate inside the resolve."""
+    K.record("splat_resolve", index=index_map.index, data_local=index_map.data_local,
+             cam=cam, conf_threshold=conf_threshold, time=time, max_time=max_time,
+             time_delta=time_delta, window=window)
+    impl = splat_resolve_cuda if index_map.index.is_cuda else splat_resolve_plain
+    return impl(index_map.index, index_map.data_local, cam, conf_threshold, time,
+                max_time, time_delta, window)
+
+
+def splat_predict(smap: sm.SurfelMap, pose: torch.Tensor, cam: CameraModel, conf_threshold,
+                  time, max_time, time_delta, max_depth: float, window: int = 5) -> PredictedMaps:
+    """Dedicated splat render (first frame): gated z-buffer + resolve.
+
+    The confidence and max-time gates of splat.vert enter the z-buffer by
+    masking the ALIVE flag of the surfels they reject, so ``zbuffer`` (K6)
+    serves both renders; the resolve re-applies them per candidate."""
+    data = smap.data
+    gated = (data[sm.CONF] >= conf_threshold) & (data[sm.LAST_T] <= max_time)
+    masked = data.clone()
+    masked[sm.ALIVE] = torch.where(gated, data[sm.ALIVE], torch.zeros_like(data[sm.ALIVE]))
+    index, data_local = zbuffer(
+        masked, smap.count, se3.inverse_T(pose), cam, time, time_delta, max_depth
+    )
+    return splat_resolve(IndexMap(index, data_local), cam, conf_threshold, time, max_time,
+                         time_delta, window)
