@@ -21,7 +21,8 @@
 //      whatever order the threads run in;
 //   5. apply: the source that won its slot computes its column (the
 //      confidence-weighted merge in the global frame, or the new surfel) and
-//      writes it.
+//      writes it. The camera pose is read by pointer (a [4, 4] tensor on the
+//      card, the odometry's output on the same stream).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -154,10 +155,15 @@ __device__ inline void transform(float* s, const Pose& T) {
 __global__ void apply(const float* __restrict__ frame, const float* __restrict__ dl, int B,
                       const int* __restrict__ target, const int* __restrict__ flags,
                       const int* __restrict__ prefix, const int* __restrict__ count,
-                      const int* __restrict__ inv, int n_cb, int cap, Pose T, int W, int H, int par,
-                      float time, float* __restrict__ out) {
+                      const int* __restrict__ inv, int n_cb, int cap, const float* __restrict__ Tm,
+                      int W, int H, int par, float time, float* __restrict__ out) {
   int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= 2 * n_cb) return;
+  Pose T;
+  for (int r = 0; r < 3; ++r) {
+    for (int c = 0; c < 3; ++c) T.r[3 * r + c] = Tm[4 * r + c];
+    T.t[r] = Tm[4 * r + 3];
+  }
   int d = dest(k, n_cb, target, flags, prefix, *count, cap);
   if (d < 0 || inv[d] != k) return;
   int j = k < n_cb ? k : k - n_cb;
@@ -204,14 +210,11 @@ __global__ void apply(const float* __restrict__ frame, const float* __restrict__
 
 extern "C" int mmf_fuse(const float* data, int row_stride, int cap, const int* count,
                         const float* frame, const uint8_t* frame_valid, const int* mask,
-                        int mask_id, const int* index, const float* data_local, float r00,
-                        float r01, float r02, float r10, float r11, float r12, float r20,
-                        float r21, float r22, float t0, float t1, float t2, float fx, float fy,
-                        float cx, float cy, int W, int H, float time, int par,
+                        int mask_id, const int* index, const float* data_local,
+                        const float* pose, float fx, float fy, float cx, float cy, int W, int H, float time, int par,
                         float depth_cutoff, float gate, int window, int* target, int* flags,
                         int* prefix, int* inv, int* count_out, float* out,
                         cudaStream_t stream) {
-  Pose T = {{r00, r01, r02, r10, r11, r12, r20, r21, r22}, {t0, t1, t2}};
   const int threads = 256;
   int n_cb = (W / 2) * (H / 2);
   int n_src = 2 * n_cb;
@@ -225,7 +228,7 @@ extern "C" int mmf_fuse(const float* data, int row_stride, int cap, const int* c
   arbitrate<<<(n_src + threads - 1) / threads, threads, 0, stream>>>(target, flags, prefix,
                                                                       count, n_cb, cap, inv);
   apply<<<(n_src + threads - 1) / threads, threads, 0, stream>>>(
-      frame, data_local, cap, target, flags, prefix, count, inv, n_cb, cap, T, W, H, par, time,
+      frame, data_local, cap, target, flags, prefix, count, inv, n_cb, cap, pose, W, H, par, time,
       out);
   return (int)cudaGetLastError();
 }

@@ -26,6 +26,10 @@
 // Output `sums` (64 floats): [0:28] upper triangle of S_icp, [28:56] of
 //   S_rgb, [56] ICP count, [57] RGB count, [58] sum(diff^2), all on the
 //   evaluated grid (the caller scales by stride^2).
+// The pose increment inv(result_Rt) is read by pointer from the odometry's
+//   state on the card (csrc/gn_step.cu), and every kernel returns at once
+//   when the GN loop's done flag is set, so the host enqueues the fixed
+//   iteration budget without reading anything back.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,7 +46,8 @@ struct Pose {
 };
 
 struct Params {
-  Pose T;
+  const float* Tinv;  // [4, 4] row-major inv(result_Rt), read on the card
+  const float* done;  // the GN loop's done flag (nullptr: never done)
   float fx, fy, cx, cy;
   int H, W, stride, Hs, Ws;
   int compact, use_icp, use_rgb, rgb_only;
@@ -94,7 +99,18 @@ struct Pixel {
   bool sv, v_valid;
 };
 
-__device__ inline void eval_pixel(const Params& P, const void* pred, const float* vmap,
+__device__ inline Pose load_pose(const float* T) {
+  Pose p;
+  for (int i = 0; i < 3; ++i) {
+    for (int j = 0; j < 3; ++j) p.r[3 * i + j] = T[4 * i + j];
+    p.t[i] = T[4 * i + 3];
+  }
+  return p;
+}
+
+__device__ inline bool is_done(const Params& P) { return P.done != nullptr && *P.done != 0.f; }
+
+__device__ inline void eval_pixel(const Params& P, const Pose& T, const void* pred, const float* vmap,
                                   const float* nmap, const float* img, const float* didx,
                                   const float* didy, const uint8_t* sv, int q, Pixel& px) {
   int y = (q / P.Ws) * P.stride, x = (q % P.Ws) * P.stride;
@@ -105,7 +121,7 @@ __device__ inline void eval_pixel(const Params& P, const void* pred, const float
   px.sv = sv[p] != 0;
   px.v_valid = v[2] > 0.f;
   for (int r = 0; r < 3; ++r)
-    px.vcp[r] = P.T.r[3 * r] * v[0] + P.T.r[3 * r + 1] * v[1] + P.T.r[3 * r + 2] * v[2] + P.T.t[r];
+    px.vcp[r] = T.r[3 * r] * v[0] + T.r[3 * r + 1] * v[1] + T.r[3 * r + 2] * v[2] + T.t[r];
   float z = px.vcp[2];
   float safe_z = z != 0.f ? z : 1.f;
   px.uf = px.vcp[0] * P.fx / safe_z + P.cx;
@@ -204,13 +220,15 @@ __device__ inline void add_outer(float* acc, const float* row) {
 __global__ void __launch_bounds__(THREADS)
 pass1(Params P, const void* pred, const float* vmap, const float* nmap, const float* img,
       const float* didx, const float* didy, const uint8_t* sv, float* partials) {
+  if (is_done(P)) return;
+  const Pose T = load_pose(P.Tinv);
   __shared__ float sh[WARPS][SLOTS];
   float acc[31];
   for (int i = 0; i < 31; ++i) acc[i] = 0.f;
   int n = P.Hs * P.Ws;
   for (int q = blockIdx.x * THREADS + threadIdx.x; q < n; q += gridDim.x * THREADS) {
     Pixel px;
-    eval_pixel(P, pred, vmap, nmap, img, didx, didy, sv, q, px);
+    eval_pixel(P, T, pred, vmap, nmap, img, didx, didy, sv, q, px);
     if (P.use_rgb) {
       float cp[3], diff;
       bool valid = rgb_corr(P, px, cp, &diff);
@@ -223,7 +241,7 @@ pass1(Params P, const void* pred, const float* vmap, const float* nmap, const fl
       bool in_bounds = px.d_ok && px.n_ok && px.vcp[2] > 0.f && px.v_valid;
       float nc[3];
       for (int r = 0; r < 3; ++r)
-        nc[r] = P.T.r[3 * r] * px.nm[0] + P.T.r[3 * r + 1] * px.nm[1] + P.T.r[3 * r + 2] * px.nm[2];
+        nc[r] = T.r[3 * r] * px.nm[0] + T.r[3 * r + 1] * px.nm[1] + T.r[3 * r + 2] * px.nm[2];
       float dist = norm3(px.d[0] - px.vcp[0], px.d[1] - px.vcp[1], px.d[2] - px.vcp[2]);
       float sine = norm3(nc[1] * n[2] - nc[2] * n[1], nc[2] * n[0] - nc[0] * n[2],
                          nc[0] * n[1] - nc[1] * n[0]);
@@ -247,6 +265,8 @@ __global__ void __launch_bounds__(THREADS)
 pass2(Params P, const void* pred, const float* vmap, const float* nmap, const float* img,
       const float* didx, const float* didy, const uint8_t* sv, const float* sums,
       float* partials) {
+  if (is_done(P)) return;
+  const Pose T = load_pose(P.Tinv);
   __shared__ float sh[WARPS][SLOTS];
   float acc[28];
   for (int i = 0; i < 28; ++i) acc[i] = 0.f;
@@ -256,7 +276,7 @@ pass2(Params P, const void* pred, const float* vmap, const float* nmap, const fl
   int n = P.Hs * P.Ws;
   for (int q = blockIdx.x * THREADS + threadIdx.x; q < n; q += gridDim.x * THREADS) {
     Pixel px;
-    eval_pixel(P, pred, vmap, nmap, img, didx, didy, sv, q, px);
+    eval_pixel(P, T, pred, vmap, nmap, img, didx, didy, sv, q, px);
     float cp[3], diff;
     if (!rgb_corr(P, px, cp, &diff)) continue;
     float w_raw = sigma_val + fabsf(diff);
@@ -276,7 +296,8 @@ pass2(Params P, const void* pred, const float* vmap, const float* nmap, const fl
 }
 
 // fixed-order sum over blocks of the partials of one pass's slots
-__global__ void finalize(const float* partials, int blocks, int pass, float* sums) {
+__global__ void finalize(Params P, const float* partials, int blocks, int pass, float* sums) {
+  if (is_done(P)) return;
   int v = threadIdx.x;
   bool mine = pass == 1 ? (v < 28 || (v >= 56 && v < 59)) : (v >= 28 && v < 56);
   if (!mine) return;
@@ -290,14 +311,13 @@ __global__ void finalize(const float* partials, int blocks, int pass, float* sum
 extern "C" int mmf_gn_reduce(const void* pred, int compact, int H, int W, const float* vmap,
                              const float* nmap, const float* img, const float* didx,
                              const float* didy, const uint8_t* static_valid, int stride, int Hs,
-                             int Ws, float r00, float r01, float r02, float r10, float r11,
-                             float r12, float r20, float r21, float r22, float t0, float t1,
-                             float t2, float fx, float fy, float cx, float cy, int use_icp,
+                             int Ws, const float* Tinv, const float* done, float fx, float fy, float cx, float cy, int use_icp,
                              int use_rgb, int rgb_only, float dist_thresh, float angle_thresh,
                              float max_dd, float max_depth_rgb, float sobel_scale, float scale2,
                              int blocks, float* partials, float* sums, cudaStream_t stream) {
   Params P;
-  P.T = Pose{{r00, r01, r02, r10, r11, r12, r20, r21, r22}, {t0, t1, t2}};
+  P.Tinv = Tinv;
+  P.done = done;
   P.fx = fx; P.fy = fy; P.cx = cx; P.cy = cy;
   P.H = H; P.W = W; P.stride = stride; P.Hs = Hs; P.Ws = Ws;
   P.compact = compact; P.use_icp = use_icp; P.use_rgb = use_rgb; P.rgb_only = rgb_only;
@@ -306,11 +326,11 @@ extern "C" int mmf_gn_reduce(const void* pred, int compact, int H, int W, const 
   cudaMemsetAsync(sums, 0, sizeof(float) * SLOTS, stream);
   pass1<<<blocks, THREADS, 0, stream>>>(P, pred, vmap, nmap, img, didx, didy, static_valid,
                                         partials);
-  finalize<<<1, SLOTS, 0, stream>>>(partials, blocks, 1, sums);
+  finalize<<<1, SLOTS, 0, stream>>>(P, partials, blocks, 1, sums);
   if (use_rgb) {
     pass2<<<blocks, THREADS, 0, stream>>>(P, pred, vmap, nmap, img, didx, didy, static_valid,
                                           sums, partials);
-    finalize<<<1, SLOTS, 0, stream>>>(partials, blocks, 2, sums);
+    finalize<<<1, SLOTS, 0, stream>>>(P, partials, blocks, 2, sums);
   }
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 // K10 splat_resolve: the 5x5 ray-disk resolve of the next frame's prediction.
 //
 // Replaces: multimotionfusion_tpu/ops/rasterize.py:366 splat_resolve
-//   (pre_gated=False, the static frame step's call; fill_in stays plain).
+//   (pre_gated=False, the static frame step's call) and, as an epilogue,
+//   model/fillin.py:25 fill_in.
 // Bound on an H100: bytes. Per pixel: the 5x5 window of the index map (served
 //   from L1/L2: neighbouring threads share 24 of 25 taps), one 10-channel
 //   gather of each distinct winner surfel in data_local, and 49 bytes of
@@ -13,11 +14,24 @@
 //   the disk test |hit - p|^2 <= r^2 and hz > 0. It carries the winner's
 //   colour, confidence, normal, radius and init time, so no attribute image
 //   is materialised.
+// Fill-in epilogue (when the frame's inputs are given): where no surfel won
+//   the pixel (or always, with passthrough), the thread writes the live
+//   frame's colour, filtered vertex (rebuilt from the filtered depth), its
+//   confidence at weighting 1.0 and the frame surfel's normal and radius
+//   instead, so the resolve writes the filled maps directly.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+struct Fill {
+  const uint8_t* rgb;         // [H, W, 3] frame colour; nullptr: no fill-in
+  const float* depth;         // [H, W] filtered depth
+  const float* frame;         // [16, H*W] frame surfels (normals, radius)
+  float inv_fx, inv_fy, cutoff;
+  int passthrough;
+};
 
 enum {
   PX = 0, PY = 1, PZ = 2, CONF = 3, CR = 4, CG = 5, CB = 6, INIT_T = 7, LAST_T = 8,
@@ -29,7 +43,7 @@ __global__ void resolve(const int* __restrict__ index, const float* __restrict__
                         float time, float max_time, float time_delta, int window,
                         float* __restrict__ color, float* __restrict__ vertex_conf,
                         float* __restrict__ normal_rad, int* __restrict__ tmap,
-                        uint8_t* __restrict__ valid) {
+                        uint8_t* __restrict__ valid, Fill f) {
   int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= H * W) return;
   int y = p / W, x = p % W;
@@ -79,6 +93,28 @@ __global__ void resolve(const int* __restrict__ index, const float* __restrict__
   }
   bool ok = best >= 0;
   float zc = ok ? best_z : 0.f;
+  tmap[p] = (int)att[8];
+  valid[p] = ok ? 1 : 0;
+  if (f.rgb != nullptr && (!ok || f.passthrough)) {
+    int N = H * W;
+    float d = f.depth[p];
+    bool vok = d > 0.f && d < f.cutoff;
+    float z = vok ? d : 0.f;
+    float ys = (float)y - cy, xs = (float)x - cx;
+    float radial = sqrtf(ys * ys + xs * xs) / 400.0f;
+    color[3 * p + 0] = (float)f.rgb[3 * p + 0];
+    color[3 * p + 1] = (float)f.rgb[3 * p + 1];
+    color[3 * p + 2] = (float)f.rgb[3 * p + 2];
+    vertex_conf[4 * p + 0] = vok ? z * ((float)x - cx) * f.inv_fx : 0.f;
+    vertex_conf[4 * p + 1] = vok ? z * ((float)y - cy) * f.inv_fy : 0.f;
+    vertex_conf[4 * p + 2] = z;
+    vertex_conf[4 * p + 3] = expf(-(radial * radial) / 0.72f) * 1.0f;
+    normal_rad[4 * p + 0] = f.frame[NX * N + p];
+    normal_rad[4 * p + 1] = f.frame[NY * N + p];
+    normal_rad[4 * p + 2] = f.frame[NZ * N + p];
+    normal_rad[4 * p + 3] = f.frame[RADIUS * N + p];
+    return;
+  }
   color[3 * p + 0] = att[0];
   color[3 * p + 1] = att[1];
   color[3 * p + 2] = att[2];
@@ -90,8 +126,6 @@ __global__ void resolve(const int* __restrict__ index, const float* __restrict__
   normal_rad[4 * p + 1] = att[5];
   normal_rad[4 * p + 2] = att[6];
   normal_rad[4 * p + 3] = att[7];
-  tmap[p] = (int)att[8];
-  valid[p] = ok ? 1 : 0;
 }
 
 }  // namespace
@@ -100,11 +134,15 @@ extern "C" int mmf_splat_resolve(const int* index, const float* data_local, int 
                                  float fx, float fy, float cx, float cy, float conf_threshold,
                                  float time, float max_time, float time_delta, int window,
                                  float* color, float* vertex_conf, float* normal_rad, int* tmap,
-                                 uint8_t* valid, cudaStream_t stream) {
+                                 uint8_t* valid, const uint8_t* fill_rgb,
+                                 const float* fill_depth, const float* fill_frame,
+                                 float inv_fx, float inv_fy, float cutoff, int passthrough,
+                                 cudaStream_t stream) {
+  Fill f{fill_rgb, fill_depth, fill_frame, inv_fx, inv_fy, cutoff, passthrough};
   const int threads = 256;
   int npix = H * W;
   resolve<<<(npix + threads - 1) / threads, threads, 0, stream>>>(
       index, data_local, B, H, W, fx, fy, cx, cy, conf_threshold, time, max_time, time_delta,
-      window, color, vertex_conf, normal_rad, tmap, valid);
+      window, color, vertex_conf, normal_rad, tmap, valid, f);
   return (int)cudaGetLastError();
 }

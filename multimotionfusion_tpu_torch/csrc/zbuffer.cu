@@ -14,6 +14,10 @@
 //   (log-depth bin << id_bits) | id into an int32 [H*W] buffer prefilled with
 //   INT_MAX. Integer min is order-independent, so the map is deterministic;
 //   depth ties resolve to the lowest id. A second kernel unpacks keys to ids.
+//   The transform is read by pointer (a [4, 4] tensor on the card), so the
+//   pose never visits the host. The first frame's dedicated splat render
+//   (rasterize.py:splat_predict) adds the splat.vert gates conf >= threshold
+//   and last_t <= max_time (``gated``) instead of masking a copy of the map.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -22,7 +26,7 @@ namespace {
 
 constexpr int KEY_INVALID = 0x7fffffff;
 constexpr int CH = 16;
-enum { PX = 0, PY = 1, PZ = 2, LAST_T = 8, NX = 9, NY = 10, NZ = 11, ALIVE = 13 };
+enum { PX = 0, PY = 1, PZ = 2, CONF = 3, LAST_T = 8, NX = 9, NY = 10, NZ = 11, ALIVE = 13 };
 
 struct Pose {
   float r[9];
@@ -35,12 +39,18 @@ __global__ void fill_keys(int* __restrict__ keys, int n) {
 }
 
 __global__ void scatter_keys(const float* __restrict__ data, int rs, int n,
-                             const int* __restrict__ count, Pose T, float fx, float fy,
-                             float cx, float cy, int W, int H, float time, float time_delta,
-                             float max_depth, int id_bits, int* __restrict__ keys,
+                             const int* __restrict__ count, const float* __restrict__ Tm,
+                             float fx, float fy, float cx, float cy, int W, int H, float time,
+                             float time_delta, float max_depth, int gated, float conf_threshold,
+                             float max_time, int id_bits, int* __restrict__ keys,
                              float* __restrict__ data_local) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  Pose T;
+  for (int r = 0; r < 3; ++r) {
+    for (int c = 0; c < 3; ++c) T.r[3 * r + c] = Tm[4 * r + c];
+    T.t[r] = Tm[4 * r + 3];
+  }
   float p[3] = {data[PX * rs + i], data[PY * rs + i], data[PZ * rs + i]};
   float nv[3] = {data[NX * rs + i], data[NY * rs + i], data[NZ * rs + i]};
   float pl[3], nl[3];
@@ -57,6 +67,8 @@ __global__ void scatter_keys(const float* __restrict__ data, int rs, int n,
   float z = pl[2];
   bool ok = (i < *count) && (data[ALIVE * rs + i] > 0.f) && (z > 0.f) && (z <= max_depth) &&
             (time - data[LAST_T * rs + i] <= time_delta);
+  if (gated)
+    ok = ok && data[CONF * rs + i] >= conf_threshold && data[LAST_T * rs + i] <= max_time;
   if (!ok) return;
   // z > 0 here, so the reference's safe_z is z itself; __float2int_rn is
   // round-half-even and saturates far outside the image
@@ -81,19 +93,17 @@ __global__ void unpack_keys(const int* __restrict__ keys, int n, int id_bits,
 }  // namespace
 
 extern "C" int mmf_zbuffer(const float* data, int row_stride, int n, const int* count,
-                           float r00, float r01, float r02, float r10, float r11, float r12,
-                           float r20, float r21, float r22, float t0, float t1, float t2,
-                           float fx, float fy, float cx, float cy, int W, int H, float time,
-                           float time_delta, float max_depth, int id_bits, int* keys,
+                           const float* T_inv, float fx, float fy, float cx, float cy, int W,
+                           int H, float time, float time_delta, float max_depth, int gated,
+                           float conf_threshold, float max_time, int id_bits, int* keys,
                            float* data_local, int* index, cudaStream_t stream) {
-  Pose T = {{r00, r01, r02, r10, r11, r12, r20, r21, r22}, {t0, t1, t2}};
   const int threads = 256;
   int npix = W * H;
   fill_keys<<<(npix + threads - 1) / threads, threads, 0, stream>>>(keys, npix);
   if (n > 0)
     scatter_keys<<<(n + threads - 1) / threads, threads, 0, stream>>>(
-        data, row_stride, n, count, T, fx, fy, cx, cy, W, H, time, time_delta, max_depth,
-        id_bits, keys, data_local);
+        data, row_stride, n, count, T_inv, fx, fy, cx, cy, W, H, time, time_delta, max_depth,
+        gated, conf_threshold, max_time, id_bits, keys, data_local);
   unpack_keys<<<(npix + threads - 1) / threads, threads, 0, stream>>>(keys, npix, id_bits,
                                                                       index);
   return (int)cudaGetLastError();

@@ -4,10 +4,11 @@ Port of the reference package's ``engine.py`` for ``enable_multi_model=False``
 and ``odom_init=""``: upload -> depth filter -> (first frame) initialise ->
 track -> fuse -> clean -> predict -> pose logging.
 
-State lives on the compute device (surfel map, prediction images) except the
-4x4 poses, which stay on the host where the odometry's 6x6 solve runs. The
-frame loop is plain Python; the only per-frame host reads are the GN systems
-(one per iteration) and, rarely, the map's high-water mark (``_buckets``).
+All state lives on the compute device, the poses included. On the card the
+frame step launches only the hand-written kernels of ``csrc/`` (K1-K10) plus
+PyTorch glue on 4x4 poses and 0-dim scalars; the odometry's loops run on the
+card with done flags, so a steady-state frame reads nothing back except, at
+most every 64 frames, the map's high-water mark (``_buckets``).
 """
 
 from __future__ import annotations
@@ -21,11 +22,10 @@ import torch
 from multimotionfusion_tpu_torch.config import CameraModel, EngineConfig
 from multimotionfusion_tpu_torch.io.frame import FrameData
 from multimotionfusion_tpu_torch.model import fusion, surfel_map as sm
-from multimotionfusion_tpu_torch.model.fillin import FilledMaps, fill_in
+from multimotionfusion_tpu_torch.model.fillin import FilledMaps, splat_fill
 from multimotionfusion_tpu_torch.odometry import levels as lv
 from multimotionfusion_tpu_torch.odometry import rgbd
-from multimotionfusion_tpu_torch.ops import image as imops
-from multimotionfusion_tpu_torch.ops import maps as mapops
+from multimotionfusion_tpu_torch.ops import frame_maps
 from multimotionfusion_tpu_torch.ops import rasterize
 from multimotionfusion_tpu_torch.utils import se3
 
@@ -37,19 +37,18 @@ _span = torch.profiler.record_function
 
 class GlobalState(NamedTuple):
     """Single-model engine state (the static path's fields of the reference
-    package's GlobalState)."""
+    package's GlobalState), all on the device."""
 
-    smap: sm.SurfelMap  # on the device
-    pose: torch.Tensor  # [4,4] host
-    prev_pose: torch.Tensor  # [4,4] host, pose one frame earlier
-    filled: FilledMaps  # prediction for the next frame's tracking (device)
-    last_intensity_coarse: torch.Tensor  # previous frame coarse intensity (device)
+    smap: sm.SurfelMap
+    pose: torch.Tensor  # [4,4]
+    prev_pose: torch.Tensor  # [4,4], pose one frame earlier
+    filled: FilledMaps  # prediction for the next frame's tracking
+    last_intensity_coarse: torch.Tensor  # previous frame coarse intensity
 
 
 class FrameStats(NamedTuple):
     odo: Optional[rgbd.OdometryResult]
-    alive: torch.Tensor  # [] device
-    hwm: torch.Tensor  # [] device
+    smap: sm.SurfelMap  # the map after the frame (alive count read on demand)
 
 
 def _bucket_for(n: int, capacity: int, floor: int = 1 << 15) -> int:
@@ -62,38 +61,33 @@ def _bucket_for(n: int, capacity: int, floor: int = 1 << 15) -> int:
     return min(b, capacity)
 
 
-def _frame_inputs(rgb_u8, depth_raw, cam: CameraModel, cfg: EngineConfig):
-    rgb = rgb_u8.to(F32)
-    if not depth_raw.is_floating_point():
-        # raw sensor millimetres (uint16 carried as int16 bits)
-        depth_raw = (depth_raw.to(torch.int32) & 0xFFFF).to(F32) * 0.001
-    depth_filt = imops.bilateral_depth_filter(depth_raw)
-    vmap_raw = mapops.create_vmap(depth_raw, cam, cfg.surfels.depth_cutoff)
-    vmap_f = mapops.create_vmap(depth_filt, cam, cfg.surfels.depth_cutoff)
-    nmap_f = mapops.create_nmap(vmap_f)
-    return rgb, depth_filt, vmap_raw, vmap_f, nmap_f
+def _fusion_weight(pose, prev_pose, weight_multiplier: float) -> torch.Tensor:
+    """Model::computeFusionWeight on the device (0-dim; glue on 4x4 poses)."""
+    diff = pose @ se3.inverse_T(prev_pose)
+    motion = torch.maximum(torch.linalg.norm(diff[:3, 3]), torch.linalg.norm(se3.so3_log(diff[:3, :3])))
+    return torch.clamp(1.0 - torch.clamp(motion, max=0.01) / 0.01, min=0.5) * float(weight_multiplier)
 
 
-def _fill(pred, rgb, vmap_f, nmap_f, cam, cfg):
-    conf = sm.pixel_confidence(cam, 1.0, device=rgb.device)
-    rad = sm.radius_from_depth(vmap_f[..., 2], nmap_f[..., 2], cam)
-    return fill_in(pred, rgb, vmap_f, nmap_f, conf, rad, cfg.frame_to_frame_rgb)
+def _fill_frame(rgb_u8, depth_filt, fs: sm.FrameSurfels, cfg: EngineConfig):
+    return rasterize.FillFrame(rgb_u8, depth_filt, fs.data, cfg.surfels.depth_cutoff,
+                               cfg.frame_to_frame_rgb)
 
 
 def _init_step(rgb_u8, depth_raw, pose0, time, cam: CameraModel, cfg: EngineConfig):
     """First frame: initialise the map and the first prediction."""
     scfg = cfg.surfels
-    rgb, depth_filt, vmap_raw, vmap_f, nmap_f = _frame_inputs(rgb_u8, depth_raw, cam, cfg)
-    fs = sm.compute_frame_surfels(rgb, vmap_raw, vmap_f, nmap_f, cam, time, scfg.depth_cutoff, 1.0)
-    smap = sm.init_from_frame(fs, scfg.max_surfels)
-    pred = rasterize.splat_predict(
-        smap, pose0, cam, scfg.conf_threshold, time, time, scfg.time_delta,
-        scfg.depth_cutoff, scfg.splat_footprint,
-    )
-    filled = _fill(pred, rgb, vmap_f, nmap_f, cam, cfg)
-    coarse = imops.build_pyramid(imops.rgb_to_intensity(rgb), cfg.odometry.num_pyr)[-1]
+    depth_m, depth_filt = frame_maps.frame_depth(depth_raw)  # K1
+    one = torch.ones((), dtype=F32, device=depth_m.device)
+    fs = frame_maps.frame_surfels(rgb_u8, depth_m, depth_filt, cam, time, scfg.depth_cutoff, one)
+    smap = sm.init_from_frame(fs, scfg.max_surfels)  # K9
+    im = rasterize.splat_indices(smap, pose0, cam, scfg.conf_threshold, time, time,  # K6
+                                 scfg.time_delta, scfg.depth_cutoff)
+    filled = splat_fill(im, cam, scfg.conf_threshold, time, time, scfg.time_delta,  # K10
+                        scfg.splat_footprint, _fill_frame(rgb_u8, depth_filt, fs, cfg))
+    coarse = lv.frame_levels(depth_filt, rgb_u8, torch.zeros_like(depth_raw, dtype=torch.int32),
+                             cam, cfg.odometry)[-1].img  # K2
     state = GlobalState(smap, pose0, pose0, filled, coarse)
-    return state, FrameStats(None, smap.alive_count(), smap.count)
+    return state, FrameStats(None, smap)
 
 
 def _compact_pred(time: int, scfg) -> bool:
@@ -108,54 +102,41 @@ def _frame_core(state: GlobalState, rgb_u8, depth_raw, mask, time: int, weight_m
     """Track -> fuse -> clean -> predict (tick > 1). Writes the cleaned bucket
     back into ``state.smap.data`` in place."""
     scfg = cfg.surfels
-    with _span("frame_inputs"):  # K1: bilateral filter, vertex/normal maps
-        rgb, depth_filt, vmap_raw, vmap_f, nmap_f = _frame_inputs(rgb_u8, depth_raw, cam, cfg)
+    with _span("frame_inputs"):  # K1: depth conversion and bilateral filter
+        depth_m, depth_filt = frame_maps.frame_depth(depth_raw)
     with _span("levels"):  # K2: frame and prediction pyramids
-        frame_pyr = lv.build_frame_pyramids(depth_filt, rgb, mask, cfg.odometry)
-        levels = lv.build_level_data(
-            frame_pyr, state.filled.vertex_conf[..., :3], state.filled.normal_rad[..., :3],
-            imops.rgb_to_intensity(state.filled.color), cam, cfg.odometry, 0,
-        )
+        frame_lv = lv.frame_levels(depth_filt, rgb_u8, mask, cam, cfg.odometry)
+        preds = lv.pred_levels(state.filled.vertex_conf, state.filled.normal_rad,
+                               state.filled.color, cam, cfg.odometry)
     with _span("odometry"):  # K3, K4, K5
-        odo = rgbd.get_incremental_transformation(
-            state.pose, levels, state.last_intensity_coarse, cfg.odometry, cam, 0
-        )
+        odo = rgbd.track(state.pose, lv.gn_levels(frame_lv, preds, cam, cfg.odometry),
+                         state.last_intensity_coarse, cfg.odometry, cam)
     pose = odo.pose
-
-    # fusion weight (Model::computeFusionWeight)
-    diff = pose @ se3.inverse_T(state.prev_pose)
-    motion = torch.maximum(torch.linalg.norm(diff[:3, 3]), torch.linalg.norm(se3.so3_log(diff[:3, :3])))
-    weighting = torch.clamp(1.0 - torch.clamp(motion, max=0.01) / 0.01, min=0.5) * torch.tensor(
-        weight_multiplier, dtype=F32)
+    weighting = _fusion_weight(pose, state.prev_pose, weight_multiplier)
 
     sub = state.smap.bucketed(bucket_fuse)
     with _span("frame_surfels"):  # K1
-        fs = sm.compute_frame_surfels(
-            rgb, vmap_raw, vmap_f, nmap_f, cam, time, scfg.depth_cutoff, float(weighting)
-        )
+        fs = frame_maps.frame_surfels(rgb_u8, depth_m, depth_filt, cam, time, scfg.depth_cutoff,
+                                      weighting)
     # one index map per frame, shared by fuse, clean and the splat resolve
     with _span("zbuffer"):  # K6
         im = rasterize.predict_indices(sub, pose, cam, time, scfg.time_delta, scfg.depth_cutoff)
     with _span("fuse"):  # K8
         fused = fusion.fuse(sub, fs, im, mask, 0, pose, cam, time, scfg)
-    with _span("clean"):  # K7, K9
+    with _span("clean"):  # K7, K9: written straight into the map's bucket
         cleaned = fusion.clean(
             fused, im, depth_filt, mask, 0, cam, time, scfg.time_delta, scfg.conf_threshold,
-            scfg, compact=_compact_pred(time, scfg),
+            scfg, compact=_compact_pred(time, scfg), out=state.smap.data[:, :bucket_fuse],
         )
-        data = state.smap.data
-        data[:, :bucket_fuse] = cleaned.data
-        smap = sm.SurfelMap(data=data, count=cleaned.count)
+        smap = sm.SurfelMap(data=state.smap.data, count=cleaned.count)
 
     # the next prediction resolves from the PRE-fusion index map
     with _span("splat_resolve"):  # K10 + fill_in
-        pred = rasterize.splat_resolve(
-            im, cam, scfg.conf_threshold, time, time, scfg.time_delta, scfg.splat_footprint
-        )
-        filled = _fill(pred, rgb, vmap_f, nmap_f, cam, cfg)
-    coarse = frame_pyr.intensity[cfg.odometry.num_pyr - 1]
+        filled = splat_fill(im, cam, scfg.conf_threshold, time, time, scfg.time_delta,
+                            scfg.splat_footprint, _fill_frame(rgb_u8, depth_filt, fs, cfg))
+    coarse = frame_lv[cfg.odometry.num_pyr - 1].img
     new_state = GlobalState(smap, pose, state.pose, filled, coarse)
-    return new_state, FrameStats(odo, smap.alive_count(), smap.count)
+    return new_state, FrameStats(odo, smap)
 
 
 _UNSUPPORTED = (
@@ -187,7 +168,7 @@ class MultiMotionFusionTorch:
         self.state: Optional[GlobalState] = None
         self.stats: Dict[str, float] = {}
         self._last_stats: Optional[FrameStats] = None
-        self._pose_log: List[tuple] = []  # (timestamp, host pose)
+        self._pose_log: List[tuple] = []  # (timestamp, [4,4] device pose)
         self._hwm = 0
         self._hwm_tick = 0
         self._growth_rate = 4096
@@ -265,7 +246,8 @@ class MultiMotionFusionTorch:
                       weight_multiplier: float = 1.0) -> Dict[str, float]:
         if self.tick == 1:
             rgb_u8, depth_raw = self.upload(frame)
-            pose0 = torch.tensor(gt_pose if gt_pose is not None else np.eye(4), dtype=F32)
+            pose0 = torch.tensor(gt_pose if gt_pose is not None else np.eye(4), dtype=F32,
+                                 device=self.device)
             self.state, stats = _init_step(rgb_u8, depth_raw, pose0, self.tick, self.cam, self.cfg)
             self._hwm = int(self.state.smap.count)
             self._hwm_tick = 1
@@ -296,8 +278,8 @@ class MultiMotionFusionTorch:
                 "icp_count": float(odo.icp_count) if odo else 0.0,
                 "rgb_error": float(odo.rgb_error) if odo else 0.0,
                 "rgb_count": float(odo.rgb_count) if odo else 0.0,
-                "surfels": float(s.alive),
-                "hwm": float(s.hwm),
+                "surfels": float(s.smap.alive_count()),
+                "hwm": float(s.smap.count),
             }
         return dict(self.stats)
 
@@ -309,8 +291,12 @@ class MultiMotionFusionTorch:
 
     @property
     def pose_log(self) -> List[tuple]:
-        """[(timestamp, [4,4] numpy camera pose)] of every processed frame."""
-        return [(ts, p.numpy().copy()) for ts, p in self._pose_log]
+        """[(timestamp, [4,4] numpy camera pose)] of every processed frame
+        (one copy of all poses to the host)."""
+        if not self._pose_log:
+            return []
+        poses = torch.stack([p for _, p in self._pose_log]).cpu().numpy()
+        return [(ts, poses[i]) for i, (ts, _) in enumerate(self._pose_log)]
 
     @property
     def global_model(self):

@@ -41,13 +41,10 @@ def state_from_numpy(d: Dict[str, np.ndarray], device="cuda") -> GlobalState:
     def dev(key, dtype=torch.float32):
         return torch.as_tensor(np.asarray(d[key]), dtype=dtype).to(device).contiguous()
 
-    def host(key):
-        return torch.as_tensor(np.asarray(d[key]), dtype=torch.float32).clone()
-
     return GlobalState(
         smap=SurfelMap(data=dev("smap.data"), count=dev("smap.count", torch.int32).reshape(())),
-        pose=host("pose"),
-        prev_pose=host("prev_pose"),
+        pose=dev("pose"),
+        prev_pose=dev("prev_pose"),
         filled=FilledMaps(*(dev(f"filled.{k}") for k in _FILLED)),
         last_intensity_coarse=dev("last_intensity_coarse"),
     )

@@ -49,6 +49,7 @@ BUILD_LOG: Dict[str, str] = {}
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+D = ctypes.c_double
 
 
 def _nvcc() -> str:
@@ -150,10 +151,18 @@ def stop_capture() -> Dict[str, dict]:
     return out
 
 
+def _snapshot(v):
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, tuple) and hasattr(v, "_fields"):  # NamedTuple of tensors
+        return type(v)(*(_snapshot(x) for x in v))
+    if isinstance(v, (list, tuple)):
+        return type(v)(_snapshot(x) for x in v)
+    return v
+
+
 def record(key: str, **inputs) -> None:
     """Called by a wrapper with its inputs; stores clones while capturing."""
     if _captured is None or key in _captured:
         return
-    _captured[key] = {
-        k: (v.clone() if isinstance(v, torch.Tensor) else v) for k, v in inputs.items()
-    }
+    _captured[key] = {k: _snapshot(v) for k, v in inputs.items()}

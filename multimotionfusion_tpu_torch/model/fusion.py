@@ -9,8 +9,15 @@
   where source ids run row-major over the [H/2, W/2] checkerboard subgrid,
   merges first, then appends; append slots are ``count`` + an exclusive prefix
   sum over the same order.
-- ``clean`` (plain PyTorch, K9): redundancy / see-through / unstable-age culls
-  and the periodic order-preserving compaction (copy_unstable.vert).
+- ``clean`` (kernels K7 + K9, ``csrc/clean.cu``): redundancy / see-through /
+  unstable-age culls and the periodic order-preserving compaction
+  (copy_unstable.vert). A pixel pass reads each index-map winner's attributes
+  from data_local (K7, no attribute image) and scatter-mins its verdict per
+  surfel; a surfel pass applies them; every ``compact_every`` frames a
+  multi-block compaction repacks the kept surfels with the count on the card.
+
+The camera pose is a [4, 4] tensor on the map's device that the kernels read
+by pointer.
 """
 
 from __future__ import annotations
@@ -25,8 +32,8 @@ from multimotionfusion_tpu_torch.ops.rasterize import (
     INVALID,
     IndexMap,
     _pixel_rays,
-    _pose_args,
     gather_attr_images,
+    check_pose,
 )
 
 
@@ -141,15 +148,17 @@ _FUSE_ARGS = (
     [K.P, K.I, K.I, K.P]  # data, row stride, capacity, count
     + [K.P, K.P, K.P, K.I]  # frame data, frame valid, mask, mask id
     + [K.P, K.P]  # index, data_local
-    + [K.F] * 12 + [K.F] * 4 + [K.I, K.I]  # pose, intrinsics, W, H
+    + [K.P] + [K.F] * 4 + [K.I, K.I]  # pose, intrinsics, W, H
     + [K.F, K.I, K.F, K.F, K.I]  # time, parity, depth cutoff, depth gate, window
     + [K.P] * 6  # target, flags, prefix, inv, count out, data out
 )
 
 
 def fuse_cuda(data, count, frame_data, frame_valid, index, data_local, mask, mask_id,
-              pose, cam: CameraModel, time, cfg: SurfelConfig):
-    """K8 on the card: ``csrc/fuse.cu`` (same contract as ``fuse_plain``)."""
+              pose, cam: CameraModel, time, cfg: SurfelConfig, want_assoc: bool = True):
+    """K8 on the card: ``csrc/fuse.cu`` (same contract as ``fuse_plain``; the
+    association is assembled only when ``want_assoc``, else None)."""
+    check_pose(pose)
     K.check(data, torch.float32, "data", contiguous=False)
     K.check(count, torch.int32, "count")
     K.check(frame_data, torch.float32, "frame_data")
@@ -176,11 +185,13 @@ def fuse_cuda(data, count, frame_data, frame_valid, index, data_local, mask, mas
         "fuse", f, K.ptr(data), data.stride(0), cap, K.ptr(count),
         K.ptr(frame_data), K.ptr(frame_valid), K.ptr(mask), int(mask_id),
         K.ptr(index), K.ptr(data_local),
-        *_pose_args(pose), cam.fx, cam.fy, cam.cx, cam.cy, w, h,
+        K.ptr(pose), cam.fx, cam.fy, cam.cx, cam.cy, w, h,
         float(time), int(time) % 2, float(cfg.depth_cutoff), float(cfg.assoc_depth_gate),
         int(cfg.assoc_window),
         K.ptr(target), K.ptr(flags), K.ptr(prefix), K.ptr(inv), K.ptr(count_out), K.ptr(out),
     )
+    if not want_assoc:
+        return out, count_out, None
     merging = (flags & 1) > 0
     assoc = torch.where(merging, target, torch.where(flags > 0, -1, -2).to(torch.int32))
     return out, count_out, assoc
@@ -192,7 +203,7 @@ def fuse(
     index_map: IndexMap,
     mask: torch.Tensor,  # [H, W] int32 model-id mask
     mask_id,
-    pose: torch.Tensor,  # [4,4] camera -> global (host)
+    pose: torch.Tensor,  # [4,4] camera -> global (on the map's device)
     cam: CameraModel,
     time,
     cfg: SurfelConfig,
@@ -204,29 +215,35 @@ def fuse(
              frame_valid=frame.valid, index=index_map.index,
              data_local=index_map.data_local, mask=mask, mask_id=mask_id, pose=pose,
              cam=cam, time=time, cfg=cfg)
-    impl = fuse_cuda if smap.data.is_cuda else fuse_plain
-    data, count, _ = impl(*args)
+    if smap.data.is_cuda:
+        data, count, _ = fuse_cuda(*args, want_assoc=False)
+    else:
+        data, count, _ = fuse_plain(*args)
     return sm.SurfelMap(data=data, count=count)
 
 
-def clean(
-    smap: sm.SurfelMap,
-    index_map: IndexMap,  # the frame's (pre-fusion) index map
-    depth_input: torch.Tensor,  # [H, W] filtered frame depth (m)
-    mask: torch.Tensor,
-    mask_id,
-    cam: CameraModel,
-    time,
-    time_delta,
-    conf_threshold,
-    cfg: SurfelConfig,
-    compact: bool = False,
-) -> sm.SurfelMap:
-    """Outlier / redundancy / unstable-age culls, then either a compaction
-    (``compact``) or a flag clear of the culled slots (copy_unstable.vert).
+def clean_plain(smap: sm.SurfelMap, index_map: IndexMap, depth_input, mask, mask_id,
+                cam: CameraModel, time, time_delta, conf_threshold, cfg: SurfelConfig,
+                compact: bool = False, out=None) -> sm.SurfelMap:
+    """Plain PyTorch K7 + K9 (same contract as ``clean``)."""
+    keep, pen_per_surfel = clean_verdicts(smap, index_map, depth_input, mask, mask_id, cam, time,
+                                          time_delta, conf_threshold, cfg)
+    cap = smap.capacity
+    data = smap.data.clone()
+    data[sm.CONF] = data[sm.CONF] * pen_per_surfel
+    if compact:
+        packed, new_count = sm.compact_plain(data, keep, cap, out)
+        return sm.SurfelMap(data=packed, count=new_count)
+    data[sm.ALIVE] = torch.where(keep, data[sm.ALIVE], torch.zeros_like(data[sm.ALIVE]))
+    if out is not None:
+        out.copy_(data)
+        data = out
+    return sm.SurfelMap(data=data, count=smap.count)
 
-    The visual tests run in image space for each pixel's index-map winner and
-    scatter their verdicts back to the winning surfel ids."""
+
+def clean_verdicts(smap: sm.SurfelMap, index_map: IndexMap, depth_input, mask, mask_id,
+                   cam: CameraModel, time, time_delta, conf_threshold, cfg: SurfelConfig):
+    """(keep [B] bool, confidence penalty [B]) of ``clean``."""
     h, w = cam.height, cam.width
     cap = smap.capacity
     dev = smap.data.device
@@ -294,11 +311,81 @@ def clean(
     unstable_dead = ((tf - last_t) > cfg.unstable_grace) & (smap.data[sm.CONF] < conf_threshold)
     keep = keep & ~unstable_dead
     keep = keep | (alive & (last_t > 0) & (tf - last_t > time_delta))
+    return keep, pen_per_surfel
 
-    data = smap.data.clone()
-    data[sm.CONF] = data[sm.CONF] * pen_per_surfel
-    if compact:
-        packed, new_count = sm.compact(data, keep, cap)
-        return sm.SurfelMap(data=packed, count=new_count)
-    data[sm.ALIVE] = torch.where(keep, data[sm.ALIVE], torch.zeros_like(data[sm.ALIVE]))
-    return sm.SurfelMap(data=data, count=smap.count)
+
+_CLEAN_ARGS = (
+    [K.P, K.I, K.I, K.P, K.P, K.P, K.P, K.P, K.I, K.I, K.I, K.I]  # map, index, depth, mask
+    + [K.F] * 7 + [K.I]  # time .. mask factor, compact
+    + [K.P] * 5 + [K.I, K.P]  # scratch, out, out row stride, count out
+)
+
+
+def clean_cuda(smap: sm.SurfelMap, index_map: IndexMap, depth_input, mask, mask_id,
+               cam: CameraModel, time, time_delta, conf_threshold, cfg: SurfelConfig,
+               compact: bool = False, out=None) -> sm.SurfelMap:
+    """K7 + K9 on the card: ``csrc/clean.cu`` (same contract as ``clean``)."""
+    data = smap.data
+    K.check(data, torch.float32, "data", contiguous=False)
+    K.check(smap.count, torch.int32, "count")
+    K.check(index_map.index, torch.int32, "index")
+    K.check(index_map.data_local, torch.float32, "data_local")
+    K.check(depth_input, torch.float32, "depth")
+    K.check(mask, torch.int32, "mask")
+    h, w = cam.height, cam.width
+    cap = data.shape[1]
+    if data.shape[0] != sm.CHANNELS or data.stride(1) != 1:
+        raise ValueError("data must be [16, B] with unit column stride")
+    if index_map.data_local.shape != (sm.CHANNELS, cap) or index_map.index.shape != (h, w):
+        raise ValueError("index must be [H, W] and data_local [16, B]")
+    dev = data.device
+    if out is None:
+        out = torch.empty((sm.CHANNELS, cap), dtype=torch.float32, device=dev)
+    elif tuple(out.shape) != (sm.CHANNELS, cap) or out.stride(1) != 1:
+        raise ValueError("out must be [16, B] with unit column stride")
+    verdicts = torch.empty((cap,), dtype=torch.int32, device=dev)
+    keep = torch.empty((cap,), dtype=torch.uint8, device=dev)
+    counts, offsets = sm.compaction_scratch(cap, dev)
+    count_out = torch.empty((), dtype=torch.int32, device=dev) if compact else smap.count
+    factor = 0.5 + 0.5 * (1.0 - cfg.outlier_coeff / 10.0)
+    f = K.fn("clean", "mmf_clean", _CLEAN_ARGS)
+    K.call(
+        "clean.compact" if compact else "clean", f, K.ptr(data), data.stride(0), cap,
+        K.ptr(smap.count), K.ptr(index_map.index),
+        K.ptr(index_map.data_local), K.ptr(depth_input), K.ptr(mask), int(mask_id), h, w,
+        int(cfg.assoc_window), float(time), float(time_delta), float(conf_threshold),
+        float(cfg.unstable_grace), float(cfg.clean_see_through_gate), float(cfg.outlier_coeff),
+        factor, int(compact), K.ptr(verdicts), K.ptr(keep), K.ptr(counts), K.ptr(offsets),
+        K.ptr(out), out.stride(0), K.ptr(count_out),
+    )
+    return sm.SurfelMap(data=out, count=count_out)
+
+
+def clean(
+    smap: sm.SurfelMap,
+    index_map: IndexMap,  # the frame's (pre-fusion) index map
+    depth_input: torch.Tensor,  # [H, W] filtered frame depth (m)
+    mask: torch.Tensor,
+    mask_id,
+    cam: CameraModel,
+    time,
+    time_delta,
+    conf_threshold,
+    cfg: SurfelConfig,
+    compact: bool = False,
+    out: torch.Tensor | None = None,
+) -> sm.SurfelMap:
+    """Outlier / redundancy / unstable-age culls, then either a compaction
+    (``compact``) or a flag clear of the culled slots (copy_unstable.vert).
+
+    The visual tests run in image space for each pixel's index-map winner and
+    scatter their verdicts back to the winning surfel ids. The cleaned
+    [16, B] map is written into ``out`` when given (it must not alias
+    ``smap.data``)."""
+    K.record("clean.compact" if compact else "clean", data=smap.data, count=smap.count,
+             index=index_map.index, data_local=index_map.data_local, depth=depth_input,
+             mask=mask, mask_id=mask_id, cam=cam, time=time, time_delta=time_delta,
+             conf_threshold=conf_threshold, cfg=cfg, compact=compact)
+    impl = clean_cuda if smap.data.is_cuda else clean_plain
+    return impl(smap, index_map, depth_input, mask, mask_id, cam, time, time_delta,
+                conf_threshold, cfg, compact, out)

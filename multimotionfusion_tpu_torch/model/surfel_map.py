@@ -3,7 +3,9 @@
 Port of the reference package's ``model/surfel_map.py``, same channel layout.
 ``count`` is the high-water mark (a 0-dim int32 tensor on the map's device):
 slots [0, count) have ever been used; a slot is live iff its ALIVE channel is
-set. Culls clear the flag; ``compact`` repacks live surfels to the front.
+set. Culls clear the flag; ``compact`` repacks live surfels to the front
+(on the card with the order-preserving compaction of ``csrc/clean.cu``,
+kernel K9, whose new count stays on the card).
 """
 
 from __future__ import annotations
@@ -12,7 +14,9 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from multimotionfusion_tpu_torch import kernels as K
 from multimotionfusion_tpu_torch.config import CameraModel
+from multimotionfusion_tpu_torch.ops.image import div
 
 # channel indices of the surfel attribute array
 PX, PY, PZ, CONF = 0, 1, 2, 3
@@ -55,8 +59,8 @@ def pixel_confidence(cam: CameraModel, weighting, device=None) -> torch.Tensor:
     """Radial Gaussian confidence prior [H, W] (surfels.glsl confidence)."""
     ys = torch.arange(cam.height, dtype=torch.float32, device=device)[:, None] - cam.cy
     xs = torch.arange(cam.width, dtype=torch.float32, device=device)[None, :] - cam.cx
-    radial = torch.sqrt(ys * ys + xs * xs) / 400.0
-    return torch.exp(-(radial * radial) / 0.72) * weighting
+    radial = div(torch.sqrt(ys * ys + xs * xs), 400.0)
+    return torch.exp(div(-(radial * radial), 0.72)) * weighting
 
 
 class FrameSurfels(NamedTuple):
@@ -114,13 +118,50 @@ def transform_surfels(data: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def compact(data: torch.Tensor, keep: torch.Tensor, capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Keep surfels where ``keep``, packed densely to the front in order."""
+def compact_plain(data: torch.Tensor, keep: torch.Tensor, capacity: int,
+                  out: torch.Tensor | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
     kept = data[:, keep]
-    out = torch.zeros((data.shape[0], capacity), dtype=data.dtype, device=data.device)
+    if out is None:
+        out = torch.zeros((data.shape[0], capacity), dtype=data.dtype, device=data.device)
+    else:
+        out.zero_()
     n = min(kept.shape[1], capacity)
     out[:, :n] = kept[:, :n]
     return out, torch.sum(keep.to(torch.int32)).to(torch.int32)
+
+
+_BLOCK = 256  # compaction block size of csrc/clean.cu
+
+
+def compaction_scratch(n: int, device):
+    """(block counts, block offsets) int32 scratch of the compaction kernel."""
+    nb = max(1, (n + _BLOCK - 1) // _BLOCK)
+    return (torch.empty((nb,), dtype=torch.int32, device=device),
+            torch.empty((nb,), dtype=torch.int32, device=device))
+
+
+def compact_cuda(data: torch.Tensor, keep: torch.Tensor, capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    K.check(data, torch.float32, "data", contiguous=False)
+    K.check(keep, torch.bool, "keep")
+    if data.shape[0] != CHANNELS or data.stride(1) != 1 or keep.shape != (data.shape[1],):
+        raise ValueError("data must be [16, N] (unit column stride) and keep [N]")
+    dev = data.device
+    out = torch.empty((CHANNELS, capacity), dtype=torch.float32, device=dev)
+    n = data.shape[1]
+    counts, offsets = compaction_scratch(n, dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    f = K.fn("clean", "mmf_compact", [K.P, K.I, K.I, K.P, K.P, K.P, K.P, K.I, K.I, K.P])
+    K.call("compact", f, K.ptr(data), data.stride(0), n, K.ptr(keep), K.ptr(counts),
+           K.ptr(offsets), K.ptr(out), out.stride(0), capacity, K.ptr(count))
+    return out, count
+
+
+def compact(data: torch.Tensor, keep: torch.Tensor, capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Keep surfels where ``keep``, packed densely to the front in order, the
+    slots after them zeroed: ([16, capacity] map, [] int32 count)."""
+    K.record("compact", data=data, keep=keep, capacity=capacity)
+    impl = compact_cuda if data.is_cuda else compact_plain
+    return impl(data, keep, capacity)
 
 
 def init_from_frame(frame: FrameSurfels, capacity: int) -> SurfelMap:

@@ -1,29 +1,37 @@
 """Dense joint ICP + photometric RGB-D odometry (Gauss-Newton, 3-level pyramid).
 
-Port of the reference package's ``odometry/rgbd.py``:
-- SO(3) pre-alignment at the coarsest level (plain PyTorch ``so3_system``, K3,
-  with the bf16 rounding of its tap bank reproduced), <= 10 iterations;
+Port of the reference package's ``odometry/rgbd.py``, with its loops on the card:
+- SO(3) pre-alignment at the coarsest level, <= 10 iterations: ``so3_reduce``
+  (kernel K3, ``csrc/gn_step.cu``) reduces the rotation-only photometric 4x4
+  system (the bf16 rounding of the reference's tap bank reproduced) and
+  ``so3_step`` (K5) solves, clamps and applies it and tests the exits;
 - coarse-to-fine joint ICP + RGB Gauss-Newton over {10, 5, 4} iterations; each
-  iteration evaluates both 7x7 normal systems with ``gn_reduce`` (kernel K4,
+  iteration evaluates both 7x7 normal systems with ``gn_reduce`` (K4,
   ``csrc/gn_reduce.cu``: warp, bilinear taps, gates, rows and the reduction in
-  one pass; no [P, 7] row matrix);
-- the 6x6 solve (K5: Jacobi-scaled, eigen-truncated), the trust clamp and the
-  SE(3) update run on the host in float32, like the reference's host-side
-  solve: the systems come back once per iteration, and that read doubles as
-  the early-exit test of the loop;
-- the 0.3 m divergence guard reverts the whole update.
+  one pass; no [P, 7] row matrix) and ``gn_step`` (K5) combines them, solves
+  the Jacobi-scaled eigen-truncated 6x6 system, clamps the step, updates the
+  pose and tests the exits;
+- the loop state (pose increment, carried errors and counts, done flags)
+  lives in a small float buffer on the state's device (layout ``S_*``, the
+  same as the kernels'). The host enqueues the fixed iteration budget and
+  reads nothing back: the reductions return at once once their loop is done,
+  as the reference's ``lax.while_loop`` skips the remaining iterations;
+- the 0.3 m divergence guard reverts the whole update (a device select).
+
+On CPU tensors every wrapper takes its plain PyTorch version (same module).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import List, NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from multimotionfusion_tpu_torch import kernels as K
 from multimotionfusion_tpu_torch.config import CameraModel, OdometryConfig
 from multimotionfusion_tpu_torch.ops.image import _shift2d
-from multimotionfusion_tpu_torch.ops.rasterize import _pose_args, div
+from multimotionfusion_tpu_torch.ops.rasterize import div, check_pose
 from multimotionfusion_tpu_torch.utils import se3
 
 F32 = torch.float32
@@ -31,7 +39,7 @@ HOST = torch.device("cpu")
 
 
 class OdometryResult(NamedTuple):
-    pose: torch.Tensor  # [4,4] new camera pose (host)
+    pose: torch.Tensor  # [4,4] new camera pose (on the inputs' device)
     icp_error: torch.Tensor
     icp_count: torch.Tensor
     rgb_error: torch.Tensor
@@ -40,6 +48,7 @@ class OdometryResult(NamedTuple):
     so3_count: torch.Tensor
     A: torch.Tensor  # [6,6] last fused normal matrix
     b: torch.Tensor  # [6]
+    state: torch.Tensor  # [S_SIZE] the loop state the fields above view
 
 
 class LevelData(NamedTuple):
@@ -58,7 +67,7 @@ class LevelData(NamedTuple):
     didy: torch.Tensor  # [H,W]
 
 
-# ---------------------------------------------------------------- K5 (host)
+# ---------------------------------------------------------------- K5 (plain)
 
 def solve_preconditioned(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve A x = b: Jacobi scaling + truncated eigensolve (near-null
@@ -119,6 +128,13 @@ def _taps(bank: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
 
 def so3_system(last_img, so3_bank, last_grads, image_basis, kinv, krlr):
     """Rotation-only photometric system (SO3Reduction): ([4,4], count)."""
+    rows, found = so3_rows(last_img, so3_bank, last_grads, image_basis, kinv, krlr)
+    return rows.T @ rows, torch.sum(found)
+
+
+def so3_rows(last_img, so3_bank, last_grads, image_basis, kinv, krlr):
+    """[P, 4] rows (3 Jacobian entries, residual; zeros where not found) and
+    the [H, W] found mask of ``so3_system``."""
     h, w = last_img.shape
     dev = last_img.device
     xg = torch.arange(w, dtype=F32, device=dev)[None, :].expand(h, w)
@@ -161,7 +177,7 @@ def so3_system(last_img, so3_bank, last_grads, image_basis, kinv, krlr):
     resid = -(warped[..., 0] - last_img)
     rows = torch.cat([jac, resid[..., None]], dim=-1)
     rows = torch.where(found[..., None], rows, torch.zeros_like(rows)).reshape(-1, 4)
-    return rows.T @ rows, torch.sum(found)
+    return rows, found
 
 
 def _K(cam: CameraModel) -> torch.Tensor:
@@ -180,11 +196,18 @@ def rgb_static_valid(level: LevelData, min_scale: float, mask_id, use_mask: bool
     """Iteration-invariant part of the photometric validity: 4x4 neighbourhood
     support (window [i-2, i+2), clamped at borders), gradient gate, valid
     depth, borders (residualKernel)."""
-    h, w = level.img_next.shape
-    dev = level.img_next.device
-    ok = level.img_next > 0
+    return static_valid(level.img_next, level.mask_next, level.didx, level.didy,
+                        level.depth_next, min_scale, mask_id, use_mask)
+
+
+def static_valid(img_next, mask_next, didx, didy, depth_next, min_scale: float, mask_id,
+                 use_mask: bool) -> torch.Tensor:
+    """``rgb_static_valid`` on the level's fields."""
+    h, w = img_next.shape
+    dev = img_next.device
+    ok = img_next > 0
     if use_mask:
-        ok = ok & (level.mask_next == mask_id)
+        ok = ok & (mask_next == mask_id)
     okf = ok.to(F32)
 
     def win_sum(x):
@@ -200,8 +223,8 @@ def rgb_static_valid(level: LevelData, min_scale: float, mask_id, use_mask: bool
     xg = torch.arange(w, device=dev)[None, :]
     yg = torch.arange(h, device=dev)[:, None]
     valid = valid & (xg < w - 5) & (yg < h - 1)
-    valid = valid & (level.didx**2 + level.didy**2 >= min_scale)
-    return valid & (level.depth_next > 0)
+    valid = valid & (didx**2 + didy**2 >= min_scale)
+    return valid & (depth_next > 0)
 
 
 # ---------------------------------------------------------------- K4
@@ -244,18 +267,22 @@ _TRIU = torch.triu_indices(7, 7)
 
 
 def build_pred_map(level: LevelData, compact: bool) -> torch.Tensor:
+    """The prediction's sampling map of one level (``GNLevel.pred``)."""
+    return pred_map(level.vmap_prev, level.nmap_prev, level.depth_last, level.img_last, compact)
+
+
+def pred_map(vmap_prev, nmap_prev, depth_last, img_last, compact: bool) -> torch.Tensor:
+    """``build_pred_map`` on the level's fields."""
     if compact:
-        depth = level.vmap_prev[..., 2]
+        depth = vmap_prev[..., 2]
         zhi = depth.to(torch.bfloat16)
         zlo = (depth - zhi.to(F32)).to(torch.bfloat16)
-        rest = torch.cat([level.nmap_prev, level.img_last[..., None]], dim=-1).to(torch.bfloat16)
+        rest = torch.cat([nmap_prev, img_last[..., None]], dim=-1).to(torch.bfloat16)
         pad = torch.zeros_like(zhi)
         return torch.cat([zhi[..., None], zlo[..., None], rest, pad[..., None], pad[..., None]],
                          dim=-1).contiguous()
-    return torch.cat(
-        [level.vmap_prev, level.nmap_prev, level.depth_last[..., None], level.img_last[..., None]],
-        dim=-1,
-    ).contiguous()
+    return torch.cat([vmap_prev, nmap_prev, depth_last[..., None], img_last[..., None]],
+                     dim=-1).contiguous()
 
 
 def _interp_valid(taps, fu, fv, inb, sl: slice):
@@ -370,9 +397,12 @@ def gn_rows(lv: GNLevel, Rt_inv: torch.Tensor, cam_l: CameraModel, scale2: float
 
 
 def gn_reduce_plain(lv: GNLevel, Rt_inv: torch.Tensor, cam_l: CameraModel, scale2: float,
-                    p: GNParams) -> torch.Tensor:
+                    p: GNParams, done=None) -> torch.Tensor:
     """Plain PyTorch K4: one evaluation of both 7x7 systems -> [N_SUMS] sums
-    (on the evaluated grid; ``scale2`` only enters the RGB weight)."""
+    (on the evaluated grid; ``scale2`` only enters the RGB weight); zeros
+    once ``done`` is set."""
+    if done is not None and bool(done != 0):
+        return torch.zeros((N_SUMS,), dtype=F32, device=lv.img.device)
     icp_rows, rgb_rows, counts = gn_rows(lv, Rt_inv, cam_l, scale2, p)
     iu = _TRIU.to(icp_rows.device)
     return torch.cat([(icp_rows.T @ icp_rows)[iu[0], iu[1]], (rgb_rows.T @ rgb_rows)[iu[0], iu[1]],
@@ -383,7 +413,7 @@ _GN_ARGS = (
     [K.P, K.I, K.I, K.I]  # pred map, compact, H, W
     + [K.P] * 6  # vmap, nmap, img, didx, didy, static_valid
     + [K.I, K.I, K.I]  # stride, grid rows, grid cols
-    + [K.F] * 12 + [K.F] * 4  # Rt_inv, intrinsics
+    + [K.P, K.P] + [K.F] * 4  # Rt_inv, done flag, intrinsics
     + [K.I, K.I, K.I]  # use_icp, use_rgb, rgb_only
     + [K.F] * 6  # dist, angle, max depth delta, max depth rgb, sobel scale, scale2
     + [K.I, K.P, K.P]  # blocks, partials, sums
@@ -394,9 +424,13 @@ _GN_STRIDE_SUMS = 64
 
 
 def gn_reduce_cuda(lv: GNLevel, Rt_inv: torch.Tensor, cam_l: CameraModel, scale2: float,
-                   p: GNParams, level: int = 0) -> torch.Tensor:
+                   p: GNParams, done=None, level: int = 0) -> torch.Tensor:
     """K4 on the card: ``csrc/gn_reduce.cu`` (same contract as ``gn_reduce_plain``;
-    launches are counted per pyramid level, ``gn_reduce.L<level>``)."""
+    launches are counted per pyramid level, ``gn_reduce.L<level>``). ``Rt_inv``
+    ([4, 4]) and ``done`` (0-dim, or None) are read by pointer."""
+    check_pose(Rt_inv, "Rt_inv")
+    if done is not None:
+        K.check(done, F32, "done")
     K.check(lv.pred, torch.bfloat16 if lv.compact else F32, "pred")
     for name in ("vmap", "nmap", "img", "didx", "didy"):
         K.check(getattr(lv, name), F32, name)
@@ -415,7 +449,7 @@ def gn_reduce_cuda(lv: GNLevel, Rt_inv: torch.Tensor, cam_l: CameraModel, scale2
         f"gn_reduce.L{level}", f, K.ptr(lv.pred), int(lv.compact), h, w,
         K.ptr(lv.vmap), K.ptr(lv.nmap), K.ptr(lv.img), K.ptr(lv.didx), K.ptr(lv.didy),
         K.ptr(lv.static_valid), s, hs, ws,
-        *_pose_args(Rt_inv), cam_l.fx, cam_l.fy, cam_l.cx, cam_l.cy,
+        K.ptr(Rt_inv), None if done is None else K.ptr(done), cam_l.fx, cam_l.fy, cam_l.cx, cam_l.cy,
         int(p.use_icp), int(p.use_rgb), int(p.rgb_only),
         p.dist_thresh, p.angle_thresh, p.max_depth_delta_rgb, p.max_depth_rgb, p.sobel_scale,
         float(scale2), blocks, K.ptr(partials), K.ptr(sums),
@@ -424,23 +458,26 @@ def gn_reduce_cuda(lv: GNLevel, Rt_inv: torch.Tensor, cam_l: CameraModel, scale2
 
 
 def gn_reduce(lv: GNLevel, Rt_inv: torch.Tensor, cam_l: CameraModel, scale2: float,
-              p: GNParams, level: int = 0) -> torch.Tensor:
-    K.record(f"gn_reduce.L{level}", lv=lv, Rt_inv=Rt_inv, cam_l=cam_l, scale2=scale2, p=p)
+              p: GNParams, level: int = 0, done=None) -> torch.Tensor:
+    K.record(f"gn_reduce.L{level}", lv=lv, Rt_inv=Rt_inv, cam_l=cam_l, scale2=scale2, p=p,
+             done=done)
     if lv.img.is_cuda:
-        return gn_reduce_cuda(lv, Rt_inv, cam_l, scale2, p, level)
-    return gn_reduce_plain(lv, Rt_inv, cam_l, scale2, p)
+        return gn_reduce_cuda(lv, Rt_inv, cam_l, scale2, p, done, level)
+    return gn_reduce_plain(lv, Rt_inv, cam_l, scale2, p, done)
 
 
-def _sym(tri: torch.Tensor) -> torch.Tensor:
-    S = torch.zeros((7, 7), dtype=F32)
-    S[_TRIU[0], _TRIU[1]] = tri
-    S[_TRIU[1], _TRIU[0]] = tri
+def _sym(tri: torch.Tensor, n: int = 7) -> torch.Tensor:
+    iu = torch.triu_indices(n, n)
+    S = torch.zeros((n, n), dtype=F32)
+    S[iu[0], iu[1]] = tri
+    S[iu[1], iu[0]] = tri
     return S
 
 
 def systems_from_sums(sums: torch.Tensor, scale2: float):
-    """Host unpacking of gn_reduce's output: (S_icp, icp_cnt, S_rgb, rgb_size,
-    tmp_err), all scaled to full-grid units."""
+    """Host unpacking of gn_reduce's output (the plain GN step and the tests;
+    the kernel step reads the sums on the card): (S_icp, icp_cnt, S_rgb,
+    rgb_size, tmp_err), all scaled to full-grid units."""
     sums = sums.to(HOST)
     sc = torch.tensor(scale2, dtype=F32)
     S_icp = sc * _sym(sums[0:28])
@@ -451,7 +488,314 @@ def systems_from_sums(sums: torch.Tensor, scale2: float):
     return S_icp, icp_cnt, S_rgb, rgb_size, tmp_err
 
 
+
+
+# ---------------------------------------------------------------- loop state
+
+# layout of the odometry's state buffer (csrc/gn_step.cu has the same)
+S_R, S_LAST_R = 0, 9  # [9] SO(3) rotation, [9] the previous one
+S_SO3_LAST_ERR, S_SO3_LAST_COUNT, S_SO3_ERR, S_SO3_COUNT = 18, 19, 20, 21
+S_SO3_DONE, S_SO3_ITERS = 22, 23
+S_RT, S_RT_INV = 24, 40  # [16] result_Rt, [16] its inverse
+S_GN_DONE, S_LAST_RGB_ERR = 56, 57
+S_ICP_ERR, S_ICP_COUNT, S_RGB_ERR, S_RGB_COUNT = 58, 59, 60, 61
+S_GN_ITERS, S_GN_J = 62, 65  # [3] iterations run per level, running level's counter
+S_LAST_A, S_LAST_B = 66, 102  # [36], [6]
+S_SIZE = 128
+_BIG = 3.4e38
+N_SO3_SUMS = 11  # upper triangle of the 4x4 system + count
+_SO3_THREADS = 256
+_SO3_MAX_BLOCKS = 1024
+
+
+def odo_init_plain(device) -> torch.Tensor:
+    st = torch.zeros((S_SIZE,), dtype=F32)
+    eye3 = torch.eye(3, dtype=F32).reshape(-1)
+    st[S_R:S_R + 9] = eye3
+    st[S_LAST_R:S_LAST_R + 9] = eye3
+    st[S_SO3_LAST_ERR] = st[S_SO3_LAST_COUNT] = _BIG / 2
+    st[S_RT:S_RT + 16] = torch.eye(4, dtype=F32).reshape(-1)
+    st[S_RT_INV:S_RT_INV + 16] = torch.eye(4, dtype=F32).reshape(-1)
+    st[S_LAST_RGB_ERR] = _BIG
+    return st.to(device)
+
+
+def odo_init_cuda(device) -> torch.Tensor:
+    st = torch.empty((S_SIZE,), dtype=F32, device=device)
+    K.call("odo_init", K.fn("gn_step", "mmf_odo_init", [K.P]), K.ptr(st))
+    return st
+
+
+def odo_init(device) -> torch.Tensor:
+    """A fresh loop state: R = I, result_Rt = I, both loops running."""
+    device = torch.device(device)
+    K.record("odo_init", device=device)
+    return odo_init_cuda(device) if device.type == "cuda" else odo_init_plain(device)
+
+
+# ---------------------------------------------------------------- K3
+
+def _so3_bank(next_img: torch.Tensor) -> torch.Tensor:
+    ngx, ngy = central_grads(next_img)
+    return _bf16(torch.stack([next_img, ngx, ngy], dim=-1))
+
+
+def so3_inputs(last_img, next_img, cam_l: CameraModel, state):
+    """``so3_system``'s arguments at the state's rotation."""
+    dev = last_img.device
+    R = state[S_R:S_R + 9].reshape(3, 3).to(dev)
+    Km, Kinv = _K(cam_l).to(dev), _K_inv(cam_l).to(dev)
+    return (last_img, _so3_bank(next_img), central_grads(last_img), Km @ R @ Kinv, Kinv,
+            Km @ R)
+
+
+def so3_reduce_plain(last_img, next_img, cam_l: CameraModel, state) -> torch.Tensor:
+    """Plain K3: [11] = upper triangle of the 4x4 system, count (zeros once
+    the SO(3) loop is done)."""
+    dev = last_img.device
+    if bool(state[S_SO3_DONE] != 0):
+        return torch.zeros((N_SO3_SUMS,), dtype=F32, device=dev)
+    S, cnt = so3_system(*so3_inputs(last_img, next_img, cam_l, state))
+    iu = torch.triu_indices(4, 4, device=dev)
+    return torch.cat([S[iu[0], iu[1]], cnt.to(F32)[None]])
+
+
+def so3_reduce_cuda(last_img, next_img, cam_l: CameraModel, state) -> torch.Tensor:
+    """K3 on the card: ``csrc/gn_step.cu`` (same contract as ``so3_reduce_plain``)."""
+    K.check(last_img, F32, "last_img")
+    K.check(next_img, F32, "next_img")
+    K.check(state, F32, "state")
+    h, w = next_img.shape
+    if tuple(last_img.shape) != (h, w) or (h, w) != (cam_l.height, cam_l.width):
+        raise ValueError("the SO(3) images must be the coarsest level's [H, W]")
+    dev = next_img.device
+    blocks = max(1, min((h * w + _SO3_THREADS - 1) // _SO3_THREADS, _SO3_MAX_BLOCKS))
+    partials = torch.empty((blocks, 16), dtype=F32, device=dev)
+    sums = torch.zeros((16,), dtype=F32, device=dev)
+    f = K.fn("gn_step", "mmf_so3_reduce", [K.P, K.P, K.I, K.I] + [K.F] * 8 + [K.P, K.I, K.P, K.P])
+    K.call("so3_reduce", f, K.ptr(last_img), K.ptr(next_img), h, w, cam_l.fx, cam_l.fy,
+           cam_l.cx, cam_l.cy, 1.0 / cam_l.fx, -cam_l.cx / cam_l.fx, 1.0 / cam_l.fy,
+           -cam_l.cy / cam_l.fy, K.ptr(state), blocks, K.ptr(partials), K.ptr(sums))
+    return sums[:N_SO3_SUMS]
+
+
+def so3_reduce(last_img, next_img, cam_l: CameraModel, state) -> torch.Tensor:
+    K.record("so3_reduce", last_img=last_img, next_img=next_img, cam_l=cam_l, state=state)
+    impl = so3_reduce_cuda if next_img.is_cuda else so3_reduce_plain
+    return impl(last_img, next_img, cam_l, state)
+
+
+# ---------------------------------------------------------------- K5
+
+def _write_pose(s: torch.Tensor, Rt: torch.Tensor) -> None:
+    s[S_RT:S_RT + 16] = Rt.reshape(-1)
+    s[S_RT_INV:S_RT_INV + 16] = se3.inverse_T(Rt).reshape(-1)
+
+
+def so3_step_plain(state: torch.Tensor, sums: torch.Tensor) -> None:
+    """Plain K5 (SO(3)): one body of the reference's SO(3) while_loop on the
+    state, in place."""
+    s, sm_ = state.to(HOST).clone(), sums.to(HOST)
+    R = s[S_R:S_R + 9].reshape(3, 3).clone()
+    last_R = s[S_LAST_R:S_LAST_R + 9].reshape(3, 3).clone()
+    if s[S_SO3_DONE] == 0:
+        S = _sym(sm_[:10], 4)
+        cntf = sm_[10]
+        last_err, last_count = s[S_SO3_LAST_ERR].clone(), s[S_SO3_LAST_COUNT].clone()
+        err = torch.sqrt(S[3, 3]) / torch.clamp(cntf, min=1.0)
+        converged = bool((err < last_err) & (torch.abs(last_count - cntf) < 0.5))
+        diverging = bool(err > last_err + 0.001)
+        delta = solve_preconditioned(S[:3, :3], S[:3, 3])
+        dn = torch.linalg.norm(delta)
+        delta = delta * torch.clamp(0.1 / torch.clamp(dn, min=1e-12), max=1.0)
+        if not bool(cntf >= 60):
+            delta = torch.zeros_like(delta)
+        R_new = se3.so3_exp(delta) @ R
+        R_out = R if converged else (last_R if diverging else R_new)
+        s[S_SO3_ERR] = last_err if diverging else err
+        s[S_SO3_COUNT] = last_count if diverging else cntf
+        s[S_SO3_LAST_ERR], s[S_SO3_LAST_COUNT] = err, cntf
+        s[S_LAST_R:S_LAST_R + 9] = R.reshape(-1)
+        s[S_R:S_R + 9] = R_out.reshape(-1)
+        s[S_SO3_ITERS] += 1
+        if converged or diverging:
+            s[S_SO3_DONE] = 1.0
+        R = R_out
+    Rt = torch.eye(4, dtype=F32)
+    Rt[:3, :3] = R
+    _write_pose(s, Rt)
+    state.copy_(s)
+
+
+def so3_step_cuda(state: torch.Tensor, sums: torch.Tensor) -> None:
+    """K5 (SO(3)) on the card: ``csrc/gn_step.cu``."""
+    K.check(state, F32, "state")
+    K.check(sums, F32, "sums")
+    K.call("so3_step", K.fn("gn_step", "mmf_so3_step", [K.P, K.P]), K.ptr(state), K.ptr(sums))
+
+
+def so3_step(state: torch.Tensor, sums: torch.Tensor) -> None:
+    K.record("so3_step", state=state, sums=sums)
+    (so3_step_cuda if state.is_cuda else so3_step_plain)(state, sums)
+
+
+class StepParams(NamedTuple):
+    """Loop-invariant inputs of one level's GN steps."""
+
+    scale2: float
+    use_icp: bool
+    use_rgb: bool
+    rgb_only: bool
+    icp_weight: float
+    eps: float
+    level: int
+
+
+def gn_step_plain(state: torch.Tensor, sums: torch.Tensor, sp: StepParams, last: bool) -> None:
+    """Plain K5 (GN): one body of the reference's level while_loop on the
+    state, in place; ``last`` resets the loop carries for the next level."""
+    s = state.to(HOST).clone()
+    if s[S_GN_DONE] == 0:
+        t32 = lambda v: torch.tensor(v, dtype=F32)  # noqa: E731
+        S_icp, icp_cnt, S_rgb, rgb_size, tmp_err = systems_from_sums(sums, sp.scale2)
+        if not sp.use_rgb:
+            rgb_size, tmp_err = t32(0.0), t32(0.0)
+        if not sp.use_icp:
+            icp_cnt = t32(0.0)
+        diverging = bool(sp.rgb_only and tmp_err > s[S_LAST_RGB_ERR])
+        A_icp, b_icp = S_icp[:6, :6], S_icp[:6, 6]
+        A_rgbd, b_rgbd = S_rgb[:6, :6], S_rgb[:6, 6]
+        if sp.use_icp and sp.use_rgb:
+            # consistent least-squares fusion: w^2 on both A and b
+            w2 = t32(sp.icp_weight) * t32(sp.icp_weight)
+            A, b = A_rgbd + w2 * A_icp, b_rgbd + w2 * b_icp
+        elif sp.use_icp:
+            A, b = A_icp, b_icp
+        else:
+            A, b = A_rgbd, b_rgbd
+        x = clamp_step(solve_preconditioned(A, b))
+        enough = bool(icp_cnt + rgb_size >= 60)
+        upd = (not diverging) and enough
+        converged = upd and bool(torch.linalg.norm(x[0:3]) < sp.eps) and bool(
+            torch.linalg.norm(x[3:6]) < sp.eps)
+        if upd:
+            _write_pose(s, se3.gn_update_pose(s[S_RT:S_RT + 16].reshape(4, 4), x))
+            if sp.use_icp:
+                s[S_ICP_ERR] = torch.sqrt(S_icp[6, 6]) / torch.clamp(icp_cnt, min=1.0)
+                s[S_ICP_COUNT] = icp_cnt
+            s[S_RGB_ERR], s[S_RGB_COUNT] = tmp_err, rgb_size
+            s[S_LAST_A:S_LAST_A + 36] = A.reshape(-1)
+            s[S_LAST_B:S_LAST_B + 6] = b
+            s[S_LAST_RGB_ERR] = tmp_err
+        s[S_GN_J] += 1
+        s[S_GN_ITERS + sp.level] = s[S_GN_J]
+        if diverging or not enough or converged:
+            s[S_GN_DONE] = 1.0
+    if last:
+        s[S_GN_DONE], s[S_LAST_RGB_ERR], s[S_GN_J] = 0.0, _BIG, 0.0
+    state.copy_(s)
+
+
+def gn_step_cuda(state: torch.Tensor, sums: torch.Tensor, sp: StepParams, last: bool) -> None:
+    """K5 (GN) on the card: ``csrc/gn_step.cu``."""
+    K.check(state, F32, "state")
+    K.check(sums, F32, "sums")
+    w = np.float32(sp.icp_weight)
+    f = K.fn("gn_step", "mmf_gn_step", [K.P, K.P, K.F, K.F, K.F] + [K.I] * 5)
+    K.call("gn_step", f, K.ptr(state), K.ptr(sums), float(sp.scale2), float(w * w), float(sp.eps),
+           int(sp.use_icp), int(sp.use_rgb), int(sp.rgb_only), int(sp.level), int(last))
+
+
+def gn_step(state: torch.Tensor, sums: torch.Tensor, sp: StepParams, last: bool) -> None:
+    K.record("gn_step", state=state, sums=sums, sp=sp, last=last)
+    (gn_step_cuda if state.is_cuda else gn_step_plain)(state, sums, sp, last)
+
+
 # ---------------------------------------------------------------- driver
+
+def gn_level(level: LevelData, i: int, cfg: OdometryConfig, cam: CameraModel,
+             mask_id: int = 0) -> GNLevel:
+    """Loop-invariant GN inputs of pyramid level ``i`` from its LevelData
+    (plain; the engine builds them with kernel K2, odometry/levels.py)."""
+    use_icp = (not cfg.rgb_only) and cfg.icp_weight > 0
+    use_rgb = cfg.rgb_only or cfg.icp_weight < 100
+    if use_rgb:
+        min_scale = (cfg.min_grad_magnitudes[i] ** 2) / (cfg.sobel_scale**2)
+        sv = rgb_static_valid(level, min_scale, mask_id, cfg.mask_rgb)
+    else:
+        sv = torch.zeros(level.img_next.shape, dtype=torch.bool, device=level.img_next.device)
+    return GNLevel(
+        pred=build_pred_map(level, use_icp and i == 0),
+        compact=use_icp and i == 0,
+        vmap=level.vmap_curr.contiguous(), nmap=level.nmap_curr.contiguous(),
+        img=level.img_next.contiguous(), didx=level.didx.contiguous(),
+        didy=level.didy.contiguous(), static_valid=sv.contiguous(),
+        stride=level_stride(i, cfg, cam),
+    )
+
+
+def level_stride(i: int, cfg: OdometryConfig, cam: CameraModel) -> int:
+    """Evaluation grid stride of level ``i`` (fine_subsample / mid_subsample)."""
+    cam_l = cam.level(i)
+    if i == 0:
+        return cfg.fine_subsample
+    if i == 1 and cam_l.width * cam_l.height >= 65536:
+        return cfg.mid_subsample
+    return 1
+
+
+def track(T_prev: torch.Tensor, gl: List[GNLevel], last_next_img_l2: torch.Tensor,
+          cfg: OdometryConfig, cam: CameraModel) -> OdometryResult:
+    """SO(3) pre-alignment then the coarse-to-fine GN loop on ``gl`` (index 0
+    = finest), every iteration enqueued; nothing is read back. Returns views
+    of the loop state."""
+    if cfg.error_images:
+        raise NotImplementedError("odometry error images are not ported yet (ROADMAP.md)")
+    use_icp = (not cfg.rgb_only) and cfg.icp_weight > 0
+    use_rgb = cfg.rgb_only or cfg.icp_weight < 100
+    K.record("track", T_prev=T_prev, gl=gl, last_next_img_l2=last_next_img_l2, cfg=cfg, cam=cam)
+    T_prev = T_prev.to(F32)
+    st = odo_init(T_prev.device)
+    if cfg.so3_prealign and cfg.so3_iterations > 0:
+        lvl = cfg.num_pyr - 1
+        cam_l = cam.level(lvl)
+        for _ in range(cfg.so3_iterations):
+            so3_step(st, so3_reduce(last_next_img_l2, gl[lvl].img, cam_l, st))
+
+    params = GNParams(use_icp, use_rgb, cfg.rgb_only, cfg.dist_thresh, cfg.angle_thresh,
+                      cfg.max_depth_delta_rgb, cfg.max_depth_rgb, cfg.sobel_scale)
+    schedule = cfg.schedule()
+    Rt_inv = st[S_RT_INV:S_RT_INV + 16].view(4, 4)
+    done = st[S_GN_DONE]
+    for i in range(cfg.num_pyr - 1, -1, -1):
+        iters = schedule[i]
+        if iters == 0:
+            continue
+        lv = gl[i]
+        sp = StepParams(float(lv.stride * lv.stride), use_icp, use_rgb, cfg.rgb_only,
+                        cfg.icp_weight, cfg.convergence_eps, i)
+        for j in range(iters):
+            sums = gn_reduce(lv, Rt_inv, cam.level(i), sp.scale2, params, level=i, done=done)
+            gn_step(st, sums, sp, last=j == iters - 1)
+
+    T_new = T_prev @ Rt_inv
+    if use_rgb:
+        diverged = torch.linalg.norm(T_new[:3, 3] - T_prev[:3, 3]) > cfg.divergence_trans_norm
+        T_new = torch.where(diverged, T_prev, T_new)
+    return OdometryResult(
+        T_new, st[S_ICP_ERR], st[S_ICP_COUNT], st[S_RGB_ERR], st[S_RGB_COUNT], st[S_SO3_ERR],
+        st[S_SO3_COUNT], st[S_LAST_A:S_LAST_A + 36].view(6, 6), st[S_LAST_B:S_LAST_B + 6], st,
+    )
+
+
+def loop_iterations(result: OdometryResult) -> dict:
+    """Iterations each loop ran, {"so3": n, "L0": n, "L1": n, "L2": n} (a host read)."""
+    st = result.state.to(HOST)
+    out = {"so3": int(st[S_SO3_ITERS])}
+    for lvl in range(3):
+        out[f"L{lvl}"] = int(st[S_GN_ITERS + lvl])
+    return out
+
 
 def get_incremental_transformation(
     T_prev: torch.Tensor,
@@ -464,122 +808,7 @@ def get_incremental_transformation(
     """Multi-level GN odometry (RGBDOdometry::getIncrementalTransformation).
 
     T_prev: previous camera pose (camera -> global), the pose the prediction
-    was rendered at. levels: per-level inputs, index 0 = finest, on the
-    compute device. last_next_img_l2: previous frame's coarsest intensity."""
-    if cfg.error_images:
-        raise NotImplementedError("odometry error images are not ported yet (ROADMAP.md)")
-    use_icp = (not cfg.rgb_only) and cfg.icp_weight > 0
-    use_rgb = cfg.rgb_only or cfg.icp_weight < 100
-    dev = levels[0].img_next.device
-    T_prev = T_prev.to(HOST, F32)
-    t32 = lambda v: torch.tensor(v, dtype=F32)  # noqa: E731
-
-    so3_err = t32(0.0)
-    so3_count = t32(0.0)
-    R = torch.eye(3, dtype=F32)
-    if cfg.so3_prealign and cfg.so3_iterations > 0:
-        lvl = cfg.num_pyr - 1
-        cam_l = cam.level(lvl)
-        Km, Kinv = _K(cam_l), _K_inv(cam_l)
-        img_l = levels[lvl].img_next
-        ngx, ngy = central_grads(img_l)
-        so3_bank = _bf16(torch.stack([img_l, ngx, ngy], dim=-1))
-        last_grads = central_grads(last_next_img_l2)
-        last_err = last_count = t32(3.4e38 / 2)
-        last_R = torch.eye(3, dtype=F32)
-        for _ in range(cfg.so3_iterations):
-            S, cnt = so3_system(last_next_img_l2, so3_bank, last_grads,
-                                (Km @ R @ Kinv).to(dev), Kinv.to(dev), (Km @ R).to(dev))
-            S = S.to(HOST)
-            cntf = cnt.to(HOST).to(F32)
-            err = torch.sqrt(S[3, 3]) / torch.clamp(cntf, min=1.0)
-            converged = bool((err < last_err) & (torch.abs(last_count - cntf) < 0.5))
-            diverging = bool(err > last_err + 0.001)
-            delta = solve_preconditioned(S[:3, :3], S[:3, 3])
-            dn = torch.linalg.norm(delta)
-            delta = delta * torch.clamp(0.1 / torch.clamp(dn, min=1e-12), max=1.0)
-            if not bool(cntf >= 60):
-                delta = torch.zeros_like(delta)
-            R_new = se3.so3_exp(delta) @ R
-            R_out = R if converged else (last_R if diverging else R_new)
-            so3_err = last_err if diverging else err
-            so3_count = last_count if diverging else cntf
-            last_err, last_count, last_R = err, cntf, R
-            R = R_out
-            if converged or diverging:
-                break
-    result_Rt = torch.eye(4, dtype=F32)
-    result_Rt[:3, :3] = R
-
-    params = GNParams(use_icp, use_rgb, cfg.rgb_only, cfg.dist_thresh, cfg.angle_thresh,
-                      cfg.max_depth_delta_rgb, cfg.max_depth_rgb, cfg.sobel_scale)
-    schedule = cfg.schedule()
-    icp_err, icp_count = t32(0.0), t32(0.0)
-    rgb_err, rgb_count = t32(0.0), t32(0.0)
-    lastA = torch.zeros((6, 6), dtype=F32)
-    lastb = torch.zeros((6,), dtype=F32)
-    for i in range(cfg.num_pyr - 1, -1, -1):
-        iters = schedule[i]
-        if iters == 0:
-            continue
-        cam_l = cam.level(i)
-        level = levels[i]
-        min_scale = (cfg.min_grad_magnitudes[i] ** 2) / (cfg.sobel_scale**2)
-        if use_rgb:
-            static_valid = rgb_static_valid(level, min_scale, mask_id, cfg.mask_rgb)
-        else:
-            static_valid = torch.zeros(level.img_next.shape, dtype=torch.bool, device=dev)
-        sub = (cfg.fine_subsample if i == 0
-               else cfg.mid_subsample if i == 1 and cam_l.width * cam_l.height >= 65536 else 1)
-        lv = GNLevel(
-            pred=build_pred_map(level, use_icp and i == 0), compact=use_icp and i == 0,
-            vmap=level.vmap_curr.contiguous(), nmap=level.nmap_curr.contiguous(),
-            img=level.img_next.contiguous(), didx=level.didx.contiguous(),
-            didy=level.didy.contiguous(), static_valid=static_valid.contiguous(), stride=sub,
-        )
-        scale2 = float(sub * sub)
-        last_rgb_err = t32(3.4e38)
-        for _ in range(iters):
-            sums = gn_reduce(lv, se3.inverse_T(result_Rt), cam_l, scale2, params, level=i)
-            S_icp, icp_cnt, S_rgb, rgb_size, tmp_err = systems_from_sums(sums, scale2)
-            if not use_rgb:
-                rgb_size, tmp_err = t32(0.0), t32(0.0)
-            if not use_icp:
-                icp_cnt = t32(0.0)
-            diverging = bool(cfg.rgb_only and tmp_err > last_rgb_err)
-            A_icp, b_icp = S_icp[:6, :6], S_icp[:6, 6]
-            A_rgbd, b_rgbd = S_rgb[:6, :6], S_rgb[:6, 6]
-            if use_icp and use_rgb:
-                # consistent least-squares fusion: w^2 on both A and b
-                w2 = t32(cfg.icp_weight) * t32(cfg.icp_weight)
-                A = A_rgbd + w2 * A_icp
-                b = b_rgbd + w2 * b_icp
-            elif use_icp:
-                A, b = A_icp, b_icp
-            else:
-                A, b = A_rgbd, b_rgbd
-            x = clamp_step(solve_preconditioned(A, b))
-            Rt_new = se3.gn_update_pose(result_Rt, x)
-            enough = bool(icp_cnt + rgb_size >= 60)
-            upd = (not diverging) and enough
-            eps = cfg.convergence_eps
-            converged = upd and bool(torch.linalg.norm(x[0:3]) < eps) and bool(
-                torch.linalg.norm(x[3:6]) < eps)
-            if upd:
-                result_Rt = Rt_new
-                if use_icp:
-                    icp_err = torch.sqrt(S_icp[6, 6]) / torch.clamp(icp_cnt, min=1.0)
-                    icp_count = icp_cnt
-                rgb_err, rgb_count = tmp_err, rgb_size
-                lastA, lastb = A, b
-                last_rgb_err = tmp_err
-            if diverging or not enough or converged:
-                break
-
-    T_new = T_prev @ se3.inverse_T(result_Rt)
-    if use_rgb:
-        diverged = torch.linalg.norm(T_new[:3, 3] - T_prev[:3, 3]) > cfg.divergence_trans_norm
-        if bool(diverged):
-            T_new = T_prev
-    return OdometryResult(T_new, icp_err, icp_count, rgb_err, rgb_count, so3_err, so3_count,
-                          lastA, lastb)
+    was rendered at. levels: per-level inputs, index 0 = finest.
+    last_next_img_l2: previous frame's coarsest intensity."""
+    gl = [gn_level(levels[i], i, cfg, cam, mask_id) for i in range(cfg.num_pyr)]
+    return track(T_prev, gl, last_next_img_l2, cfg, cam)

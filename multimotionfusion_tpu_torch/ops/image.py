@@ -1,9 +1,11 @@
 """Image-space ops: intensity, pyramids, Sobel gradients, bilateral depth filter.
 
-Port of the reference package's ``ops/image.py`` (plain PyTorch; kernel rows K1
-and K2 of the port's table). Every stencil keeps the reference's tap order so
-float sums round identically: a tap loop accumulates ``out + w * shifted`` in
-row-major tap order. Invalid depth is 0.0.
+Port of the reference package's ``ops/image.py`` in plain PyTorch: the plain
+versions of kernels K1 (``csrc/frame_maps.cu``, the bilateral filter) and K2
+(``csrc/pyramid.cu``, the pyramids and Sobel), which the CPU tests and the
+kernel checks use. Every stencil keeps the reference's tap order so float sums
+round identically: a tap loop accumulates ``out + w * shifted`` in row-major
+tap order. Invalid depth is 0.0.
 """
 
 from __future__ import annotations
@@ -33,6 +35,13 @@ def rgb_to_intensity(rgb: torch.Tensor) -> torch.Tensor:
     channels (reference quirk, bgr2IntensityKernel)."""
     v = rgb[..., 0] * 0.114 + rgb[..., 1] * 0.299 + rgb[..., 2] * 0.587
     return torch.floor(v)
+
+
+def div(a: torch.Tensor, s: float) -> torch.Tensor:
+    """a / s rounded once, as the kernels round it: on the card PyTorch
+    computes ``tensor / python_scalar`` as a multiply by the reciprocal, which
+    can differ in the last bit (enough to flip a tie between coplanar surfels)."""
+    return a / torch.full((), s, dtype=a.dtype, device=a.device)
 
 
 def decimate2(img: torch.Tensor) -> torch.Tensor:
@@ -114,26 +123,25 @@ def bilateral_depth_filter(
     """13x13 bilateral depth filter (depth_bilateral_metric.frag).
 
     sigma_space ~ 4.5 px, sigma_color ~ 0.03 m; depth outside
-    [min_depth, max_depth] maps to 0. One tap row is evaluated at a time as a
-    [13, H, W] stack (the reference package accumulates tap by tap, so sums
-    agree to rounding, not bit for bit)."""
+    [min_depth, max_depth] maps to 0. Accumulates tap by tap in row-major
+    order, with the spatial term rounded from double as the reference
+    computes it (a Python float product), so the kernel, this version and the
+    reference sum in the same order."""
     d = radius
     h, w = depth.shape
     valid = (depth >= min_depth) & (depth <= max_depth)
     base = torch.where(valid, depth, torch.zeros_like(depth))
     padded = F.pad(base, (d, d, d, d))
-    ox = torch.arange(-d, d + 1, dtype=depth.dtype, device=depth.device)
     sum1 = torch.zeros_like(depth)
     sum2 = torch.zeros_like(depth)
     for oy in range(-d, d + 1):
-        rows = padded[d + oy : d + oy + h]  # [H, W + 2d]
-        # shifted[k] = tap (oy, ox = k - d)
-        shifted = torch.stack([rows[:, k : k + w] for k in range(2 * d + 1)])
-        space2 = (ox * ox + float(oy * oy))[:, None, None]
-        color2 = (base - shifted) ** 2
-        wgt = torch.exp(-(space2 * sigma_space2_inv_half + color2 * sigma_color2_inv_half))
-        wgt = torch.where(shifted > 0, wgt, torch.zeros_like(wgt))
-        sum1 = sum1 + (shifted * wgt).sum(0)
-        sum2 = sum2 + wgt.sum(0)
+        for ox in range(-d, d + 1):
+            shifted = padded[d + oy : d + oy + h, d + ox : d + ox + w]
+            space = float(ox * ox + oy * oy) * sigma_space2_inv_half
+            color2 = (base - shifted) ** 2
+            wgt = torch.exp(-(space + color2 * sigma_color2_inv_half))
+            wgt = torch.where(shifted > 0, wgt, torch.zeros_like(wgt))
+            sum1 = sum1 + shifted * wgt
+            sum2 = sum2 + wgt
     out = torch.where(sum2 > 0, sum1 / torch.clamp(sum2, min=1e-12), torch.zeros_like(sum1))
     return torch.where(valid, out, torch.zeros_like(out))

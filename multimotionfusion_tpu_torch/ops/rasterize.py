@@ -8,7 +8,10 @@ Port of the reference package's ``ops/rasterize.py`` (static path):
   depth ties resolve to the lowest id.
 - ``splat_resolve`` (kernel K10, ``csrc/splat_resolve.cu``): a 5x5 ray-disk
   resolve over the index map that carries the nearest hit's attributes into
-  the predicted colour / vertex / normal / time images.
+  the predicted colour / vertex / normal / time images; its fill-in epilogue
+  (``model/fillin.py``) writes the filled maps directly.
+
+Transforms are [4, 4] float32 tensors that the kernels read by pointer.
 
 Each kernel's wrapper launches the CUDA kernel for CUDA tensors and takes the
 plain PyTorch version (``*_plain``, same module) only for CPU tensors.
@@ -23,7 +26,7 @@ import torch
 from multimotionfusion_tpu_torch import kernels as K
 from multimotionfusion_tpu_torch.config import CameraModel
 from multimotionfusion_tpu_torch.model import surfel_map as sm
-from multimotionfusion_tpu_torch.ops.image import _shift2d
+from multimotionfusion_tpu_torch.ops.image import _shift2d, div
 from multimotionfusion_tpu_torch.utils import se3
 
 INVALID = -1
@@ -80,10 +83,11 @@ def _unpack_zmin(kmin, id_bits: int = _ID_BITS):
     return idx, zmin
 
 
-def _pose_args(T: torch.Tensor):
-    """12 floats (row-major R, then t) of a host [4, 4] transform."""
-    T = T.detach().to("cpu", torch.float32)
-    return [float(v) for v in T[:3, :3].reshape(-1)] + [float(v) for v in T[:3, 3]]
+def check_pose(T: torch.Tensor, name: str = "pose") -> None:
+    """Validate a [4, 4] transform that a kernel reads by pointer on the card."""
+    K.check(T, torch.float32, name)
+    if tuple(T.shape) != (4, 4):
+        raise ValueError(f"{name} must be [4, 4]")
 
 
 def _gates(data_local, alive, time, time_delta, max_depth):
@@ -91,13 +95,18 @@ def _gates(data_local, alive, time, time_delta, max_depth):
     return alive & (z > 0) & (z <= max_depth) & (float(time) - data_local[sm.LAST_T] <= time_delta)
 
 
-def packed_keys(data, count, T_inv, cam: CameraModel, time, time_delta, max_depth):
+def packed_keys(data, count, T_inv, cam: CameraModel, time, time_delta, max_depth,
+                splat_gates=None):
     """(pixel [B] int64 with H*W for rejected surfels, packed key [B] int32,
-    data_local [16, B]) of the z-buffer; ``T_inv`` is world -> camera."""
+    data_local [16, B]) of the z-buffer; ``T_inv`` is world -> camera.
+    ``splat_gates`` = (conf_threshold, max_time) adds the splat.vert gates."""
     h, w = cam.height, cam.width
     n = data.shape[1]
     data_local = sm.transform_surfels(data, T_inv.to(data.device))
     alive = (torch.arange(n, dtype=torch.int32, device=data.device) < count) & (data[sm.ALIVE] > 0)
+    if splat_gates is not None:
+        conf_threshold, max_time = splat_gates
+        alive = alive & (data[sm.CONF] >= conf_threshold) & (data[sm.LAST_T] <= max_time)
     ok = _gates(data_local, alive, time, time_delta, max_depth)
     x, y, z = data_local[sm.PX], data_local[sm.PY], data_local[sm.PZ]
     safe_z = torch.where(z > 0, z, torch.ones_like(z))
@@ -111,23 +120,31 @@ def packed_keys(data, count, T_inv, cam: CameraModel, time, time_delta, max_dept
     return pix, key, data_local
 
 
-def zbuffer_plain(data, count, T_inv, cam: CameraModel, time, time_delta, max_depth):
+def zbuffer_plain(data, count, T_inv, cam: CameraModel, time, time_delta, max_depth,
+                  splat_gates=None):
     """Plain PyTorch K6: (index [H, W] int32, data_local [16, B])."""
     h, w = cam.height, cam.width
-    pix, key, data_local = packed_keys(data, count, T_inv, cam, time, time_delta, max_depth)
+    pix, key, data_local = packed_keys(data, count, T_inv, cam, time, time_delta, max_depth,
+                                       splat_gates)
     kmin = torch.full((h * w + 1,), _KEY_INVALID, dtype=torch.int32, device=data.device)
     kmin.scatter_reduce_(0, pix, key, reduce="amin", include_self=True)
     idx, _ = _unpack_zmin(kmin[: h * w], _id_bits_for(data.shape[1]))
     return idx.reshape(h, w), data_local
 
 
-_ZB_ARGS = [K.P, K.I, K.I, K.P] + [K.F] * 12 + [K.F] * 4 + [K.I, K.I] + [K.F] * 3 + [K.I, K.P, K.P, K.P]
+_ZB_ARGS = ([K.P, K.I, K.I, K.P, K.P] + [K.F] * 4 + [K.I, K.I] + [K.F] * 3 + [K.I, K.F, K.F]
+            + [K.I, K.P, K.P, K.P])
 
 
-def zbuffer_cuda(data, count, T_inv, cam: CameraModel, time, time_delta, max_depth):
-    """K6 on the card: ``csrc/zbuffer.cu`` (same contract as ``zbuffer_plain``)."""
+def zbuffer_cuda(data, count, T_inv, cam: CameraModel, time, time_delta, max_depth,
+                 splat_gates=None):
+    """K6 on the card: ``csrc/zbuffer.cu`` (same contract as ``zbuffer_plain``;
+    ``T_inv`` is read by pointer)."""
     K.check(data, torch.float32, "data", contiguous=False)
     K.check(count, torch.int32, "count")
+    check_pose(T_inv, "T_inv")
+    gated = splat_gates is not None
+    conf_threshold, max_time = splat_gates if gated else (0.0, 0.0)
     if data.shape[0] != sm.CHANNELS or data.stride(1) != 1:
         raise ValueError("data must be [16, B] with unit column stride")
     h, w = cam.height, cam.width
@@ -138,24 +155,25 @@ def zbuffer_cuda(data, count, T_inv, cam: CameraModel, time, time_delta, max_dep
     index = torch.empty((h, w), dtype=torch.int32, device=dev)
     f = K.fn("zbuffer", "mmf_zbuffer", _ZB_ARGS)
     K.call(
-        "zbuffer", f, K.ptr(data), data.stride(0), n, K.ptr(count),
-        *_pose_args(T_inv), cam.fx, cam.fy, cam.cx, cam.cy, w, h,
-        float(time), float(time_delta), float(max_depth), _id_bits_for(n),
+        "zbuffer", f, K.ptr(data), data.stride(0), n, K.ptr(count), K.ptr(T_inv),
+        cam.fx, cam.fy, cam.cx, cam.cy, w, h, float(time), float(time_delta), float(max_depth),
+        int(gated), float(conf_threshold), float(max_time), _id_bits_for(n),
         K.ptr(keys), K.ptr(data_local), K.ptr(index),
     )
     return index, data_local
 
 
-def zbuffer(data, count, T_inv, cam: CameraModel, time, time_delta, max_depth):
+def zbuffer(data, count, T_inv, cam: CameraModel, time, time_delta, max_depth,
+            splat_gates=None):
     K.record("zbuffer", data=data, count=count, T_inv=T_inv, cam=cam, time=time,
-             time_delta=time_delta, max_depth=max_depth)
+             time_delta=time_delta, max_depth=max_depth, splat_gates=splat_gates)
     impl = zbuffer_cuda if data.is_cuda else zbuffer_plain
-    return impl(data, count, T_inv, cam, time, time_delta, max_depth)
+    return impl(data, count, T_inv, cam, time, time_delta, max_depth, splat_gates)
 
 
 def predict_indices(
     smap: sm.SurfelMap,
-    pose: torch.Tensor,  # [4,4] camera -> global (host)
+    pose: torch.Tensor,  # [4,4] camera -> global (on the map's device)
     cam: CameraModel,
     time,
     time_delta,
@@ -170,13 +188,6 @@ def predict_indices(
 
 
 _WIN_CH = (sm.CR, sm.CG, sm.CB, sm.CONF, sm.NX, sm.NY, sm.NZ, sm.RADIUS, sm.INIT_T)
-
-
-def div(a: torch.Tensor, s: float) -> torch.Tensor:
-    """a / s rounded once, as the kernels round it: on the card PyTorch
-    computes ``tensor / python_scalar`` as a multiply by the reciprocal, which
-    can differ in the last bit (enough to flip a tie between coplanar surfels)."""
-    return a / torch.full((), s, dtype=a.dtype, device=a.device)
 
 
 def _pixel_rays(cam: CameraModel, device):
@@ -238,17 +249,40 @@ def splat_resolve_plain(index, data_local, cam: CameraModel, conf_threshold, tim
     )
 
 
-_SR_ARGS = [K.P, K.P, K.I, K.I, K.I] + [K.F] * 4 + [K.F] * 4 + [K.I] + [K.P] * 5
+_SR_ARGS = ([K.P, K.P, K.I, K.I, K.I] + [K.F] * 4 + [K.F] * 4 + [K.I] + [K.P] * 5
+            + [K.P, K.P, K.P, K.F, K.F, K.F, K.I])
+
+
+class FillFrame(NamedTuple):
+    """The live frame's inputs of the fill-in epilogue (model/fillin.py)."""
+
+    rgb: torch.Tensor  # [H, W, 3] uint8
+    depth_filt: torch.Tensor  # [H, W] filtered depth (m)
+    frame_data: torch.Tensor  # [16, H*W] frame surfels (filtered normals, radius)
+    depth_cutoff: float
+    passthrough: bool = False
 
 
 def splat_resolve_cuda(index, data_local, cam: CameraModel, conf_threshold, time,
-                       max_time, time_delta, window: int = 5) -> PredictedMaps:
-    """K10 on the card: ``csrc/splat_resolve.cu``."""
+                       max_time, time_delta, window: int = 5,
+                       fill: FillFrame | None = None) -> PredictedMaps:
+    """K10 on the card: ``csrc/splat_resolve.cu``. With ``fill``, the fill-in
+    epilogue writes the live frame wherever no surfel won (colour, vertex and
+    normal maps are then the filled maps)."""
     K.check(index, torch.int32, "index")
     K.check(data_local, torch.float32, "data_local")
     h, w = cam.height, cam.width
     if tuple(index.shape) != (h, w) or data_local.shape[0] != sm.CHANNELS:
         raise ValueError("index must be [H, W] and data_local [16, B]")
+    fill_args = [None, None, None, 0.0, 0.0, 0.0, 0]
+    if fill is not None:
+        K.check(fill.rgb, torch.uint8, "fill.rgb")
+        K.check(fill.depth_filt, torch.float32, "fill.depth_filt")
+        K.check(fill.frame_data, torch.float32, "fill.frame_data")
+        if fill.frame_data.shape != (sm.CHANNELS, h * w) or fill.rgb.shape != (h, w, 3):
+            raise ValueError("fill frame must be [H, W, 3] colour and [16, H*W] surfels")
+        fill_args = [K.ptr(fill.rgb), K.ptr(fill.depth_filt), K.ptr(fill.frame_data),
+                     1.0 / cam.fx, 1.0 / cam.fy, float(fill.depth_cutoff), int(fill.passthrough)]
     dev = index.device
     color = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
     vertex_conf = torch.empty((h, w, 4), dtype=torch.float32, device=dev)
@@ -261,6 +295,7 @@ def splat_resolve_cuda(index, data_local, cam: CameraModel, conf_threshold, time
         cam.fx, cam.fy, cam.cx, cam.cy,
         float(conf_threshold), float(time), float(max_time), float(time_delta), int(window),
         K.ptr(color), K.ptr(vertex_conf), K.ptr(normal_rad), K.ptr(tmap), K.ptr(valid),
+        *fill_args,
     )
     return PredictedMaps(color, vertex_conf, normal_rad, tmap, valid)
 
@@ -279,19 +314,22 @@ def splat_resolve(index_map: IndexMap, cam: CameraModel, conf_threshold, time, m
                 max_time, time_delta, window)
 
 
+def splat_indices(smap: sm.SurfelMap, pose: torch.Tensor, cam: CameraModel, conf_threshold,
+                  time, max_time, time_delta, max_depth: float) -> IndexMap:
+    """Index map of the dedicated splat render (first frame), the gated z-buffer.
+
+    The confidence and max-time gates of splat.vert enter the z-buffer
+    (``splat_gates``), so ``zbuffer`` (K6) serves both renders; the resolve
+    re-applies them per candidate."""
+    index, data_local = zbuffer(
+        smap.data, smap.count, se3.inverse_T(pose), cam, time, time_delta, max_depth,
+        splat_gates=(conf_threshold, max_time),
+    )
+    return IndexMap(index, data_local)
+
+
 def splat_predict(smap: sm.SurfelMap, pose: torch.Tensor, cam: CameraModel, conf_threshold,
                   time, max_time, time_delta, max_depth: float, window: int = 5) -> PredictedMaps:
-    """Dedicated splat render (first frame): gated z-buffer + resolve.
-
-    The confidence and max-time gates of splat.vert enter the z-buffer by
-    masking the ALIVE flag of the surfels they reject, so ``zbuffer`` (K6)
-    serves both renders; the resolve re-applies them per candidate."""
-    data = smap.data
-    gated = (data[sm.CONF] >= conf_threshold) & (data[sm.LAST_T] <= max_time)
-    masked = data.clone()
-    masked[sm.ALIVE] = torch.where(gated, data[sm.ALIVE], torch.zeros_like(data[sm.ALIVE]))
-    index, data_local = zbuffer(
-        masked, smap.count, se3.inverse_T(pose), cam, time, time_delta, max_depth
-    )
-    return splat_resolve(IndexMap(index, data_local), cam, conf_threshold, time, max_time,
-                         time_delta, window)
+    """Dedicated splat render (first frame): gated z-buffer + resolve."""
+    im = splat_indices(smap, pose, cam, conf_threshold, time, max_time, time_delta, max_depth)
+    return splat_resolve(im, cam, conf_threshold, time, max_time, time_delta, window)

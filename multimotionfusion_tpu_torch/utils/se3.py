@@ -85,12 +85,11 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
 
 
 def make_T(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """Assemble a 4x4 homogeneous transform."""
-    T = torch.zeros(R.shape[:-2] + (4, 4), dtype=R.dtype, device=R.device)
-    T[..., :3, :3] = R
-    T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
-    return T
+    """Assemble a 4x4 homogeneous transform (no element assignment: on the
+    card writing a Python scalar into a tensor is a synchronising copy)."""
+    top = torch.cat([R, t[..., None]], dim=-1)
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3:].expand(R.shape[:-2] + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
 
 
 def se3_exp(xi: torch.Tensor) -> torch.Tensor:
