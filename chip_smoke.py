@@ -20,6 +20,14 @@ Phases (any failure exits non-zero):
 4. sync check: 10 more frames (one of them a compaction frame) with
    ``torch.cuda.set_sync_debug_mode`` on around ``engine._frame_core``; print
    the number of synchronising calls, which must be 0;
+4b. the keypoint-seeded path: a second engine with the default
+   ``odom_init="kp"`` (patch detector, 512 keypoints, 4096 tracks, 200
+   RANSAC candidates) over the same 1 + 45 frames, launch counts reset before
+   it: ATE and rotation bounds, every kernel of the path launched (the
+   keypoint kernels K19-K21 and seed_select included), no ``*_plain`` call,
+   the frames whose keypoint seed passed its gate (read once at the end),
+   median ms/frame; then its stage breakdown (a ``sparse`` stage) and a sync
+   check over 10 kp frames;
 5. replay the inputs each kernel saw at one steady-state frame of phase 2
    (the compaction frame's clean and the first frame's compaction from
    frames of their own) through the kernel and through its plain PyTorch
@@ -29,7 +37,11 @@ Phases (any failure exits non-zero):
    same function (CUDA events over back-to-back calls, so host launch overhead
    counts where the host is slower), plus the kernel's device time alone
    (torch.profiler); run the whole odometry loop on the card and, from the
-   same inputs, the plain loop on the CPU;
+   same inputs, the plain loop on the CPU; the same for the keypoint
+   kernels on the inputs of one steady-state kp frame (``nms_topk`` also on
+   a random-weight SuperPoint heat map and on a plateau), the seeded
+   odometry loop, and the sparse block (detect -> track table -> RANSAC on
+   the card against the plain chain on the CPU, same uniforms);
 6. print ``{"kernels": [...]}``, the card's name and power limit, and as the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -39,6 +51,7 @@ Imports nothing of JAX or of the reference package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -71,6 +84,8 @@ MAIN_PATH = (
     + tuple(f"pyramid.{side}.L{lvl}" for side in ("frame", "pred") for lvl in LEVELS)
     + tuple(f"gn_reduce.L{lvl}" for lvl in LEVELS)
 )
+KP_PATH = MAIN_PATH + ("patch_score", "nms_topk", "patch_desc", "mutual_match", "track_update",
+                       "ransac_fit", "seed_select")
 
 
 def _gpu_line() -> str:
@@ -113,15 +128,16 @@ def _bound(bytes_moved: float, flops: float):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def static_frames(n_frames: int):
+def static_frames(n_frames: int, odom_init: str = ""):
     """(config, frames, ground-truth poses) of the static 640x480 step: the
     reference package's bench.py::bench_static (same scene, camera motion and
-    2^20 surfel capacity), 1 init frame + ``n_frames`` frames."""
+    2^20 surfel capacity), 1 init frame + ``n_frames`` frames; ``odom_init``
+    "kp" keeps the default KeypointConfig and RansacConfig."""
     from multimotionfusion_tpu_torch.config import CameraModel, EngineConfig, SurfelConfig
     from multimotionfusion_tpu_torch.io.readers import SyntheticLogReader
 
     cam = CameraModel()
-    cfg = EngineConfig(camera=cam, enable_multi_model=False, odom_init="",
+    cfg = EngineConfig(camera=cam, enable_multi_model=False, odom_init=odom_init,
                        surfels=SurfelConfig(max_surfels=1 << 20))
     reader = SyntheticLogReader(cam, num_frames=1 + n_frames, cam_step=(0.004, 0.0, 0.0),
                                 cam_rot_step=(0.0, 0.002, 0.0))
@@ -134,6 +150,8 @@ PORT_MODULES = (
     "multimotionfusion_tpu_torch.ops.rasterize", "multimotionfusion_tpu_torch.odometry.levels",
     "multimotionfusion_tpu_torch.odometry.rgbd", "multimotionfusion_tpu_torch.model.fusion",
     "multimotionfusion_tpu_torch.model.fillin", "multimotionfusion_tpu_torch.model.surfel_map",
+    "multimotionfusion_tpu_torch.tracking.superpoint", "multimotionfusion_tpu_torch.tracking.tracker",
+    "multimotionfusion_tpu_torch.ops.ransac",
 )
 
 
@@ -161,19 +179,19 @@ def count_plain_calls(calls):
             setattr(mod, attr, fn)
 
 
-def run_engine(K, cfg, frames, gt_poses):
-    """Phase 2: the main path, frames 0..N_FRAMES, with every launch counted
-    and every call of a plain version counted (there must be none)."""
+def run_engine(K, cfg, frames, gt_poses, path=MAIN_PATH, tag="engine"):
+    """Phase 2 (and 4b): a main path, frames 0..N_FRAMES, with every launch
+    counted and every call of a plain version counted (there must be none)."""
     plain_calls = {}
     with count_plain_calls(plain_calls):
-        out = _run_engine(K, cfg, frames, gt_poses)
-    print(json.dumps({"phase": "plain_calls_on_main_path", "calls": plain_calls}))
+        out = _run_engine(K, cfg, frames, gt_poses, path, tag)
+    print(json.dumps({"phase": f"plain_calls_on_{tag}_path", "calls": plain_calls}))
     if plain_calls:
-        raise SystemExit(f"plain versions ran on the main path: {plain_calls}")
+        raise SystemExit(f"plain versions ran on the {tag} path: {plain_calls}")
     return out
 
 
-def _run_engine(K, cfg, frames, gt_poses):
+def _run_engine(K, cfg, frames, gt_poses, path, tag):
     from multimotionfusion_tpu_torch.engine import MultiMotionFusionTorch
     from multimotionfusion_tpu_torch.odometry import rgbd
 
@@ -205,29 +223,33 @@ def _run_engine(K, cfg, frames, gt_poses):
     gt = np.stack(gt_poses[: len(est)])
     err = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=-1)
     ate = float(np.sqrt(np.mean(err**2)))
-    path = float(np.sum(np.linalg.norm(np.diff(gt[:, :3, 3], axis=0), axis=-1)))
-    rot = max(
-        float(np.degrees(np.arccos(np.clip((np.trace(est[i, :3, :3].T @ gt[i, :3, :3]) - 1) / 2,
-                                           -1, 1))))
-        for i in range(len(est))
-    )
+    path_m = float(np.sum(np.linalg.norm(np.diff(gt[:, :3, 3], axis=0), axis=-1)))
+    # the angle from the Frobenius distance of the rotations in float64
+    # (|R1 - R2|_F = 2 sqrt(2) sin(a / 2)), exact for tiny angles where the
+    # arccos of a float32 trace rounds to 0
+    dR = est[:, :3, :3].astype(np.float64) - gt[:, :3, :3].astype(np.float64)
+    rot = float(np.degrees(np.max(2.0 * np.arcsin(np.minimum(
+        np.linalg.norm(dR, axis=(1, 2)) / (2.0 * np.sqrt(2.0)), 1.0)))))
     summary = {
-        "phase": "engine", "frames": len(est), "timed_frames": len(ms),
+        "phase": tag, "odom_init": cfg.odom_init, "frames": len(est), "timed_frames": len(ms),
         "ms_per_frame_median": statistics.median(ms),
         # the highest quartile with at least ten timed frames beyond it
         "ms_per_frame_p75": statistics.quantiles(ms, n=4)[2],
         "ms_per_frame_min": min(ms), "surfels": stats["surfels"], "hwm": stats["hwm"],
-        "ate_m": ate, "path_m": path, "ate_pct_path": 100.0 * ate / path,
+        "ate_m": ate, "path_m": path_m, "ate_pct_path": 100.0 * ate / path_m,
         "max_rot_err_deg": rot, "launches": launches,
         "odometry_iterations_last_frame": rgbd.loop_iterations(engine._last_stats.odo),
         "gpu": _gpu_line(),
     }
+    if cfg.odom_init == "kp":  # read once, after the run
+        summary["seed_gate_accepted_frames"] = int(engine.seed_accepted)
+        summary["seed_gate_frames"] = N_FRAMES
     print(json.dumps(summary))
-    if not (ate < 0.05 * path and rot < 1.5):
-        raise SystemExit(f"camera tracking out of bounds: ATE {ate} m over {path} m, rot {rot} deg")
-    for k in MAIN_PATH:
+    if not (ate < 0.05 * path_m and rot < 1.5):
+        raise SystemExit(f"camera tracking out of bounds: ATE {ate} m over {path_m} m, rot {rot} deg")
+    for k in path:
         if launches.get(k, 0) <= 0:
-            raise SystemExit(f"kernel {k} was not launched on the main path")
+            raise SystemExit(f"kernel {k} was not launched on the {tag} path")
     return engine, launches, captured
 
 
@@ -255,7 +277,7 @@ class StageTimer:
         return out
 
 
-def run_stages(K, engine, frames) -> None:
+def run_stages(K, engine, frames, tag="stages") -> None:
     """Phase 3: where the frame's time goes, per stage and per device kernel."""
     from multimotionfusion_tpu_torch import engine as E
 
@@ -290,7 +312,7 @@ def run_stages(K, engine, frames) -> None:
     busy = sum(v[0] for v in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]
     print(json.dumps({
-        "phase": "stages", "frames": n, "wall_ms_per_frame": wall, "stages_per_frame": stages,
+        "phase": tag, "frames": n, "wall_ms_per_frame": wall, "stages_per_frame": stages,
         "device_kernel_ms_per_frame": busy, "device_busy_share": busy / wall,
         "device_kernel_launches_per_frame": sum(v[1] for v in kernels.values()) / n,
         "wrapper_launches_per_frame": wrappers,
@@ -568,6 +590,131 @@ def measure_compact(a):
     )
 
 
+def measure_patch_score(a):
+    from multimotionfusion_tpu_torch.tracking import superpoint as SP
+
+    npix = a[0].numel()
+    # intensity in, score and blurred intensity out; per pixel the Sobel
+    # (12), three products, four 5-tap passes each way (80) and the
+    # eigenvalue (10)
+    bound, by = _bound(12 * npix, 105 * npix)
+    return dict(
+        ms=_time_ms(lambda: SP.patch_score_cuda(*a)),
+        device_ms=_device_ms(lambda: SP.patch_score_cuda(*a)),
+        plain_ms=_time_ms(lambda: SP.patch_score_plain(*a), reps=5),
+        library_ms=None, bound_ms=bound, bound_by=by,
+    )
+
+
+def measure_nms(a):
+    import torch.nn.functional as F
+
+    from multimotionfusion_tpu_torch.tracking import superpoint as SP
+
+    heat, k, thr, r = a
+    npix = heat.numel()
+    # the heat map in, K slots of xy, score and valid out; a (2r+1)^2 max window
+    bound, by = _bound(4 * npix + 13 * k, ((2 * r + 1) ** 2 + 2) * npix)
+
+    def library():  # max-pool NMS, then one top-k
+        local = F.max_pool2d(heat[None, None], 2 * r + 1, 1, r)[0, 0]
+        peaks = torch.where((heat == local) & (heat > thr), heat, torch.zeros_like(heat))
+        return torch.topk(peaks.reshape(-1), k)
+
+    return dict(
+        ms=_time_ms(lambda: SP.nms_topk_cuda(*a)), device_ms=_device_ms(lambda: SP.nms_topk_cuda(*a)),
+        plain_ms=_time_ms(lambda: SP.nms_topk_plain(*a), reps=5),
+        library_ms=_time_ms(library), bound_ms=bound, bound_by=by,
+    )
+
+
+def measure_patch_desc(a):
+    from multimotionfusion_tpu_torch.tracking import superpoint as SP
+
+    k = a[1].shape[0]
+    # 64 samples and 64 outputs a keypoint, ~6 operations each
+    bound, by = _bound(k * (8 + 64 * 4 + 64 * 4), 6 * 64 * k)
+    return dict(
+        ms=_time_ms(lambda: SP.patch_desc_cuda(*a)), device_ms=_device_ms(lambda: SP.patch_desc_cuda(*a)),
+        plain_ms=_time_ms(lambda: SP.patch_desc_plain(*a), reps=5),
+        library_ms=None, bound_ms=bound, bound_by=by,
+    )
+
+
+def measure_mutual_match(a):
+    from multimotionfusion_tpu_torch.tracking import tracker as TR
+
+    q, t = a[0], a[1]
+    (k, d), n = q.shape, t.shape[0]
+    bound, by = _bound((k + n) * (4 * d + 1) + 4 * k + n, 2 * k * n * d + 2 * (k + n) * d + 4 * k * n)
+
+    def library():  # one distance matrix, both argmins
+        dist = torch.cdist(q, t)
+        return dist.argmin(1), dist.argmin(0)
+
+    return dict(
+        ms=_time_ms(lambda: TR.mutual_match_cuda(*a)),
+        device_ms=_device_ms(lambda: TR.mutual_match_cuda(*a)),
+        plain_ms=_time_ms(lambda: TR.mutual_match_plain(*a), reps=3),
+        library_ms=_time_ms(library), bound_ms=bound, bound_by=by,
+    )
+
+
+def measure_track_update(a):
+    from multimotionfusion_tpu_torch.tracking import tracker as TR
+
+    table, kps, depth, time_, cam, cfg, pair = a
+    match_idx, _ = TR.mutual_match_cuda(kps.desc, table.desc, kps.valid,
+                                        TR.in_history(table, time_), cfg.match_dist_gate)
+    tk = TR.TrackTable(*(x.clone() for x in table))
+    run = lambda: TR.track_update_cuda(tk, kps, match_idx, depth, time_, cam, cfg, pair)  # noqa: E731
+    cap, d = table.capacity, table.desc.shape[1]
+    k = kps.xy.shape[0]
+    # K keypoints in (xy, descriptor, flags, match, depth) and K rows out; per
+    # track the flags, the cleared slot, two ring slots' points and the pair
+    bound, by = _bound(k * (8 + 4 * d + 1 + 4 + 4) + k * (4 * d + 8 + 12 + 2 + 9)
+                       + cap * (9 + 2 + 24 + 2 + 25), 30 * cap + 20 * k)
+    return dict(
+        ms=_time_ms(run), device_ms=_device_ms(run),
+        plain_ms=_time_ms(lambda: TR.update_plain(TR.TrackTable(*(x.clone() for x in table)),
+                                                  *a[1:]), reps=3),
+        library_ms=None, bound_ms=bound, bound_by=by,
+        timing_note="the update kernels alone, given the matches; repeated on one copy of the "
+                    "recorded table",
+    )
+
+
+def measure_ransac(a):
+    from multimotionfusion_tpu_torch.ops import ransac as RS
+
+    u, p0, p1, valid, cfg = a
+    n, c = p0.shape[0], u.shape[0]
+    # the points in once; per candidate and point three passes (distance and
+    # flag, refit sums, refit distance) of ~25 operations, two 4x4 power
+    # iterations per candidate
+    bound, by = _bound(n * 25 + c * 12 + 64 + n, c * n * 75 + c * 2 * 40 * 40)
+    return dict(
+        ms=_time_ms(lambda: RS.ransac_fit_cuda(*a)), device_ms=_device_ms(lambda: RS.ransac_fit_cuda(*a)),
+        plain_ms=_time_ms(lambda: RS.ransac_fit_plain(*a), reps=3),
+        library_ms=None, bound_ms=bound, bound_by=by,
+    )
+
+
+def measure_seed_select(a):
+    from multimotionfusion_tpu_torch.odometry import rgbd
+
+    state, rest = a[0], a[1:]
+    fresh = _states(state)
+    bound, by = _bound(2 * 4 * rgbd.S_SIZE + 64 + 1 + 2 * 4 * rgbd.N_SUMS, 100)
+    return dict(
+        ms=_time_ms(lambda: rgbd.seed_select_cuda(fresh(), *rest)),
+        device_ms=_device_ms(lambda: rgbd.seed_select_cuda(fresh(), *rest)),
+        plain_ms=_time_ms(lambda: rgbd.seed_select_plain(state.clone(), *rest), reps=5),
+        library_ms=None, bound_ms=bound, bound_by=by,
+        timing_note="each call on a fresh copy of the recorded state (one 512-byte copy included)",
+    )
+
+
 CSRC = "multimotionfusion_tpu_torch/csrc/"
 JAX = "multimotionfusion_tpu/"
 
@@ -623,13 +770,46 @@ def plan():
     return p
 
 
-def check_kernels(captured, launches, n_frames):
+def plan_kp():
+    """The keypoint path's kernels, as ``plan``; a capture key None marks a
+    synthetic input (``checks.nms_inputs``)."""
+    from multimotionfusion_tpu_torch.kernels import checks as C
+
+    return [
+        ("patch_score", "patch_score", "patch_score", C.check_patch_score, measure_patch_score,
+         "keypoints.cu", "tracking/superpoint.py:190"),
+        ("nms_topk", "nms_topk", "nms_topk", C.check_nms_topk, measure_nms, "keypoints.cu",
+         "tracking/superpoint.py:143"),
+        ("nms_topk[superpoint heat]", "superpoint", "nms_topk", C.check_nms_topk, measure_nms,
+         "keypoints.cu", "tracking/superpoint.py:143"),
+        ("nms_topk[plateau]", "plateau", "nms_topk", C.check_nms_topk, measure_nms,
+         "keypoints.cu", "tracking/superpoint.py:143"),
+        ("patch_desc", "patch_desc", "patch_desc", C.check_patch_desc, measure_patch_desc,
+         "keypoints.cu", "tracking/superpoint.py:190"),
+        ("mutual_match", "mutual_match", "mutual_match", C.check_mutual_match,
+         measure_mutual_match, "tracks.cu", "tracking/tracker.py:83"),
+        ("add_keypoints+prune+last_pair", "track_update", "track_update", C.check_track_update,
+         measure_track_update, "tracks.cu", "tracking/tracker.py:116"),
+        ("ransac_fit", "ransac_fit", "ransac_fit", C.check_ransac, measure_ransac, "ransac.cu",
+         "ops/ransac.py:165"),
+        ("seed_select", "seed_select", "seed_select", C.check_seed_select, measure_seed_select,
+         "gn_step.cu", "odometry/rgbd.py:962"),
+    ]
+
+
+SYNTHETIC = ("superpoint", "plateau")
+
+
+def check_kernels(lines, captured, launches, n_frames):
     """Phase 5: each kernel against its plain version on the recorded inputs."""
     from multimotionfusion_tpu_torch.kernels import checks
 
     kernels = []
-    for name, key, launch_key, check, measure, src, rep in plan():
-        a = checks.args(key, captured[key])
+    for name, key, launch_key, check, measure, src, rep in lines:
+        if key in SYNTHETIC:
+            a = checks.nms_inputs(key, 480, 640, DEVICE)
+        else:
+            a = checks.args(key, captured[key])
         r = check(a)
         torch.cuda.synchronize()
         line = {"name": name, "route": "cuda", "source": CSRC + src, "replaces": JAX + rep,
@@ -642,17 +822,27 @@ def check_kernels(captured, launches, n_frames):
     return kernels
 
 
-def check_loop(captured) -> dict:
+def check_loop(captured, tag="odometry_loop") -> dict:
     """The whole odometry loop: kernels on the card against the plain loop on
     the CPU, from the recorded inputs of one frame."""
     from multimotionfusion_tpu_torch.kernels import checks
 
     r = checks.check_track(checks.args("track", captured["track"]))
-    print(json.dumps({"phase": "odometry_loop", **r}))
+    print(json.dumps({"phase": tag, **r}))
     return r
 
 
-def run_sync_check(engine, frames) -> int:
+def check_sparse(captured) -> dict:
+    """The sparse block of one kp frame: the kernels on the card against the
+    plain chain on the CPU, from the same inputs and uniforms."""
+    from multimotionfusion_tpu_torch.kernels import checks
+
+    r = checks.check_sparse(checks.args("sparse", captured["sparse"]))
+    print(json.dumps({"phase": "sparse_block", **r}))
+    return r
+
+
+def run_sync_check(engine, frames, tag="sync_check") -> int:
     """Phase 4: steady-state frames with the sync debug mode on around the
     frame step; returns the number of synchronising calls."""
     from multimotionfusion_tpu_torch import engine as E
@@ -681,7 +871,7 @@ def run_sync_check(engine, frames) -> int:
     ticks = list(range(first, engine.tick))
     compaction = [t for t in ticks if engine.cfg.surfels.compact_every > 0
                   and t % engine.cfg.surfels.compact_every == 0]
-    print(json.dumps({"phase": "sync_check", "frames": len(ticks), "ticks": ticks,
+    print(json.dumps({"phase": tag, "frames": len(ticks), "ticks": ticks,
                       "compaction_ticks": compaction, "synchronizing_calls": len(syncs),
                       "where": sorted(set(syncs))[:10]}))
     if not compaction:
@@ -708,18 +898,31 @@ def main() -> int:
     rest = frames[N_FRAMES + 1:]
     run_stages(K, engine, rest[:2 * STAGE_FRAMES])
     syncs = run_sync_check(engine, rest[2 * STAGE_FRAMES:])
+    del engine
 
-    missing = sorted({key for _, key, *_ in plan()} - set(captured))
+    kp_cfg = dataclasses.replace(cfg, odom_init="kp")
+    kp_engine, kp_launches, kp_captured = run_engine(K, kp_cfg, frames, gt_poses, KP_PATH,
+                                                     "kp_engine")
+    run_stages(K, kp_engine, rest[:2 * STAGE_FRAMES], "kp_stages")
+    syncs += run_sync_check(kp_engine, rest[2 * STAGE_FRAMES:], "kp_sync_check")
+    del kp_engine
+
+    missing = sorted(({key for _, key, *_ in plan()} - set(captured))
+                     | ({key for _, key, *_ in plan_kp()} - set(kp_captured) - set(SYNTHETIC))
+                     | ({"track", "sparse"} - set(kp_captured)))
     if missing:
         raise SystemExit(f"no captured inputs for {missing}")
-    kernels = check_kernels(captured, launches, N_FRAMES)
-    loop = check_loop(captured)
+    kernels = check_kernels(plan(), captured, launches, N_FRAMES)
+    kernels += check_kernels(plan_kp(), kp_captured, kp_launches, N_FRAMES)
+    loops = [check_loop(captured), check_loop(kp_captured, "odometry_loop[kp]"),
+             check_sparse(kp_captured)]
     print(json.dumps({"kernels": kernels}))
     bad = [k["name"] for k in kernels if not k["ok"]]
+    loops_ok = all(r["ok"] for r in loops)
     print(_gpu_line())
-    if bad or not loop["ok"] or syncs:
-        print(f"chip_smoke: kernels outside tolerance: {bad}; odometry loop ok: {loop['ok']}; "
-              f"synchronising calls: {syncs}", file=sys.stderr)
+    if bad or not loops_ok or syncs:
+        print(f"chip_smoke: kernels outside tolerance: {bad}; odometry loops and sparse block "
+              f"ok: {[r['ok'] for r in loops]}; synchronising calls: {syncs}", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,10 +1,12 @@
 """MultiMotionFusion in PyTorch + CUDA for one NVIDIA H100.
 
 The port of ``multimotionfusion_tpu`` (the JAX reference package, which it
-never imports). This slice covers the static (ElasticFusion-style) frame step:
-``engine.MultiMotionFusionTorch(cfg, device="cuda")``. Four hand-written CUDA
-kernels under ``csrc/`` carry its per-pixel and per-surfel work (GN reduction,
-z-buffer, fusion, splat resolve); the rest is plain PyTorch.
+never imports). It covers the static (ElasticFusion-style) frame step with
+every pose initialisation (``odom_init`` "kp", the default, "tf" and ""):
+``engine.MultiMotionFusionTorch(cfg, device="cuda")``. Hand-written CUDA
+kernels under ``csrc/`` carry its per-pixel, per-surfel and per-keypoint work
+(K1-K10 and the sparse keypoint pipeline K19-K21); the rest is PyTorch glue
+on 4x4 poses and 0-dim scalars.
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,8 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``.
 
 Every ``csrc/*.cu`` file is compiled at first use into its own shared library
-with a plain C interface (one ``nvcc`` per source, all started together)::
+with a plain C interface (one ``nvcc`` per source, all started together; the
+shared ``csrc/*.cuh`` headers are part of every source's build key)::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
          -Xptxas -v -shared -Xcompiler -fPIC \
@@ -63,11 +64,12 @@ def build_all() -> float:
     """Compile (in parallel) and load every ``csrc/*.cu``; returns seconds taken."""
     t0 = time.time()
     sources = sorted(CSRC.glob("*.cu"))
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     todo = []
     for src in sources:
         if src.stem in _libs:
             continue
-        digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+        digest = hashlib.sha1(src.read_bytes() + headers).hexdigest()[:12]
         out = BUILD_DIR / f"{src.stem}-{digest}.so"
         todo.append((src, out))
     if not todo:

@@ -11,6 +11,8 @@ both hold the kernels to these checks. Needs a GPU.
 
 from __future__ import annotations
 
+import copy
+
 import torch
 
 from multimotionfusion_tpu_torch.model import fillin
@@ -19,7 +21,10 @@ from multimotionfusion_tpu_torch.model import surfel_map as sm
 from multimotionfusion_tpu_torch.odometry import levels as LV
 from multimotionfusion_tpu_torch.odometry import rgbd
 from multimotionfusion_tpu_torch.ops import frame_maps as FM
+from multimotionfusion_tpu_torch.ops import ransac as RS
 from multimotionfusion_tpu_torch.ops import rasterize as R
+from multimotionfusion_tpu_torch.tracking import superpoint as SP
+from multimotionfusion_tpu_torch.tracking import tracker as TR
 
 _ARG_NAMES = {
     "zbuffer": ("data", "count", "T_inv", "cam", "time", "time_delta", "max_depth",
@@ -38,10 +43,19 @@ _ARG_NAMES = {
     "so3_reduce": ("last_img", "next_img", "cam_l", "state"),
     "so3_step": ("state", "sums"),
     "gn_step": ("state", "sums", "sp", "last"),
-    "track": ("T_prev", "gl", "last_next_img_l2", "cfg", "cam"),
+    "track": ("T_prev", "gl", "last_next_img_l2", "cfg", "cam", "T_init", "seed_valid"),
     "clean": ("data", "count", "index", "data_local", "depth", "mask", "mask_id", "cam", "time",
               "time_delta", "conf_threshold", "cfg", "compact"),
     "compact": ("data", "keep", "capacity"),
+    "patch_score": ("intensity",),
+    "nms_topk": ("heat", "max_kp", "conf_thresh", "nms_radius"),
+    "patch_desc": ("blurred", "xy"),
+    "mutual_match": ("q_desc", "t_desc", "q_valid", "t_valid", "max_dist"),
+    "track_update": ("table", "kps", "depth", "time", "cam", "cfg", "pair"),
+    "ransac_fit": ("u", "p0", "p1", "valid", "cfg"),
+    "seed_select": ("state", "seed_Rt", "seed_valid", "sums_cur", "sums_so3", "scale2",
+                    "use_icp", "arbitrate"),
+    "sparse": ("img", "tracks", "depth_filt", "time", "u", "cam", "cfg"),
 }
 
 
@@ -293,16 +307,19 @@ def check_gn_step(a: tuple) -> dict:
 def check_track(a: tuple) -> dict:
     """The whole device loop (kernels, CUDA tensors) against the plain loop
     on copies of the same inputs on the CPU."""
-    T_prev, gl, last, cfg, cam = a
-    rk = rgbd.track(T_prev, gl, last, cfg, cam)
-    host = lambda t: t.cpu() if isinstance(t, torch.Tensor) else t  # noqa: E731
-    glc = [rgbd.GNLevel(*(host(x) for x in g)) for g in gl]
-    rp = rgbd.track(T_prev.cpu(), glc, last.cpu(), cfg, cam)
+    T_prev, gl, last, cfg, cam, T_init, seed_valid = a
+    rk = rgbd.track(T_prev, gl, last, cfg, cam, T_init, seed_valid)
+    glc = [rgbd.GNLevel(*(_host(x) for x in g)) for g in gl]
+    rp = rgbd.track(T_prev.cpu(), glc, last.cpu(), cfg, cam, _host(T_init), _host(seed_valid))
     dt, dr = _pose_err(rk.pose, rp.pose)
     ik, ip = rgbd.loop_iterations(rk), rgbd.loop_iterations(rp)
     return dict(max_abs_err=max(dt, dr), trans_err_m=dt, rot_err_rad=dr, iterations_kernel=ik,
                 iterations_plain=ip, ok=dt <= 1e-5 and dr <= 1e-5 and ik == ip,
                 tolerance="final pose within 1e-5 m and 1e-5 rad, iterations of every loop equal")
+
+
+def _host(t):
+    return t.cpu() if isinstance(t, torch.Tensor) else t
 
 
 def _clean_pair(a: tuple):
@@ -338,3 +355,135 @@ def check_compact(a: tuple) -> dict:
                 count_plain=int(cp), columns_differ=differ,
                 ok=int(ck) == int(cp) > 0 and differ == 0,
                 tolerance="count exact, packed map (order, zeroed tail) exact")
+
+
+# ---------------------------------------------------------------- keypoint path
+
+def _maxerr(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def check_patch_score(a: tuple) -> dict:
+    (sk, bk), (sp, bp) = SP.patch_score_cuda(*a), SP.patch_score_plain(*a)
+    err = max(_maxerr(sk, sp), _maxerr(bk, bp))
+    return dict(max_abs_err=err, score_differ=int((sk != sp).sum()),
+                blurred_differ=int((bk != bp).sum()), positive_scores=int((sp > 0).sum()),
+                ok=bool((sk == sp).all()) and bool((bk == bp).all()) and int((sp > 0).sum()) > 0,
+                tolerance="score and blurred intensity bit-equal (same taps, order and weights, "
+                          "-fmad=false)")
+
+
+def check_nms_topk(a: tuple) -> dict:
+    xk, sk, vk = SP.nms_topk_cuda(*a)
+    xp, spl, vp = SP.nms_topk_plain(*a)
+    eq = bool((xk == xp).all()) and bool((sk == spl).all()) and bool((vk == vp).all())
+    return dict(max_abs_err=max(_maxerr(xk, xp), _maxerr(sk, spl)), valid_kernel=int(vk.sum()),
+                valid_plain=int(vp.sum()), slots_differ=int(((xk != xp).any(-1) | (sk != spl)).sum()),
+                ok=eq, tolerance="xy, score and valid equal in every slot (exact top-k, ties to "
+                                 "the lower flat index)")
+
+
+def check_patch_desc(a: tuple) -> dict:
+    dk, dp = SP.patch_desc_cuda(*a), SP.patch_desc_plain(*a)
+    return dict(max_abs_err=_maxerr(dk, dp), values_differ=int((dk != dp).sum()),
+                ok=bool((dk == dp).all()),
+                tolerance="descriptors bit-equal (the warp's summation order repeated)")
+
+
+def check_mutual_match(a: tuple) -> dict:
+    mk, tk = TR.mutual_match_cuda(*a)
+    mp, tp = TR.mutual_match_plain(*a)
+    return dict(max_abs_err=0.0, matches_kernel=int((mk >= 0).sum()),
+                matches_plain=int((mp >= 0).sum()), differ=int((mk != mp).sum()),
+                ok=bool((mk == mp).all()) and bool((tk == tp).all()) and int((mp >= 0).sum()) > 0,
+                tolerance="match indices and matched tracks equal (sums over d in the same order)")
+
+
+def _table_copy(table):
+    return TR.TrackTable(*(t.clone() for t in table))
+
+
+def check_track_update(a: tuple) -> dict:
+    """Kernel and plain update, each on its own copy of the recorded table:
+    all nine fields and the (p0, p1, valid) pair compared whole."""
+    table, rest = a[0], a[1:]
+    tk, tp = _table_copy(table), _table_copy(table)
+    pk = TR.update_cuda(tk, *rest)
+    pp = TR.update_plain(tp, *rest)
+    differ = {f: int((getattr(tk, f) != getattr(tp, f)).sum()) for f in TR.FIELDS}
+    pair_differ = 0 if pk is None else sum(int((x != y).sum()) for x, y in zip(pk, pp))
+    err = max(_maxerr(tk.p3d, tp.p3d), _maxerr(tk.xy, tp.xy), _maxerr(tk.desc, tp.desc))
+    return dict(max_abs_err=err, fields_differ=differ, pair_differ=pair_differ,
+                active_tracks=int(tp.active.sum()),
+                pairs=0 if pp is None else int(pp[2].sum()),
+                ok=sum(differ.values()) == 0 and pair_differ == 0 and int(tp.active.sum()) > 0,
+                tolerance="every field of the table and the pair equal")
+
+
+def check_ransac(a: tuple) -> dict:
+    rk, ik = RS.ransac_fit_cuda(*a, want_idx=True)
+    rp, ip = RS.ransac_fit_plain(*a, want_idx=True)
+    t_err = _maxerr(rk.transform, rp.transform)
+    e_k, e_p = float(rk.error), float(rp.error)
+    e_eq = e_k == e_p or abs(e_k - e_p) <= 1e-6 * abs(e_p)
+    exact = bool((ik == ip).all()) and bool((rk.inliers == rp.inliers).all()) and \
+        int(rk.num_inliers) == int(rp.num_inliers) and bool(rk.ok) == bool(rp.ok)
+    return dict(max_abs_err=t_err, error_kernel=e_k, error_plain=e_p,
+                num_inliers=int(rp.num_inliers), ok_flag=bool(rp.ok),
+                ok=exact and t_err <= 1e-6 and e_eq,
+                tolerance="minimal sets, inliers, num_inliers and ok equal; T within 1e-6 and "
+                          "error within 1e-6 relative (the same sums in the same order; the "
+                          "bound covers a reciprocal PyTorch may take for a division)")
+
+
+def check_seed_select(a: tuple) -> dict:
+    state, rest = a[0], a[1:]
+    sk, sp = state.clone(), state.clone()
+    rgbd.seed_select_cuda(sk, *rest)
+    rgbd.seed_select_plain(sp, *rest)
+    sk, sp = sk.cpu(), sp.cpu()
+    S = rgbd
+    rt = slice(S.S_RT, S.S_RT + 16)
+    inv = slice(S.S_RT_INV, S.S_RT_INV + 16)
+    err = _maxerr(sk[inv], sp[inv])
+    return dict(max_abs_err=err, result_Rt_equal=bool((sk[rt] == sp[rt]).all()),
+                ok=bool((sk[rt] == sp[rt]).all()) and err <= 1e-6,
+                tolerance="chosen result_Rt equal; its inverse within 1e-6 (the plain version "
+                          "inverts with einsum)")
+
+
+def check_sparse(a: tuple, sp_net=None) -> dict:
+    """Detect -> table -> RANSAC: the kernels on the card against the plain
+    chain on CPU copies of the same inputs (the same uniforms)."""
+    from multimotionfusion_tpu_torch import engine as E
+
+    img, tracks, depth, time, u, cam, cfg = a
+    rk = E.sparse_fit(img, _table_copy(tracks), depth, time, u, cam, cfg, sp_net)
+    net_cpu = None if sp_net is None else copy.deepcopy(sp_net).cpu()
+    rp = E.sparse_fit(img.cpu(), TR.TrackTable(*(t.cpu() for t in tracks)), depth.cpu(), time,
+                      u.cpu(), cam, cfg, net_cpu)
+    t_err = _maxerr(rk.transform.cpu(), rp.transform)
+    same = int(rk.num_inliers) == int(rp.num_inliers) and bool(rk.ok) == bool(rp.ok)
+    return dict(max_abs_err=t_err, num_inliers_kernel=int(rk.num_inliers),
+                num_inliers_plain=int(rp.num_inliers), ok_kernel=bool(rk.ok),
+                ok_plain=bool(rp.ok), ok=same and t_err <= 1e-5,
+                tolerance="T within 1e-5, num_inliers and ok equal")
+
+
+def nms_inputs(kind: str, h: int, w: int, device, seed: int = 0) -> tuple:
+    """``nms_topk`` arguments on synthetic heat maps: ``plateau`` (a constant
+    block holding more peaks than K, every pixel of it a peak), ``random``
+    (uniform scores, radius 4) and ``superpoint`` (the heat map of a
+    random-weight SuperPoint on a random image)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    if kind == "plateau":
+        heat = torch.zeros((h, w))
+        heat[h // 4:3 * h // 4, w // 4:3 * w // 4] = 3.0
+        return heat.to(device), 512, 1.0, 4
+    if kind == "random":
+        return torch.rand((h, w), generator=g).to(device), 512, 0.5, 4
+    torch.manual_seed(seed)
+    net = SP.SuperPointNet().to(device).eval()
+    img = torch.rand((h, w), generator=g).to(device)
+    heat, _ = SP.superpoint_apply(net, img)
+    return heat.contiguous(), 512, 0.0, 4

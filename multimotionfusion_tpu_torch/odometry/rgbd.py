@@ -16,6 +16,10 @@ Port of the reference package's ``odometry/rgbd.py``, with its loops on the card
   same as the kernels'). The host enqueues the fixed iteration budget and
   reads nothing back: the reductions return at once once their loop is done,
   as the reference's ``lax.while_loop`` skips the remaining iterations;
+- a seeded solve (an external pose seed ``T_init`` with its validity flag
+  on the card, the keypoint initialisation) starts the Gauss-Newton loop from
+  the seed or the SO(3) pose: ``seed_select`` (K5) picks by validity and, by
+  two ``gn_reduce`` evaluations at the coarsest level, by the dense error;
 - the 0.3 m divergence guard reverts the whole update (a device select).
 
 On CPU tensors every wrapper takes its plain PyTorch version (same module).
@@ -23,7 +27,7 @@ On CPU tensors every wrapper takes its plain PyTorch version (same module).
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -711,6 +715,60 @@ def gn_step(state: torch.Tensor, sums: torch.Tensor, sp: StepParams, last: bool)
     (gn_step_cuda if state.is_cuda else gn_step_plain)(state, sums, sp, last)
 
 
+def arbitration_error(sums: torch.Tensor, scale2: float, use_icp: bool) -> torch.Tensor:
+    """Error of one seed-arbitration evaluation: the ICP error when ICP is
+    on, else the photometric error; inf under 60 correspondences."""
+    s = sums.to(HOST)
+    sc = torch.tensor(scale2, dtype=F32)
+    if use_icp:
+        cnt = s[56] * sc
+        e = torch.sqrt(sc * s[27]) / torch.clamp(cnt, min=1.0)
+    else:
+        cnt = s[57] * sc
+        e = torch.sqrt(s[58] * sc) / torch.clamp(cnt, min=1.0)
+    return torch.where(cnt >= 60, e, torch.full_like(e, float("inf")))
+
+
+def seed_select_plain(state, seed_Rt, seed_valid, sums_cur, sums_so3, scale2: float,
+                      use_icp: bool, arbitrate: bool) -> None:
+    """Plain K5 (seed selection), in place: result_Rt = the seed where it is
+    valid, else the SO(3) pose; with ``arbitrate`` the choice is kept only
+    when its error is no worse than the SO(3) pose's."""
+    s = state.to(HOST).clone()
+    so3 = s[S_RT:S_RT + 16].reshape(4, 4).clone()
+    cur = seed_Rt.to(HOST, F32) if bool(seed_valid) else so3
+    keep = True
+    if arbitrate:
+        keep = bool(arbitration_error(sums_cur, scale2, use_icp)
+                    <= arbitration_error(sums_so3, scale2, use_icp))
+    _write_pose(s, cur if keep else so3)
+    state.copy_(s)
+
+
+def seed_select_cuda(state, seed_Rt, seed_valid, sums_cur, sums_so3, scale2: float,
+                     use_icp: bool, arbitrate: bool) -> None:
+    """K5 (seed selection) on the card: ``csrc/gn_step.cu``."""
+    K.check(state, F32, "state")
+    check_pose(seed_Rt, "seed_Rt")
+    K.check(seed_valid, torch.bool, "seed_valid")
+    if arbitrate:
+        K.check(sums_cur, F32, "sums_cur")
+        K.check(sums_so3, F32, "sums_so3")
+    f = K.fn("gn_step", "mmf_seed_select", [K.P] * 5 + [K.F, K.I, K.I])
+    K.call("seed_select", f, K.ptr(state), K.ptr(seed_Rt), K.ptr(seed_valid),
+           K.ptr(sums_cur) if arbitrate else None, K.ptr(sums_so3) if arbitrate else None,
+           float(scale2), int(use_icp), int(arbitrate))
+
+
+def seed_select(state, seed_Rt, seed_valid, sums_cur, sums_so3, scale2: float, use_icp: bool,
+                arbitrate: bool) -> None:
+    K.record("seed_select", state=state, seed_Rt=seed_Rt, seed_valid=seed_valid,
+             sums_cur=sums_cur, sums_so3=sums_so3, scale2=scale2, use_icp=use_icp,
+             arbitrate=arbitrate)
+    impl = seed_select_cuda if state.is_cuda else seed_select_plain
+    impl(state, seed_Rt, seed_valid, sums_cur, sums_so3, scale2, use_icp, arbitrate)
+
+
 # ---------------------------------------------------------------- driver
 
 def gn_level(level: LevelData, i: int, cfg: OdometryConfig, cam: CameraModel,
@@ -745,15 +803,23 @@ def level_stride(i: int, cfg: OdometryConfig, cam: CameraModel) -> int:
 
 
 def track(T_prev: torch.Tensor, gl: List[GNLevel], last_next_img_l2: torch.Tensor,
-          cfg: OdometryConfig, cam: CameraModel) -> OdometryResult:
+          cfg: OdometryConfig, cam: CameraModel, T_init: Optional[torch.Tensor] = None,
+          seed_valid: Optional[torch.Tensor] = None) -> OdometryResult:
     """SO(3) pre-alignment then the coarse-to-fine GN loop on ``gl`` (index 0
     = finest), every iteration enqueued; nothing is read back. Returns views
-    of the loop state."""
+    of the loop state.
+
+    With ``T_init`` (a pose seed, e.g. the keypoint initialisation) the GN
+    loop starts from ``inv(T_init) @ T_prev`` where ``seed_valid`` (0-dim
+    bool on the device; True when None) is set and the SO(3) pose otherwise,
+    and before the coarsest level the dense error at that start and at the
+    SO(3) pose decides which one it keeps."""
     if cfg.error_images:
         raise NotImplementedError("odometry error images are not ported yet (ROADMAP.md)")
     use_icp = (not cfg.rgb_only) and cfg.icp_weight > 0
     use_rgb = cfg.rgb_only or cfg.icp_weight < 100
-    K.record("track", T_prev=T_prev, gl=gl, last_next_img_l2=last_next_img_l2, cfg=cfg, cam=cam)
+    K.record("track", T_prev=T_prev, gl=gl, last_next_img_l2=last_next_img_l2, cfg=cfg, cam=cam,
+             T_init=T_init, seed_valid=seed_valid)
     T_prev = T_prev.to(F32)
     st = odo_init(T_prev.device)
     if cfg.so3_prealign and cfg.so3_iterations > 0:
@@ -767,6 +833,8 @@ def track(T_prev: torch.Tensor, gl: List[GNLevel], last_next_img_l2: torch.Tenso
     schedule = cfg.schedule()
     Rt_inv = st[S_RT_INV:S_RT_INV + 16].view(4, 4)
     done = st[S_GN_DONE]
+    if T_init is not None:
+        _seed(st, T_prev, T_init, seed_valid, gl, params, cfg, cam, use_icp)
     for i in range(cfg.num_pyr - 1, -1, -1):
         iters = schedule[i]
         if iters == 0:
@@ -788,6 +856,28 @@ def track(T_prev: torch.Tensor, gl: List[GNLevel], last_next_img_l2: torch.Tenso
     )
 
 
+def _seed(st, T_prev, T_init, seed_valid, gl, params: GNParams, cfg: OdometryConfig,
+          cam: CameraModel, use_icp: bool) -> None:
+    """Seed selection of a seeded solve: two evaluations at the coarsest
+    level (at the chosen start and at the SO(3) pose), then ``seed_select``."""
+    dev = T_prev.device
+    seed_Rt = (se3.inverse_T(T_init.to(F32)) @ T_prev).contiguous()
+    if seed_valid is None:
+        seed_valid = torch.ones((), dtype=torch.bool, device=dev)
+    lvl = cfg.num_pyr - 1
+    lv = gl[lvl]
+    scale2 = float(lv.stride * lv.stride)
+    arbitrate = cfg.schedule()[lvl] > 0
+    sums_cur = sums_so3 = None
+    if arbitrate:
+        so3_Rt = st[S_RT:S_RT + 16].view(4, 4)
+        cur_inv = se3.inverse_T(torch.where(seed_valid, seed_Rt, so3_Rt)).contiguous()
+        so3_inv = st[S_RT_INV:S_RT_INV + 16].view(4, 4)
+        sums_cur = gn_reduce(lv, cur_inv, cam.level(lvl), scale2, params, level=lvl)
+        sums_so3 = gn_reduce(lv, so3_inv, cam.level(lvl), scale2, params, level=lvl)
+    seed_select(st, seed_Rt, seed_valid, sums_cur, sums_so3, scale2, use_icp, arbitrate)
+
+
 def loop_iterations(result: OdometryResult) -> dict:
     """Iterations each loop ran, {"so3": n, "L0": n, "L1": n, "L2": n} (a host read)."""
     st = result.state.to(HOST)
@@ -804,6 +894,8 @@ def get_incremental_transformation(
     cfg: OdometryConfig,
     cam: CameraModel,
     mask_id: int = 0,
+    T_init: Optional[torch.Tensor] = None,
+    seed_valid: Optional[torch.Tensor] = None,
 ) -> OdometryResult:
     """Multi-level GN odometry (RGBDOdometry::getIncrementalTransformation).
 
@@ -811,4 +903,4 @@ def get_incremental_transformation(
     was rendered at. levels: per-level inputs, index 0 = finest.
     last_next_img_l2: previous frame's coarsest intensity."""
     gl = [gn_level(levels[i], i, cfg, cam, mask_id) for i in range(cfg.num_pyr)]
-    return track(T_prev, gl, last_next_img_l2, cfg, cam)
+    return track(T_prev, gl, last_next_img_l2, cfg, cam, T_init, seed_valid)

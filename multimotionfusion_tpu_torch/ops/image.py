@@ -1,4 +1,5 @@
-"""Image-space ops: intensity, pyramids, Sobel gradients, bilateral depth filter.
+"""Image-space ops: intensity, pyramids, Sobel gradients, bilateral depth
+filter, and the keypoint detectors' Gaussian blur and bilinear sampling.
 
 Port of the reference package's ``ops/image.py`` in plain PyTorch: the plain
 versions of kernels K1 (``csrc/frame_maps.cu``, the bilateral filter) and K2
@@ -110,6 +111,49 @@ def sobel_gradients(intensity: torch.Tensor):
     dx = torch.trunc(_conv2d(intensity, _SOBEL_X))
     dy = torch.trunc(_conv2d(intensity, _SOBEL_Y))
     return dx, dy
+
+
+def gaussian_weights(sigma: float, radius: int) -> np.ndarray:
+    """The reference's normalised 1-D Gaussian taps, computed as it computes
+    them (numpy float32), so the port's weights are the same float32 values."""
+    xs = np.arange(-radius, radius + 1, dtype=np.float32)
+    k = np.exp(-(xs**2) / (2.0 * sigma**2))
+    k /= k.sum()
+    return k
+
+
+def gaussian_blur(img: torch.Tensor, sigma: float, radius: int) -> torch.Tensor:
+    """Separable Gaussian blur of [H, W]: horizontal then vertical, zero
+    padding, taps accumulated in order from a zero image (the reference's)."""
+    k = gaussian_weights(sigma, radius)
+    h, w = img.shape
+    padded = F.pad(img, (radius, radius))
+    out = torch.zeros_like(img)
+    for i in range(2 * radius + 1):
+        out = out + float(k[i]) * padded[:, i:i + w]
+    padded = F.pad(out, (0, 0, radius, radius))
+    out2 = torch.zeros_like(img)
+    for i in range(2 * radius + 1):
+        out2 = out2 + float(k[i]) * padded[i:i + h, :]
+    return out2
+
+
+def bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Bilinear interpolation of [H, W] or [H, W, C] at float pixel coords,
+    clamped to the border (GL_CLAMP_TO_EDGE)."""
+    h, w = img.shape[:2]
+    x = torch.clamp(x, 0.0, w - 1.0)
+    y = torch.clamp(y, 0.0, h - 1.0)
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.floor(y).to(torch.int64)
+    x1 = torch.clamp(x0 + 1, max=w - 1)
+    y1 = torch.clamp(y0 + 1, max=h - 1)
+    fx = x - x0.to(img.dtype)
+    fy = y - y0.to(img.dtype)
+    if img.ndim == 3:
+        fx, fy = fx[..., None], fy[..., None]
+    return (img[y0, x0] * (1 - fx) * (1 - fy) + img[y0, x1] * fx * (1 - fy)
+            + img[y1, x0] * (1 - fx) * fy + img[y1, x1] * fx * fy)
 
 
 def bilateral_depth_filter(

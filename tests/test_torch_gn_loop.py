@@ -15,7 +15,12 @@ reference package.
   loops inside ``lax.while_loop`` and does not report where they stopped, so
   ``_reference_loop`` replays the same loop bodies eagerly from the package's
   own functions (its pose is held to the jitted function's within 1e-5) and
-  counts the iterations.
+  counts the iterations;
+- the seeded solve (a pose seed ``T_init`` with its validity, the keypoint
+  initialisation) against ``get_incremental_transformation(seeded=True)``
+  with the true pose as the seed, the seed 5 cm off (the seed arbitration
+  must fall back to the SO(3) pose) and an invalid seed: the same bounds and
+  exit iterations, and the start the arbitration kept.
 """
 
 import functools
@@ -68,9 +73,13 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def _reference_loop(levels, last_l2):
+def _reference_loop(levels, last_l2, T_init=None, seed_valid=True):
     """The reference's SO(3) and GN loop bodies (rgbd.py:735-774, :988-1051),
-    run eagerly: (pose, {"so3": n, "L0": n, "L1": n, "L2": n}, {loop: exit})."""
+    run eagerly: (pose, {"so3": n, "L0": n, "L1": n, "L2": n}, {loop: exit}).
+    With ``T_init`` (T_prev = I), the seeded solve: the GN loop starts from
+    the seed where ``seed_valid`` and the SO(3) pose otherwise, and the seed
+    arbitration (rgbd.py:962-983) keeps it only when its coarse error is no
+    worse than the SO(3) pose's (``exits["seed"]`` says which one ran)."""
     f32 = jnp.float32
     lvl = CFG.num_pyr - 1
     cam_l = CAM.level(lvl)
@@ -97,7 +106,10 @@ def _reference_loop(levels, last_l2):
         if converged or diverging:
             exits["so3"] = "converged" if converged else "diverging"
             break
-    result_Rt = jnp.eye(4, dtype=f32).at[:3, :3].set(R)
+    so3_Rt = jnp.eye(4, dtype=f32).at[:3, :3].set(R)
+    result_Rt = so3_Rt
+    if T_init is not None:
+        result_Rt = jse3.inverse_T(jnp.asarray(T_init, f32)) if seed_valid else so3_Rt
     for i in range(CFG.num_pyr - 1, -1, -1):
         level, cam_l = levels[i], CAM.level(i)
         if i == 0:
@@ -115,8 +127,10 @@ def _reference_loop(levels, last_l2):
         vm, nm = level.vmap_curr[::s, ::s], level.nmap_curr[::s, ::s]
         img, dx, dy, svs = (a[::s, ::s] for a in (level.img_next, level.didx, level.didy, sv))
         scale2 = jnp.float32(s * s)
-        for j in range(CFG.iterations[i]):
-            Rt_inv = jse3.inverse_T(result_Rt)
+
+        def evaluate(Rt, cam_l=cam_l, sampler=sampler, vm=vm, nm=nm, img=img, dx=dx, dy=dy,
+                     svs=svs, scale2=scale2):
+            Rt_inv = jse3.inverse_T(Rt)
             Ri, ti = Rt_inv[:3, :3], Rt_inv[:3, 3]
             vcp = jnp.einsum("ij,hwj->hwi", Ri, vm, precision=jax.lax.Precision.HIGHEST) + ti
             z = vcp[..., 2]
@@ -133,7 +147,19 @@ def _reference_loop(levels, last_l2):
                                               CFG.sobel_scale)
             S_icp, icnt, _ = jrgbd.icp_system(ps, vcp, nm, Ri, vm[..., 2] > 0, CFG.dist_thresh,
                                               CFG.angle_thresh)
-            S_icp, icp_cnt = scale2 * S_icp, icnt.astype(f32) * scale2
+            return scale2 * S_icp, icnt.astype(f32) * scale2, S_rgb, rgb_size
+
+        if i == lvl and T_init is not None:
+            def arb_err(Rt):
+                S_i, cnt_i, _, _ = evaluate(Rt)
+                e = jnp.sqrt(S_i[6, 6]) / jnp.maximum(cnt_i, 1.0)
+                return float(jnp.where(cnt_i >= 60, e, jnp.inf))
+
+            keep = arb_err(result_Rt) <= arb_err(so3_Rt)
+            exits["seed"] = "seed" if keep and seed_valid else "so3"
+            result_Rt = result_Rt if keep else so3_Rt
+        for j in range(CFG.iterations[i]):
+            S_icp, icp_cnt, S_rgb, rgb_size = evaluate(result_Rt)
             w = CFG.icp_weight
             A = S_rgb[:6, :6] + w * w * S_icp[:6, :6]
             b = S_rgb[:6, 6] + w * w * S_icp[:6, 6]
@@ -242,3 +268,30 @@ def test_solve_and_clamp_match_reference(spectrum):
             cj = np.asarray(jrgbd.clamp_step(jnp.asarray(xj)))
             ct = trgbd.clamp_step(_t(xj)).numpy()
             np.testing.assert_allclose(ct, cj, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("seed", ["true_pose", "off_5cm", "invalid"])
+def test_seeded_track_matches_reference(seed):
+    T_b = np.asarray(synthetic.pose((0.0, 0.02, 0.0), (0.01, 0.0, 0.0)), np.float32)
+    T_init = T_b.copy()
+    if seed == "off_5cm":
+        T_init[0, 3] += 0.05
+    valid = seed != "invalid"
+    levels, last = _levels(T_b)
+    res_j = jrgbd.get_incremental_transformation(
+        jnp.eye(4), levels, last, CFG, CAM, 0, T_init=jnp.asarray(T_init), seeded=True,
+        seed_valid=jnp.asarray(valid))
+    pose_j = np.asarray(res_j.pose, np.float64)
+    pose_e, iters_e, exits = _reference_loop(levels, last, T_init=T_init, seed_valid=valid)
+    np.testing.assert_allclose(pose_e, pose_j, rtol=0, atol=1e-5)
+    assert exits["seed"] == ("seed" if seed == "true_pose" else "so3"), exits
+    levels_t = [trgbd.LevelData(*(_t(a) for a in lv)) for lv in levels]
+    res_t = trgbd.get_incremental_transformation(torch.eye(4), levels_t, _t(last), TCFG, TCAM,
+                                                 T_init=_t(T_init), seed_valid=torch.tensor(valid))
+    pose_t = res_t.pose.numpy().astype(np.float64)
+    delta = np.linalg.inv(pose_j) @ pose_t
+    assert np.linalg.norm(delta[:3, 3]) <= 1e-5, (pose_t, pose_j)
+    assert np.linalg.norm(delta[:3, :3] - np.eye(3)) / np.sqrt(2.0) <= 1e-4
+    iters_t = trgbd.loop_iterations(res_t)
+    assert iters_t == {k: iters_e.get(k, 0) for k in iters_t}, (iters_t, iters_e)
+    assert np.linalg.norm(pose_t[:3, 3] - T_b[:3, 3]) < 2e-3

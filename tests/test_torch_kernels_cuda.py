@@ -6,13 +6,15 @@ JAX, so it runs on a machine without it:
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider \
         tests/test_torch_kernels_cuda.py
 
-A 30-frame 160x120 run of the port's engine on the card records the inputs
-each kernel saw at its last frame (the first frame's compaction and a
-compaction frame's clean from frames of their own); every test replays them
-through the kernel and the plain version and holds them to the tolerances
-of ``multimotionfusion_tpu_torch.kernels.checks``, as chip_smoke.py does at
+A 30-frame 160x120 run of the port's engine on the card (``odom_init="kp"``,
+so the keypoint kernels run too) records the inputs each kernel saw at its
+last frame (the first frame's compaction and a compaction frame's clean from
+frames of their own); every test replays them through the kernel and the
+plain version and holds them to the tolerances of
+``multimotionfusion_tpu_torch.kernels.checks``, as chip_smoke.py does at
 640x480 (the kernels build with -fmad=false, so where both evaluate the same
-expression they round alike).
+expression they round alike). ``nms_topk`` also runs on synthetic heat maps
+(a plateau larger than K, random scores, a random-weight SuperPoint).
 """
 
 import pytest
@@ -43,7 +45,12 @@ CASES = (
        ("clean.compact", checks.check_clean), ("compact", checks.check_compact),
        ("splat_resolve", checks.check_splat)]
     + [(f"gn_reduce.L{lvl}", lambda a, lvl=lvl: checks.check_gn(a, lvl)) for lvl in LEVELS]
+    + [("patch_score", checks.check_patch_score), ("nms_topk", checks.check_nms_topk),
+       ("patch_desc", checks.check_patch_desc), ("mutual_match", checks.check_mutual_match),
+       ("track_update", checks.check_track_update), ("ransac_fit", checks.check_ransac),
+       ("seed_select", checks.check_seed_select), ("sparse", checks.check_sparse)]
 )
+NOT_KERNELS = ("track", "sparse")  # whole-chain checks, no launch key of their own
 
 
 def _capture_key(name: str) -> str:
@@ -55,7 +62,7 @@ def _capture_key(name: str) -> str:
 def captured():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
-    cfg = EngineConfig(camera=CAM, enable_multi_model=False, odom_init="",
+    cfg = EngineConfig(camera=CAM, enable_multi_model=False, odom_init="kp",
                        surfels=SurfelConfig(max_surfels=1 << 16))
     frames = list(SyntheticLogReader(CAM, num_frames=FRAMES + 1))
     K.reset_launches()
@@ -73,7 +80,7 @@ def captured():
             out.update(K.stop_capture())
     torch.cuda.synchronize()
     for name, _ in CASES:
-        if name != "track":
+        if name not in NOT_KERNELS:
             assert K.LAUNCHES.get(name, 0) > 0, name
     return out
 
@@ -82,4 +89,12 @@ def captured():
 def test_kernel_matches_plain(captured, name, check):
     key = _capture_key(name)
     r = check(checks.args(key, captured[key]))
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("kind", ["plateau", "random", "superpoint"])
+def test_nms_topk_synthetic_heat(kind):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
+    r = checks.check_nms_topk(checks.nms_inputs(kind, CAM.height, CAM.width, "cuda"))
     assert r["ok"], r
