@@ -42,6 +42,25 @@ Phases (any failure exits non-zero):
    a random-weight SuperPoint heat map and on a plateau), the seeded
    odometry loop, and the sparse block (detect -> track table -> RANSAC on
    the card against the plain chain on the CPU, same uniforms);
+5b. the multi-model path (``enable_multi_model=True``, external masks:
+   ``segmentation.mode="precomputed"``, 5 object slots of 2^16 surfels,
+   2^19 global surfels, spawn cool-down 4, ``odom_init="kp"``): the
+   reference package's bench.py::bench_multi_model scene (five textured
+   spheres orbiting in front of a static camera) at 640x480, the masks
+   computed here by a ray-sphere test (id k + 1 where sphere k is the
+   front-most surface), 1 init frame + 40 frames with launch counts reset
+   before: frames 11-20 under the sync check (a spawn and a compaction
+   frame among them: 0 synchronising calls), frames 21-40 timed; print the
+   per-frame active model count, the spawn ticks, median and p75 ms/frame,
+   each kernel's launches and each object's error at its sphere's centre
+   (``sphere_errors``); require 5 active models at the end, camera drift < 0.08 m
+   (tests/test_five_movers.py's bound), each sphere within 2 cm of its
+   centre on every frame, every kernel of the path launched
+   and no ``*_plain`` call; then its stage breakdown; then each new kernel
+   (K11 per level and its owner prep, K5's M-wide steps, K12, K14 fuse and
+   clean, K10 composite) against its plain version on the inputs of the
+   last frame, and the composite odometry loop on the card against the
+   plain loop on the CPU;
 6. print ``{"kernels": [...]}``, the card's name and power limit, and as the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -86,6 +105,18 @@ MAIN_PATH = (
 )
 KP_PATH = MAIN_PATH + ("patch_score", "nms_topk", "patch_desc", "mutual_match", "track_update",
                        "ransac_fit", "seed_select")
+MULTI_FRAMES = 40
+MULTI_SYNC = (11, 21)  # frames 11..20 = ticks 12..21: spawns at 14 and 18, compaction at 16
+MULTI_TIMED_FROM = 21
+MULTI_PATH = (
+    ("frame_maps.filter", "frame_maps.surfels", "so3_reduce", "so3_step", "compact",
+     "zbuffer.flat", "fuse_flat", "clean_flat", "splat_resolve.composite", "patch_score",
+     "nms_topk", "patch_desc", "mutual_match", "track_update", "ransac_fit", "multi_init",
+     "multi_seed", "multi_arbitrate", "gn_step_multi")
+    + tuple(f"pyramid.{side}.L{lvl}" for side in ("frame", "pred") for lvl in LEVELS)
+    + tuple(f"owner_prep.L{lvl}" for lvl in LEVELS)
+    + tuple(f"gn_multi.L{lvl}" for lvl in LEVELS)
+)
 
 
 def _gpu_line() -> str:
@@ -151,7 +182,7 @@ PORT_MODULES = (
     "multimotionfusion_tpu_torch.odometry.rgbd", "multimotionfusion_tpu_torch.model.fusion",
     "multimotionfusion_tpu_torch.model.fillin", "multimotionfusion_tpu_torch.model.surfel_map",
     "multimotionfusion_tpu_torch.tracking.superpoint", "multimotionfusion_tpu_torch.tracking.tracker",
-    "multimotionfusion_tpu_torch.ops.ransac",
+    "multimotionfusion_tpu_torch.ops.ransac", "multimotionfusion_tpu_torch.odometry.multi",
 )
 
 
@@ -280,11 +311,12 @@ class StageTimer:
 def run_stages(K, engine, frames, tag="stages") -> None:
     """Phase 3: where the frame's time goes, per stage and per device kernel."""
     from multimotionfusion_tpu_torch import engine as E
+    from multimotionfusion_tpu_torch import engine_multi as EM
 
     n = STAGE_FRAMES
     before = dict(K.LAUNCHES)
     timer = StageTimer()
-    span, E._span = E._span, timer
+    span, E._span, EM._span = E._span, timer, timer
     try:
         t0 = time.perf_counter()
         for f in frames[:n]:
@@ -292,7 +324,7 @@ def run_stages(K, engine, frames, tag="stages") -> None:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n
     finally:
-        E._span = span
+        E._span = EM._span = span
     stage_dev = timer.device()
     wrappers = {k: (v - before.get(k, 0)) / n for k, v in K.LAUNCHES.items()}
     stages = {k: {"host_ms": timer.host[k] / n, "stream_ms": stage_dev[k] / n} for k in timer.host}
@@ -715,6 +747,109 @@ def measure_seed_select(a):
     )
 
 
+def _measure(cuda, plain, bytes_moved, flops, library=None, plain_reps=3, **extra):
+    bound, by = _bound(bytes_moved, flops)
+    return dict(ms=_time_ms(cuda), device_ms=_device_ms(cuda),
+                plain_ms=_time_ms(plain, reps=plain_reps),
+                library_ms=None if library is None else _time_ms(library),
+                bound_ms=bound, bound_by=by, **extra)
+
+
+def measure_owner_prep(a, level):
+    from multimotionfusion_tpu_torch.odometry import levels as LV
+    from multimotionfusion_tpu_torch.odometry import multi as MO
+
+    prev_mask, pred_own, frame, _, cfg, M = a
+    fl = frame[level]
+    npix = fl.img.numel()
+    args = (level, prev_mask, pred_own, fl, M, LV._min_scale(cfg, level))
+    # per level pixel: image, gradients, depth, both owner samples in; the
+    # owner, the eroded owner and the validity out; 13 + 16 owner taps
+    return _measure(lambda: MO.owner_level_cuda(*args), lambda: MO.owner_level_plain(*args),
+                    33 * npix, 60 * npix)
+
+
+def measure_gn_multi(a, level):
+    from multimotionfusion_tpu_torch.odometry import multi as MO
+
+    ml, Tinv, cam_l, scale2, p, M, _ = a
+    icp_rows, rgb_rows, own, _ = MO.multi_rows(ml, Tinv, cam_l, scale2, p, M)
+    onehot = torch.nn.functional.one_hot(torch.clamp(own, 0, M).long(), M + 1)[:, :M].float()
+    lv = ml.gl
+    h, w = lv.img.shape
+    s = lv.stride
+    P = ((h + s - 1) // s) * ((w + s - 1) // s)
+    tap_bytes = 16 if lv.compact else 32
+    full = lambda: MO.gn_multi_cuda(*a, level=level)  # noqa: E731
+    return _measure(full, lambda: MO.gn_multi_plain(*a),
+                    P * (37 + 8) + min(4 * P, h * w) * (tap_bytes + 4) + 64 * 4 * M, P * 300,
+                    library=lambda: (torch.einsum("pm,pi,pj->mij", onehot, icp_rows, icp_rows),
+                                     torch.einsum("pm,pi,pj->mij", onehot, rgb_rows, rgb_rows)),
+                    library_note="owner-weighted rows.T @ rows (einsum over the one-hot owner)")
+
+
+def measure_multi_step(a, kind):
+    from multimotionfusion_tpu_torch.odometry import multi as MO
+    from multimotionfusion_tpu_torch.odometry import rgbd
+
+    if kind == "init":
+        M = a[0]
+        return _measure(lambda: MO.multi_init_cuda(*a), lambda: MO.multi_init_plain(*a),
+                        4 * (M + 1) * rgbd.S_SIZE, (M + 1) * rgbd.S_SIZE)
+    state, rest = a[0], a[1:]
+    cuda = {"seed": MO.multi_seed_cuda, "arbitrate": MO.multi_arbitrate_cuda,
+            "step": MO.gn_step_multi_cuda}[kind]
+    plain = {"seed": MO.multi_seed_plain, "arbitrate": MO.multi_arbitrate_plain,
+             "step": MO.gn_step_multi_plain}[kind]
+    M = state.numel() // rgbd.S_SIZE - 1
+    fresh = _states(state)
+    flops = M * (8 * 15 * 12 * 6 + 500) if kind == "step" else 100 * M
+    return _measure(lambda: cuda(fresh(), *rest), lambda: plain(state.clone(), *rest),
+                    2 * 4 * state.numel() + 4 * 64 * M, flops,
+                    timing_note="each call on a fresh copy of the recorded state")
+
+
+def measure_zbuffer_flat(a):
+    from multimotionfusion_tpu_torch.ops import rasterize as R
+
+    data, counts, layout, T_inv, maxd, cam, time_, td = a
+    npix = cam.height * cam.width
+    pix, key, _ = R.flat_keys(*a)
+    buf = torch.full((npix + 1,), 2**31 - 1, dtype=torch.int32, device=DEVICE)
+    n = layout.total
+    return _measure(lambda: R.zbuffer_flat_cuda(*a), lambda: R.zbuffer_flat_plain(*a),
+                    2 * 64 * n + 8 * npix, 45 * n,
+                    library=lambda: buf.scatter_reduce_(0, pix, key, reduce="amin"))
+
+
+def measure_fuse_flat(a):
+    from multimotionfusion_tpu_torch.model import fusion as FU
+
+    cam, layout = a[12], a[2]
+    n, npix = layout.total, cam.height * cam.width
+    n_cb = npix // 4
+    return _measure(lambda: FU.fuse_flat_cuda(*a), lambda: FU.fuse_flat_plain(*a),
+                    2 * 64 * n + 64 * n_cb + 12 * npix + 32 * n_cb + 64 * n_cb, 16 * 60 * n_cb)
+
+
+def measure_clean_flat(a):
+    from multimotionfusion_tpu_torch.model import fusion as FU
+
+    index, cam = a[3], a[8]
+    n, npix = a[2].total, cam.height * cam.width
+    n_win = int(torch.unique(index[index >= 0]).numel())
+    return _measure(lambda: FU.clean_flat_cuda(*a), lambda: FU.clean_flat_plain(*a),
+                    16 * npix + 7 * 4 * n_win + 2 * 64 * n, 16 * 30 * npix + 20 * n)
+
+
+def measure_splat_composite(a):
+    r = measure_splat(a)
+    # the winner-model image read on top of the static resolve's bytes
+    npix = a[0].numel()
+    r["bound_ms"] += 4 * npix / HBM_BYTES_PER_S * 1e3
+    return r
+
+
 CSRC = "multimotionfusion_tpu_torch/csrc/"
 JAX = "multimotionfusion_tpu/"
 
@@ -797,6 +932,45 @@ def plan_kp():
     ]
 
 
+def plan_multi():
+    """The multi-model path's new kernels, as ``plan``."""
+    from multimotionfusion_tpu_torch.kernels import checks as C
+
+    p = []
+    for lvl in LEVELS:
+        p.append((f"owner_prep[L{lvl}]", "owner_prep", f"owner_prep.L{lvl}",
+                  lambda a, lvl=lvl: C.check_owner_prep(a, lvl),
+                  lambda a, lvl=lvl: measure_owner_prep(a, lvl), "gn_multi.cu",
+                  "odometry/multi.py:188"))
+    for lvl in LEVELS:
+        p.append((f"gn_multi[L{lvl}]", f"gn_multi.L{lvl}", f"gn_multi.L{lvl}",
+                  lambda a, lvl=lvl: C.check_gn_multi(a, lvl),
+                  lambda a, lvl=lvl: measure_gn_multi(a, lvl), "gn_multi.cu",
+                  "odometry/multi.py:157"))
+    p += [
+        ("multi_init", "multi_init", "multi_init", C.check_multi_init,
+         lambda a: measure_multi_step(a, "init"), "gn_step.cu", "odometry/multi.py:530"),
+        ("multi_seed", "multi_seed", "multi_seed", C.check_multi_seed,
+         lambda a: measure_multi_step(a, "seed"), "gn_step.cu", "odometry/multi.py:279"),
+        ("multi_arbitrate", "multi_arbitrate", "multi_arbitrate", C.check_multi_arbitrate,
+         lambda a: measure_multi_step(a, "arbitrate"), "gn_step.cu", "odometry/multi.py:461"),
+        ("gn_step_multi", "gn_step_multi", "gn_step_multi", C.check_gn_step_multi,
+         lambda a: measure_multi_step(a, "step"), "gn_step.cu", "odometry/multi.py:480"),
+        ("so3_step[multi, verbatim]", "so3_step", "so3_step", C.check_so3_step,
+         lambda a: measure_step(a, "so3"), "gn_step.cu", "odometry/multi.py:245"),
+        ("zbuffer_flat", "zbuffer.flat", "zbuffer.flat", C.check_zbuffer_flat,
+         measure_zbuffer_flat, "zbuffer.cu", "ops/rasterize.py:181"),
+        ("fuse_flat", "fuse_flat", "fuse_flat", C.check_fuse_flat, measure_fuse_flat,
+         "fuse_flat.cu", "model/fusion.py:414"),
+        ("clean_flat", "clean_flat", "clean_flat", C.check_clean_flat, measure_clean_flat,
+         "fuse_flat.cu", "model/fusion.py:615"),
+        ("splat_resolve[composite]+fill_in[gated]", "splat_resolve.composite",
+         "splat_resolve.composite", C.check_splat, measure_splat_composite, "splat_resolve.cu",
+         "ops/rasterize.py:366"),
+    ]
+    return p
+
+
 SYNTHETIC = ("superpoint", "plateau")
 
 
@@ -832,6 +1006,16 @@ def check_loop(captured, tag="odometry_loop") -> dict:
     return r
 
 
+def check_multi_loop(captured) -> dict:
+    """The composite odometry loop: kernels on the card against the plain loop
+    on the CPU, from the recorded inputs of one multi-model frame."""
+    from multimotionfusion_tpu_torch.kernels import checks
+
+    r = checks.check_multi_track(checks.args("multi_track", captured["multi_track"]))
+    print(json.dumps({"phase": "multi_odometry_loop", **r}))
+    return r
+
+
 def check_sparse(captured) -> dict:
     """The sparse block of one kp frame: the kernels on the card against the
     plain chain on the CPU, from the same inputs and uniforms."""
@@ -842,12 +1026,11 @@ def check_sparse(captured) -> dict:
     return r
 
 
-def run_sync_check(engine, frames, tag="sync_check") -> int:
-    """Phase 4: steady-state frames with the sync debug mode on around the
-    frame step; returns the number of synchronising calls."""
-    from multimotionfusion_tpu_torch import engine as E
-
-    core = E._frame_core
+@contextlib.contextmanager
+def sync_watch(module, attr: str):
+    """Sync debug mode "warn" around every call of ``module.attr`` (the frame
+    step) while inside; yields the list of caught warnings."""
+    core = getattr(module, attr)
 
     def checked(*args, **kwargs):
         torch.cuda.set_sync_debug_mode("warn")
@@ -856,18 +1039,31 @@ def run_sync_check(engine, frames, tag="sync_check") -> int:
         finally:
             torch.cuda.set_sync_debug_mode("default")
 
-    first = engine.tick
-    E._frame_core = checked
+    setattr(module, attr, checked)
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            for f in frames:
-                engine.process_frame(f)
-            torch.cuda.synchronize()
+            yield caught
     finally:
-        E._frame_core = core
-    syncs = [f"{w.filename}:{w.lineno}: {w.message}" for w in caught
-             if "called a synchronizing" in str(w.message)]
+        setattr(module, attr, core)
+
+
+def _syncs(caught):
+    return [f"{w.filename}:{w.lineno}: {w.message}" for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def run_sync_check(engine, frames, tag="sync_check") -> int:
+    """Phase 4: steady-state frames with the sync debug mode on around the
+    frame step; returns the number of synchronising calls."""
+    from multimotionfusion_tpu_torch import engine as E
+
+    first = engine.tick
+    with sync_watch(E, "_frame_core") as caught:
+        for f in frames:
+            engine.process_frame(f)
+        torch.cuda.synchronize()
+    syncs = _syncs(caught)
     ticks = list(range(first, engine.tick))
     compaction = [t for t in ticks if engine.cfg.surfels.compact_every > 0
                   and t % engine.cfg.surfels.compact_every == 0]
@@ -877,6 +1073,166 @@ def run_sync_check(engine, frames, tag="sync_check") -> int:
     if not compaction:
         raise SystemExit("sync check ran no compaction frame")
     return len(syncs)
+
+
+# ---------------------------------------------------------------- multi-model
+
+SPHERE_CENTRES = np.array([[-0.62, -0.18, 1.65], [0.62, -0.18, 1.65], [-0.4, 0.4, 1.6],
+                           [0.4, 0.4, 1.6], [0.0, -0.45, 1.7]])
+SPHERE_RADIUS, ORBIT_R, OMEGA = 0.26, 0.12, 0.12
+
+
+def sphere_centres(i: int) -> np.ndarray:
+    """[5, 3] sphere centres at frame i (bench.py::bench_multi_model's orbits)."""
+    th = OMEGA * i + 1.3 * np.arange(5)
+    return SPHERE_CENTRES + ORBIT_R * np.stack([np.cos(th), np.sin(th), np.zeros(5)], -1)
+
+
+def sphere_mask(cam, centres) -> np.ndarray:
+    """[H, W] uint8: k + 1 where sphere k is the front-most surface along the
+    pixel's ray (static camera at the origin), else 0. The ray-sphere and
+    ray-plane tests of the renderer (wall z = 2.5, floor y = 0.8)."""
+    xs, ys = np.meshgrid(np.arange(cam.width, dtype=np.float64),
+                         np.arange(cam.height, dtype=np.float64))
+    d = np.stack([(xs - cam.cx) / cam.fx, (ys - cam.cy) / cam.fy, np.ones_like(xs)], -1)
+    nrm2 = np.einsum("hwi,hwi->hw", d, d)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t_planes = np.minimum(np.where(d[..., 2] > 1e-9, 2.5 / d[..., 2], np.inf),
+                              np.where(d[..., 1] > 1e-9, 0.8 / d[..., 1], np.inf))
+    ts = []
+    for c in centres:
+        b = -(d @ c)
+        cc = c @ c - SPHERE_RADIUS**2
+        disc = b * b - nrm2 * cc
+        t = (-b - np.sqrt(np.maximum(disc, 0.0))) / nrm2
+        ts.append(np.where((disc > 0) & (t > 0.05), t, np.inf))
+    ts = np.stack(ts)
+    k = np.argmin(ts, axis=0)
+    front = np.min(ts, axis=0)
+    return np.where(np.isfinite(front) & (front <= t_planes), k + 1, 0).astype(np.uint8)
+
+
+def sphere_errors(poses, active, ext) -> dict:
+    """Each tracked sphere's error at its centre, per slot: a slot's model
+    frame is the camera's at its spawn frame s0 (pose = I there), so
+    inv(pose_j) carries the spawn-frame centre c_s0 onto the centre c_j of
+    frame j; the error is |inv(pose_j) c_s0 - c_j|. ``poses`` [F, S, 4, 4],
+    ``active`` [F, S] per frame (frame 0 = the init frame), ``ext`` [S] the
+    slots' mask ids (sphere k has id k + 1)."""
+    errs = {}
+    for slot in range(len(ext)):
+        frames_on = np.nonzero(active[:, slot])[0]
+        if not len(frames_on) or ext[slot] <= 0:
+            continue
+        k, s0 = int(ext[slot]) - 1, int(frames_on[0])
+        c0 = np.append(sphere_centres(s0)[k], 1.0)
+        e = [float(np.linalg.norm((np.linalg.inv(poses[j, slot].astype(np.float64)) @ c0)[:3]
+                                  - sphere_centres(j)[k])) for j in frames_on]
+        errs[f"slot{slot}"] = {"sphere": k, "spawn_frame": s0, "frames": len(e),
+                               "max_centre_err_m": max(e), "final_centre_err_m": e[-1],
+                               "final_path_m": float(np.linalg.norm(
+                                   sphere_centres(int(frames_on[-1]))[k] - sphere_centres(s0)[k]))}
+    return errs
+
+
+def multi_frames(n_frames: int, cam=None, object_capacity: int = 1 << 16,
+                 max_surfels: int = 1 << 19):
+    """(config, frames with masks) of the multi-model step: by default
+    bench.py::bench_multi_model's configuration and scene at 640x480."""
+    from multimotionfusion_tpu_torch.config import (CameraModel, EngineConfig,
+                                                    SegmentationConfig, SurfelConfig)
+    from multimotionfusion_tpu_torch.io import synthetic
+    from multimotionfusion_tpu_torch.io.frame import FrameData
+
+    cam = cam or CameraModel()
+    cfg = EngineConfig(camera=cam, enable_multi_model=True, object_slots=5,
+                       object_capacity=object_capacity,
+                       surfels=SurfelConfig(max_surfels=max_surfels),
+                       segmentation=SegmentationConfig(mode="precomputed"),
+                       model_spawn_offset=4, upload_yuv420=False, upload_depth_mm=False)
+    frames = []
+    for i in range(n_frames):
+        centres = sphere_centres(i)
+        depth, rgb = synthetic.render(np.eye(4, dtype=np.float32), cam,
+                                      spheres=[(tuple(c), SPHERE_RADIUS) for c in centres])
+        frames.append(FrameData(rgb=rgb.astype(np.uint8), depth=depth,
+                                timestamp=int(i / 30 * 1e9), mask=sphere_mask(cam, centres)))
+    return cfg, frames
+
+
+def run_multi(K, cfg, frames):
+    """Phase 5b: the multi-model path, 1 + MULTI_FRAMES frames."""
+    from multimotionfusion_tpu_torch import engine_multi as EM
+    from multimotionfusion_tpu_torch.engine import MultiMotionFusionTorch
+    from multimotionfusion_tpu_torch.odometry import multi as MO
+
+    plain_calls = {}
+    K.reset_launches()
+    with count_plain_calls(plain_calls):
+        engine = MultiMotionFusionTorch(cfg, device=DEVICE)
+        engine.process_frame(frames[0])
+        ms, syncs, sync_ticks = [], [], []
+        for i in range(1, MULTI_FRAMES + 1):
+            if i == MULTI_FRAMES:
+                K.start_capture()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            if MULTI_SYNC[0] <= i < MULTI_SYNC[1]:
+                sync_ticks.append(engine.tick)
+                with sync_watch(EM, "multi_frame_step") as caught:
+                    engine.process_frame(frames[i])
+                    torch.cuda.synchronize()
+                syncs += _syncs(caught)
+                continue
+            start.record()
+            engine.process_frame(frames[i])
+            end.record()
+            end.synchronize()
+            if i == MULTI_FRAMES:
+                captured = K.stop_capture()
+            if i >= MULTI_TIMED_FROM:
+                ms.append(start.elapsed_time(end))
+        stats = engine.finish()
+    launches = dict(K.LAUNCHES)
+    print(json.dumps({"phase": "plain_calls_on_multi_path", "calls": plain_calls}))
+
+    obj_log, spawn_log = engine._lifecycle_logs()
+    active_per_frame = [int(a.sum()) for _, _, a in obj_log]
+    spawn_ticks = [j + 1 for j, (_, sp, _, _) in enumerate(spawn_log) if sp is not None and bool(sp)]
+    ext = engine.state.objects.ext_id.cpu().numpy()
+    errs = sphere_errors(np.stack([p for _, p, _ in obj_log]), np.stack([a for _, _, a in obj_log]),
+                         ext)
+    cam_drift = float(np.linalg.norm(engine.state.pose.cpu().numpy()[:3, 3]))
+    compaction = [t for t in sync_ticks if t % cfg.surfels.compact_every == 0]
+    sync_spawns = [t for t in spawn_ticks if t in sync_ticks]
+    print(json.dumps({
+        "phase": "multi_engine", "frames": len(obj_log), "timed_frames": len(ms),
+        "active_models_per_frame": active_per_frame, "spawn_ticks": spawn_ticks,
+        "ext_id_per_slot": ext.tolist(), "ms_per_frame_median": statistics.median(ms),
+        "ms_per_frame_p75": statistics.quantiles(ms, n=4)[2], "ms_per_frame_min": min(ms),
+        "surfels": stats["surfels"], "hwm": stats["hwm"], "segment_px": stats["segment_px"],
+        "camera_drift_m": cam_drift, "objects": errs, "launches": launches,
+        "odometry_iterations_last_frame": MO.loop_iterations(engine._last_stats.odo),
+        "sync_check": {"ticks": sync_ticks, "spawn_ticks": sync_spawns,
+                       "compaction_ticks": compaction, "synchronizing_calls": len(syncs),
+                       "where": sorted(set(syncs))[:10]},
+        "gpu": _gpu_line(),
+    }))
+    if plain_calls:
+        raise SystemExit(f"plain versions ran on the multi path: {plain_calls}")
+    if active_per_frame[-1] != 5:
+        raise SystemExit(f"{active_per_frame[-1]} active models at the end, not 5")
+    if not cam_drift < 0.08:
+        raise SystemExit(f"camera drift {cam_drift} m out of bounds")
+    far = {k: o["max_centre_err_m"] for k, o in errs.items() if not o["max_centre_err_m"] < 0.02}
+    if far or len(errs) != 5:
+        raise SystemExit(f"spheres tracked: {sorted(errs)}; beyond 2 cm of the centre: {far}")
+    if not (compaction and sync_spawns):
+        raise SystemExit("the multi sync check ran no spawn or no compaction frame")
+    for k in MULTI_PATH:
+        if launches.get(k, 0) <= 0:
+            raise SystemExit(f"kernel {k} was not launched on the multi path")
+    return engine, launches, captured, len(syncs)
 
 
 def main() -> int:
@@ -907,22 +1263,32 @@ def main() -> int:
     syncs += run_sync_check(kp_engine, rest[2 * STAGE_FRAMES:], "kp_sync_check")
     del kp_engine
 
+    m_cfg, m_frames = multi_frames(1 + MULTI_FRAMES + 2 * STAGE_FRAMES)
+    m_engine, m_launches, m_captured, m_syncs = run_multi(K, m_cfg, m_frames)
+    syncs += m_syncs
+    run_stages(K, m_engine, m_frames[MULTI_FRAMES + 1:], "multi_stages")
+    del m_engine
+
     missing = sorted(({key for _, key, *_ in plan()} - set(captured))
                      | ({key for _, key, *_ in plan_kp()} - set(kp_captured) - set(SYNTHETIC))
-                     | ({"track", "sparse"} - set(kp_captured)))
+                     | ({key for _, key, *_ in plan_multi()} - set(m_captured))
+                     | ({"track", "sparse"} - set(kp_captured))
+                     | ({"multi_track"} - set(m_captured)))
     if missing:
         raise SystemExit(f"no captured inputs for {missing}")
     kernels = check_kernels(plan(), captured, launches, N_FRAMES)
     kernels += check_kernels(plan_kp(), kp_captured, kp_launches, N_FRAMES)
+    kernels += check_kernels(plan_multi(), m_captured, m_launches, MULTI_FRAMES)
     loops = [check_loop(captured), check_loop(kp_captured, "odometry_loop[kp]"),
-             check_sparse(kp_captured)]
+             check_sparse(kp_captured), check_multi_loop(m_captured)]
     print(json.dumps({"kernels": kernels}))
     bad = [k["name"] for k in kernels if not k["ok"]]
     loops_ok = all(r["ok"] for r in loops)
     print(_gpu_line())
     if bad or not loops_ok or syncs:
-        print(f"chip_smoke: kernels outside tolerance: {bad}; odometry loops and sparse block "
-              f"ok: {[r['ok'] for r in loops]}; synchronising calls: {syncs}", file=sys.stderr)
+        print(f"chip_smoke: kernels outside tolerance: {bad}; odometry loops, sparse block and "
+              f"multi loop ok: {[r['ok'] for r in loops]}; synchronising calls: {syncs}",
+              file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -31,24 +31,10 @@
 
 namespace {
 
-enum {
-  PX = 0, PY = 1, PZ = 2, CONF = 3, INIT_T = 7, LAST_T = 8, NZ = 11, RADIUS = 12, ALIVE = 13,
-  CH = 16
-};
+#include "surfel.cuh"
+
 constexpr int THREADS = 256;
 constexpr int SCAN_THREADS = 1024;
-
-// float -> int with the same order (for atomicMin)
-__device__ inline int ford(float f) {
-  int i = __float_as_int(f);
-  return i >= 0 ? i : i ^ 0x7fffffff;
-}
-__device__ inline float fval(int i) { return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff); }
-
-__global__ void fill_verdicts(int* __restrict__ vk, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) vk[i] = ford(1.0f);
-}
 
 struct PixelArgs {
   const int* index;
@@ -66,46 +52,12 @@ __global__ void pixel_pass(PixelArgs a, int* __restrict__ vk) {
   int i = a.index[p];
   if (i < 0) return;
   int y = p / a.W, x = p % a.W;
-  const float* dl = a.dl;
-  int B = a.B;
-  float qx = dl[PX * B + i], qy = dl[PY * B + i], qz = dl[PZ * B + i];
-  float q_init = dl[INIT_T * B + i], q_rad = dl[RADIUS * B + i];
-  float q_nz = fabsf(dl[NZ * B + i]);
-  int count = 0, z_count = 0;
-  int r = a.window / 2;
-  for (int dy = -r; dy < a.window - r; ++dy) {
-    int yy = y + dy;
-    for (int dx = -r; dx < a.window - r; ++dx) {
-      int xx = x + dx;
-      if (yy < 0 || yy >= a.H || xx < 0 || xx >= a.W) continue;
-      int c = a.index[yy * a.W + xx];
-      if (c < 0 || c == i) continue;
-      float cpx = dl[PX * B + c], cpy = dl[PY * B + c], czp = dl[PZ * B + c];
-      float cconf = dl[CONF * B + c], cinit = dl[INIT_T * B + c], clast = dl[LAST_T * B + c];
-      float ex = cpx - qx, ey = cpy - qy;
-      float xy_dist = sqrtf(ex * ex + ey * ey);
-      bool red = cinit < q_init && cconf > a.conf_thr && czp > qz && (czp - qz < 0.01f) &&
-                 xy_dist < q_rad * 1.4f;
-      bool zc = clast == a.time && cconf > a.conf_thr && czp > qz && (czp - qz > 0.01f) &&
-                q_nz > 0.85f;
-      count += red;
-      z_count += zc;
-    }
-  }
-  int violations = 0;
-  float viol_sum = 0.f;
-  for (int dy = -1; dy <= 1; ++dy)
-    for (int dx = -1; dx <= 1; ++dx) {
-      int yy = y + dy, xx = x + dx;
-      float d = (yy >= 0 && yy < a.H && xx >= 0 && xx < a.W) ? a.depth[yy * a.W + xx] : 0.f;
-      float delta = d - qz;
-      bool hit = d > 0.f && delta > a.gate;
-      violations += hit;
-      viol_sum = viol_sum + (hit ? delta : 0.f);
-    }
-  bool viol = violations > 0;
-  float avg_v = viol_sum / fmaxf((float)violations, 1.f);
-  float pen = viol ? 1.f / (1.f + a.coeff * avg_v) : 1.f;
+  int count, z_count;
+  window_counts(a.index, a.dl, a.B, nullptr, 0, a.H, a.W, a.window, x, y, i, a.conf_thr, a.time,
+                &count, &z_count);
+  float qz = a.dl[PZ * a.B + i];
+  bool viol;
+  float pen = see_through(a.depth, a.H, a.W, x, y, qz, a.gate, a.coeff, &viol);
   float dp = a.depth[p];
   bool mask_pen = viol && a.mask[p] != a.mask_id && dp > qz - 0.05f && dp < qz + 0.05f;
   if (mask_pen) pen = pen * a.mask_factor;
@@ -124,17 +76,9 @@ struct SurfelArgs {
 };
 
 __device__ inline bool keep_slot(const SurfelArgs& a, const int* vk, int i, float* pen) {
-  float v = fval(vk[i]);
-  bool culled = v < 0.f;
-  *pen = culled ? 1.f : v;
   bool alive = i < *a.count && a.data[ALIVE * a.rs_in + i] > 0.f;
-  float last_t = a.data[LAST_T * a.rs_in + i];
-  float conf = a.data[CONF * a.rs_in + i];
-  bool keep = alive && !culled;
-  bool unstable_dead = (a.time - last_t) > a.grace && conf < a.conf_thr;
-  keep = keep && !unstable_dead;
-  keep = keep || (alive && last_t > 0.f && (a.time - last_t) > a.time_delta);
-  return keep;
+  return keep_surfel(alive, vk[i], a.data[LAST_T * a.rs_in + i], a.data[CONF * a.rs_in + i],
+                     a.time, a.grace, a.conf_thr, a.time_delta, pen);
 }
 
 __global__ void surfel_pass(SurfelArgs a, const int* __restrict__ vk, uint8_t* __restrict__ keep,

@@ -29,22 +29,9 @@
 
 namespace {
 
-constexpr int CH = 16;
-enum {
-  PX = 0, PY = 1, PZ = 2, CONF = 3, CR = 4, CG = 5, CB = 6, INIT_T = 7, LAST_T = 8,
-  NX = 9, NY = 10, NZ = 11, RADIUS = 12
-};
+#include "surfel.cuh"
+
 constexpr int SCAN_THREADS = 1024;
-
-struct Pose {
-  float r[9];
-  float t[3];
-};
-
-__global__ void fill_int(int* __restrict__ a, int n, int v) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) a[i] = v;
-}
 
 __global__ void assoc(const float* __restrict__ frame, const uint8_t* __restrict__ fvalid,
                       const int* __restrict__ mask, int mask_id, const int* __restrict__ index,
@@ -77,19 +64,7 @@ __global__ void assoc(const float* __restrict__ frame, const uint8_t* __restrict
       if (xx < 0 || xx >= W) continue;
       int c = index[yy * W + xx];
       if (c < 0) continue;
-      float cpx = dl[PX * B + c], cpy = dl[PY * B + c], cpz = dl[PZ * B + c];
-      bool z_ok = fabsf((cpz - fz) * lam) < gate;
-      float rx = yl * cpz - cpy;
-      float ry = cpx - xl * cpz;
-      float rz = xl * cpy - yl * cpx;
-      float dist = sqrtf(rx * rx + ry * ry + rz * rz);
-      float cnx = dl[NX * B + c], cny = dl[NY * B + c], cnz = dl[NZ * B + c];
-      float cosang = fminf(fmaxf(cnx * fnx + cny * fny + cnz * fnz, -1.0f), 1.0f);
-      bool n_ok = (fabsf(cnz) < 0.75f) || (fabsf(acosf(cosang)) < 0.5f);
-      if (z_ok && n_ok && dist < best_dist) {
-        best_dist = dist;
-        best = c;
-      }
+      assoc_candidate(dl, B, c, fz, fnx, fny, fnz, xl, yl, lam, gate, &best_dist, &best);
     }
   }
   bool merging = part && best >= 0;
@@ -143,15 +118,6 @@ __global__ void arbitrate(const int* __restrict__ target, const int* __restrict_
   if (d >= 0) atomicMin(&inv[d], k);
 }
 
-__device__ inline void transform(float* s, const Pose& T) {
-  float p0 = s[PX], p1 = s[PY], p2 = s[PZ];
-  float n0 = s[NX], n1 = s[NY], n2 = s[NZ];
-  for (int r = 0; r < 3; ++r) {
-    s[PX + r] = T.r[3 * r] * p0 + T.r[3 * r + 1] * p1 + T.r[3 * r + 2] * p2 + T.t[r];
-    s[NX + r] = T.r[3 * r] * n0 + T.r[3 * r + 1] * n1 + T.r[3 * r + 2] * n2;
-  }
-}
-
 __global__ void apply(const float* __restrict__ frame, const float* __restrict__ dl, int B,
                       const int* __restrict__ target, const int* __restrict__ flags,
                       const int* __restrict__ prefix, const int* __restrict__ count,
@@ -159,11 +125,6 @@ __global__ void apply(const float* __restrict__ frame, const float* __restrict__
                       int W, int H, int par, float time, float* __restrict__ out) {
   int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= 2 * n_cb) return;
-  Pose T;
-  for (int r = 0; r < 3; ++r) {
-    for (int c = 0; c < 3; ++c) T.r[3 * r + c] = Tm[4 * r + c];
-    T.t[r] = Tm[4 * r + 3];
-  }
   int d = dest(k, n_cb, target, flags, prefix, *count, cap);
   if (d < 0 || inv[d] != k) return;
   int j = k < n_cb ? k : k - n_cb;
@@ -172,7 +133,7 @@ __global__ void apply(const float* __restrict__ frame, const float* __restrict__
   int N = W * H;
   float nw[CH];
   for (int c = 0; c < CH; ++c) nw[c] = frame[c * N + p];
-  transform(nw, T);
+  transform(nw, Tm);
   if (k >= n_cb) {
     for (int c = 0; c < CH; ++c) out[c * cap + d] = nw[c];
     return;
@@ -180,29 +141,9 @@ __global__ void apply(const float* __restrict__ frame, const float* __restrict__
   int t = target[j];
   float old[CH];
   for (int c = 0; c < CH; ++c) old[c] = dl[c * B + t];
-  transform(old, T);
-  float ck = old[CONF], a = nw[CONF];
-  float csum = fmaxf(ck + a, 1e-12f);
-  bool rad_ok = nw[RADIUS] < 1.5f * old[RADIUS];
+  transform(old, Tm);
   float m[CH];
-  for (int c = 0; c < CH; ++c) m[c] = old[c];
-  if (rad_ok) {
-    const int lin[6] = {PX, PY, PZ, CR, CG, CB};
-    for (int q = 0; q < 6; ++q) {
-      int c = lin[q];
-      m[c] = (ck * old[c] + a * nw[c]) / csum;
-    }
-    float nmx = (ck * old[NX] + a * nw[NX]) / csum;
-    float nmy = (ck * old[NY] + a * nw[NY]) / csum;
-    float nmz = (ck * old[NZ] + a * nw[NZ]) / csum;
-    float nn = sqrtf(fmaxf(nmx * nmx + nmy * nmy + nmz * nmz, 1e-12f));
-    m[NX] = nmx / nn;
-    m[NY] = nmy / nn;
-    m[NZ] = nmz / nn;
-    m[RADIUS] = (ck * old[RADIUS] + a * nw[RADIUS]) / csum;
-  }
-  m[CONF] = ck + a;
-  m[LAST_T] = time;
+  merge(old, nw, time, m);
   for (int c = 0; c < CH; ++c) out[c * cap + d] = m[c];
 }
 

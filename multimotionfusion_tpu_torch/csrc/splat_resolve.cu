@@ -1,8 +1,9 @@
 // K10 splat_resolve: the 5x5 ray-disk resolve of the next frame's prediction.
 //
 // Replaces: multimotionfusion_tpu/ops/rasterize.py:366 splat_resolve
-//   (pre_gated=False, the static frame step's call) and, as an epilogue,
-//   model/fillin.py:25 fill_in.
+//   (pre_gated=False, the static frame step's call, and the composite mode of
+//   the multi-model step, :419-471) and, as an epilogue, model/fillin.py:25
+//   fill_in (with its `gate`).
 // Bound on an H100: bytes. Per pixel: the 5x5 window of the index map (served
 //   from L1/L2: neighbouring threads share 24 of 25 taps), one 10-channel
 //   gather of each distinct winner surfel in data_local, and 49 bytes of
@@ -19,6 +20,13 @@
 //   frame's colour, filtered vertex (rebuilt from the filtered depth), its
 //   confidence at weighting 1.0 and the frame surfel's normal and radius
 //   instead, so the resolve writes the filled maps directly.
+// Composite mode (the multi-model step: `own` is the winner-model image of
+//   the composite index map, `conf_all` the per-model confidence gates): a
+//   tap counts only when its pixel's winner model equals this pixel's, and
+//   its confidence gate is conf_all of that model instead of one threshold.
+//   With a fill gate (the segmentation mask) the epilogue fills only the
+//   global model's pixels (mask == 0), as the reference fills in the global
+//   model's prediction alone.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,6 +39,13 @@ struct Fill {
   const float* frame;         // [16, H*W] frame surfels (normals, radius)
   float inv_fx, inv_fy, cutoff;
   int passthrough;
+  const int* gate;            // [H, W] mask: fill only where 0; nullptr: everywhere
+};
+
+struct Comp {
+  const float* conf_all;  // [M] per-model confidence gate; nullptr: static mode
+  const int* own;         // [H, W] winner model of each index-map pixel
+  int M;
 };
 
 enum {
@@ -43,7 +58,7 @@ __global__ void resolve(const int* __restrict__ index, const float* __restrict__
                         float time, float max_time, float time_delta, int window,
                         float* __restrict__ color, float* __restrict__ vertex_conf,
                         float* __restrict__ normal_rad, int* __restrict__ tmap,
-                        uint8_t* __restrict__ valid, Fill f) {
+                        uint8_t* __restrict__ valid, Fill f, Comp cm) {
   int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= H * W) return;
   int y = p / W, x = p % W;
@@ -55,6 +70,7 @@ __global__ void resolve(const int* __restrict__ index, const float* __restrict__
   float best_z = 3.4e38f;
   int best = -1;
   float att[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  int own_p = cm.conf_all != nullptr ? cm.own[p] : 0;
   int r = window / 2;
   for (int dy = -r; dy < window - r; ++dy) {
     int yy = y + dy;
@@ -64,9 +80,15 @@ __global__ void resolve(const int* __restrict__ index, const float* __restrict__
       if (xx < 0 || xx >= W) continue;
       int c = index[yy * W + xx];
       if (c < 0) continue;
+      float gate = conf_t;
+      if (cm.conf_all != nullptr) {
+        int oq = cm.own[yy * W + xx];
+        if (oq != own_p) continue;
+        gate = cm.conf_all[oq];  // a tap with a surfel has a model < M
+      }
       float conf = dl[CONF * B + c];
       float last = dl[LAST_T * B + c];
-      if (!(conf >= conf_t && time - last <= time_delta && last <= max_time)) continue;
+      if (!(conf >= gate && time - last <= time_delta && last <= max_time)) continue;
       float px = dl[PX * B + c], py = dl[PY * B + c], pz = dl[PZ * B + c];
       float nx = dl[NX * B + c], ny = dl[NY * B + c], nz = dl[NZ * B + c];
       float rad = dl[RADIUS * B + c];
@@ -95,7 +117,7 @@ __global__ void resolve(const int* __restrict__ index, const float* __restrict__
   float zc = ok ? best_z : 0.f;
   tmap[p] = (int)att[8];
   valid[p] = ok ? 1 : 0;
-  if (f.rgb != nullptr && (!ok || f.passthrough)) {
+  if (f.rgb != nullptr && (!ok || f.passthrough) && (f.gate == nullptr || f.gate[p] == 0)) {
     int N = H * W;
     float d = f.depth[p];
     bool vok = d > 0.f && d < f.cutoff;
@@ -137,12 +159,14 @@ extern "C" int mmf_splat_resolve(const int* index, const float* data_local, int 
                                  uint8_t* valid, const uint8_t* fill_rgb,
                                  const float* fill_depth, const float* fill_frame,
                                  float inv_fx, float inv_fy, float cutoff, int passthrough,
-                                 cudaStream_t stream) {
-  Fill f{fill_rgb, fill_depth, fill_frame, inv_fx, inv_fy, cutoff, passthrough};
+                                 const int* fill_gate, const float* conf_all, const int* own,
+                                 int n_models, cudaStream_t stream) {
+  Fill f{fill_rgb, fill_depth, fill_frame, inv_fx, inv_fy, cutoff, passthrough, fill_gate};
+  Comp cm{conf_all, own, n_models};
   const int threads = 256;
   int npix = H * W;
   resolve<<<(npix + threads - 1) / threads, threads, 0, stream>>>(
       index, data_local, B, H, W, fx, fy, cx, cy, conf_threshold, time, max_time, time_delta,
-      window, color, vertex_conf, normal_rad, tmap, valid, f);
+      window, color, vertex_conf, normal_rad, tmap, valid, f, cm);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,9 @@
-// K6 zbuffer: the data-association index map of the static frame step.
+// K6 zbuffer: the data-association index map of the static frame step, and
+// K12 zbuffer_flat: the composite index map of the multi-model step.
 //
 // Replaces: multimotionfusion_tpu/ops/rasterize.py:142 predict_indices
-//   (-> :126 _zmin_scatter, :103 _pack_depth_id, :114 _unpack_zmin).
+//   (-> :126 _zmin_scatter, :103 _pack_depth_id, :114 _unpack_zmin); K12
+//   :181 predict_indices_flat and :242 win_model_image.
 // Bound on an H100: bytes. Each surfel is read once (16 channels) and its
 //   camera-frame copy written once (data_local, which fuse, clean and the
 //   splat resolve read); the index map is 1.2 MB. A few dozen flops per
@@ -18,25 +20,23 @@
 //   pose never visits the host. The first frame's dedicated splat render
 //   (rasterize.py:splat_predict) adds the splat.vert gates conf >= threshold
 //   and last_t <= max_time (``gated``) instead of masking a copy of the map.
+// K12 (the flat store of all models: the global bucket [0, bg), then slot k's
+//   bucket [bg + k bo, bg + (k + 1) bo), model k + 1): the same one-thread-
+//   per-surfel scatter, with the surfel's model from its flat id; it is
+//   transformed by its model's inv(pose) ([M, 4, 4] on the card), gated by
+//   its model's count and max depth, and its key is
+//   (zq << (id_bits + 1)) | (is_global << id_bits) | id, object depths moved
+//   2 cm nearer before the quantisation (1 << (30 - id_bits) bins), so an
+//   object wins a near-tie against the global map. The unpack pass also
+//   writes the winner's model (win_model_image, a range test on the id).
+//   Integer keys and an integer min: the maps equal the plain version's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int KEY_INVALID = 0x7fffffff;
-constexpr int CH = 16;
-enum { PX = 0, PY = 1, PZ = 2, CONF = 3, LAST_T = 8, NX = 9, NY = 10, NZ = 11, ALIVE = 13 };
-
-struct Pose {
-  float r[9];
-  float t[3];
-};
-
-__global__ void fill_keys(int* __restrict__ keys, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) keys[i] = KEY_INVALID;
-}
+#include "surfel.cuh"
 
 __global__ void scatter_keys(const float* __restrict__ data, int rs, int n,
                              const int* __restrict__ count, const float* __restrict__ Tm,
@@ -46,40 +46,17 @@ __global__ void scatter_keys(const float* __restrict__ data, int rs, int n,
                              float* __restrict__ data_local) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  Pose T;
-  for (int r = 0; r < 3; ++r) {
-    for (int c = 0; c < 3; ++c) T.r[3 * r + c] = Tm[4 * r + c];
-    T.t[r] = Tm[4 * r + 3];
-  }
-  float p[3] = {data[PX * rs + i], data[PY * rs + i], data[PZ * rs + i]};
-  float nv[3] = {data[NX * rs + i], data[NY * rs + i], data[NZ * rs + i]};
-  float pl[3], nl[3];
-  for (int r = 0; r < 3; ++r) {
-    pl[r] = T.r[3 * r] * p[0] + T.r[3 * r + 1] * p[1] + T.r[3 * r + 2] * p[2] + T.t[r];
-    nl[r] = T.r[3 * r] * nv[0] + T.r[3 * r + 1] * nv[1] + T.r[3 * r + 2] * nv[2];
-  }
-  for (int c = 0; c < CH; ++c) {
-    float v = data[c * rs + i];
-    if (c <= PZ) v = pl[c];
-    if (c >= NX && c <= NZ) v = nl[c - NX];
-    data_local[c * n + i] = v;
-  }
+  float pl[3];
+  write_local(data, rs, n, i, Tm, data_local, pl);
   float z = pl[2];
   bool ok = (i < *count) && (data[ALIVE * rs + i] > 0.f) && (z > 0.f) && (z <= max_depth) &&
             (time - data[LAST_T * rs + i] <= time_delta);
   if (gated)
     ok = ok && data[CONF * rs + i] >= conf_threshold && data[LAST_T * rs + i] <= max_time;
-  if (!ok) return;
-  // z > 0 here, so the reference's safe_z is z itself; __float2int_rn is
-  // round-half-even and saturates far outside the image
-  int u = __float2int_rn(pl[0] * fx / z + cx);
-  int v = __float2int_rn(pl[1] * fy / z + cy);
-  if (u < 0 || v < 0 || u >= W || v >= H) return;
-  int levels = 1 << (31 - id_bits);
-  float zqf = (log2f(fmaxf(z, 1e-6f)) + 4.0f) * ((float)levels / 8.0f);
-  int zq = __float2int_rz(zqf);
-  zq = min(max(zq, 0), levels - 2);
-  atomicMin(&keys[v * W + u], (zq << id_bits) | i);
+  int pix;
+  if (!ok || !project(pl, fx, fy, cx, cy, W, H, &pix)) return;
+  int zq = depth_bin(z, 1 << (31 - id_bits));
+  atomicMin(&keys[pix], (zq << id_bits) | i);
 }
 
 __global__ void unpack_keys(const int* __restrict__ keys, int n, int id_bits,
@@ -90,7 +67,68 @@ __global__ void unpack_keys(const int* __restrict__ keys, int n, int id_bits,
   index[i] = (k != KEY_INVALID) ? (k & ((1 << id_bits) - 1)) : -1;
 }
 
+struct Flat {
+  int bg, bo, slots;
+};
+
+__device__ inline int model_of(const Flat& F, int i) {
+  return i < F.bg ? 0 : 1 + (i - F.bg) / F.bo;
+}
+
+__global__ void scatter_flat(const float* __restrict__ data, int rs, int n, Flat F,
+                             const int* __restrict__ counts, const float* __restrict__ Tinv,
+                             const float* __restrict__ maxd, float fx, float fy, float cx,
+                             float cy, int W, int H, float time, float time_delta,
+                             float z_priority, int id_bits, int* __restrict__ keys,
+                             float* __restrict__ data_local) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int m = model_of(F, i);
+  int pos = m == 0 ? i : (i - F.bg) % F.bo;
+  float pl[3];
+  write_local(data, rs, n, i, Tinv + 16 * m, data_local, pl);
+  float z = pl[2];
+  bool ok = (pos < counts[m]) && (data[ALIVE * rs + i] > 0.f) && (z > 0.f) && (z <= maxd[m]) &&
+            (time - data[LAST_T * rs + i] <= time_delta);
+  int pix;
+  if (!ok || !project(pl, fx, fy, cx, cy, W, H, &pix)) return;
+  int zq = depth_bin(m > 0 ? fmaxf(z - z_priority, 1e-3f) : z, 1 << (30 - id_bits));
+  int prio = m == 0 ? 1 : 0;
+  atomicMin(&keys[pix], (zq << (id_bits + 1)) | (prio << id_bits) | i);
+}
+
+__global__ void unpack_flat(const int* __restrict__ keys, int npix, int id_bits, Flat F,
+                            int* __restrict__ index, int* __restrict__ win_model) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= npix) return;
+  int k = keys[i];
+  bool won = k != KEY_INVALID;
+  int id = won ? (k & ((1 << id_bits) - 1)) : -1;
+  index[i] = id;
+  win_model[i] = won ? model_of(F, id) : 1 + F.slots;
+}
+
 }  // namespace
+
+extern "C" int mmf_zbuffer_flat(const float* data, int row_stride, int bg, int bo, int slots,
+                                const int* counts, const float* T_inv, const float* maxd,
+                                float fx, float fy, float cx, float cy, int W, int H, float time,
+                                float time_delta, float z_priority, int id_bits, int* keys,
+                                float* data_local, int* index, int* win_model,
+                                cudaStream_t stream) {
+  const int threads = 256;
+  int npix = W * H;
+  int n = bg + slots * bo;
+  Flat F{bg, bo, slots};
+  fill_int<<<(npix + threads - 1) / threads, threads, 0, stream>>>(keys, npix, KEY_INVALID);
+  if (n > 0)
+    scatter_flat<<<(n + threads - 1) / threads, threads, 0, stream>>>(
+        data, row_stride, n, F, counts, T_inv, maxd, fx, fy, cx, cy, W, H, time, time_delta,
+        z_priority, id_bits, keys, data_local);
+  unpack_flat<<<(npix + threads - 1) / threads, threads, 0, stream>>>(keys, npix, id_bits, F,
+                                                                      index, win_model);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int mmf_zbuffer(const float* data, int row_stride, int n, const int* count,
                            const float* T_inv, float fx, float fy, float cx, float cy, int W,
@@ -99,7 +137,7 @@ extern "C" int mmf_zbuffer(const float* data, int row_stride, int n, const int* 
                            float* data_local, int* index, cudaStream_t stream) {
   const int threads = 256;
   int npix = W * H;
-  fill_keys<<<(npix + threads - 1) / threads, threads, 0, stream>>>(keys, npix);
+  fill_int<<<(npix + threads - 1) / threads, threads, 0, stream>>>(keys, npix, KEY_INVALID);
   if (n > 0)
     scatter_keys<<<(n + threads - 1) / threads, threads, 0, stream>>>(
         data, row_stride, n, count, T_inv, fx, fy, cx, cy, W, H, time, time_delta, max_depth,

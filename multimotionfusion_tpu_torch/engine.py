@@ -1,7 +1,11 @@
-"""Top-level engine: the static (ElasticFusion-style) per-frame SLAM step.
+"""Top-level engine: the static (ElasticFusion-style) per-frame SLAM step,
+and the multi-model step with external masks.
 
 Port of the reference package's ``engine.py`` for ``enable_multi_model=False``
-with every pose initialisation (``odom_init``): upload -> depth filter ->
+with every pose initialisation (``odom_init``), and for
+``enable_multi_model=True`` with ``segmentation.mode="precomputed"``
+(``engine_multi.multi_frame_step``; ``odom_init`` "kp" or ""): upload ->
+depth filter ->
 (first frame) initialise -> [keypoints -> track table -> RANSAC seed] ->
 track -> fuse -> clean -> predict -> pose logging.
 
@@ -18,10 +22,14 @@ track -> fuse -> clean -> predict -> pose logging.
 
 All state lives on the compute device, the poses and the track table
 included. On the card the frame step launches only the hand-written kernels
-of ``csrc/`` (K1-K10, K19-K21) plus PyTorch glue on 4x4 poses and 0-dim
-scalars; the odometry's loops run on the card with done flags, so a
-steady-state frame reads nothing back except, at most every 64 frames, the
-map's high-water mark (``_buckets``).
+of ``csrc/`` (K1-K12, K14, K19-K21) plus PyTorch glue on poses, 0-dim
+scalars and (multi-model) per-model vectors and masks; the odometry's loops
+run on the card with done flags, so a steady-state frame reads nothing back
+except, at most every 64 frames, the map's high-water mark (``_buckets``; in
+multi-model mode also the largest object count). The
+multi-model engine logs each frame's object poses, active flags and spawn
+records on the device and reads them only when asked (``drain_events``,
+``export_poses``).
 """
 
 from __future__ import annotations
@@ -63,9 +71,10 @@ class GlobalState(NamedTuple):
 
 
 class FrameStats(NamedTuple):
-    odo: Optional[rgbd.OdometryResult]
+    odo: Optional[rgbd.OdometryResult]  # (engine_multi: the multi odometry's result)
     smap: sm.SurfelMap  # the map after the frame (alive count read on demand)
     seed_ok: Optional[torch.Tensor] = None  # 0-dim bool: the keypoint seed passed its gate
+    multi: Optional[torch.Tensor] = None  # multi-model stats vector [9 + M] on the device
 
 
 def _bucket_for(n: int, capacity: int, floor: int = 1 << 15) -> int:
@@ -76,6 +85,46 @@ def _bucket_for(n: int, capacity: int, floor: int = 1 << 15) -> int:
     while b < n:
         b += b >> 1
     return min(b, capacity)
+
+
+class _BucketEstimator:
+    """Work bucket from a (possibly stale) high-water mark, extrapolated by
+    the measured growth rate (x4 margin, at least ``min_margin``) plus a fixed
+    headroom; ``read()`` reads the mark from the device only when the
+    estimate outgrows the bucket or every 64 frames; shrinks by whole rungs
+    with 2x hysteresis. Appends beyond the bucket are dropped for those
+    frames."""
+
+    def __init__(self, capacity: int, headroom: int, min_margin: int, growth: int, floor: int,
+                 read):
+        self.capacity, self.headroom, self.min_margin = capacity, headroom, min_margin
+        self.growth, self.floor, self.read = growth, floor, read
+        self.hwm = self.hwm_tick = self.bucket = 0
+
+    def reset(self, hwm: int, tick: int, bucket: int) -> None:
+        self.hwm, self.hwm_tick, self.bucket = hwm, tick, bucket
+
+    def _fit(self, n: int) -> int:
+        return _bucket_for(n, self.capacity, self.floor)
+
+    def __call__(self, tick: int, k_ahead: int) -> int:
+        margin = max(4 * self.growth, self.min_margin)
+        est = self.hwm + (tick + k_ahead - self.hwm_tick) * margin
+        if self.bucket == 0:
+            self.bucket = self._fit(est + self.headroom)
+        stale = tick - self.hwm_tick
+        if est + self.headroom > self.bucket or stale >= 64:
+            new_hwm = self.read()  # device read (rare)
+            self.growth = max((new_hwm - self.hwm) // max(stale, 1), 64)
+            self.hwm, self.hwm_tick = new_hwm, tick
+            margin = max(4 * self.growth, self.min_margin)
+            est = self.hwm + (k_ahead + 1) * margin
+            ideal = self._fit(est + self.headroom)
+            if ideal * 2 <= self.bucket:
+                self.bucket = ideal
+        if est + self.headroom > self.bucket:
+            self.bucket = self._fit(est + self.headroom)
+        return self.bucket
 
 
 def _fusion_weight(pose, prev_pose, weight_multiplier: float) -> torch.Tensor:
@@ -143,7 +192,7 @@ def _init_step(rgb_u8, depth_raw, pose0, time, cam: CameraModel, cfg: EngineConf
     frame_lv = lv.frame_levels(depth_filt, rgb_u8,
                                torch.zeros_like(depth_raw, dtype=torch.int32), cam, cfg.odometry)
     tracks = None
-    if cfg.odom_init == "kp":  # seed the track table (initGlobalTracks)
+    if cfg.odom_init == "kp" or cfg.enable_multi_model:  # seed the track table (initGlobalTracks)
         kcfg = cfg.keypoints
         tracks = tracker.empty(kcfg.max_tracks, kcfg.track_history, kcfg.desc_dim,
                                depth_filt.device)
@@ -212,22 +261,28 @@ def _frame_core(state: GlobalState, rgb_u8, depth_raw, mask, time: int, weight_m
 
 
 _UNSUPPORTED = (
-    ("enable_multi_model", lambda c: c.enable_multi_model),
     ("reloc_mode", lambda c: c.reloc_mode),
     ("close_loops", lambda c: c.close_loops),
     ("frame_to_frame_rgb", lambda c: c.frame_to_frame_rgb),
     ("upload_yuv420", lambda c: c.upload_yuv420),
+    ("the multi-model segmentation mode "
+     "(only segmentation.mode='precomputed' is ported)",
+     lambda c: c.enable_multi_model and c.segmentation.mode != "precomputed"),
+    ("the multi-model segm_lvl tracker (segm_lvl != init_lvl)",
+     lambda c: c.enable_multi_model and c.odometry.segm_lvl != c.odometry.init_lvl),
+    ("odom_init='tf' in multi-model mode", lambda c: c.enable_multi_model and c.odom_init == "tf"),
 )
 
 
 class MultiMotionFusionTorch:
-    """Engine facade of the port (static path only)."""
+    """Engine facade of the port: the static path, and the multi-model path
+    with external masks (``frame.mask`` carries the ids)."""
 
     def __init__(self, cfg: EngineConfig, device="cuda"):
         for name, test in _UNSUPPORTED:
             if test(cfg):
                 raise NotImplementedError(
-                    f"{name} is not ported yet; see ROADMAP.md (queue 1) for the static path's successors"
+                    f"{name} is not ported yet; see ROADMAP.md (queue 1) for what comes next"
                 )
         if cfg.odom_init not in ("", "kp", "tf"):
             raise ValueError(f"odom_init must be '', 'kp' or 'tf', got {cfg.odom_init!r}")
@@ -238,14 +293,23 @@ class MultiMotionFusionTorch:
         self.cam = cfg.camera
         self.device = device
         self.tick = 1
-        self.state: Optional[GlobalState] = None
+        self.state = None  # GlobalState, or engine_multi.MultiState in multi-model mode
         self.stats: Dict[str, float] = {}
         self._last_stats: Optional[FrameStats] = None
         self._pose_log: List[tuple] = []  # (timestamp, [4,4] device pose)
-        self._hwm = 0
-        self._hwm_tick = 0
-        self._growth_rate = 4096
-        self._bucket = 0
+        # the global map's work bucket, and in multi-model mode the largest
+        # object count's (floor 2^14)
+        self._map_bucket = _BucketEstimator(cfg.surfels.max_surfels, 24576, 2048, 4096, 1 << 15,
+                                            lambda: int(self.state.smap.count))
+        self._obj_bucket = _BucketEstimator(cfg.object_capacity, 4096, 1024, 2048, 1 << 14,
+                                            lambda: int(torch.max(self.state.objects.count)))
+        # multi-model mode: the device logs
+        self._obj_log: List[tuple] = []  # (timestamp, [S,4,4] poses, [S] active)
+        self._spawn_log: List[tuple] = []  # (timestamp, spawn, slot, refine_T)
+        self._event_cursor = 0
+        self._active_last: Optional[np.ndarray] = None
+        self._listeners: Dict[str, list] = {}
+        self.last_mask: Optional[torch.Tensor] = None
         self._zero_mask = torch.zeros((self.cam.height, self.cam.width), dtype=torch.int32,
                                       device=device)
         # the RANSAC uniforms of odom_init="kp" (not carried by interop)
@@ -263,64 +327,61 @@ class MultiMotionFusionTorch:
 
     # -- state --------------------------------------------------------------
 
-    def set_state(self, state: GlobalState, tick: int, bucket: int = 0) -> None:
-        """Adopt an externally built state (see interop.state_from_numpy) as
-        the state after frame ``tick - 1``; an empty track table stands in
-        where a kp engine's state has none."""
+    def set_state(self, state, tick: int, bucket: int = 0, bucket_obj: int = 0) -> None:
+        """Adopt an externally built state (see interop.state_from_numpy and
+        interop.multi_state_from_numpy) as the state after frame ``tick - 1``;
+        an empty track table stands in where a kp engine's state has none.
+        ``bucket`` / ``bucket_obj`` are the work buckets to continue with (0:
+        decide afresh)."""
         if self.cfg.odom_init == "kp" and state.tracks is None:
             kcfg = self.cfg.keypoints
             state = state._replace(tracks=tracker.empty(kcfg.max_tracks, kcfg.track_history,
                                                         kcfg.desc_dim, self.device))
         self.state = state
         self.tick = tick
-        self._hwm = int(state.smap.count)
-        self._hwm_tick = tick
-        self._bucket = bucket
+        self._map_bucket.reset(int(state.smap.count), tick, bucket)
+        if self.cfg.enable_multi_model:
+            self._obj_bucket.reset(int(torch.max(state.objects.count)), tick, bucket_obj)
 
-    def _buckets(self, k_ahead: int = 1) -> int:
-        """Work bucket from a (possibly stale) high-water mark, extrapolated by
-        the measured growth rate (x4 margin) plus a fixed headroom; re-read
-        from the device only when the estimate outgrows the bucket or every
-        64 frames; shrinks by whole rungs with 2x hysteresis. Appends beyond
-        the bucket are dropped for those frames."""
-        cap = self.cfg.surfels.max_surfels
-        headroom = 24576
-        margin = max(4 * self._growth_rate, 2048)
-        est = self._hwm + (self.tick + k_ahead - self._hwm_tick) * margin
-        if self._bucket == 0:
-            self._bucket = _bucket_for(est + headroom, cap)
-        stale = self.tick - self._hwm_tick
-        if (est + headroom > self._bucket or stale >= 64) and self.state is not None:
-            new_hwm = int(self.state.smap.count)  # device read (rare)
-            dt = max(stale, 1)
-            self._growth_rate = max((new_hwm - self._hwm) // dt, 64)
-            self._hwm = new_hwm
-            self._hwm_tick = self.tick
-            margin = max(4 * self._growth_rate, 2048)
-            est = self._hwm + (k_ahead + 1) * margin
-            ideal = _bucket_for(est + headroom, cap)
-            if ideal * 2 <= self._bucket:
-                self._bucket = ideal
-        if est + headroom > self._bucket:
-            self._bucket = _bucket_for(est + headroom, cap)
-        return self._bucket
+    def _buckets(self, k_ahead: int = 1):
+        """(global map bucket, object bucket: 0 unless multi-model) for the
+        next ``k_ahead`` frames (``_BucketEstimator``)."""
+        obj = self._obj_bucket(self.tick, k_ahead) if self.cfg.enable_multi_model else 0
+        return self._map_bucket(self.tick, k_ahead), obj
 
     # -- frames -------------------------------------------------------------
 
     def upload(self, frame: FrameData):
-        """(rgb u8, depth) on the device. f32 depth travels as millimetres
-        (uint16 bits in an int16 tensor) when ``upload_depth_mm``, exactly as
-        the reference package quantises it."""
+        """(rgb u8, depth, mask int32 or None) on the device. f32 depth travels
+        as millimetres (uint16 bits in an int16 tensor) when
+        ``upload_depth_mm``, exactly as the reference package quantises it."""
         depth = frame.depth
         if self.cfg.upload_depth_mm and depth.dtype == np.float32:
             depth = np.clip(depth * 1000.0, 0, 65535).astype(np.uint16)
         if depth.dtype == np.uint16:
             depth = depth.view(np.int16)
         rgb = torch.from_numpy(np.ascontiguousarray(frame.rgb)).to(self.device)
-        return rgb, torch.from_numpy(np.ascontiguousarray(depth)).to(self.device)
+        mask = None
+        if frame.mask is not None:
+            mask = torch.from_numpy(np.ascontiguousarray(frame.mask, np.int32)).to(self.device)
+        return rgb, torch.from_numpy(np.ascontiguousarray(depth)).to(self.device), mask
 
-    def _step(self, frame: FrameData, bucket: int, weight_multiplier: float):
-        rgb_u8, depth_raw = self.upload(frame)
+    def _step(self, frame: FrameData, bucket: int, bucket_obj: int, weight_multiplier: float):
+        rgb_u8, depth_raw, mask = self.upload(frame)
+        if self.cfg.enable_multi_model:
+            from multimotionfusion_tpu_torch import engine_multi as em
+
+            layout = rasterize.FlatLayout(bucket, bucket_obj, self.cfg.object_slots)
+            self.state, stats, seg_mask, aux, odo = em.multi_frame_step(
+                self.state, rgb_u8, depth_raw, self._zero_mask if mask is None else mask,
+                self.tick, weight_multiplier, self.cam, self.cfg, layout, self.sp_net,
+                self.generator)
+            self.last_mask = seg_mask
+            self._obj_log.append((frame.timestamp, self.state.objects.pose,
+                                  self.state.objects.active))
+            self._spawn_log.append((frame.timestamp, aux.spawn, aux.slot, aux.refine_T))
+            self._record(frame, FrameStats(odo, self.state.smap, None, stats))
+            return
         self.state, stats = _frame_core(
             self.state, rgb_u8, depth_raw, self._zero_mask, self.tick, weight_multiplier,
             self.cam, self.cfg, bucket, self.sp_net, self.generator,
@@ -337,19 +398,25 @@ class MultiMotionFusionTorch:
     def process_frame(self, frame: FrameData, gt_pose: Optional[np.ndarray] = None,
                       weight_multiplier: float = 1.0) -> Dict[str, float]:
         if self.tick == 1:
-            rgb_u8, depth_raw = self.upload(frame)
+            rgb_u8, depth_raw, _ = self.upload(frame)
             pose0 = torch.tensor(gt_pose if gt_pose is not None else np.eye(4), dtype=F32,
                                  device=self.device)
             self.state, stats = _init_step(rgb_u8, depth_raw, pose0, self.tick, self.cam, self.cfg,
                                            self.sp_net)
-            self._hwm = int(self.state.smap.count)
-            self._hwm_tick = 1
+            if self.cfg.enable_multi_model:
+                from multimotionfusion_tpu_torch import engine_multi as em
+
+                self.state = em.init_state(self.state, rgb_u8, self.cfg)
+                self._obj_log.append((frame.timestamp, self.state.objects.pose,
+                                      self.state.objects.active))
+                self._spawn_log.append((frame.timestamp, None, None, None))
+            self._map_bucket.reset(int(self.state.smap.count), 1, self._map_bucket.bucket)
             self._record(frame, stats)
         else:
             if self.cfg.odom_init == "tf" and gt_pose is not None:
                 self.state = self.state._replace(
                     pose=torch.as_tensor(np.asarray(gt_pose, np.float32)).to(self.device))
-            self._step(frame, self._buckets(), weight_multiplier)
+            self._step(frame, *self._buckets(), weight_multiplier)
         return dict(self.stats)
 
     def process_frames(self, frames, weight_multiplier: float = 1.0) -> Dict[str, float]:
@@ -360,13 +427,21 @@ class MultiMotionFusionTorch:
             for f in frames:
                 self.process_frame(f, weight_multiplier=weight_multiplier)
             return dict(self.stats)
-        bucket = self._buckets(k_ahead=len(frames))
+        buckets = self._buckets(k_ahead=len(frames))
         for f in frames:
-            self._step(f, bucket, weight_multiplier)
+            self._step(f, *buckets, weight_multiplier)
         return dict(self.stats)
 
     def current_stats(self, sync: bool = True) -> Dict[str, float]:
-        if sync and self._last_stats is not None:
+        if sync and self._last_stats is not None and self._last_stats.multi is not None:
+            v = self._last_stats.multi.cpu().numpy()
+            self.stats = {
+                "icp_error": float(v[0]), "icp_count": float(v[1]), "rgb_error": float(v[2]),
+                "rgb_count": float(v[3]), "surfels": float(v[4]), "hwm": float(v[5]),
+                "spawned": float(v[6]), "active_objects": float(v[7]), "lost": float(v[8]),
+                "segment_px": [float(x) for x in v[9:]],
+            }
+        elif sync and self._last_stats is not None:
             s = self._last_stats
             odo = s.odo
             self.stats = {
@@ -408,13 +483,95 @@ class MultiMotionFusionTorch:
             pose_log=self.pose_log,
         )
 
+    # -- multi-model lifecycle (reference Core/Callbacks.h) -----------------
+
+    def add_model_listener(self, event: str, fn) -> None:
+        """Register a callback for "new_model" / "inactive_model" events; it
+        receives {event, timestamp, id, redetected?}."""
+        if event not in ("new_model", "inactive_model"):
+            raise ValueError(f"unknown event {event!r}")
+        self._listeners.setdefault(event, []).append(fn)
+
+    def _lifecycle_logs(self):
+        """The object-pose and spawn logs with their device tensors read (one
+        copy each of the poses, flags and spawn records since the start)."""
+        def host(x):
+            return None if x is None else x.cpu().numpy()
+
+        if self._obj_log and isinstance(self._obj_log[-1][2], torch.Tensor):
+            poses = torch.stack([p for _, p, _ in self._obj_log]).cpu().numpy()
+            act = torch.stack([a for _, _, a in self._obj_log]).cpu().numpy()
+            self._obj_log = [(ts, poses[i], act[i]) for i, (ts, _, _) in enumerate(self._obj_log)]
+            self._spawn_log = [(ts, host(sp), host(sl), host(rT)) for ts, sp, sl, rT in self._spawn_log]
+        return self._obj_log, self._spawn_log
+
+    def drain_events(self) -> List[Dict]:
+        """Lifecycle events since the last drain (a model became active: spawn
+        or redetection; a model went inactive), listeners fired."""
+        obj_log, spawn_log = self._lifecycle_logs()
+        events: List[Dict] = []
+        while self._event_cursor < len(obj_log):
+            i = self._event_cursor
+            ts, _, act = obj_log[i]
+            sp, sl = spawn_log[i][1], spawn_log[i][2]
+            spawned = int(sl) if sp is not None and bool(sp) else -1
+            prev = self._active_last
+            if prev is not None:
+                for k in np.nonzero(act & ~prev)[0]:
+                    events.append({"event": "new_model", "timestamp": ts, "id": int(k) + 1,
+                                   "redetected": int(k) != spawned})
+                for k in np.nonzero(prev & ~act)[0]:
+                    events.append({"event": "inactive_model", "timestamp": ts, "id": int(k) + 1})
+            self._active_last = act
+            self._event_cursor += 1
+        for ev in events:
+            for fn in self._listeners.get(ev["event"], []):
+                fn(ev)
+        return events
+
     def export_poses(self, export_dir: str) -> List[str]:
-        """Write the camera trajectory in TUM format to ``poses-0.txt``."""
+        """Write each model's trajectory in TUM format to ``poses-<id>.txt``:
+        the camera's (id 0), and in multi-model mode each object slot's over
+        the frames it was active, as P_0 P_m^-1 (the object's motion in the
+        world), a spawned object back-dated by its refine transforms."""
         self.finish()
-        path = os.path.join(export_dir, "poses-0.txt")
-        with open(path, "w") as f:
-            for ts, T in self.pose_log:
-                q = se3.to_quaternion_xyzw(torch.as_tensor(T[:3, :3])).numpy()
-                t = T[:3, 3]
-                f.write(f"{ts * 1e-9:.9f} {t[0]} {t[1]} {t[2]} {q[0]} {q[1]} {q[2]} {q[3]}\n")
-        return [path]
+        pose_log = self.pose_log
+        models = [(0, pose_log)]
+        if self.cfg.enable_multi_model:
+            obj_log, spawn_log = self._lifecycle_logs()
+            obj_logs = {k: [] for k in range(self.cfg.object_slots)}
+            for ts, poses, active in obj_log:
+                for k in range(self.cfg.object_slots):
+                    if active[k]:
+                        obj_logs[k].append((ts, poses[k]))
+            ts_order = [ts for ts, _ in pose_log]
+            ts_index = {ts: i for i, ts in enumerate(ts_order)}
+            for ts, sp, sl, rT in spawn_log:
+                if sp is None or not bool(sp) or ts not in ts_index:
+                    continue
+                i, P, back = ts_index[ts], np.eye(4, dtype=np.float64), []
+                for k in range(rT.shape[0]):
+                    j = i - k - 1
+                    if j < 0 or not np.all(np.isfinite(rT[k])):
+                        break
+                    P = P @ np.linalg.inv(rT[k])
+                    back.append((ts_order[j], P.astype(np.float32)))
+                obj_logs[int(sl)] = back[::-1] + obj_logs[int(sl)]
+            models += [(k + 1, log) for k, log in obj_logs.items() if log]
+        gposes = dict(pose_log)
+        paths = []
+        for model_id, log in models:
+            path = os.path.join(export_dir, f"poses-{model_id}.txt")
+            with open(path, "w") as f:
+                for ts, pose in log:
+                    if model_id == 0:
+                        T = pose
+                    elif ts in gposes:
+                        T = gposes[ts] @ np.linalg.inv(np.asarray(pose))
+                    else:
+                        continue
+                    q = se3.to_quaternion_xyzw(torch.as_tensor(T[:3, :3])).numpy()
+                    t = T[:3, 3]
+                    f.write(f"{ts * 1e-9:.9f} {t[0]} {t[1]} {t[2]} {q[0]} {q[1]} {q[2]} {q[3]}\n")
+            paths.append(path)
+        return paths

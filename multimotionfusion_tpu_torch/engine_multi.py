@@ -1,0 +1,505 @@
+"""Multi-model engine step: per-rigid-body tracking, lifecycle and fusion.
+
+Port of the reference package's ``engine_multi.py`` for the composite step
+with external ("precomputed") masks: keypoints -> track table -> per-model
+RANSAC seeds -> ONE composite Gauss-Newton pass for every model (K11) ->
+external-mask segmentation -> spawn / reactivate / deactivate / store ->
+ONE composite index map over the flat store of all models (K12) -> ONE
+fuse and clean pass (K14) -> the composite prediction (K10, composite mode,
+filled in only where the global model owns the pixel).
+
+Object models live in fixed slots on the device (``ObjectSlots``: slot k is
+model k + 1 and owns mask id k + 1); the previous frame's mask (``prev_mask``)
+partitions the pixels for tracking, and the winner model of last frame's
+composite index map (``pred_own``) gates the prediction taps. Every
+lifecycle decision is a device select (``torch.where``): the rare branches
+of the reference's ``lax.cond`` (redetection, the new model's back-dating,
+the spawn, the store snapshot) are computed on every frame and selected, so
+a frame reads nothing back, spawn frames included.
+
+Not ported here: the flow-CRF and legacy CRF segmentations, the second
+track table of ``segm_lvl != init_lvl``, relocalisation and loop closure
+(the engine refuses those configurations; ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from multimotionfusion_tpu_torch.config import REDETECT_RANSAC, CameraModel, EngineConfig
+from multimotionfusion_tpu_torch.engine import _compact_pred, _detect
+from multimotionfusion_tpu_torch.model import fusion, surfel_map as sm
+from multimotionfusion_tpu_torch.model.fillin import FilledMaps, splat_fill
+from multimotionfusion_tpu_torch.odometry import levels as lv
+from multimotionfusion_tpu_torch.odometry import multi as modo
+from multimotionfusion_tpu_torch.ops import frame_maps, ransac, rasterize
+from multimotionfusion_tpu_torch.ops.image import rgb_to_intensity
+from multimotionfusion_tpu_torch.segmentation.precomputed import precomputed_segmentation
+from multimotionfusion_tpu_torch.tracking import tracker
+from multimotionfusion_tpu_torch.utils import se3
+
+F32 = torch.float32
+I32 = torch.int32
+# named ranges of the multi step (torch.profiler; chip_smoke.py's stage phase)
+_span = torch.profiler.record_function
+
+
+class ObjectSlots(NamedTuple):
+    """Batched object-model state (leading axis = slot; mask id = slot + 1)."""
+
+    data: torch.Tensor  # [S, 16, cap_o]
+    count: torch.Tensor  # [S] int32 high-water mark
+    pose: torch.Tensor  # [S, 4, 4]
+    active: torch.Tensor  # [S] bool
+    unseen: torch.Tensor  # [S] int32 frames with zero segment pixels
+    spawn_tick: torch.Tensor  # [S] int32
+    conf_t: torch.Tensor  # [S] per-slot confidence gate (rises as the model matures)
+    max_depth: torch.Tensor  # [S] per-slot max depth (segment mean + 1.2 std)
+    stored: torch.Tensor  # [S] bool: the slot holds a deactivated model
+    stored_desc: torch.Tensor  # [S, Ks, D] redetection snapshot
+    stored_p3d: torch.Tensor  # [S, Ks, 3] model-frame points
+    stored_valid: torch.Tensor  # [S, Ks] bool
+    ext_id: torch.Tensor  # [S] int32 external mask id owned by the slot (0 = none)
+
+    @property
+    def num_slots(self) -> int:
+        return self.data.shape[0]
+
+
+FIELDS = ObjectSlots._fields
+
+
+class SpawnAux(NamedTuple):
+    """Per-frame lifecycle outputs the host reads lazily."""
+
+    spawn: torch.Tensor  # [] bool: a new model claimed a slot this frame
+    redetect: torch.Tensor  # [] bool: a stored model was re-attached
+    slot: torch.Tensor  # [] int32 the claimed slot
+    refine_T: torch.Tensor  # [L, 4, 4] per-step back-dating transforms
+
+
+class MultiState(NamedTuple):
+    """Device state of the multi-model step."""
+
+    smap: sm.SurfelMap  # the global model (id 0)
+    pose: torch.Tensor
+    prev_pose: torch.Tensor
+    filled: FilledMaps  # composite prediction (global pixels filled in)
+    pred_own: torch.Tensor  # [H, W] int32 model of each prediction pixel's winner (M = none)
+    last_intensity_coarse: torch.Tensor
+    tracks: tracker.TrackTable
+    objects: ObjectSlots
+    prev_mask: torch.Tensor  # [H, W] int32 segmentation of the previous frame
+    prev_intensity: torch.Tensor  # [H, W]
+    last_spawn: torch.Tensor  # [] int32 tick of the last spawn (cool-down)
+
+
+def empty_objects(cfg: EngineConfig, device) -> ObjectSlots:
+    s = cfg.object_slots
+    ks, d = cfg.keypoints.max_keypoints, cfg.keypoints.desc_dim
+    z = dict(device=device)
+    return ObjectSlots(
+        data=torch.zeros((s, sm.CHANNELS, cfg.object_capacity), dtype=F32, **z),
+        count=torch.zeros((s,), dtype=I32, **z),
+        pose=torch.eye(4, dtype=F32, **z).repeat(s, 1, 1),
+        active=torch.zeros((s,), dtype=torch.bool, **z),
+        unseen=torch.zeros((s,), dtype=I32, **z),
+        spawn_tick=torch.zeros((s,), dtype=I32, **z),
+        conf_t=torch.full((s,), cfg.surfels.object_conf_threshold, dtype=F32, **z),
+        max_depth=torch.full((s,), cfg.surfels.depth_cutoff, dtype=F32, **z),
+        stored=torch.zeros((s,), dtype=torch.bool, **z),
+        stored_desc=torch.zeros((s, ks, d), dtype=F32, **z),
+        stored_p3d=torch.zeros((s, ks, 3), dtype=F32, **z),
+        stored_valid=torch.zeros((s, ks), dtype=torch.bool, **z),
+        ext_id=torch.zeros((s,), dtype=I32, **z),
+    )
+
+
+def init_state(state, rgb_u8, cfg: EngineConfig) -> MultiState:
+    """The multi state after the first frame, from the static init step's."""
+    cam = cfg.camera
+    dev = state.pose.device
+    zeros = torch.zeros((cam.height, cam.width), dtype=I32, device=dev)
+    return MultiState(
+        smap=state.smap, pose=state.pose, prev_pose=state.prev_pose, filled=state.filled,
+        pred_own=zeros, last_intensity_coarse=state.last_intensity_coarse, tracks=state.tracks,
+        objects=empty_objects(cfg, dev), prev_mask=zeros.clone(),
+        prev_intensity=rgb_to_intensity(rgb_u8.to(F32)),
+        last_spawn=torch.zeros((), dtype=I32, device=dev),
+    )
+
+
+def _eye(n: int, dev) -> torch.Tensor:
+    return torch.eye(4, dtype=F32, device=dev).expand(n, 4, 4)
+
+
+def _depth_stats(mask, new_label_mask, depth, m: int):
+    """[m + 1] mean / std of the frame depth per label (index m = the new
+    label): the per-model max-depth clamp mean + 1.2 std."""
+    dev = depth.device
+    ks = torch.arange(m, dtype=I32, device=dev)[:, None, None]
+    sel = torch.cat([mask[None] == ks, new_label_mask[None]], dim=0) & (depth[None] > 0)
+    n = torch.clamp(torch.sum(sel.to(F32), dim=(1, 2)), min=1.0)
+    zero = torch.zeros_like(depth)[None]
+    mu = torch.sum(torch.where(sel, depth[None], zero), dim=(1, 2)) / n
+    var = torch.sum(torch.where(sel, (depth * depth)[None], zero), dim=(1, 2)) / n - mu * mu
+    return mu, torch.sqrt(torch.clamp(var, min=0.0))
+
+
+def _fit_gate(res: ransac.RansacResult, min_inliers: int, max_step: float) -> torch.Tensor:
+    T = res.transform
+    return (res.ok & (res.num_inliers >= min_inliers) & (res.error < 0.008)
+            & torch.isfinite(T).all() & (torch.linalg.norm(T[:3, 3]) < max_step))
+
+
+def _kp_seeds(tracks, pair, time: int, pose0, obj: ObjectSlots, cfg: EngineConfig, gen):
+    """Per-model keypoint pose seeds (Model::getLastTrackTransform): RANSAC
+    (K21) over each model's tracks of the last pair; [M, 4, 4] seeds and [M]
+    gates. Seeds compose as pose @ T_rel for every model."""
+    p0, p1, valid = pair
+    dev = p0.device
+    eye = torch.eye(4, dtype=F32, device=dev)
+    poses = torch.cat([pose0[None], obj.pose], dim=0)
+    seeds, oks = [], []
+    for m in range(1 + obj.num_slots):
+        u = torch.rand((cfg.ransac.iterations, 3), generator=gen, device=dev)
+        res = ransac.ransac_fit(u, p0, p1, valid & (tracks.model_id == m), cfg.ransac)
+        good = _fit_gate(res, 24, 0.03) if m == 0 else _fit_gate(res, 12, 0.05)
+        seeds.append(poses[m] @ torch.where(good, res.transform, eye))
+        oks.append(good)
+    return torch.stack(seeds), torch.stack(oks)
+
+
+def _redetect(obj: ObjectSlots, kps, kp_p3d, in_seg, cfg: EngineConfig, gen):
+    """Re-attach STORED models to the new segment (Model::getBestMatch):
+    descriptor match (K20) + RANSAC (K21) per slot, then a refit on the points
+    within 1 cm. Returns (ok [S], err [S], T [S, 4, 4])."""
+    dev = kp_p3d.device
+    oks, errs, Ts = [], [], []
+    for k in range(obj.num_slots):
+        match_idx, _ = tracker.mutual_match(kps.desc, obj.stored_desc[k].contiguous(), in_seg,
+                                            obj.stored_valid[k].contiguous(),
+                                            cfg.keypoints.patch_gate)
+        matched = match_idx >= 0
+        pm = obj.stored_p3d[k][torch.clamp(match_idx, min=0).long()].contiguous()
+        u = torch.rand((REDETECT_RANSAC.iterations, 3), generator=gen, device=dev)
+        res = ransac.ransac_fit(u, pm, kp_p3d, matched, REDETECT_RANSAC)
+        d = ransac.residual_norms(res.transform, pm, kp_p3d)
+        tight = matched & (d < 0.01)
+        T2 = ransac.kabsch_fit(pm, kp_p3d, tight)
+        use2 = tight.to(I32).sum() >= 4
+        T = torch.where(use2, T2, res.transform)
+        dn = ransac.residual_norms(T, pm, kp_p3d)
+        err = torch.sum(torch.where(tight, dn, torch.zeros_like(dn))) / torch.clamp(
+            tight.to(F32).sum(), min=1.0)
+        err = torch.where(use2, err, res.error)
+        oks.append(res.ok & (res.num_inliers > 5) & (err < 0.01) & torch.isfinite(T).all())
+        errs.append(err)
+        Ts.append(T)
+    return torch.stack(oks), torch.stack(errs), torch.stack(Ts)
+
+
+def _snapshot_tracks(obj: ObjectSlots, tracks, poses):
+    """Per-slot redetection snapshots from the track table (Model::store):
+    the slot's tracks with depth at their last sighting, in model frame."""
+    S = obj.num_slots
+    ks = obj.stored_desc.shape[1]
+    dev = poses.device
+    cap = tracks.capacity
+    s_last = torch.remainder(tracks.last_seen, tracks.history).long()
+    rows = torch.arange(cap, device=dev)
+    p_cam = tracks.p3d[rows, s_last]  # [T, 3]
+    hasd = tracks.has_depth[rows, s_last]
+    slot_ids = torch.arange(1, S + 1, dtype=I32, device=dev)[:, None]
+    valid = tracks.active[None] & (tracks.model_id[None] == slot_ids) & hasd[None]  # [S, T]
+    pm = torch.einsum("sij,tj->sti", poses[:, :3, :3], p_cam) + poses[:, None, :3, 3]
+    rank = torch.cumsum(valid.to(I32), dim=1) - 1
+    dest = torch.where(valid & (rank < ks), rank, torch.full_like(rank, ks)).long()
+    d = tracks.desc.shape[1]
+    d_out = torch.zeros((S, ks + 1, d), dtype=F32, device=dev)
+    d_out.scatter_(1, dest[..., None].expand(S, cap, d), tracks.desc[None].expand(S, cap, d))
+    p_out = torch.zeros((S, ks + 1, 3), dtype=F32, device=dev)
+    p_out.scatter_(1, dest[..., None].expand(S, cap, 3), pm)
+    v_out = torch.zeros((S, ks + 1), dtype=torch.bool, device=dev)
+    v_out.scatter_(1, dest, valid)
+    return d_out[:, :ks], p_out[:, :ks], v_out[:, :ks]
+
+
+def _associate_tracks(table, mask, time: int, h: int, w: int) -> None:
+    """Each track seen THIS frame takes the mask label under its keypoint (in place)."""
+    s1 = time % table.history
+    txy = table.xy[:, s1]
+    xi = torch.clamp(torch.round(txy[:, 0]).to(torch.int64), 0, w - 1)
+    yi = torch.clamp(torch.round(txy[:, 1]).to(torch.int64), 0, h - 1)
+    seen_now = table.last_seen == time
+    table.model_id.copy_(torch.where(seen_now, mask[yi, xi], table.model_id))
+
+
+class SegResult(NamedTuple):
+    mask: torch.Tensor
+    new_label_mask: torch.Tensor
+    has_new_label: torch.Tensor
+    pixel_counts: torch.Tensor
+    depth_mean: torch.Tensor
+    depth_std: torch.Tensor
+
+
+class LifecycleOut(NamedTuple):
+    mask: torch.Tensor
+    spawn: torch.Tensor
+    any_red: torch.Tensor
+    target_slot: torch.Tensor
+    refine_T: torch.Tensor
+    fs_w: sm.FrameSurfels
+    objects: ObjectSlots  # data and counts with the spawn written, poses and flags updated
+    last_spawn: torch.Tensor
+
+
+def _lifecycle_update(obj: ObjectSlots, seg: SegResult, tracks, kps, depth_m, depth_filt, rgb_u8,
+                      new_pose0, prev_pose, obj_poses_new, time: int, last_spawn,
+                      weight_multiplier, seg_conf_sum, seg_conf_cnt, reactivate, new_ext_id,
+                      cam: CameraModel, cfg: EngineConfig, gen) -> LifecycleOut:
+    """Redetect / spawn / deactivate / store (reference MultiMotionFusion.cpp:
+    468-613, Model::store gates :962-981), every branch on the device."""
+    scfg = cfg.surfels
+    S = obj.num_slots
+    h, w = cam.height, cam.width
+    dev = depth_filt.device
+    allow_new = cfg.enable_model_spawning and cfg.object_slots > 0
+    inf = torch.full((S,), float("inf"), dtype=F32, device=dev)
+    slots = torch.arange(S, dtype=I32, device=dev)
+
+    # ---- redetection (computed only where the configuration enables it: its
+    # result is masked by the flag anyway)
+    if cfg.enable_redetection and allow_new:
+        kp_p3d, kp_hasd = tracker.backproject_keypoints(kps, depth_filt, cam)
+        kxi = torch.clamp(torch.round(kps.xy[:, 0]).to(torch.int64), 0, w - 1)
+        kyi = torch.clamp(torch.round(kps.xy[:, 1]).to(torch.int64), 0, h - 1)
+        in_seg = seg.new_label_mask[kyi, kxi] & kps.valid & kp_hasd
+        red_ok, red_err, red_T = _redetect(obj, kps, kp_p3d, in_seg, cfg, gen)
+        red_ok = red_ok & obj.stored & ~obj.active & seg.has_new_label
+    else:
+        red_ok = torch.zeros((S,), dtype=torch.bool, device=dev)
+        red_err, red_T = inf, _eye(S, dev)
+    any_red = red_ok.any()
+    red_slot = torch.argmin(torch.where(red_ok, red_err, inf))
+
+    # ---- spawn decision
+    slot_score = obj.active.to(I32) * 2 + (obj.stored & ~obj.active).to(I32)
+    free_slot = torch.argmin(slot_score)
+    any_free = ~obj.active.all()
+    cooled = (last_spawn == 0) | (time - last_spawn >= cfg.model_spawn_offset)
+    spawn = seg.has_new_label & any_free & cooled & ~any_red
+    if not allow_new:
+        spawn = spawn & False
+    target_slot = torch.where(any_red, red_slot, free_slot).to(I32)
+    claim = spawn | any_red
+    new_id = target_slot + 1
+    outlier_id = torch.full_like(seg.mask, S + 1)
+    mask = torch.where(seg.new_label_mask, torch.where(claim, new_id.expand_as(seg.mask), outlier_id),
+                       seg.mask)
+
+    cutoff = torch.full((), scfg.depth_cutoff, dtype=F32, device=dev)
+    seg_maxd = torch.minimum(seg.depth_mean + 1.2 * seg.depth_std, cutoff)
+    slot_maxd = seg_maxd[1:1 + S]
+    new_band = torch.clamp(1.2 * seg.depth_std[1 + S], min=0.05)
+    new_maxd = torch.minimum(seg.depth_mean[1 + S] + new_band, cutoff)
+    new_mind = torch.clamp(seg.depth_mean[1 + S] - new_band, min=0.0)
+
+    # ---- track <-> segment association (in place)
+    _associate_tracks(tracks, mask, time, h, w)
+
+    # ---- back-date the new object's trajectory (selected by `spawn`)
+    refine_len = min(8, tracks.history - 2)
+    refine_T = tracker.refine_track_subset(tracks, tracks.model_id == new_id, time, refine_len,
+                                           gen, cfg.ransac)
+    refine_T = torch.where(spawn, refine_T, _eye(refine_len, dev))
+
+    # ---- spawn: the claimed slot's map from the new label's pixels
+    diff = new_pose0 @ se3.inverse_T(prev_pose)
+    motion = torch.maximum(torch.linalg.norm(diff[:3, 3]), torch.linalg.norm(se3.so3_log(diff[:3, :3])))
+    weighting = torch.clamp(1.0 - torch.clamp(motion, max=0.01) / 0.01, min=0.5) * float(
+        weight_multiplier)
+    fs_w = frame_maps.frame_surfels(rgb_u8, depth_m, depth_filt, cam, time, scfg.depth_cutoff,
+                                    weighting)
+    spawn_conf_scale = 100.0 / torch.clamp(weighting, min=1e-6)
+    pz = fs_w.data[sm.PZ]
+    spawn_valid = (fs_w.valid & (mask == new_id).reshape(-1) & spawn & (pz <= new_maxd)
+                   & (pz >= new_mind))
+    sdat = torch.where(spawn_valid[None], fs_w.data, torch.zeros_like(fs_w.data))
+    sdat = torch.cat([sdat[:sm.CONF], sdat[sm.CONF:sm.CONF + 1] * spawn_conf_scale,
+                      sdat[sm.CONF + 1:]], dim=0)
+    spawn_map = sm.init_from_frame(sm.FrameSurfels(sdat, spawn_valid), cfg.object_capacity)
+    is_spawn_slot = (slots == target_slot) & spawn
+    is_red_slot = (slots == target_slot) & any_red
+    claimed = is_spawn_slot | is_red_slot
+    obj_data = torch.where(is_spawn_slot[:, None, None], spawn_map.data[None], obj.data)
+    obj_count = torch.where(is_spawn_slot, spawn_map.count, obj.count)
+    obj_active = obj.active | claimed | reactivate
+    obj_stored = obj.stored & ~claimed
+    obj_ext_id = torch.where(claimed, new_ext_id, obj.ext_id)
+    obj_pose = torch.where(is_spawn_slot[:, None, None], _eye(S, dev),
+                           torch.where(is_red_slot[:, None, None],
+                                       red_T.index_select(0, red_slot.reshape(1)),
+                                       obj_poses_new))
+    obj_spawn_tick = torch.where(claimed, torch.full_like(obj.spawn_tick, time), obj.spawn_tick)
+    avg_conf = seg_conf_sum / torch.clamp(seg_conf_cnt, min=1.0)
+    conf_t = torch.where(obj.active & (seg_conf_cnt > 0),
+                         torch.clamp(torch.maximum(obj.conf_t, avg_conf), max=9.0), obj.conf_t)
+    conf_t = torch.where(claimed, torch.full_like(conf_t, scfg.object_conf_threshold), conf_t)
+    slot_px = seg.pixel_counts[1:1 + S]
+    max_depth = torch.where(obj.active & (slot_px > 0),
+                            torch.minimum(slot_maxd, obj.max_depth + 0.05), obj.max_depth)
+    max_depth = torch.where(reactivate, slot_maxd, max_depth)
+    max_depth = torch.where(claimed, new_maxd.expand_as(max_depth), max_depth)
+
+    # ---- lost models (zero segment pixels)
+    unseen = torch.where(obj_active & (slot_px == 0) & ~claimed, obj.unseen + 1,
+                         torch.zeros_like(obj.unseen))
+    was_active = obj_active
+    obj_active = obj_active & (unseen < cfg.model_unseen_patience)
+    dying = was_active & ~obj_active
+
+    # ---- store dying models that pass the keep gates (>= 500 surfels, conf > 0.3)
+    alive_d = obj_data[:, sm.ALIVE] > 0
+    alive_cnt = alive_d.to(I32).sum(dim=1)
+    mean_conf = torch.sum(torch.where(alive_d, obj_data[:, sm.CONF], torch.zeros_like(
+        obj_data[:, sm.CONF])), dim=1) / torch.clamp(alive_cnt.to(F32), min=1.0)
+    store_it = dying & (alive_cnt >= cfg.min_inactive_surfels) & (mean_conf > 0.3)
+    snap_d, snap_p, snap_v = _snapshot_tracks(obj, tracks, obj_pose)
+    objects = ObjectSlots(
+        data=obj_data, count=obj_count, pose=obj_pose, active=obj_active, unseen=unseen,
+        spawn_tick=obj_spawn_tick, conf_t=conf_t, max_depth=max_depth,
+        stored=obj_stored | store_it,
+        stored_desc=torch.where(store_it[:, None, None], snap_d, obj.stored_desc),
+        stored_p3d=torch.where(store_it[:, None, None], snap_p, obj.stored_p3d),
+        stored_valid=torch.where(store_it[:, None], snap_v, obj.stored_valid),
+        ext_id=obj_ext_id,
+    )
+    last = torch.where(claim, torch.full_like(last_spawn, time), last_spawn)
+    return LifecycleOut(mask, spawn, any_red, target_slot, refine_T, fs_w, objects, last)
+
+
+def multi_frame_step(state: MultiState, rgb_u8, depth_raw, ext_mask, time: int,
+                     weight_multiplier, cam: CameraModel, cfg: EngineConfig,
+                     layout: rasterize.FlatLayout, sp_net=None, gen=None):
+    """One multi-model frame (tick > 1). ``layout`` holds the global and the
+    object work buckets. Returns (state, stats [9 + M] on the device, final
+    mask, SpawnAux, odometry result). Writes the global map's bucket and the
+    track table in place."""
+    scfg = cfg.surfels
+    obj = state.objects
+    S = obj.num_slots
+    M = 1 + S
+    h, w = cam.height, cam.width
+    dev = depth_raw.device
+    odo_cfg = dataclasses.replace(cfg.odometry, mask_icp=False)
+
+    with _span("frame_inputs"):  # K1
+        depth_m, depth_filt = frame_maps.frame_depth(depth_raw)
+    with _span("levels"):  # K2 and K11's owner prep
+        frame_lv = lv.frame_levels(depth_filt, rgb_u8, state.prev_mask, cam, odo_cfg)
+        preds = lv.pred_levels(state.filled.vertex_conf, state.filled.normal_rad,
+                               state.filled.color, cam, odo_cfg)
+        mls = modo.owner_levels(state.prev_mask, state.pred_own, frame_lv,
+                                lv.gn_levels(frame_lv, preds, cam, odo_cfg), odo_cfg, M)
+
+    with _span("sparse"):  # K19, K20, K21
+        tracks = state.tracks
+        kps = _detect(frame_lv[cfg.odometry.init_lvl].img, cfg, sp_net)
+        pair = tracker.update(tracks, kps, depth_filt, time, cam, cfg.keypoints)
+        T_init = seed_ok = None
+        if cfg.odom_init == "kp":
+            T_init, seed_ok = _kp_seeds(tracks, pair, time, state.pose, obj, cfg, gen)
+
+    with _span("odometry"):  # K3, K11 and K5's M-wide steps
+        T_prev = torch.cat([state.pose[None], obj.pose], dim=0)
+        active_all = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev), obj.active])
+        odo = modo.multi_track(T_prev, mls, state.last_intensity_coarse, odo_cfg, cam, M,
+                               T_init, seed_ok, active_all)
+        new_pose0, obj_poses_new = odo.poses[0], odo.poses[1:]
+
+    with _span("segmentation"):
+        pres = precomputed_segmentation(ext_mask, obj.ext_id, obj.active, depth_filt,
+                                        cfg.segmentation.min_mask_size_px)
+        mu, sd = _depth_stats(pres.mask, pres.new_label_mask, depth_filt, M)
+        seg = SegResult(pres.mask, pres.new_label_mask, pres.has_new_label, pres.pixel_counts,
+                        mu, sd)
+
+    with _span("lifecycle"):
+        ks = torch.arange(1, S + 1, dtype=I32, device=dev)[:, None, None]
+        sel = (seg.mask[None] == ks) & (state.prev_mask[None] == ks)
+        conf_img = state.filled.vertex_conf[..., 3]
+        seg_conf_sum = torch.sum(torch.where(sel, conf_img[None], torch.zeros_like(conf_img)[None]),
+                                 dim=(1, 2))
+        seg_conf_cnt = torch.sum(sel.to(F32), dim=(1, 2))
+        lc = _lifecycle_update(obj, seg, tracks, kps, depth_m, depth_filt, rgb_u8, new_pose0,
+                               state.prev_pose, obj_poses_new, time, state.last_spawn,
+                               weight_multiplier, seg_conf_sum, seg_conf_cnt, pres.reactivate,
+                               pres.new_ext_id, cam, cfg, gen)
+        objs = lc.objects
+
+    Bg, Bo = layout.bg, layout.bo
+    one = torch.ones((1,), dtype=F32, device=dev)
+    poses_all = torch.cat([new_pose0[None], objs.pose], dim=0)
+    maxd_all = torch.cat([one * scfg.depth_cutoff, objs.max_depth])
+    conf_all = torch.cat([one * scfg.conf_threshold, objs.conf_t])
+    active_all2 = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev), objs.active])
+    counts_all = torch.cat([state.smap.count[None], objs.count])
+    with _span("zbuffer"):  # K12 over the flat store
+        store = torch.cat([state.smap.data[:, :Bg],
+                           objs.data[:, :, :Bo].permute(1, 0, 2).reshape(sm.CHANNELS, S * Bo)],
+                          dim=1)
+        index, data_local, win = rasterize.zbuffer_flat(
+            store, counts_all, layout, se3.inverse_T(poses_all).contiguous(), maxd_all, cam,
+            time, scfg.time_delta)
+        im = rasterize.IndexMap(index, data_local)
+    with _span("fuse"):  # K14
+        fused, counts_new = fusion.fuse_flat(store, counts_all, layout, lc.fs_w, im, lc.mask, win,
+                                             poses_all.contiguous(), maxd_all, active_all2, cam,
+                                             time, scfg)
+    with _span("clean"):  # K14, then K9 per segment on compaction frames
+        cleaned = fusion.clean_flat(fused, counts_new, layout, im, win, depth_filt, conf_all, cam,
+                                    time, scfg.time_delta, scfg)
+        gdata, odata = cleaned[:, :Bg], cleaned[:, Bg:].reshape(sm.CHANNELS, S, Bo)
+        if _compact_pred(time, scfg):
+            packed, cnts = [], []
+            for m, seg_data in enumerate([gdata] + [odata[:, k] for k in range(S)]):
+                size = seg_data.shape[1]
+                keep = (torch.arange(size, dtype=I32, device=dev) < counts_new[m]) \
+                    & (seg_data[sm.ALIVE] > 0)
+                d, c = sm.compact(seg_data, keep, size)
+                packed.append(d)
+                cnts.append(c)
+            gdata = packed[0]
+            odata = torch.stack(packed[1:], dim=1)
+            counts_new = torch.stack(cnts)
+        # back into the stores, in place (objs.data is this frame's own tensor)
+        state.smap.data[:, :Bg] = gdata
+        objs.data[:, :, :Bo] = odata.permute(1, 0, 2)
+        smap = sm.SurfelMap(data=state.smap.data, count=counts_new[0])
+        objs = objs._replace(count=counts_new[1:].contiguous())
+
+    with _span("splat_resolve"):  # K10 (composite) + fill-in of the global pixels
+        fill = rasterize.FillFrame(rgb_u8, depth_filt, lc.fs_w.data, scfg.depth_cutoff,
+                                   cfg.frame_to_frame_rgb, gate=lc.mask)
+        filled = splat_fill(im, cam, 0.0, time, time, scfg.time_delta, scfg.splat_footprint,
+                            fill, rasterize.Composite(conf_all, win))
+
+    stats = torch.cat([
+        torch.stack([odo.icp_error[0], odo.icp_count[0], odo.rgb_error[0], odo.rgb_count[0],
+                     smap.alive_count().to(F32), smap.count.to(F32), lc.spawn.to(F32),
+                     objs.active.to(F32).sum(), torch.zeros((), dtype=F32, device=dev)]),
+        seg.pixel_counts.to(F32),
+    ])
+    new_state = MultiState(
+        smap=smap, pose=new_pose0, prev_pose=state.pose, filled=filled, pred_own=win,
+        last_intensity_coarse=frame_lv[cfg.odometry.num_pyr - 1].img, tracks=tracks,
+        objects=objs, prev_mask=lc.mask, prev_intensity=frame_lv[0].img,
+        last_spawn=lc.last_spawn,
+    )
+    aux = SpawnAux(lc.spawn, lc.any_red, lc.target_slot, lc.refine_T)
+    return new_state, stats, lc.mask, aux, odo

@@ -13,6 +13,11 @@ names ``tracks.xy`` [T, H, 2], ``tracks.p3d`` [T, H, 3], ``tracks.seen`` and
 bool. A test builds it from a reference GlobalState with ``np.asarray`` on
 each field.
 
+``multi_state_to_numpy`` / ``multi_state_from_numpy`` carry the multi-model
+state (``engine_multi.MultiState``): the same keys plus ``pred_own``,
+``prev_mask``, ``prev_intensity``, ``last_spawn`` and ``objects.<field>`` for
+every field of the reference's ObjectSlots.
+
 When the ``tracks.*`` keys are absent (a snapshot without a track table) the
 state's ``tracks`` is None, and ``MultiMotionFusionTorch.set_state`` stands in
 an empty table of its configuration. The engine's random generator (the
@@ -36,7 +41,7 @@ _TRACK_DTYPES = {"seen": torch.bool, "has_depth": torch.bool, "active": torch.bo
                  "last_seen": torch.int32, "nvalid": torch.int32, "model_id": torch.int32}
 
 
-def state_to_numpy(state: GlobalState) -> Dict[str, np.ndarray]:
+def state_to_numpy(state) -> Dict[str, np.ndarray]:
     out = {
         "smap.data": state.smap.data.cpu().numpy(),
         "smap.count": np.asarray(state.smap.count.cpu().numpy(), np.int32),
@@ -54,7 +59,7 @@ def state_to_numpy(state: GlobalState) -> Dict[str, np.ndarray]:
 
 def state_from_numpy(d: Dict[str, np.ndarray], device="cuda") -> GlobalState:
     def dev(key, dtype=torch.float32):
-        return torch.as_tensor(np.asarray(d[key]), dtype=dtype).to(device).contiguous()
+        return torch.as_tensor(np.array(d[key]), dtype=dtype).to(device).contiguous()
 
     tracks = None
     if "tracks.xy" in d:
@@ -68,4 +73,48 @@ def state_from_numpy(d: Dict[str, np.ndarray], device="cuda") -> GlobalState:
         filled=FilledMaps(*(dev(f"filled.{k}") for k in _FILLED)),
         last_intensity_coarse=dev("last_intensity_coarse"),
         tracks=tracks,
+    )
+
+
+# ---------------------------------------------------------------- multi-model
+
+_OBJ_DTYPES = {"count": torch.int32, "active": torch.bool, "unseen": torch.int32,
+               "spawn_tick": torch.int32, "stored": torch.bool, "stored_valid": torch.bool,
+               "ext_id": torch.int32}
+_MULTI_INT = ("pred_own", "prev_mask", "last_spawn")
+
+
+def multi_state_to_numpy(state) -> Dict[str, np.ndarray]:
+    """An ``engine_multi.MultiState`` as a dict: the static keys (without
+    ``prev_pose``'s absence: all of them), the track table, ``pred_own``,
+    ``prev_mask`` [H, W] int32, ``prev_intensity`` [H, W], ``last_spawn`` []
+    int32 and the object slots under ``objects.<field>`` (the reference's
+    ObjectSlots names)."""
+    from multimotionfusion_tpu_torch.engine_multi import FIELDS
+
+    out = state_to_numpy(state)
+    for k in _MULTI_INT + ("prev_intensity",):
+        out[k] = getattr(state, k).cpu().numpy()
+    for k in FIELDS:
+        out[f"objects.{k}"] = getattr(state.objects, k).cpu().numpy()
+    return out
+
+
+def multi_state_from_numpy(d: Dict[str, np.ndarray], device="cuda"):
+    """An ``engine_multi.MultiState`` from such a dict (e.g. the reference
+    engine's ``mstate``, each field through ``np.asarray``)."""
+    from multimotionfusion_tpu_torch.engine_multi import FIELDS, MultiState, ObjectSlots
+
+    def dev(key, dtype=torch.float32):
+        return torch.as_tensor(np.array(d[key]), dtype=dtype).to(device).contiguous()
+
+    g = state_from_numpy(d, device)
+    objects = ObjectSlots(*(dev(f"objects.{k}", _OBJ_DTYPES.get(k, torch.float32))
+                            for k in FIELDS))
+    return MultiState(
+        smap=g.smap, pose=g.pose, prev_pose=g.prev_pose, filled=g.filled,
+        pred_own=dev("pred_own", torch.int32), last_intensity_coarse=g.last_intensity_coarse,
+        tracks=g.tracks, objects=objects, prev_mask=dev("prev_mask", torch.int32),
+        prev_intensity=dev("prev_intensity"),
+        last_spawn=dev("last_spawn", torch.int32).reshape(()),
     )

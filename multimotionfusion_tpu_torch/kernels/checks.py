@@ -19,6 +19,7 @@ from multimotionfusion_tpu_torch.model import fillin
 from multimotionfusion_tpu_torch.model import fusion as FU
 from multimotionfusion_tpu_torch.model import surfel_map as sm
 from multimotionfusion_tpu_torch.odometry import levels as LV
+from multimotionfusion_tpu_torch.odometry import multi as MO
 from multimotionfusion_tpu_torch.odometry import rgbd
 from multimotionfusion_tpu_torch.ops import frame_maps as FM
 from multimotionfusion_tpu_torch.ops import ransac as RS
@@ -41,7 +42,7 @@ _ARG_NAMES = {
     "pyramid.pred": ("vertex_conf", "normal_rad", "color", "cam", "cfg"),
     "odo_init": ("device",),
     "so3_reduce": ("last_img", "next_img", "cam_l", "state"),
-    "so3_step": ("state", "sums"),
+    "so3_step": ("state", "sums", "verbatim"),
     "gn_step": ("state", "sums", "sp", "last"),
     "track": ("T_prev", "gl", "last_next_img_l2", "cfg", "cam", "T_init", "seed_valid"),
     "clean": ("data", "count", "index", "data_local", "depth", "mask", "mask_id", "cam", "time",
@@ -56,6 +57,21 @@ _ARG_NAMES = {
     "seed_select": ("state", "seed_Rt", "seed_valid", "sums_cur", "sums_so3", "scale2",
                     "use_icp", "arbitrate"),
     "sparse": ("img", "tracks", "depth_filt", "time", "u", "cam", "cfg"),
+    "owner_prep": ("prev_mask", "pred_own", "frame", "gl", "cfg", "n_models"),
+    "gn_multi": ("ml", "Tinv_all", "cam_l", "scale2", "p", "n_models", "done"),
+    "multi_init": ("M", "device"),
+    "multi_seed": ("state", "seed_Rt", "seed_valid", "active", "M"),
+    "multi_arbitrate": ("state", "sums_cur", "sums_so3", "M", "scale2"),
+    "gn_step_multi": ("state", "sums", "M", "sp", "last"),
+    "multi_track": ("T_prev", "levels", "last_next_img_l2", "cfg", "cam", "n_models", "T_init",
+                    "seed_valid", "active"),
+    "zbuffer.flat": ("data", "counts", "layout", "T_inv", "maxd", "cam", "time", "time_delta"),
+    "fuse_flat": ("data", "counts", "layout", "frame_data", "frame_valid", "index", "data_local",
+                  "mask", "win_model", "poses", "maxd", "active", "cam", "time", "cfg"),
+    "clean_flat": ("data", "counts", "layout", "index", "data_local", "win_model", "depth",
+                   "conf_all", "cam", "time", "time_delta", "cfg"),
+    "splat_resolve.composite": ("index", "data_local", "cam", "conf_threshold", "time",
+                                "max_time", "time_delta", "window", "fill", "composite"),
 }
 
 
@@ -81,12 +97,15 @@ def check_zbuffer(a: tuple) -> dict:
 
 def check_splat(a: tuple) -> dict:
     """The resolve and its fill-in epilogue: where both versions resolved a
-    surfel the prediction's attributes, elsewhere the filled-in frame."""
-    fill = a[-1]
+    surfel the prediction's attributes, elsewhere the filled-in frame (in
+    composite mode only where the fill gate, the mask, is 0)."""
+    fill = a[8]
     pk = R.splat_resolve_cuda(*a)
     pp, fp = fillin.splat_fill_plain(*a)
     res = _check_resolved(pk, pp)
     neither = ~pk.valid & ~pp.valid
+    if fill is not None and fill.gate is not None:
+        neither = neither & (fill.gate == 0)
     ferr = float(torch.cat([(pk.color - fp.color).abs(), (pk.vertex_conf - fp.vertex_conf).abs(),
                             (pk.normal_rad - fp.normal_rad).abs()], -1)[neither].max())
     res.update(fill_err=ferr, filled_pixels=int(neither.sum()),
@@ -268,10 +287,10 @@ def check_odo_init(a: tuple) -> dict:
 
 
 def check_so3_step(a: tuple) -> dict:
-    state, sums = a
+    state, sums, verbatim = a
     sk, sp = state.clone(), state.clone()
-    rgbd.so3_step_cuda(sk, sums)
-    rgbd.so3_step_plain(sp, sums)
+    rgbd.so3_step_cuda(sk, sums, verbatim)
+    rgbd.so3_step_plain(sp, sums, verbatim)
     sk, sp = sk.cpu(), sp.cpu()
     S = rgbd
     R_err = float((sk[S.S_R:S.S_R + 9] - sp[S.S_R:S.S_R + 9]).abs().max())
@@ -487,3 +506,176 @@ def nms_inputs(kind: str, h: int, w: int, device, seed: int = 0) -> tuple:
     img = torch.rand((h, w), generator=g).to(device)
     heat, _ = SP.superpoint_apply(net, img)
     return heat.contiguous(), 512, 0.0, 4
+
+
+# ---------------------------------------------------------------- slice 4
+
+def check_owner_prep(a: tuple, level: int) -> dict:
+    prev_mask, pred_own, frame, gl, cfg, M = a
+    ms = LV._min_scale(cfg, level)
+    k = MO.owner_level_cuda(level, prev_mask, pred_own, frame[level], M, ms)
+    p = MO.owner_level_plain(level, prev_mask, pred_own, frame[level], M, ms)
+    differ = [int((x != y).sum()) for x, y in zip(k, p)]
+    return dict(max_abs_err=float(sum(differ)), differ_own_bank_valid=differ,
+                band_pixels=int((p[1] == M).sum()), valid_pixels=int(p[2].sum()),
+                ok=sum(differ) == 0 and int(p[2].sum()) > 0,
+                tolerance="owner, eroded owner and static validity exact")
+
+
+def check_gn_multi(a: tuple, level: int) -> dict:
+    sk = MO.gn_multi_cuda(*a, level=level).cpu()
+    sp = MO.gn_multi_plain(*a).cpu()
+    e_icp = e_rgb = scal = 0.0
+    for m in range(sk.shape[0]):
+        Sp_i, Sp_r = rgbd._sym(sp[m, 0:28]), rgbd._sym(sp[m, 28:56])
+        if float(sp[m, 56]) > 0:
+            e_icp = max(e_icp, _frob(rgbd._sym(sk[m, 0:28]), Sp_i))
+        if float(sp[m, 57]) > 0:
+            e_rgb = max(e_rgb, _frob(rgbd._sym(sk[m, 28:56]), Sp_r))
+        scal = max(scal, _rel(sk[m, 56:59], sp[m, 56:59]))
+    counts_equal = bool((sk[:, 56:58] == sp[:, 56:58]).all())
+    return dict(max_abs_err=float((sk - sp).abs().max()), rel_frob_icp=e_icp, rel_frob_rgb=e_rgb,
+                counts_sigma_rel_err=scal, counts_equal=counts_equal,
+                icp_counts=[float(x) for x in sp[:, 56]],
+                ok=e_icp <= 1e-5 and e_rgb <= 1e-5 and scal <= 1e-4 and counts_equal
+                and float(sp[:, 56].sum()) > 0,
+                tolerance="each model's 7x7 systems within 1e-5 relative (Frobenius); ICP and "
+                          "RGB counts exact, sum diff^2 (a sum of 76,800 squares in another "
+                          "order) within 0.01%")
+
+
+def check_multi_init(a: tuple) -> dict:
+    sk = MO.multi_init_cuda(*a).cpu()
+    sp = MO.multi_init_plain(*a).cpu()
+    return dict(max_abs_err=float((sk - sp).abs().max()), ok=bool((sk == sp).all()),
+                tolerance="state exact")
+
+
+def _multi_rows(st, M):
+    return st.cpu().view(M + 1, rgbd.S_SIZE)
+
+
+def check_multi_seed(a: tuple) -> dict:
+    state, rest, M = a[0], a[1:], a[4]
+    sk, sp = state.clone(), state.clone()
+    MO.multi_seed_cuda(sk, *rest)
+    MO.multi_seed_plain(sp, *rest)
+    rk, rp = _multi_rows(sk, M), _multi_rows(sp, M)
+    rt = slice(rgbd.S_RT, rgbd.S_RT + 16)
+    inv = slice(rgbd.S_RT_INV, rgbd.S_RT_INV + 16)
+    same = bool((rk[:, rt] == rp[:, rt]).all()) and bool(
+        (rk[:, MO.S_ACTIVE] == rp[:, MO.S_ACTIVE]).all())
+    err = _maxerr(rk[:, inv], rp[:, inv])
+    return dict(max_abs_err=err, ok=same and err <= 1e-6,
+                tolerance="each model's start and active flag equal; its inverse within 1e-6")
+
+
+def check_multi_arbitrate(a: tuple) -> dict:
+    state, rest, M = a[0], a[1:], a[3]
+    sk, sp = state.clone(), state.clone()
+    MO.multi_arbitrate_cuda(sk, *rest)
+    MO.multi_arbitrate_plain(sp, *rest)
+    rk, rp = _multi_rows(sk, M), _multi_rows(sp, M)
+    rt = slice(rgbd.S_RT, rgbd.S_RT + 16)
+    inv = slice(rgbd.S_RT_INV, rgbd.S_RT_INV + 16)
+    err = _maxerr(rk[:, inv], rp[:, inv])
+    same = bool((rk[:, rt] == rp[:, rt]).all())
+    return dict(max_abs_err=err, ok=same and err <= 1e-6,
+                tolerance="each model's kept start equal; its inverse within 1e-6")
+
+
+def check_gn_step_multi(a: tuple) -> dict:
+    state, sums, M, sp_, last = a
+    sk, spl = state.clone(), state.clone()
+    MO.gn_step_multi_cuda(sk, sums, M, sp_, last)
+    MO.gn_step_multi_plain(spl, sums, M, sp_, last)
+    rk, rp = _multi_rows(sk, M), _multi_rows(spl, M)
+    S = rgbd
+    errs = [_pose_err(rk[m, S.S_RT:S.S_RT + 16].view(4, 4), rp[m, S.S_RT:S.S_RT + 16].view(4, 4))
+            for m in range(M)]
+    cam_t, cam_r = errs[0]
+    dt, dr = max(e[0] for e in errs), max(e[1] for e in errs)
+    A_err = serr = 0.0
+    for m in range(M):
+        A_err = max(A_err, _frob(rk[m, S.S_LAST_A:S.S_LAST_A + 36], rp[m, S.S_LAST_A:S.S_LAST_A + 36]))
+        cols = [S.S_ICP_ERR, S.S_ICP_COUNT, S.S_RGB_ERR, S.S_RGB_COUNT]
+        serr = max(serr, _rel(rk[m, cols], rp[m, cols]))
+    flags = bool((rk[:, S.S_GN_DONE] == rp[:, S.S_GN_DONE]).all()) and bool(
+        (rk[M, [S.S_GN_J, S.S_GN_ITERS, S.S_GN_ITERS + 1, S.S_GN_ITERS + 2]]
+         == rp[M, [S.S_GN_J, S.S_GN_ITERS, S.S_GN_ITERS + 1, S.S_GN_ITERS + 2]]).all())
+    return dict(max_abs_err=max(dt, dr), trans_err_m=dt, rot_err_rad=dr, camera_trans_err_m=cam_t,
+                camera_rot_err_rad=cam_r, lastA_rel_frob=A_err, scalars_rel_err=serr,
+                ok=cam_t <= 1e-5 and cam_r <= 1e-5 and dt <= 1e-4 and dr <= 1e-4
+                and A_err <= 1e-4 and serr <= 1e-4 and flags,
+                tolerance="the camera's pose within 1e-5 m and 1e-5 rad, every object's within "
+                          "1e-4 m and 1e-4 rad (a sphere's spin about its centre is nearly "
+                          "unobservable: the eigen-truncated solve of its nearly degenerate "
+                          "system differs between the kernel's Jacobi eigensolver and LAPACK's), "
+                          "lastA within 1e-4 relative, errors/counts within 1e-4 relative, stop "
+                          "and done flags and counters exact")
+
+
+def check_multi_track(a: tuple) -> dict:
+    """The composite odometry loop on the card against the plain loop on CPU
+    copies of the same inputs."""
+    T_prev, levels, last, cfg, cam, M, T_init, seed_valid, active = a
+    rk = MO.multi_track(T_prev, levels, last, cfg, cam, M, T_init, seed_valid, active)
+    host = [MO.MultiLevel(rgbd.GNLevel(*(_host(x) for x in ml.gl)), ml.own.cpu(),
+                          ml.bank_own.cpu()) for ml in levels]
+    rp = MO.multi_track(T_prev.cpu(), host, last.cpu(), cfg, cam, M, _host(T_init),
+                        _host(seed_valid), _host(active))
+    errs = [_pose_err(rk.poses[m], rp.poses[m]) for m in range(M)]
+    cam_t, cam_r = errs[0]
+    dt, dr = max(e[0] for e in errs), max(e[1] for e in errs)
+    ik, ip = MO.loop_iterations(rk), MO.loop_iterations(rp)
+    counts_rel = _rel(rk.icp_count.cpu(), rp.icp_count)
+    return dict(max_abs_err=max(dt, dr), trans_err_m=dt, rot_err_rad=dr, camera_trans_err_m=cam_t,
+                camera_rot_err_rad=cam_r, per_model_err=errs, iterations_kernel=ik,
+                iterations_plain=ip, icp_counts=[float(x) for x in rp.icp_count],
+                icp_counts_rel_err=counts_rel,
+                ok=cam_t <= 1e-5 and cam_r <= 1e-5 and dt <= 2e-3 and dr <= 5e-3 and ik == ip
+                and counts_rel <= 1e-2,
+                tolerance="the camera's final pose within 1e-5 m and 1e-5 rad; every object's "
+                          "within 2e-3 m and 5e-3 rad (its spin about the sphere's centre is "
+                          "nearly unobservable, and the per-step differences of the truncated "
+                          "solve, below 1e-4 each, add up over the 19 iterations); the "
+                          "iterations of every loop equal; ICP counts within 1% (an object's "
+                          "count follows its pose)")
+
+
+def check_zbuffer_flat(a: tuple) -> dict:
+    ik, dk, wk = R.zbuffer_flat_cuda(*a)
+    ip, dp, wp = R.zbuffer_flat_plain(*a)
+    differ = int((ik != ip).sum())
+    wdiffer = int((wk != wp).sum())
+    err = float((dk - dp).abs().max())
+    return dict(max_abs_err=err, differing_pixels=differ, win_model_differ=wdiffer,
+                object_pixels=int(((wp > 0) & (wp < a[2].n_models)).sum()),
+                ok=differ == 0 and wdiffer == 0 and err <= 1e-5,
+                tolerance="index and winner model exact; data_local within 1e-5")
+
+
+def check_fuse_flat(a: tuple) -> dict:
+    dk, ck = FU.fuse_flat_cuda(*a)
+    dp, cp = FU.fuse_flat_plain(*a)
+    data_in = a[0]
+    written = int((dp != data_in).any(0).sum())
+    err = float(((dk - dp).abs() / dp.abs().clamp(min=1.0)).max())
+    counts_equal = bool((ck == cp).all())
+    return dict(max_abs_err=float((dk - dp).abs().max()), max_rel_err=err,
+                counts_kernel=ck.tolist(), counts_plain=cp.tolist(), written_plain=written,
+                ok=written > 0 and counts_equal and err <= 1e-4,
+                tolerance="per-model counts exact; whole flat store within 1e-4 relative "
+                          "(|a-b| / max(|b|, 1))")
+
+
+def check_clean_flat(a: tuple) -> dict:
+    ok_ = FU.clean_flat_cuda(*a)
+    op = FU.clean_flat_plain(*a)
+    data_in = a[0]
+    alive_diff = int((ok_[sm.ALIVE] != op[sm.ALIVE]).sum())
+    err = _rel(ok_, op)
+    culled = int(((data_in[sm.ALIVE] > 0) & (op[sm.ALIVE] == 0)).sum())
+    return dict(max_abs_err=float((ok_ - op).abs().max()), max_rel_err=err, keep_differ=alive_diff,
+                culled_plain=culled, ok=alive_diff == 0 and err <= 1e-6,
+                tolerance="ALIVE exact; the whole flat store within 1e-6 relative")

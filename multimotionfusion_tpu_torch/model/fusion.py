@@ -15,6 +15,11 @@
   from data_local (K7, no attribute image) and scatter-mins its verdict per
   surfel; a surfel pass applies them; every ``compact_every`` frames a
   multi-block compaction repacks the kept surfels with the count on the card.
+- ``fuse_flat`` / ``clean_flat`` (kernel K14, ``csrc/fuse_flat.cu``): the
+  same two passes for the multi-model step, ONCE over the flat store of all
+  models (``FlatLayout``) with the composite index map: a pixel fuses into
+  its mask owner's model, appends rank per model in source order, and the
+  clean's window tests stay within one model with that model's gates.
 
 The camera pose is a [4, 4] tensor on the map's device that the kernels read
 by pointer.
@@ -30,10 +35,13 @@ from multimotionfusion_tpu_torch.model import surfel_map as sm
 from multimotionfusion_tpu_torch.ops.image import _shift2d
 from multimotionfusion_tpu_torch.ops.rasterize import (
     INVALID,
+    FlatLayout,
     IndexMap,
     _pixel_rays,
     gather_attr_images,
     check_pose,
+    take_small,
+    transform_per_model,
 )
 
 
@@ -389,3 +397,322 @@ def clean(
     impl = clean_cuda if smap.data.is_cuda else clean_plain
     return impl(smap, index_map, depth_input, mask, mask_id, cam, time, time_delta,
                 conf_threshold, cfg, compact, out)
+
+
+# ---------------------------------------------------------------- K14
+
+def fuse_flat_plain(data, counts, layout: FlatLayout, frame_data, frame_valid, index, data_local,
+                    mask, win_model, poses, maxd, active, cam: CameraModel, time,
+                    cfg: SurfelConfig):
+    """Plain PyTorch K14 (fuse): composite fusion of one frame into the flat
+    store of all models. Returns (data [16, N] new array, counts [M] int32)."""
+    h, w = cam.height, cam.width
+    dev = data.device
+    M = layout.n_models
+    bases = layout.bases
+    lx, ly = _pixel_rays(cam, dev)
+    xl, yl = lx, ly
+    lam = torch.sqrt(xl * xl + yl * yl + 1.0)
+    fz = frame_data[sm.PZ].reshape(h, w)
+    fnx = frame_data[sm.NX].reshape(h, w)
+    fny = frame_data[sm.NY].reshape(h, w)
+    fnz = frame_data[sm.NZ].reshape(h, w)
+
+    par = int(time) % 2
+    xi = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
+    yi = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
+    checker = ((xi % 2) == par) & ((yi % 2) == par)
+    neigh_ok = (
+        (_shift2d(fz, 0, -1, 0.0) > 0) & (_shift2d(fz, 0, 1, 0.0) > 0)
+        & (_shift2d(fz, -1, 0, 0.0) > 0) & (_shift2d(fz, 1, 0, 0.0) > 0)
+    )
+    active_px = take_small(active.to(dev, torch.float32), mask, M) > 0.5
+    maxd_px = take_small(maxd.to(dev), mask, M)
+    participate = (
+        checker & (mask < M) & active_px & neigh_ok & frame_valid.reshape(h, w)
+        & (fz > 0) & (fz <= torch.clamp(maxd_px, max=cfg.depth_cutoff))
+    )
+
+    # owner-gated window search: a candidate must belong to the pixel's owner
+    attrs = gather_attr_images(data_local, index)
+    best_dist = torch.full((h, w), 1000.0, dtype=torch.float32, device=dev)
+    best_tgt = torch.full((h, w), INVALID, dtype=torch.int32, device=dev)
+    for dy, dx in _window_offsets(cfg.assoc_window):
+        cand = _shift2d(index, dy, dx, INVALID)
+        cdat = _shift2d(attrs, dy, dx, 0.0)
+        cown = _shift2d(win_model, dy, dx, -1)
+        cpx, cpy, cpz = cdat[sm.PX], cdat[sm.PY], cdat[sm.PZ]
+        z_ok = torch.abs((cpz - fz) * lam) < cfg.assoc_depth_gate
+        rx = yl * cpz - cpy
+        ry = cpx - xl * cpz
+        rz = xl * cpy - yl * cpx
+        dist = torch.sqrt(rx * rx + ry * ry + rz * rz)
+        cnx, cny, cnz = cdat[sm.NX], cdat[sm.NY], cdat[sm.NZ]
+        cosang = torch.clamp(cnx * fnx + cny * fny + cnz * fnz, -1.0, 1.0)
+        n_ok = (torch.abs(cnz) < 0.75) | (torch.abs(torch.arccos(cosang)) < 0.5)
+        better = (cand >= 0) & (cown == mask) & z_ok & n_ok & (dist < best_dist)
+        best_dist = torch.where(better, dist, best_dist)
+        best_tgt = torch.where(better, cand, best_tgt)
+
+    n_cb = (h // 2) * (w // 2)
+    merging = (participate & (best_tgt >= 0))[par::2, par::2].reshape(n_cb)
+    target = best_tgt[par::2, par::2].reshape(n_cb)
+    part = participate[par::2, par::2].reshape(n_cb)
+    own = mask[par::2, par::2].reshape(n_cb)
+    fdat = frame_data.reshape(sm.CHANNELS, h, w)[:, par::2, par::2].reshape(sm.CHANNELS, n_cb)
+
+    # merge in the owner's model frame
+    own_c = torch.clamp(own, 0, M - 1)
+    poses = poses.to(dev)
+    new_global = transform_per_model(fdat, own_c, poses)
+    old = transform_per_model(gather_attr_images(data_local, target), own_c, poses)
+    c_k = old[sm.CONF]
+    a = new_global[sm.CONF]
+    csum = torch.clamp(c_k + a, min=1e-12)
+    rad_ok = new_global[sm.RADIUS] < 1.5 * old[sm.RADIUS]
+
+    def wavg(ch):
+        return (c_k * old[ch] + a * new_global[ch]) / csum
+
+    merged = old.clone()
+    for ch in (sm.PX, sm.PY, sm.PZ, sm.CR, sm.CG, sm.CB):
+        merged[ch] = torch.where(rad_ok, wavg(ch), old[ch])
+    nmx, nmy, nmz = wavg(sm.NX), wavg(sm.NY), wavg(sm.NZ)
+    nn = torch.sqrt(torch.clamp(nmx * nmx + nmy * nmy + nmz * nmz, min=1e-12))
+    merged[sm.NX] = torch.where(rad_ok, nmx / nn, old[sm.NX])
+    merged[sm.NY] = torch.where(rad_ok, nmy / nn, old[sm.NY])
+    merged[sm.NZ] = torch.where(rad_ok, nmz / nn, old[sm.NZ])
+    merged[sm.RADIUS] = torch.where(rad_ok, wavg(sm.RADIUS), old[sm.RADIUS])
+    merged[sm.CONF] = c_k + a
+    merged[sm.LAST_T] = float(time)
+
+    # per-model appends: rank within the owner's model in source order
+    total = layout.total
+    counts = counts.to(dev)
+    new_mask = part & ~merging
+    rank = torch.zeros((n_cb,), dtype=torch.int32, device=dev)
+    base = torch.zeros((n_cb,), dtype=torch.int32, device=dev)
+    seg_end = torch.zeros((n_cb,), dtype=torch.int32, device=dev)
+    n_new = []
+    for m in range(M):
+        selm = own == m
+        cum = torch.cumsum((new_mask & selm).to(torch.int32), 0, dtype=torch.int32)
+        rank = torch.where(selm, cum - 1, rank)
+        base = torch.where(selm, bases[m] + counts[m], base)
+        seg_end = torch.where(selm, torch.full_like(seg_end, bases[m + 1]), seg_end)
+        room = torch.clamp(bases[m + 1] - bases[m] - counts[m], min=0)
+        n_new.append(torch.minimum(cum[-1], room))
+    append_dst = base + rank
+    append_dst = torch.where(new_mask & (append_dst < seg_end), append_dst,
+                             torch.full_like(append_dst, total))
+    merge_dst = torch.where(merging, target, torch.full_like(target, total))
+    dst = torch.cat([merge_dst, append_dst]).long()
+    vals = torch.cat([merged, new_global], dim=1)
+    n_src = 2 * n_cb
+    src_ids = torch.arange(n_src, dtype=torch.int32, device=dev)
+    inv = torch.full((total + 1,), n_src, dtype=torch.int32, device=dev)
+    inv.scatter_reduce_(0, dst, src_ids, reduce="amin", include_self=True)
+    inv = inv[:total]
+    updated = inv < n_src
+    upd = vals[:, torch.clamp(inv, max=n_src - 1).long()]
+    out = torch.where(updated[None], upd, data)
+    return out, (counts + torch.stack(n_new)).to(torch.int32)
+
+
+_FUSE_FLAT_ARGS = (
+    [K.P, K.I, K.I, K.I, K.I, K.P]  # data, row stride, bg, bo, slots, counts
+    + [K.P, K.P, K.P, K.P, K.P, K.P]  # frame data, frame valid, mask, win model, index, data_local
+    + [K.P, K.P, K.P]  # poses, max depths, active
+    + [K.F] * 4 + [K.I, K.I]  # intrinsics, W, H
+    + [K.F, K.I, K.F, K.F, K.I]  # time, parity, depth cutoff, depth gate, window
+    + [K.P] * 7  # target, flags, own, prefix, inv, counts out, data out
+)
+
+
+def fuse_flat_cuda(data, counts, layout: FlatLayout, frame_data, frame_valid, index, data_local,
+                   mask, win_model, poses, maxd, active, cam: CameraModel, time,
+                   cfg: SurfelConfig):
+    """K14 (fuse) on the card: ``csrc/fuse_flat.cu`` ``mmf_fuse_flat`` (same
+    contract as ``fuse_flat_plain``)."""
+    M = layout.n_models
+    K.check(data, torch.float32, "data", contiguous=False)
+    K.check(counts, torch.int32, "counts")
+    K.check(frame_data, torch.float32, "frame_data")
+    K.check(frame_valid, torch.bool, "frame_valid")
+    K.check(mask, torch.int32, "mask")
+    K.check(win_model, torch.int32, "win_model")
+    K.check(index, torch.int32, "index")
+    K.check(data_local, torch.float32, "data_local")
+    K.check(poses, torch.float32, "poses")
+    K.check(maxd, torch.float32, "maxd")
+    K.check(active, torch.bool, "active")
+    h, w = cam.height, cam.width
+    total = layout.total
+    if data.shape != (sm.CHANNELS, total) or data.stride(1) != 1 or data_local.shape != data.shape:
+        raise ValueError("data must be [16, total] (unit column stride) and data_local [16, total]")
+    if tuple(poses.shape) != (M, 4, 4) or counts.shape != (M,) or maxd.shape != (M,) \
+            or active.shape != (M,):
+        raise ValueError("poses must be [M, 4, 4], counts, maxd and active [M]")
+    if h % 2 or w % 2 or M > 8:
+        raise ValueError("fuse_flat needs an even image size and at most 8 models")
+    n_cb = (h // 2) * (w // 2)
+    dev = data.device
+    ints = lambda n: torch.empty((n,), dtype=torch.int32, device=dev)  # noqa: E731
+    target, flags, own, prefix, inv = ints(n_cb), ints(n_cb), ints(n_cb), ints(n_cb), ints(total)
+    counts_out = ints(M)
+    out = torch.empty((sm.CHANNELS, total), dtype=torch.float32, device=dev)
+    f = K.fn("fuse_flat", "mmf_fuse_flat", _FUSE_FLAT_ARGS)
+    K.call(
+        "fuse_flat", f, K.ptr(data), data.stride(0), layout.bg, layout.bo, layout.slots,
+        K.ptr(counts), K.ptr(frame_data), K.ptr(frame_valid), K.ptr(mask), K.ptr(win_model),
+        K.ptr(index), K.ptr(data_local), K.ptr(poses), K.ptr(maxd), K.ptr(active),
+        cam.fx, cam.fy, cam.cx, cam.cy, w, h, float(time), int(time) % 2,
+        float(cfg.depth_cutoff), float(cfg.assoc_depth_gate), int(cfg.assoc_window),
+        K.ptr(target), K.ptr(flags), K.ptr(own), K.ptr(prefix), K.ptr(inv), K.ptr(counts_out),
+        K.ptr(out),
+    )
+    return out, counts_out
+
+
+def fuse_flat(data, counts, layout: FlatLayout, frame: sm.FrameSurfels, index_map: IndexMap,
+              mask, win_model, poses, maxd, active, cam: CameraModel, time, cfg: SurfelConfig):
+    """Composite fusion: ONE association / merge / append pass for all models
+    over the flat store. A pixel fuses only into its mask owner's model
+    (the owner must be < M and active, its depth within the owner's max
+    depth); window candidates must belong to that model (``win_model``); the
+    merge runs in the owner's model frame (``poses`` [M, 4, 4] camera ->
+    model); appends go after each segment's count in checkerboard source
+    order and are dropped beyond the segment. Returns (data, counts)."""
+    args = (data, counts, layout, frame.data, frame.valid, index_map.index, index_map.data_local,
+            mask, win_model, poses, maxd, active, cam, time, cfg)
+    K.record("fuse_flat", data=data, counts=counts, layout=layout, frame_data=frame.data,
+             frame_valid=frame.valid, index=index_map.index, data_local=index_map.data_local,
+             mask=mask, win_model=win_model, poses=poses, maxd=maxd, active=active, cam=cam,
+             time=time, cfg=cfg)
+    impl = fuse_flat_cuda if data.is_cuda else fuse_flat_plain
+    return impl(*args)
+
+
+def clean_flat_plain(data, counts, layout: FlatLayout, index, data_local, win_model, depth,
+                     conf_all, cam: CameraModel, time, time_delta, cfg: SurfelConfig):
+    """Plain PyTorch K14 (clean): the composite culls over the flat store;
+    returns the store with penalties applied and ALIVE cleared (no compaction)."""
+    h, w = cam.height, cam.width
+    dev = data.device
+    M = layout.n_models
+    total = layout.total
+    tf = float(time)
+    last_t = data[sm.LAST_T]
+    conf_all = conf_all.to(dev)
+    attrs = gather_attr_images(data_local, index)
+    conf_px = take_small(conf_all, win_model, M)
+    qx, qy, qz = attrs[sm.PX], attrs[sm.PY], attrs[sm.PZ]
+    q_init = attrs[sm.INIT_T]
+    q_rad = attrs[sm.RADIUS]
+    q_nz = torch.abs(attrs[sm.NZ])
+    has_winner = index >= 0
+
+    count = torch.zeros((h, w), dtype=torch.int32, device=dev)
+    z_count = torch.zeros((h, w), dtype=torch.int32, device=dev)
+    for dy, dx in _window_offsets(cfg.assoc_window):
+        cand = _shift2d(index, dy, dx, INVALID)
+        cdat = _shift2d(attrs, dy, dx, 0.0)
+        cown = _shift2d(win_model, dy, dx, -1)
+        cgate = _shift2d(conf_px, dy, dx, 0.0)
+        cvalid = (cand >= 0) & (cand != index) & has_winner & (cown == win_model)
+        czp, cconf = cdat[sm.PZ], cdat[sm.CONF]
+        cinit, clast = cdat[sm.INIT_T], cdat[sm.LAST_T]
+        xy_dist = torch.sqrt((cdat[sm.PX] - qx) ** 2 + (cdat[sm.PY] - qy) ** 2)
+        red = (cvalid & (cinit < q_init) & (cconf > cgate) & (czp > qz) & (czp - qz < 0.01)
+               & (xy_dist < q_rad * 1.4))
+        count = count + red.to(torch.int32)
+        zc = (cvalid & (clast == tf) & (cconf > cgate) & (czp > qz) & (czp - qz > 0.01)
+              & (q_nz > 0.85))
+        z_count = z_count + zc.to(torch.int32)
+
+    violations = torch.zeros((h, w), dtype=torch.int32, device=dev)
+    viol_sum = torch.zeros((h, w), dtype=torch.float32, device=dev)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            d = _shift2d(depth, dy, dx, 0.0)
+            delta = d - qz
+            hit = has_winner & (d > 0) & (delta > cfg.clean_see_through_gate)
+            violations = violations + hit.to(torch.int32)
+            viol_sum = viol_sum + torch.where(hit, delta, torch.zeros_like(delta))
+    viol = violations > 0
+    avg_v = viol_sum / torch.clamp(violations.to(torch.float32), min=1.0)
+    one = torch.ones_like(avg_v)
+    pen = torch.where(viol, 1.0 / (1.0 + cfg.outlier_coeff * avg_v), one)
+    cull_vis = has_winner & ((count > 8) | (z_count > 4))
+
+    ids = torch.where(has_winner, index, torch.full_like(index, total)).reshape(-1).long()
+    verdict = torch.where(cull_vis, -one, pen).reshape(-1)
+    per_surfel = torch.ones((total + 1,), dtype=torch.float32, device=dev)
+    per_surfel.scatter_reduce_(0, ids, verdict, reduce="amin", include_self=True)
+    per_surfel = per_surfel[:total]
+    culled = per_surfel < 0.0
+    pen_per_surfel = torch.where(culled, torch.ones_like(per_surfel), per_surfel)
+
+    seg = layout.seg_model(dev).long()
+    alive = (layout.pos_in_seg(dev) < counts.to(dev)[seg]) & (data[sm.ALIVE] > 0)
+    keep = alive & ~culled
+    unstable_dead = ((tf - last_t) > cfg.unstable_grace) & (data[sm.CONF] < conf_all[seg])
+    keep = keep & ~unstable_dead
+    keep = keep | (alive & (last_t > 0) & (tf - last_t > time_delta))
+    out = data.clone()
+    out[sm.CONF] = data[sm.CONF] * pen_per_surfel
+    out[sm.ALIVE] = torch.where(keep, data[sm.ALIVE], torch.zeros_like(data[sm.ALIVE]))
+    return out
+
+
+_CLEAN_FLAT_ARGS = (
+    [K.P, K.I, K.I, K.I, K.I, K.P]  # data, row stride, bg, bo, slots, counts
+    + [K.P, K.P, K.P, K.P, K.P]  # index, data_local, win model, depth, conf_all
+    + [K.I, K.I, K.I] + [K.F] * 5  # H, W, window, time, time delta, grace, gate, coeff
+    + [K.P, K.P]  # verdicts, out
+)
+
+
+def clean_flat_cuda(data, counts, layout: FlatLayout, index, data_local, win_model, depth,
+                    conf_all, cam: CameraModel, time, time_delta, cfg: SurfelConfig):
+    """K14 (clean) on the card: ``csrc/fuse_flat.cu`` ``mmf_clean_flat``."""
+    M = layout.n_models
+    K.check(data, torch.float32, "data", contiguous=False)
+    K.check(counts, torch.int32, "counts")
+    K.check(index, torch.int32, "index")
+    K.check(data_local, torch.float32, "data_local")
+    K.check(win_model, torch.int32, "win_model")
+    K.check(depth, torch.float32, "depth")
+    K.check(conf_all, torch.float32, "conf_all")
+    h, w = cam.height, cam.width
+    total = layout.total
+    if data.shape != (sm.CHANNELS, total) or data.stride(1) != 1 or data_local.shape != data.shape:
+        raise ValueError("data must be [16, total] (unit column stride) and data_local [16, total]")
+    if counts.shape != (M,) or conf_all.shape != (M,) or index.shape != (h, w):
+        raise ValueError("counts and conf_all must be [M], index [H, W]")
+    dev = data.device
+    verdicts = torch.empty((total,), dtype=torch.int32, device=dev)
+    out = torch.empty((sm.CHANNELS, total), dtype=torch.float32, device=dev)
+    f = K.fn("fuse_flat", "mmf_clean_flat", _CLEAN_FLAT_ARGS)
+    K.call(
+        "clean_flat", f, K.ptr(data), data.stride(0), layout.bg, layout.bo, layout.slots,
+        K.ptr(counts), K.ptr(index), K.ptr(data_local), K.ptr(win_model), K.ptr(depth),
+        K.ptr(conf_all), h, w, int(cfg.assoc_window), float(time), float(time_delta),
+        float(cfg.unstable_grace), float(cfg.clean_see_through_gate), float(cfg.outlier_coeff),
+        K.ptr(verdicts), K.ptr(out),
+    )
+    return out
+
+
+def clean_flat(data, counts, layout: FlatLayout, index_map: IndexMap, win_model, depth, conf_all,
+               cam: CameraModel, time, time_delta, cfg: SurfelConfig):
+    """Composite clean: window candidates of the SAME model as the pixel's
+    winner, each gated by its model's confidence; see-through penalty;
+    per-surfel verdicts; the unstable cull against the surfel's model gate.
+    No compaction (the caller repacks each segment every compact_every frames)."""
+    K.record("clean_flat", data=data, counts=counts, layout=layout, index=index_map.index,
+             data_local=index_map.data_local, win_model=win_model, depth=depth,
+             conf_all=conf_all, cam=cam, time=time, time_delta=time_delta, cfg=cfg)
+    impl = clean_flat_cuda if data.is_cuda else clean_flat_plain
+    return impl(data, counts, layout, index_map.index, index_map.data_local, win_model, depth,
+                conf_all, cam, time, time_delta, cfg)

@@ -596,9 +596,11 @@ def _write_pose(s: torch.Tensor, Rt: torch.Tensor) -> None:
     s[S_RT_INV:S_RT_INV + 16] = se3.inverse_T(Rt).reshape(-1)
 
 
-def so3_step_plain(state: torch.Tensor, sums: torch.Tensor) -> None:
+def so3_step_plain(state: torch.Tensor, sums: torch.Tensor, verbatim: bool = False) -> None:
     """Plain K5 (SO(3)): one body of the reference's SO(3) while_loop on the
-    state, in place."""
+    state, in place. The static path's convergence test is count stability
+    (|last count - count| < 0.5); ``verbatim`` keeps the reference's own
+    formula |last error - count| < 0.001, as the multi-model path does."""
     s, sm_ = state.to(HOST).clone(), sums.to(HOST)
     R = s[S_R:S_R + 9].reshape(3, 3).clone()
     last_R = s[S_LAST_R:S_LAST_R + 9].reshape(3, 3).clone()
@@ -607,7 +609,10 @@ def so3_step_plain(state: torch.Tensor, sums: torch.Tensor) -> None:
         cntf = sm_[10]
         last_err, last_count = s[S_SO3_LAST_ERR].clone(), s[S_SO3_LAST_COUNT].clone()
         err = torch.sqrt(S[3, 3]) / torch.clamp(cntf, min=1.0)
-        converged = bool((err < last_err) & (torch.abs(last_count - cntf) < 0.5))
+        if verbatim:
+            converged = bool((err < last_err) & (torch.abs(last_err - cntf) < 0.001))
+        else:
+            converged = bool((err < last_err) & (torch.abs(last_count - cntf) < 0.5))
         diverging = bool(err > last_err + 0.001)
         delta = solve_preconditioned(S[:3, :3], S[:3, 3])
         dn = torch.linalg.norm(delta)
@@ -631,16 +636,17 @@ def so3_step_plain(state: torch.Tensor, sums: torch.Tensor) -> None:
     state.copy_(s)
 
 
-def so3_step_cuda(state: torch.Tensor, sums: torch.Tensor) -> None:
+def so3_step_cuda(state: torch.Tensor, sums: torch.Tensor, verbatim: bool = False) -> None:
     """K5 (SO(3)) on the card: ``csrc/gn_step.cu``."""
     K.check(state, F32, "state")
     K.check(sums, F32, "sums")
-    K.call("so3_step", K.fn("gn_step", "mmf_so3_step", [K.P, K.P]), K.ptr(state), K.ptr(sums))
+    K.call("so3_step", K.fn("gn_step", "mmf_so3_step", [K.P, K.P, K.I]), K.ptr(state),
+           K.ptr(sums), int(verbatim))
 
 
-def so3_step(state: torch.Tensor, sums: torch.Tensor) -> None:
-    K.record("so3_step", state=state, sums=sums)
-    (so3_step_cuda if state.is_cuda else so3_step_plain)(state, sums)
+def so3_step(state: torch.Tensor, sums: torch.Tensor, verbatim: bool = False) -> None:
+    K.record("so3_step", state=state, sums=sums, verbatim=verbatim)
+    (so3_step_cuda if state.is_cuda else so3_step_plain)(state, sums, verbatim)
 
 
 class StepParams(NamedTuple):

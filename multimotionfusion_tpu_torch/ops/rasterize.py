@@ -1,6 +1,6 @@
 """Point rasterisation of surfel maps: the index map and the splat resolve.
 
-Port of the reference package's ``ops/rasterize.py`` (static path):
+Port of the reference package's ``ops/rasterize.py``:
 
 - ``predict_indices`` (kernel K6, ``csrc/zbuffer.cu``): transform, gate and
   project every surfel, then one int32 min of the packed key
@@ -9,7 +9,15 @@ Port of the reference package's ``ops/rasterize.py`` (static path):
 - ``splat_resolve`` (kernel K10, ``csrc/splat_resolve.cu``): a 5x5 ray-disk
   resolve over the index map that carries the nearest hit's attributes into
   the predicted colour / vertex / normal / time images; its fill-in epilogue
-  (``model/fillin.py``) writes the filled maps directly.
+  (``model/fillin.py``) writes the filled maps directly. In composite mode
+  (the multi-model step) a tap must belong to the pixel's winner model and
+  passes that model's confidence gate;
+- ``zbuffer_flat`` (kernel K12, ``csrc/zbuffer.cu``): the composite index map
+  over ALL models' surfels in one flat store (``FlatLayout``): each surfel is
+  transformed by its model's inverse pose, gated by its model's max depth,
+  and object surfels win depth ties within 2 cm against the global map (a
+  priority offset and an is-global tie bit in the packed key); it also writes
+  the winner-model image (``win_model_image``).
 
 Transforms are [4, 4] float32 tensors that the kernels read by pointer.
 
@@ -33,6 +41,8 @@ INVALID = -1
 _BIG = 3.4e38
 _ID_BITS = 20
 _KEY_INVALID = 2**31 - 1
+# composite z-buffer: object depths move this much nearer before quantisation
+_Z_PRIORITY = 0.02
 
 
 class IndexMap(NamedTuple):
@@ -83,6 +93,59 @@ def _unpack_zmin(kmin, id_bits: int = _ID_BITS):
     return idx, zmin
 
 
+def take_small(table: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """table[idx] for a small table of ``n`` entries; 0 where idx is out of range."""
+    ok = (idx >= 0) & (idx < n)
+    val = table[torch.clamp(idx, 0, n - 1).long()]
+    return torch.where(ok, val, torch.zeros_like(val))
+
+
+class FlatLayout(NamedTuple):
+    """The multi-model flat store: the global map's bucket (``bg`` slots, model
+    0), then ``slots`` object buckets of ``bo`` slots each (model k + 1)."""
+
+    bg: int
+    bo: int
+    slots: int
+
+    @property
+    def n_models(self) -> int:
+        return 1 + self.slots
+
+    @property
+    def total(self) -> int:
+        return self.bg + self.slots * self.bo
+
+    @property
+    def bases(self):
+        """Segment boundaries, length n_models + 1."""
+        return tuple([0, self.bg] + [self.bg + (k + 1) * self.bo for k in range(self.slots)])
+
+    def seg_model(self, device) -> torch.Tensor:
+        """[total] int32 model of each flat slot."""
+        i = torch.arange(self.total, dtype=torch.int32, device=device)
+        return torch.where(i < self.bg, torch.zeros_like(i), 1 + torch.div(
+            i - self.bg, self.bo, rounding_mode="floor")).to(torch.int32)
+
+    def pos_in_seg(self, device) -> torch.Tensor:
+        i = torch.arange(self.total, dtype=torch.int32, device=device)
+        return torch.where(i < self.bg, i, torch.remainder(i - self.bg, self.bo)).to(torch.int32)
+
+
+def transform_per_model(data: torch.Tensor, model: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """``surfel_map.transform_surfels`` with the pose ``T[model[i]]`` per column
+    ([16, N] data, [N] model ids in range, [M, 4, 4] poses)."""
+    Tm = T.to(data.dtype)[model.long()]  # [N, 4, 4]
+    px, py, pz = data[sm.PX], data[sm.PY], data[sm.PZ]
+    nx, ny, nz = data[sm.NX], data[sm.NY], data[sm.NZ]
+    out = data.clone()
+    for i, (row_p, row_n) in enumerate(((sm.PX, sm.NX), (sm.PY, sm.NY), (sm.PZ, sm.NZ))):
+        R0, R1, R2 = Tm[:, i, 0], Tm[:, i, 1], Tm[:, i, 2]
+        out[row_p] = R0 * px + R1 * py + R2 * pz + Tm[:, i, 3]
+        out[row_n] = R0 * nx + R1 * ny + R2 * nz
+    return out
+
+
 def check_pose(T: torch.Tensor, name: str = "pose") -> None:
     """Validate a [4, 4] transform that a kernel reads by pointer on the card."""
     K.check(T, torch.float32, name)
@@ -93,6 +156,16 @@ def check_pose(T: torch.Tensor, name: str = "pose") -> None:
 def _gates(data_local, alive, time, time_delta, max_depth):
     z = data_local[sm.PZ]
     return alive & (z > 0) & (z <= max_depth) & (float(time) - data_local[sm.LAST_T] <= time_delta)
+
+
+def _project(data_local, cam: CameraModel):
+    """Integer pixel (u, v) of each camera-frame surfel centre, rounded half
+    to even like jnp.rint (clamped before the int cast: no overflow UB)."""
+    x, y, z = data_local[sm.PX], data_local[sm.PY], data_local[sm.PZ]
+    safe_z = torch.where(z > 0, z, torch.ones_like(z))
+    u = torch.round(torch.clamp(x * cam.fx / safe_z + cam.cx, -2.0**30, 2.0**30)).to(torch.int32)
+    v = torch.round(torch.clamp(y * cam.fy / safe_z + cam.cy, -2.0**30, 2.0**30)).to(torch.int32)
+    return u, v
 
 
 def packed_keys(data, count, T_inv, cam: CameraModel, time, time_delta, max_depth,
@@ -108,14 +181,10 @@ def packed_keys(data, count, T_inv, cam: CameraModel, time, time_delta, max_dept
         conf_threshold, max_time = splat_gates
         alive = alive & (data[sm.CONF] >= conf_threshold) & (data[sm.LAST_T] <= max_time)
     ok = _gates(data_local, alive, time, time_delta, max_depth)
-    x, y, z = data_local[sm.PX], data_local[sm.PY], data_local[sm.PZ]
-    safe_z = torch.where(z > 0, z, torch.ones_like(z))
-    # round-half-even like jnp.rint; clamp before the int cast (no overflow UB)
-    u = torch.round(torch.clamp(x * cam.fx / safe_z + cam.cx, -2.0**30, 2.0**30)).to(torch.int32)
-    v = torch.round(torch.clamp(y * cam.fy / safe_z + cam.cy, -2.0**30, 2.0**30)).to(torch.int32)
+    u, v = _project(data_local, cam)
     valid = ok & (u >= 0) & (v >= 0) & (u < w) & (v < h)
     ids = torch.arange(n, dtype=torch.int32, device=data.device)
-    key = _pack_depth_id(z, ids, valid, _id_bits_for(n))
+    key = _pack_depth_id(data_local[sm.PZ], ids, valid, _id_bits_for(n))
     pix = torch.where(valid, v * w + u, torch.full_like(u, h * w)).long()
     return pix, key, data_local
 
@@ -187,7 +256,111 @@ def predict_indices(
     return IndexMap(index=index, data_local=data_local)
 
 
-_WIN_CH = (sm.CR, sm.CG, sm.CB, sm.CONF, sm.NX, sm.NY, sm.NZ, sm.RADIUS, sm.INIT_T)
+# ---------------------------------------------------------------- K12
+
+def win_model_image(index: torch.Tensor, layout: FlatLayout) -> torch.Tensor:
+    """[H, W] model of each pixel's winning flat surfel (n_models where none)."""
+    out = torch.full_like(index, layout.n_models)
+    b = layout.bases
+    for m in range(layout.n_models):
+        hit = (index >= b[m]) & (index < b[m + 1])
+        out = torch.where(hit, torch.full_like(index, m), out)
+    return out
+
+
+def flat_keys(data, counts, layout: FlatLayout, T_inv, maxd, cam: CameraModel, time, time_delta):
+    """(pixel [N] int64 with H*W for rejected surfels, packed key [N] int32,
+    data_local [16, N]) of the composite z-buffer: key = (log-depth bin <<
+    (id_bits + 1)) | (is_global << id_bits) | flat id, object depths moved
+    ``_Z_PRIORITY`` nearer before the quantisation."""
+    h, w = cam.height, cam.width
+    n = layout.total
+    dev = data.device
+    seg = layout.seg_model(dev)
+    data_local = transform_per_model(data, seg, T_inv.to(dev))
+    alive = (layout.pos_in_seg(dev) < counts.to(dev)[seg.long()]) & (data[sm.ALIVE] > 0)
+    z = data_local[sm.PZ]
+    ok = _gates(data_local, alive, time, time_delta, maxd.to(dev)[seg.long()])
+    u, v = _project(data_local, cam)
+    ok = ok & (u >= 0) & (v >= 0) & (u < w) & (v < h)
+    id_bits = _id_bits_for(n)
+    if id_bits > 22:
+        raise ValueError("flat bucket exceeds the packed id + priority range")
+    levels = 1 << (30 - id_bits)
+    z_eff = torch.where(seg > 0, torch.clamp(z - _Z_PRIORITY, min=1e-3), z)
+    zq = (torch.log2(torch.clamp(z_eff, min=1e-6)) + 4.0) * (levels / 8.0)
+    zq = torch.clamp(zq.to(torch.int32), 0, levels - 2)
+    prio = (seg == 0).to(torch.int32)
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    key = (zq << (id_bits + 1)) | (prio << id_bits) | ids
+    key = torch.where(ok, key, torch.full_like(key, _KEY_INVALID))
+    pix = torch.where(ok, v * w + u, torch.full_like(u, h * w)).long()
+    return pix, key, data_local
+
+
+def zbuffer_flat_plain(data, counts, layout: FlatLayout, T_inv, maxd, cam: CameraModel, time,
+                       time_delta):
+    """Plain PyTorch K12: (index [H, W] int32, data_local [16, N], win_model [H, W])."""
+    h, w = cam.height, cam.width
+    pix, key, data_local = flat_keys(data, counts, layout, T_inv, maxd, cam, time, time_delta)
+    kmin = torch.full((h * w + 1,), _KEY_INVALID, dtype=torch.int32, device=data.device)
+    kmin.scatter_reduce_(0, pix, key, reduce="amin", include_self=True)
+    kmin = kmin[: h * w]
+    mask = (1 << _id_bits_for(layout.total)) - 1
+    idx = torch.where(kmin != _KEY_INVALID, kmin & mask, torch.full_like(kmin, INVALID))
+    idx = idx.reshape(h, w)
+    return idx, data_local, win_model_image(idx, layout)
+
+
+_ZBF_ARGS = ([K.P, K.I, K.I, K.I, K.I, K.P, K.P, K.P] + [K.F] * 4 + [K.I, K.I] + [K.F] * 3
+             + [K.I] + [K.P] * 4)
+
+
+def zbuffer_flat_cuda(data, counts, layout: FlatLayout, T_inv, maxd, cam: CameraModel, time,
+                      time_delta):
+    """K12 on the card: ``csrc/zbuffer.cu`` ``mmf_zbuffer_flat`` (same contract
+    as ``zbuffer_flat_plain``; poses, counts and max depths read by pointer)."""
+    M = layout.n_models
+    K.check(data, torch.float32, "data", contiguous=False)
+    K.check(counts, torch.int32, "counts")
+    K.check(T_inv, torch.float32, "T_inv")
+    K.check(maxd, torch.float32, "maxd")
+    n = layout.total
+    if data.shape != (sm.CHANNELS, n) or data.stride(1) != 1:
+        raise ValueError("data must be [16, total] with unit column stride")
+    if tuple(T_inv.shape) != (M, 4, 4) or counts.shape != (M,) or maxd.shape != (M,):
+        raise ValueError("T_inv must be [M, 4, 4], counts and maxd [M]")
+    id_bits = _id_bits_for(n)
+    if id_bits > 22:
+        raise ValueError("flat bucket exceeds the packed id + priority range")
+    h, w = cam.height, cam.width
+    dev = data.device
+    keys = torch.empty((h * w,), dtype=torch.int32, device=dev)
+    data_local = torch.empty((sm.CHANNELS, n), dtype=torch.float32, device=dev)
+    index = torch.empty((h, w), dtype=torch.int32, device=dev)
+    win = torch.empty((h, w), dtype=torch.int32, device=dev)
+    f = K.fn("zbuffer", "mmf_zbuffer_flat", _ZBF_ARGS)
+    K.call(
+        "zbuffer.flat", f, K.ptr(data), data.stride(0), layout.bg, layout.bo, layout.slots,
+        K.ptr(counts), K.ptr(T_inv), K.ptr(maxd), cam.fx, cam.fy, cam.cx, cam.cy, w, h,
+        float(time), float(time_delta), _Z_PRIORITY, id_bits, K.ptr(keys), K.ptr(data_local),
+        K.ptr(index), K.ptr(win),
+    )
+    return index, data_local, win
+
+
+def zbuffer_flat(data, counts, layout: FlatLayout, T_inv, maxd, cam: CameraModel, time,
+                 time_delta):
+    """Composite index map over the flat store of all models (index_map.vert
+    gates per model: alive, 0 < z <= max depth of the surfel's model, time
+    window; no confidence gate): (index, data_local, win_model)."""
+    K.record("zbuffer.flat", data=data, counts=counts, layout=layout, T_inv=T_inv, maxd=maxd,
+             cam=cam, time=time, time_delta=time_delta)
+    impl = zbuffer_flat_cuda if data.is_cuda else zbuffer_flat_plain
+    return impl(data, counts, layout, T_inv, maxd, cam, time, time_delta)
+
+
+_WIN_CH =(sm.CR, sm.CG, sm.CB, sm.CONF, sm.NX, sm.NY, sm.NZ, sm.RADIUS, sm.INIT_T)
 
 
 def _pixel_rays(cam: CameraModel, device):
@@ -196,8 +369,17 @@ def _pixel_rays(cam: CameraModel, device):
     return div(xs - cam.cx, cam.fx), div(ys - cam.cy, cam.fy)
 
 
+class Composite(NamedTuple):
+    """Composite (multi-model) mode of the resolve: a tap must come from the
+    pixel's winner model and passes that model's confidence gate."""
+
+    conf_all: torch.Tensor  # [M] per-model confidence gate
+    own: torch.Tensor  # [H, W] int32 winner model of each index-map pixel (M = none)
+
+
 def splat_resolve_plain(index, data_local, cam: CameraModel, conf_threshold, time,
-                        max_time, time_delta, window: int = 5) -> PredictedMaps:
+                        max_time, time_delta, window: int = 5,
+                        composite: Composite | None = None) -> PredictedMaps:
     """Plain PyTorch K10 (combo_splat.frag ray-disk resolve, gates per candidate)."""
     h, w = cam.height, cam.width
     dev = index.device
@@ -205,6 +387,8 @@ def splat_resolve_plain(index, data_local, cam: CameraModel, conf_threshold, tim
     lnorm = torch.sqrt(lx * lx + ly * ly + 1.0)
     l0, l1, l2 = lx / lnorm, ly / lnorm, 1.0 / lnorm
     attrs = gather_attr_images(data_local, index)
+    if composite is not None:
+        gate_img = take_small(composite.conf_all.to(dev), composite.own, composite.conf_all.shape[0])
     best_z = torch.full((h, w), _BIG, dtype=torch.float32, device=dev)
     best_idx = torch.full((h, w), INVALID, dtype=torch.int32, device=dev)
     best_att = [torch.zeros((h, w), dtype=torch.float32, device=dev) for _ in _WIN_CH]
@@ -213,9 +397,14 @@ def splat_resolve_plain(index, data_local, cam: CameraModel, conf_threshold, tim
         for dx in range(-r, window - r):
             cand = _shift2d(index, dy, dx, INVALID)
             cdat = _shift2d(attrs, dy, dx, 0.0)
+            gate = conf_threshold
+            cvalid = cand >= 0
+            if composite is not None:
+                gate = _shift2d(gate_img, dy, dx, 0.0)
+                cvalid = cvalid & (_shift2d(composite.own, dy, dx, -1) == composite.own)
             cvalid = (
-                (cand >= 0)
-                & (cdat[sm.CONF] >= conf_threshold)
+                cvalid
+                & (cdat[sm.CONF] >= gate)
                 & (float(time) - cdat[sm.LAST_T] <= time_delta)
                 & (cdat[sm.LAST_T] <= max_time)
             )
@@ -250,7 +439,7 @@ def splat_resolve_plain(index, data_local, cam: CameraModel, conf_threshold, tim
 
 
 _SR_ARGS = ([K.P, K.P, K.I, K.I, K.I] + [K.F] * 4 + [K.F] * 4 + [K.I] + [K.P] * 5
-            + [K.P, K.P, K.P, K.F, K.F, K.F, K.I])
+            + [K.P, K.P, K.P, K.F, K.F, K.F, K.I, K.P] + [K.P, K.P, K.I])
 
 
 class FillFrame(NamedTuple):
@@ -261,28 +450,42 @@ class FillFrame(NamedTuple):
     frame_data: torch.Tensor  # [16, H*W] frame surfels (filtered normals, radius)
     depth_cutoff: float
     passthrough: bool = False
+    gate: torch.Tensor | None = None  # [H, W] int32 mask: fill only where it is 0
 
 
 def splat_resolve_cuda(index, data_local, cam: CameraModel, conf_threshold, time,
                        max_time, time_delta, window: int = 5,
-                       fill: FillFrame | None = None) -> PredictedMaps:
+                       fill: FillFrame | None = None,
+                       composite: Composite | None = None) -> PredictedMaps:
     """K10 on the card: ``csrc/splat_resolve.cu``. With ``fill``, the fill-in
     epilogue writes the live frame wherever no surfel won (colour, vertex and
-    normal maps are then the filled maps)."""
+    normal maps are then the filled maps); with ``composite`` the resolve runs
+    in its multi-model mode (launches counted as ``splat_resolve.composite``)."""
     K.check(index, torch.int32, "index")
     K.check(data_local, torch.float32, "data_local")
     h, w = cam.height, cam.width
     if tuple(index.shape) != (h, w) or data_local.shape[0] != sm.CHANNELS:
         raise ValueError("index must be [H, W] and data_local [16, B]")
-    fill_args = [None, None, None, 0.0, 0.0, 0.0, 0]
+    fill_args = [None, None, None, 0.0, 0.0, 0.0, 0, None]
     if fill is not None:
         K.check(fill.rgb, torch.uint8, "fill.rgb")
         K.check(fill.depth_filt, torch.float32, "fill.depth_filt")
         K.check(fill.frame_data, torch.float32, "fill.frame_data")
         if fill.frame_data.shape != (sm.CHANNELS, h * w) or fill.rgb.shape != (h, w, 3):
             raise ValueError("fill frame must be [H, W, 3] colour and [16, H*W] surfels")
+        if fill.gate is not None:
+            K.check(fill.gate, torch.int32, "fill.gate")
         fill_args = [K.ptr(fill.rgb), K.ptr(fill.depth_filt), K.ptr(fill.frame_data),
-                     1.0 / cam.fx, 1.0 / cam.fy, float(fill.depth_cutoff), int(fill.passthrough)]
+                     1.0 / cam.fx, 1.0 / cam.fy, float(fill.depth_cutoff), int(fill.passthrough),
+                     None if fill.gate is None else K.ptr(fill.gate)]
+    comp_args = [None, None, 0]
+    if composite is not None:
+        K.check(composite.conf_all, torch.float32, "conf_all")
+        K.check(composite.own, torch.int32, "own")
+        if tuple(composite.own.shape) != (h, w):
+            raise ValueError("own must be [H, W]")
+        comp_args = [K.ptr(composite.conf_all), K.ptr(composite.own),
+                     composite.conf_all.shape[0]]
     dev = index.device
     color = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
     vertex_conf = torch.empty((h, w, 4), dtype=torch.float32, device=dev)
@@ -291,11 +494,11 @@ def splat_resolve_cuda(index, data_local, cam: CameraModel, conf_threshold, time
     valid = torch.empty((h, w), dtype=torch.bool, device=dev)
     f = K.fn("splat_resolve", "mmf_splat_resolve", _SR_ARGS)
     K.call(
-        "splat_resolve", f, K.ptr(index), K.ptr(data_local), data_local.shape[1], h, w,
-        cam.fx, cam.fy, cam.cx, cam.cy,
+        "splat_resolve" if composite is None else "splat_resolve.composite", f, K.ptr(index),
+        K.ptr(data_local), data_local.shape[1], h, w, cam.fx, cam.fy, cam.cx, cam.cy,
         float(conf_threshold), float(time), float(max_time), float(time_delta), int(window),
         K.ptr(color), K.ptr(vertex_conf), K.ptr(normal_rad), K.ptr(tmap), K.ptr(valid),
-        *fill_args,
+        *fill_args, *comp_args,
     )
     return PredictedMaps(color, vertex_conf, normal_rad, tmap, valid)
 

@@ -32,6 +32,7 @@ import torch
 
 from multimotionfusion_tpu_torch import kernels as K
 from multimotionfusion_tpu_torch.config import CameraModel, KeypointConfig
+from multimotionfusion_tpu_torch.ops import ransac
 from multimotionfusion_tpu_torch.ops.image import div
 from multimotionfusion_tpu_torch.tracking.superpoint import Keypoints
 
@@ -285,3 +286,22 @@ def add_keypoints(table: TrackTable, kps: Keypoints, depth, time: int, cam: Came
     (in place)."""
     update(table, kps, depth, time, cam, cfg, pair=False)
     return table
+
+
+def refine_track_subset(table: TrackTable, model_sel: torch.Tensor, time: int, length: int,
+                        gen: torch.Generator, ransac_cfg):
+    """Back-date a new model's trajectory (Model::refineTrackSubset): per
+    step k < ``length`` a RANSAC fit (kernel K21) of the model's tracks from
+    tick time - k to time - k - 1; [length, 4, 4] transforms T_k with
+    p(time - k - 1) ~ T_k p(time - k), identity where the fit fails. The
+    uniforms come from ``gen``."""
+    eye = torch.eye(4, dtype=F32, device=table.p3d.device)
+    out = []
+    for k in range(length):
+        pa, pb, valid = pair_between(table, time - k - 1, time - k)
+        valid = valid & model_sel
+        u = torch.rand((ransac_cfg.iterations, 3), generator=gen, device=pa.device)
+        res = ransac.ransac_fit(u, pa.contiguous(), pb.contiguous(), valid, ransac_cfg)
+        ok = res.ok & torch.isfinite(res.transform).all() & (valid.to(I32).sum() >= 3)
+        out.append(torch.where(ok, res.transform, eye))
+    return torch.stack(out)

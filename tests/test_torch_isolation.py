@@ -7,7 +7,8 @@
   have imported jax already.
 - Without CUDA the engine raises unless given ``device="cpu"``; configurations
   this slice does not port raise NotImplementedError; the default
-  ``odom_init="kp"`` constructs and steps on the CPU.
+  ``odom_init="kp"`` constructs and steps on the CPU, and so does the
+  multi-model engine with external masks (``segmentation.mode="precomputed"``).
 """
 
 import ast
@@ -16,13 +17,18 @@ from pathlib import Path
 import pytest
 import torch
 
-from multimotionfusion_tpu_torch.config import CameraModel, EngineConfig
+import numpy as np
+
+from multimotionfusion_tpu_torch.config import (CameraModel, EngineConfig, KeypointConfig,
+                                                OdometryConfig, RansacConfig, SegmentationConfig,
+                                                SurfelConfig)
 from multimotionfusion_tpu_torch.engine import MultiMotionFusionTorch
 from multimotionfusion_tpu_torch.io.readers import SyntheticLogReader
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "multimotionfusion_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 STATIC = dict(enable_multi_model=False, odom_init="")
+PRECOMPUTED = dict(enable_multi_model=True, segmentation=SegmentationConfig(mode="precomputed"))
 
 
 def _imports(path):
@@ -78,3 +84,45 @@ def test_default_kp_engine_steps_on_cpu():
 def test_unknown_odom_init_is_refused():
     with pytest.raises(ValueError, match="odom_init"):
         MultiMotionFusionTorch(EngineConfig(**{**STATIC, "odom_init": "imu"}), device="cpu")
+
+
+@pytest.mark.parametrize("override", [
+    dict(segmentation=SegmentationConfig()),  # flow_crf, the default
+    dict(segmentation=SegmentationConfig(mode="crf")),
+    dict(odometry=OdometryConfig(segm_lvl=1)),
+    dict(reloc_mode=True), dict(close_loops=True), dict(odom_init="tf"),
+])
+def test_unported_multi_configurations_raise(override):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        MultiMotionFusionTorch(EngineConfig(**{**PRECOMPUTED, **override}), device="cpu")
+
+
+def test_precomputed_multi_engine_steps_on_cpu(tmp_path):
+    """The multi-model engine with external masks (default odom_init="kp"):
+    two ids in the mask spawn two models over four frames of a small camera
+    (the last three in one ``process_frames`` call); events and one
+    trajectory file per model."""
+    cam = CameraModel(width=80, height=60, fx=66.0, fy=66.0, cx=40.0, cy=30.0)
+    cfg = EngineConfig(camera=cam, object_slots=2, object_capacity=2048, model_spawn_offset=1,
+                       surfels=SurfelConfig(max_surfels=1 << 13, depth_cutoff=5.0),
+                       keypoints=KeypointConfig(max_keypoints=64, max_tracks=256,
+                                                track_history=8),
+                       ransac=RansacConfig(iterations=32),
+                       **{**PRECOMPUTED, "segmentation": SegmentationConfig(
+                           mode="precomputed", min_mask_size_px=40)})
+    assert cfg.odom_init == "kp"
+    eng = MultiMotionFusionTorch(cfg, device="cpu")
+    frames = list(SyntheticLogReader(cam, num_frames=4))
+    for f in frames:
+        f.mask = np.zeros((cam.height, cam.width), np.uint8)
+        f.mask[10:25, 10:30] = 7
+        f.mask[35:50, 50:70] = 3
+    eng.process_frame(frames[0])
+    eng.process_frames(frames[1:])
+    stats = eng.finish()
+    assert stats["active_objects"] == 2.0 and stats["surfels"] > 0
+    assert sorted(eng.state.objects.ext_id.tolist()) == [3, 7]
+    assert [e["id"] for e in eng.drain_events()] == [1, 2]
+    names = sorted(p.rsplit("/", 1)[-1] for p in eng.export_poses(str(tmp_path)))
+    assert names == ["poses-0.txt", "poses-1.txt", "poses-2.txt"]
+    assert len((tmp_path / "poses-0.txt").read_text().splitlines()) == 4

@@ -15,6 +15,13 @@ plain version and holds them to the tolerances of
 640x480 (the kernels build with -fmad=false, so where both evaluate the same
 expression they round alike). ``nms_topk`` also runs on synthetic heat maps
 (a plateau larger than K, random scores, a random-weight SuperPoint).
+
+A second 160x120 run, of the multi-model engine with external masks
+(chip_smoke.py's five orbiting spheres, 24 frames: five spawns and a
+compaction frame), records the inputs of the multi-model kernels at its
+last frame (K11 per level with its owner prep, K5's M-wide steps, K12, K14
+fuse and clean, K10 composite) and of the composite odometry loop, which
+runs on the card against the plain loop on the CPU.
 """
 
 import pytest
@@ -89,6 +96,55 @@ def captured():
 def test_kernel_matches_plain(captured, name, check):
     key = _capture_key(name)
     r = check(checks.args(key, captured[key]))
+    assert r["ok"], r
+
+
+MULTI_FRAMES = 24
+MULTI_CASES = (
+    [(f"owner_prep.L{lvl}", lambda a, lvl=lvl: checks.check_owner_prep(a, lvl)) for lvl in LEVELS]
+    + [(f"gn_multi.L{lvl}", lambda a, lvl=lvl: checks.check_gn_multi(a, lvl)) for lvl in LEVELS]
+    + [("multi_init", checks.check_multi_init), ("multi_seed", checks.check_multi_seed),
+       ("multi_arbitrate", checks.check_multi_arbitrate),
+       ("gn_step_multi", checks.check_gn_step_multi), ("multi_so3_step", checks.check_so3_step),
+       ("multi_track", checks.check_multi_track), ("zbuffer.flat", checks.check_zbuffer_flat),
+       ("fuse_flat", checks.check_fuse_flat), ("clean_flat", checks.check_clean_flat),
+       ("splat_resolve.composite", checks.check_splat)]
+)
+
+
+def _multi_key(name: str) -> str:
+    if name.startswith("owner_prep."):
+        return "owner_prep"
+    return "so3_step" if name == "multi_so3_step" else name
+
+
+@pytest.fixture(scope="module")
+def captured_multi():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
+    from chip_smoke import multi_frames
+
+    cfg, frames = multi_frames(MULTI_FRAMES + 1, CAM, object_capacity=1 << 14,
+                               max_surfels=1 << 16)
+    K.reset_launches()
+    eng = MultiMotionFusionTorch(cfg, device="cuda")
+    for i, f in enumerate(frames):
+        if i == MULTI_FRAMES:
+            K.start_capture()
+        eng.process_frame(f)
+    out = K.stop_capture()
+    torch.cuda.synchronize()
+    assert eng.finish()["active_objects"] == 5.0
+    for name, _ in MULTI_CASES:
+        if name not in ("multi_track", "multi_so3_step"):
+            assert K.LAUNCHES.get(name, 0) > 0, name
+    return out
+
+
+@pytest.mark.parametrize("name,check", MULTI_CASES, ids=[n for n, _ in MULTI_CASES])
+def test_multi_kernel_matches_plain(captured_multi, name, check):
+    key = _multi_key(name)
+    r = check(checks.args(key, captured_multi[key]))
     assert r["ok"], r
 
 
