@@ -30,6 +30,18 @@
 //   object wins a near-tie against the global map. The unpack pass also
 //   writes the winner's model (win_model_image, a range test on the id).
 //   Integer keys and an integer min: the maps equal the plain version's.
+// K13 render_depths (ops/rasterize.py:255 render_model_depths, with
+//   engine_multi.py:81 _stride_cols and :952-982): every model's depth on the
+//   CRF grid for the segmentation's reprojection term. One thread per
+//   surfel of the strided store (every 2nd global column, every object
+//   column; an object surfel's slot and position come from its original
+//   index) reads its columns in place from the global map and the object
+//   slots (no concatenated copy), transforms by its model's inv(pose),
+//   applies the same gates as K12 (no confidence gate: the caller passes
+//   zeros), projects with the CRF camera and atomicMin's (conf_miss << 21) |
+//   log-depth bin (2^20 levels) into its model's plane of [M * Hc * Wc]; a
+//   second pass decodes exp2(zq * 8 / 2^20 - 4), 0 where nothing landed.
+//   Bound by bytes: ~5 of the 16 channels of ~590k surfels read once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -108,7 +120,79 @@ __global__ void unpack_flat(const int* __restrict__ keys, int npix, int id_bits,
   win_model[i] = won ? model_of(F, id) : 1 + F.slots;
 }
 
+// K13: one thread per strided surfel of the global bucket (every gs-th
+// column) and of the slot-major object buckets (every os-th column, slot and
+// position from the original index); its model's inv(pose), the CRF camera,
+// the gates, and the key (conf_miss << 21) | zq into its model's plane
+__global__ void scatter_depths(const float* __restrict__ gdata, int grs, int bg, int gs,
+                               const float* __restrict__ odata, int ors, long oss, int bo,
+                               int slots, int os, const int* __restrict__ counts,
+                               const float* __restrict__ Tinv, const float* __restrict__ maxd,
+                               const float* __restrict__ conf, float fx, float fy, float cx,
+                               float cy, int W, int H, float time, float time_delta,
+                               int* __restrict__ keys) {
+  int j = blockIdx.x * blockDim.x + threadIdx.x;
+  int ng = (bg + gs - 1) / gs;
+  int no = (slots * bo + os - 1) / os;
+  if (j >= ng + no) return;
+  const float* col;
+  int rs, m, pos;
+  if (j < ng) {
+    pos = j * gs;
+    m = 0;
+    col = gdata + pos;
+    rs = grs;
+  } else {
+    int oi = (j - ng) * os;
+    int slot = oi / bo;
+    pos = oi - slot * bo;
+    m = slot + 1;
+    col = odata + slot * oss + pos;
+    rs = ors;
+  }
+  if (pos >= counts[m] || !(col[ALIVE * rs] > 0.f)) return;
+  const float* T = Tinv + 16 * m;
+  float p[3] = {col[PX * rs], col[PY * rs], col[PZ * rs]};
+  float pl[3];
+  for (int r = 0; r < 3; ++r)
+    pl[r] = T[4 * r] * p[0] + T[4 * r + 1] * p[1] + T[4 * r + 2] * p[2] + T[4 * r + 3];
+  float z = pl[2];
+  if (!(z > 0.f) || !(z <= maxd[m]) || !(time - col[LAST_T * rs] <= time_delta)) return;
+  int pix;
+  if (!project(pl, fx, fy, cx, cy, W, H, &pix)) return;
+  int miss = col[CONF * rs] < conf[m] ? 1 : 0;
+  int zq = depth_bin(z, 1 << 20);
+  atomicMin(&keys[m * W * H + pix], (miss << 21) | zq);
+}
+
+__global__ void decode_depths(const int* __restrict__ keys, int n, float* __restrict__ depth) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int k = keys[i];
+  const int levels = 1 << 20;
+  depth[i] = k != KEY_INVALID
+                 ? exp2f((float)(k & (levels - 1)) * (8.0f / (float)levels) - 4.0f)
+                 : 0.f;
+}
+
 }  // namespace
+
+extern "C" int mmf_render_depths(const float* gdata, int grs, int bg, int gs, const float* odata,
+                                 int ors, long oss, int bo, int slots, int os, const int* counts,
+                                 const float* T_inv, const float* maxd, const float* conf,
+                                 float fx, float fy, float cx, float cy, int W, int H, float time,
+                                 float time_delta, int* keys, float* depth, cudaStream_t stream) {
+  const int threads = 256;
+  int n = (1 + slots) * W * H;
+  int ns = (bg + gs - 1) / gs + (slots * bo + os - 1) / os;
+  fill_int<<<(n + threads - 1) / threads, threads, 0, stream>>>(keys, n, KEY_INVALID);
+  if (ns > 0)
+    scatter_depths<<<(ns + threads - 1) / threads, threads, 0, stream>>>(
+        gdata, grs, bg, gs, odata, ors, oss, bo, slots, os, counts, T_inv, maxd, conf, fx, fy,
+        cx, cy, W, H, time, time_delta, keys);
+  decode_depths<<<(n + threads - 1) / threads, threads, 0, stream>>>(keys, n, depth);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int mmf_zbuffer_flat(const float* data, int row_stride, int bg, int bo, int slots,
                                 const int* counts, const float* T_inv, const float* maxd,

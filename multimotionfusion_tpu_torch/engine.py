@@ -1,9 +1,10 @@
 """Top-level engine: the static (ElasticFusion-style) per-frame SLAM step,
-and the multi-model step with external masks.
+and the multi-model step.
 
 Port of the reference package's ``engine.py`` for ``enable_multi_model=False``
 with every pose initialisation (``odom_init``), and for
-``enable_multi_model=True`` with ``segmentation.mode="precomputed"``
+``enable_multi_model=True`` with the flow-CRF segmentation (the default
+``segmentation.mode``) or external masks (``mode="precomputed"``)
 (``engine_multi.multi_frame_step``; ``odom_init`` "kp" or ""): upload ->
 depth filter ->
 (first frame) initialise -> [keypoints -> track table -> RANSAC seed] ->
@@ -22,7 +23,7 @@ track -> fuse -> clean -> predict -> pose logging.
 
 All state lives on the compute device, the poses and the track table
 included. On the card the frame step launches only the hand-written kernels
-of ``csrc/`` (K1-K12, K14, K19-K21) plus PyTorch glue on poses, 0-dim
+of ``csrc/`` (K1-K21) plus PyTorch glue on poses, 0-dim
 scalars and (multi-model) per-model vectors and masks; the odometry's loops
 run on the card with done flags, so a steady-state frame reads nothing back
 except, at most every 64 frames, the map's high-water mark (``_buckets``; in
@@ -139,10 +140,11 @@ def _fill_frame(rgb_u8, depth_filt, fs: sm.FrameSurfels, cfg: EngineConfig):
                                cfg.frame_to_frame_rgb)
 
 
-def _detect(img, cfg: EngineConfig, sp_net) -> superpoint.Keypoints:
-    """Keypoints on ``img``, the ``init_lvl`` intensity, with xy at full
-    resolution (u_full = (u_lvl + 0.5) 2^lvl - 0.5)."""
-    kcfg, lvl = cfg.keypoints, cfg.odometry.init_lvl
+def _detect(img, cfg: EngineConfig, sp_net, lvl: Optional[int] = None) -> superpoint.Keypoints:
+    """Keypoints on ``img``, the intensity of pyramid level ``lvl`` (default
+    ``init_lvl``), with xy at full resolution (u_full = (u_lvl + 0.5) 2^lvl - 0.5)."""
+    kcfg = cfg.keypoints
+    lvl = cfg.odometry.init_lvl if lvl is None else lvl
     if kcfg.detector == "superpoint":
         kps = superpoint.superpoint_detect(sp_net, img, kcfg.max_keypoints,
                                            kcfg.detect_threshold, kcfg.nms_radius)
@@ -193,13 +195,20 @@ def _init_step(rgb_u8, depth_raw, pose0, time, cam: CameraModel, cfg: EngineConf
                                torch.zeros_like(depth_raw, dtype=torch.int32), cam, cfg.odometry)
     tracks = None
     if cfg.odom_init == "kp" or cfg.enable_multi_model:  # seed the track table (initGlobalTracks)
-        kcfg = cfg.keypoints
-        tracks = tracker.empty(kcfg.max_tracks, kcfg.track_history, kcfg.desc_dim,
-                               depth_filt.device)
-        img = frame_lv[cfg.odometry.init_lvl].img
-        tracker.add_keypoints(tracks, _detect(img, cfg, sp_net), depth_filt, time, cam, kcfg)
+        tracks = _seeded_table(frame_lv, depth_filt, time, cam, cfg, sp_net,
+                               cfg.odometry.init_lvl)
     state = GlobalState(smap, pose0, pose0, filled, frame_lv[-1].img, tracks)
     return state, FrameStats(None, smap)
+
+
+def _seeded_table(frame_lv, depth_filt, time, cam: CameraModel, cfg: EngineConfig, sp_net,
+                  lvl: int) -> tracker.TrackTable:
+    """A new track table holding the keypoints of pyramid level ``lvl``."""
+    kcfg = cfg.keypoints
+    tracks = tracker.empty(kcfg.max_tracks, kcfg.track_history, kcfg.desc_dim, depth_filt.device)
+    tracker.add_keypoints(tracks, _detect(frame_lv[lvl].img, cfg, sp_net, lvl), depth_filt, time,
+                          cam, kcfg)
+    return tracks
 
 
 def _compact_pred(time: int, scfg) -> bool:
@@ -265,18 +274,16 @@ _UNSUPPORTED = (
     ("close_loops", lambda c: c.close_loops),
     ("frame_to_frame_rgb", lambda c: c.frame_to_frame_rgb),
     ("upload_yuv420", lambda c: c.upload_yuv420),
-    ("the multi-model segmentation mode "
-     "(only segmentation.mode='precomputed' is ported)",
-     lambda c: c.enable_multi_model and c.segmentation.mode != "precomputed"),
-    ("the multi-model segm_lvl tracker (segm_lvl != init_lvl)",
-     lambda c: c.enable_multi_model and c.odometry.segm_lvl != c.odometry.init_lvl),
+    ("the legacy CRF segmentation (segmentation.mode='crf')",
+     lambda c: c.enable_multi_model and c.segmentation.mode == "crf"),
     ("odom_init='tf' in multi-model mode", lambda c: c.enable_multi_model and c.odom_init == "tf"),
 )
 
 
 class MultiMotionFusionTorch:
     """Engine facade of the port: the static path, and the multi-model path
-    with external masks (``frame.mask`` carries the ids)."""
+    (the flow-CRF finds the objects; with ``segmentation.mode="precomputed"``
+    ``frame.mask`` carries their ids)."""
 
     def __init__(self, cfg: EngineConfig, device="cuda"):
         for name, test in _UNSUPPORTED:
@@ -406,7 +413,8 @@ class MultiMotionFusionTorch:
             if self.cfg.enable_multi_model:
                 from multimotionfusion_tpu_torch import engine_multi as em
 
-                self.state = em.init_state(self.state, rgb_u8, self.cfg)
+                self.state = em.init_state(self.state, rgb_u8, depth_raw, self.tick, self.cfg,
+                                           self.sp_net)
                 self._obj_log.append((frame.timestamp, self.state.objects.pose,
                                       self.state.objects.active))
                 self._spawn_log.append((frame.timestamp, None, None, None))

@@ -1,12 +1,20 @@
 """Multi-model engine step: per-rigid-body tracking, lifecycle and fusion.
 
-Port of the reference package's ``engine_multi.py`` for the composite step
-with external ("precomputed") masks: keypoints -> track table -> per-model
-RANSAC seeds -> ONE composite Gauss-Newton pass for every model (K11) ->
-external-mask segmentation -> spawn / reactivate / deactivate / store ->
-ONE composite index map over the flat store of all models (K12) -> ONE
-fuse and clean pass (K14) -> the composite prediction (K10, composite mode,
-filled in only where the global model owns the pixel).
+Port of the reference package's ``engine_multi.py`` for the composite step:
+keypoints -> track table(s) -> per-model RANSAC seeds -> ONE composite
+Gauss-Newton pass for every model (K11) -> segmentation -> spawn /
+reactivate / deactivate / store -> ONE composite index map over the flat
+store of all models (K12) -> ONE fuse and clean pass (K14) -> the composite
+prediction (K10, composite mode, filled in only where the global model owns
+the pixel).
+
+The segmentation is the flow-CRF (``segmentation.mode`` "flow_crf", the
+default, and every mode but "precomputed" and "crf", as in the reference):
+every model's depth on the CRF grid from the pre-spawn stores at the new
+poses (K13), the flow (K15), the unaries from it and from the track
+velocities of the ``segm_lvl`` tracker (K18), the mean field (K16), the
+label fusion (K18), the largest components (K17) and the segment finish
+(K18); or, with ``mode="precomputed"``, the external masks of the frames.
 
 Object models live in fixed slots on the device (``ObjectSlots``: slot k is
 model k + 1 and owns mask id k + 1); the previous frame's mask (``prev_mask``)
@@ -17,9 +25,8 @@ of the reference's ``lax.cond`` (redetection, the new model's back-dating,
 the spawn, the store snapshot) are computed on every frame and selected, so
 a frame reads nothing back, spawn frames included.
 
-Not ported here: the flow-CRF and legacy CRF segmentations, the second
-track table of ``segm_lvl != init_lvl``, relocalisation and loop closure
-(the engine refuses those configurations; ROADMAP.md).
+Not ported here: the legacy CRF segmentation, relocalisation and loop
+closure (the engine refuses those configurations; ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -30,19 +37,25 @@ from typing import NamedTuple
 import torch
 
 from multimotionfusion_tpu_torch.config import REDETECT_RANSAC, CameraModel, EngineConfig
-from multimotionfusion_tpu_torch.engine import _compact_pred, _detect
+from multimotionfusion_tpu_torch.engine import _compact_pred, _detect, _seeded_table
 from multimotionfusion_tpu_torch.model import fusion, surfel_map as sm
 from multimotionfusion_tpu_torch.model.fillin import FilledMaps, splat_fill
 from multimotionfusion_tpu_torch.odometry import levels as lv
 from multimotionfusion_tpu_torch.odometry import multi as modo
 from multimotionfusion_tpu_torch.ops import frame_maps, ransac, rasterize
 from multimotionfusion_tpu_torch.ops.image import rgb_to_intensity
+from multimotionfusion_tpu_torch.segmentation import flow_crf
 from multimotionfusion_tpu_torch.segmentation.precomputed import precomputed_segmentation
 from multimotionfusion_tpu_torch.tracking import tracker
 from multimotionfusion_tpu_torch.utils import se3
 
 F32 = torch.float32
 I32 = torch.int32
+# strides of the global and the object segment in the CRF-scale depth render
+# (reference engine_multi.py:62-78: stride 2 keeps >= 2 depth candidates per
+# cell of a mature global map; objects stay dense)
+_RMD_GLOBAL_STRIDE = 2
+_RMD_OBJECT_STRIDE = 1
 # named ranges of the multi step (torch.profiler; chip_smoke.py's stage phase)
 _span = torch.profiler.record_function
 
@@ -90,7 +103,10 @@ class MultiState(NamedTuple):
     filled: FilledMaps  # composite prediction (global pixels filled in)
     pred_own: torch.Tensor  # [H, W] int32 model of each prediction pixel's winner (M = none)
     last_intensity_coarse: torch.Tensor
-    tracks: tracker.TrackTable
+    tracks: tracker.TrackTable  # the init_lvl tracker (pose seeds, redetection)
+    # the segm_lvl tracker whose velocities feed the flow-CRF; a 1-slot stub
+    # when segm_lvl == init_lvl (``tracks`` serves both)
+    tracks_segm: tracker.TrackTable
     objects: ObjectSlots
     prev_mask: torch.Tensor  # [H, W] int32 segmentation of the previous frame
     prev_intensity: torch.Tensor  # [H, W]
@@ -118,15 +134,27 @@ def empty_objects(cfg: EngineConfig, device) -> ObjectSlots:
     )
 
 
-def init_state(state, rgb_u8, cfg: EngineConfig) -> MultiState:
-    """The multi state after the first frame, from the static init step's."""
+def stub_table(cfg: EngineConfig, device) -> tracker.TrackTable:
+    """The 1-slot ``tracks_segm`` of a configuration with segm_lvl == init_lvl."""
+    return tracker.empty(1, 2, cfg.keypoints.desc_dim, device)
+
+
+def init_state(state, rgb_u8, depth_raw, time: int, cfg: EngineConfig, sp_net=None) -> MultiState:
+    """The multi state after the first frame, from the static init step's;
+    with segm_lvl != init_lvl the segm_lvl tracker is seeded from this frame."""
     cam = cfg.camera
     dev = state.pose.device
     zeros = torch.zeros((cam.height, cam.width), dtype=I32, device=dev)
+    tracks_segm = stub_table(cfg, dev)
+    if _use_segm_tracker(cfg):
+        _, depth_filt = frame_maps.frame_depth(depth_raw)
+        frame_lv = lv.frame_levels(depth_filt, rgb_u8, zeros, cam, cfg.odometry)
+        tracks_segm = _seeded_table(frame_lv, depth_filt, time, cam, cfg, sp_net,
+                                    cfg.odometry.segm_lvl)
     return MultiState(
         smap=state.smap, pose=state.pose, prev_pose=state.prev_pose, filled=state.filled,
         pred_own=zeros, last_intensity_coarse=state.last_intensity_coarse, tracks=state.tracks,
-        objects=empty_objects(cfg, dev), prev_mask=zeros.clone(),
+        tracks_segm=tracks_segm, objects=empty_objects(cfg, dev), prev_mask=zeros.clone(),
         prev_intensity=rgb_to_intensity(rgb_u8.to(F32)),
         last_spawn=torch.zeros((), dtype=I32, device=dev),
     )
@@ -228,6 +256,40 @@ def _snapshot_tracks(obj: ObjectSlots, tracks, poses):
     return d_out[:, :ks], p_out[:, :ks], v_out[:, :ks]
 
 
+def _use_segm_tracker(cfg: EngineConfig) -> bool:
+    return cfg.odometry.segm_lvl != cfg.odometry.init_lvl
+
+
+def _flow_crf_mode(cfg: EngineConfig) -> bool:
+    """Every mode but "precomputed" (and the refused "crf") runs the flow-CRF."""
+    return cfg.segmentation.mode not in ("precomputed", "crf")
+
+
+def crf_camera(cam: CameraModel, scale: float) -> CameraModel:
+    """The camera of the CRF grid."""
+    return CameraModel(width=int(cam.width * scale), height=int(cam.height * scale),
+                       fx=cam.fx * scale, fy=cam.fy * scale, cx=cam.cx * scale,
+                       cy=cam.cy * scale)
+
+
+def _track_velocities(pair, poses_prev, poses_new, cam: CameraModel, fps: float = tracker.FPS):
+    """[M, T] px/s velocity error of each track of the last pair under each
+    model's motion (the PIXEL_S metric of Segmentation.cpp:979-1007): the
+    start point carried by the model's motion, projected, against the
+    observed end pixel. Plain PyTorch on [M, T]."""
+    p0, p1, _ = pair
+    g = torch.einsum("mij,tj->mti", poses_prev[:, :3, :3], p0) + poses_prev[:, None, :3, 3]
+    Tinv = se3.inverse_T(poses_new)
+    pc = torch.einsum("mij,mtj->mti", Tinv[:, :3, :3], g) + Tinv[:, None, :3, 3]
+    z = torch.clamp(pc[..., 2], min=1e-6)
+    u = pc[..., 0] * cam.fx / z + cam.cx
+    v = pc[..., 1] * cam.fy / z + cam.cy
+    z1 = torch.clamp(p1[:, 2], min=1e-6)
+    u1 = p1[:, 0] * cam.fx / z1 + cam.cx
+    v1 = p1[:, 1] * cam.fy / z1 + cam.cy
+    return torch.sqrt((u - u1) ** 2 + (v - v1) ** 2) * fps
+
+
 def _associate_tracks(table, mask, time: int, h: int, w: int) -> None:
     """Each track seen THIS frame takes the mask label under its keypoint (in place)."""
     s1 = time % table.history
@@ -238,13 +300,7 @@ def _associate_tracks(table, mask, time: int, h: int, w: int) -> None:
     table.model_id.copy_(torch.where(seen_now, mask[yi, xi], table.model_id))
 
 
-class SegResult(NamedTuple):
-    mask: torch.Tensor
-    new_label_mask: torch.Tensor
-    has_new_label: torch.Tensor
-    pixel_counts: torch.Tensor
-    depth_mean: torch.Tensor
-    depth_std: torch.Tensor
+SegResult = flow_crf.SegmentationResult
 
 
 class LifecycleOut(NamedTuple):
@@ -261,9 +317,11 @@ class LifecycleOut(NamedTuple):
 def _lifecycle_update(obj: ObjectSlots, seg: SegResult, tracks, kps, depth_m, depth_filt, rgb_u8,
                       new_pose0, prev_pose, obj_poses_new, time: int, last_spawn,
                       weight_multiplier, seg_conf_sum, seg_conf_cnt, reactivate, new_ext_id,
-                      cam: CameraModel, cfg: EngineConfig, gen) -> LifecycleOut:
+                      cam: CameraModel, cfg: EngineConfig, gen, tracks_segm=None) -> LifecycleOut:
     """Redetect / spawn / deactivate / store (reference MultiMotionFusion.cpp:
-    468-613, Model::store gates :962-981), every branch on the device."""
+    468-613, Model::store gates :962-981), every branch on the device. The
+    track labels of ``tracks`` (and of the segm_lvl table ``tracks_segm``,
+    when given) are updated in place."""
     scfg = cfg.surfels
     S = obj.num_slots
     h, w = cam.height, cam.width
@@ -311,6 +369,8 @@ def _lifecycle_update(obj: ObjectSlots, seg: SegResult, tracks, kps, depth_m, de
 
     # ---- track <-> segment association (in place)
     _associate_tracks(tracks, mask, time, h, w)
+    if tracks_segm is not None:
+        _associate_tracks(tracks_segm, mask, time, h, w)
 
     # ---- back-date the new object's trajectory (selected by `spawn`)
     refine_len = min(8, tracks.history - 2)
@@ -383,6 +443,38 @@ def _lifecycle_update(obj: ObjectSlots, seg: SegResult, tracks, kps, depth_m, de
     return LifecycleOut(mask, spawn, any_red, target_slot, refine_T, fs_w, objects, last)
 
 
+def _flow_crf(state: MultiState, intensity, depth_filt, new_pose0, obj_poses_new, active_all,
+              tseg, segm_pair, time: int, layout: rasterize.FlatLayout, cam: CameraModel,
+              cfg: EngineConfig) -> SegResult:
+    """The flow-CRF segmentation of the frame (reference engine_multi.py:
+    933-987): every model's depth on the CRF grid from the PRE-spawn stores
+    at the new poses and last frame's max depths (K13, no confidence gate),
+    then ``flow_crf.flow_crf_segmentation`` against the previous frame's
+    intensity, with the velocities of ``tseg``'s last pair ``segm_pair`` (the
+    segm_lvl tracker's, or the init_lvl one's when the levels agree)."""
+    scfg, seg_cfg = cfg.surfels, cfg.segmentation
+    obj = state.objects
+    dev = depth_filt.device
+    one = torch.ones((1,), dtype=F32, device=dev)
+    poses_new = torch.cat([new_pose0[None], obj_poses_new], dim=0)
+    with _span("render_depths"):  # K13
+        stores = rasterize.DepthStores(
+            state.smap.data, obj.data, torch.cat([state.smap.count[None], obj.count]),
+            layout.bg, layout.bo, _RMD_GLOBAL_STRIDE, _RMD_OBJECT_STRIDE)
+        pred_c = rasterize.render_depths(
+            stores, se3.inverse_T(poses_new).contiguous(),
+            torch.cat([one * scfg.depth_cutoff, obj.max_depth]),
+            torch.zeros((layout.n_models,), dtype=F32, device=dev),
+            crf_camera(cam, seg_cfg.scale), time, scfg.time_delta)
+    poses_prev = torch.cat([state.pose[None], obj.pose], dim=0)
+    vel = _track_velocities(segm_pair, poses_prev, poses_new, cam).contiguous()
+    txy = tseg.xy[:, time % tseg.history].contiguous()
+    allow_new = cfg.enable_model_spawning and cfg.object_slots > 0
+    return flow_crf.flow_crf_segmentation(
+        state.prev_intensity, intensity, depth_filt, pred_c, active_all, txy, vel,
+        segm_pair[2], seg_cfg, allow_new, span=_span)
+
+
 def multi_frame_step(state: MultiState, rgb_u8, depth_raw, ext_mask, time: int,
                      weight_multiplier, cam: CameraModel, cfg: EngineConfig,
                      layout: rasterize.FlatLayout, sp_net=None, gen=None):
@@ -411,6 +503,11 @@ def multi_frame_step(state: MultiState, rgb_u8, depth_raw, ext_mask, time: int,
         tracks = state.tracks
         kps = _detect(frame_lv[cfg.odometry.init_lvl].img, cfg, sp_net)
         pair = tracker.update(tracks, kps, depth_filt, time, cam, cfg.keypoints)
+        tracks_segm, segm_pair = state.tracks_segm, pair
+        if _use_segm_tracker(cfg):  # only the segmentation's velocities read it
+            lvl = cfg.odometry.segm_lvl
+            segm_pair = tracker.update(tracks_segm, _detect(frame_lv[lvl].img, cfg, sp_net, lvl),
+                                       depth_filt, time, cam, cfg.keypoints)
         T_init = seed_ok = None
         if cfg.odom_init == "kp":
             T_init, seed_ok = _kp_seeds(tracks, pair, time, state.pose, obj, cfg, gen)
@@ -423,11 +520,19 @@ def multi_frame_step(state: MultiState, rgb_u8, depth_raw, ext_mask, time: int,
         new_pose0, obj_poses_new = odo.poses[0], odo.poses[1:]
 
     with _span("segmentation"):
-        pres = precomputed_segmentation(ext_mask, obj.ext_id, obj.active, depth_filt,
-                                        cfg.segmentation.min_mask_size_px)
-        mu, sd = _depth_stats(pres.mask, pres.new_label_mask, depth_filt, M)
-        seg = SegResult(pres.mask, pres.new_label_mask, pres.has_new_label, pres.pixel_counts,
-                        mu, sd)
+        reactivate = torch.zeros((S,), dtype=torch.bool, device=dev)
+        new_ext_id = torch.zeros((), dtype=I32, device=dev)
+        if _flow_crf_mode(cfg):
+            seg = _flow_crf(state, frame_lv[0].img, depth_filt, new_pose0, obj_poses_new,
+                            active_all, tracks_segm if _use_segm_tracker(cfg) else tracks,
+                            segm_pair, time, layout, cam, cfg)
+        else:
+            pres = precomputed_segmentation(ext_mask, obj.ext_id, obj.active, depth_filt,
+                                            cfg.segmentation.min_mask_size_px)
+            mu, sd = _depth_stats(pres.mask, pres.new_label_mask, depth_filt, M)
+            seg = SegResult(pres.mask, pres.new_label_mask, pres.has_new_label,
+                            pres.pixel_counts, mu, sd)
+            reactivate, new_ext_id = pres.reactivate, pres.new_ext_id
 
     with _span("lifecycle"):
         ks = torch.arange(1, S + 1, dtype=I32, device=dev)[:, None, None]
@@ -438,8 +543,9 @@ def multi_frame_step(state: MultiState, rgb_u8, depth_raw, ext_mask, time: int,
         seg_conf_cnt = torch.sum(sel.to(F32), dim=(1, 2))
         lc = _lifecycle_update(obj, seg, tracks, kps, depth_m, depth_filt, rgb_u8, new_pose0,
                                state.prev_pose, obj_poses_new, time, state.last_spawn,
-                               weight_multiplier, seg_conf_sum, seg_conf_cnt, pres.reactivate,
-                               pres.new_ext_id, cam, cfg, gen)
+                               weight_multiplier, seg_conf_sum, seg_conf_cnt, reactivate,
+                               new_ext_id, cam, cfg, gen,
+                               tracks_segm if _use_segm_tracker(cfg) else None)
         objs = lc.objects
 
     Bg, Bo = layout.bg, layout.bo
@@ -498,7 +604,7 @@ def multi_frame_step(state: MultiState, rgb_u8, depth_raw, ext_mask, time: int,
     new_state = MultiState(
         smap=smap, pose=new_pose0, prev_pose=state.pose, filled=filled, pred_own=win,
         last_intensity_coarse=frame_lv[cfg.odometry.num_pyr - 1].img, tracks=tracks,
-        objects=objs, prev_mask=lc.mask, prev_intensity=frame_lv[0].img,
+        tracks_segm=tracks_segm, objects=objs, prev_mask=lc.mask, prev_intensity=frame_lv[0].img,
         last_spawn=lc.last_spawn,
     )
     aux = SpawnAux(lc.spawn, lc.any_red, lc.target_slot, lc.refine_T)

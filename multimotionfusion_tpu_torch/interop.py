@@ -15,8 +15,10 @@ each field.
 
 ``multi_state_to_numpy`` / ``multi_state_from_numpy`` carry the multi-model
 state (``engine_multi.MultiState``): the same keys plus ``pred_own``,
-``prev_mask``, ``prev_intensity``, ``last_spawn`` and ``objects.<field>`` for
-every field of the reference's ObjectSlots.
+``prev_mask``, ``prev_intensity``, ``last_spawn``, ``objects.<field>`` for
+every field of the reference's ObjectSlots and the segm_lvl track table
+under ``tracks_segm.<field>`` (the reference's 1-slot stub when segm_lvl ==
+init_lvl; a dict without those keys gets that stub).
 
 When the ``tracks.*`` keys are absent (a snapshot without a track table) the
 state's ``tracks`` is None, and ``MultiMotionFusionTorch.set_state`` stands in
@@ -97,12 +99,16 @@ def multi_state_to_numpy(state) -> Dict[str, np.ndarray]:
         out[k] = getattr(state, k).cpu().numpy()
     for k in FIELDS:
         out[f"objects.{k}"] = getattr(state.objects, k).cpu().numpy()
+    for k in tracker.FIELDS:
+        out[f"tracks_segm.{k}"] = getattr(state.tracks_segm, k).cpu().numpy()
     return out
 
 
 def multi_state_from_numpy(d: Dict[str, np.ndarray], device="cuda"):
     """An ``engine_multi.MultiState`` from such a dict (e.g. the reference
-    engine's ``mstate``, each field through ``np.asarray``)."""
+    engine's ``mstate``, each field through ``np.asarray``); without
+    ``tracks_segm.*`` keys the segm_lvl table is a 1-slot stub with the
+    track table's descriptor width."""
     from multimotionfusion_tpu_torch.engine_multi import FIELDS, MultiState, ObjectSlots
 
     def dev(key, dtype=torch.float32):
@@ -111,10 +117,17 @@ def multi_state_from_numpy(d: Dict[str, np.ndarray], device="cuda"):
     g = state_from_numpy(d, device)
     objects = ObjectSlots(*(dev(f"objects.{k}", _OBJ_DTYPES.get(k, torch.float32))
                             for k in FIELDS))
+    if "tracks_segm.xy" in d:
+        tracks_segm = tracker.TrackTable(*(dev(f"tracks_segm.{k}",
+                                               _TRACK_DTYPES.get(k, torch.float32))
+                                           for k in tracker.FIELDS))
+    else:
+        tracks_segm = tracker.empty(1, 2, np.shape(d["tracks.desc"])[1], device)
     return MultiState(
         smap=g.smap, pose=g.pose, prev_pose=g.prev_pose, filled=g.filled,
         pred_own=dev("pred_own", torch.int32), last_intensity_coarse=g.last_intensity_coarse,
-        tracks=g.tracks, objects=objects, prev_mask=dev("prev_mask", torch.int32),
+        tracks=g.tracks, tracks_segm=tracks_segm, objects=objects,
+        prev_mask=dev("prev_mask", torch.int32),
         prev_intensity=dev("prev_intensity"),
         last_spawn=dev("last_spawn", torch.int32).reshape(()),
     )

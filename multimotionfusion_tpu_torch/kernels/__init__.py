@@ -49,6 +49,7 @@ BUILD_LOG: Dict[str, str] = {}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_long  # a C long (64 bits): strides that may exceed 2^31
 F = ctypes.c_float
 D = ctypes.c_double
 

@@ -24,6 +24,10 @@ from multimotionfusion_tpu_torch.odometry import rgbd
 from multimotionfusion_tpu_torch.ops import frame_maps as FM
 from multimotionfusion_tpu_torch.ops import ransac as RS
 from multimotionfusion_tpu_torch.ops import rasterize as R
+from multimotionfusion_tpu_torch.segmentation import components as CC
+from multimotionfusion_tpu_torch.segmentation import crf as CRF
+from multimotionfusion_tpu_torch.segmentation import flow as FL
+from multimotionfusion_tpu_torch.segmentation import flow_crf as FC
 from multimotionfusion_tpu_torch.tracking import superpoint as SP
 from multimotionfusion_tpu_torch.tracking import tracker as TR
 
@@ -72,6 +76,14 @@ _ARG_NAMES = {
                    "conf_all", "cam", "time", "time_delta", "cfg"),
     "splat_resolve.composite": ("index", "data_local", "cam", "conf_threshold", "time",
                                 "max_time", "time_delta", "window", "fill", "composite"),
+    "zbuffer.depths": ("st", "T_inv", "maxd", "conf", "cam_c", "time", "time_delta"),
+    "flow": ("prev", "nxt", "hc", "wc"),
+    "crf": ("unary", "flow", "p", "iterations"),
+    "components": ("masks", "iters"),
+    "segment.unaries": ("frame_depth", "pred_c", "active", "track_xy", "track_vel",
+                        "track_valid", "cfg", "allow_new"),
+    "segment.fuse": ("q", "flow", "p_proj", "behind", "active", "cfg", "allow_new"),
+    "segment.finish": ("lbl", "largest", "sizes", "fd", "h", "w", "cfg", "allow_new"),
 }
 
 
@@ -489,6 +501,29 @@ def check_sparse(a: tuple, sp_net=None) -> dict:
                 tolerance="T within 1e-5, num_inliers and ok equal")
 
 
+def components_inputs(h: int, w: int, device, labels: int = 3, seed: int = 0) -> tuple:
+    """``keep_largest_components_batched`` arguments on a synthetic stack:
+    blobs of a thresholded, box-smoothed random field per label, and in label
+    0 a square spiral whose geodesic length exceeds the 64 sweeps."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    field = torch.rand((labels, 1, h, w), generator=g)
+    for _ in range(3):
+        field = torch.nn.functional.avg_pool2d(field, 9, stride=1, padding=4)
+    masks = (field[:, 0] > field.mean()).clone()
+    spiral = torch.zeros((h, w), dtype=torch.bool)
+    lo_y, lo_x, hi_y, hi_x = 2, 2, min(h, 60) - 3, min(w, 60) - 3
+    while lo_y < hi_y and lo_x < hi_x:
+        spiral[lo_y, lo_x:hi_x + 1] = True
+        spiral[lo_y:hi_y + 1, hi_x] = True
+        spiral[hi_y, lo_x:hi_x + 1] = True
+        spiral[lo_y + 2:hi_y + 1, lo_x] = True
+        lo_y, lo_x, hi_y, hi_x = lo_y + 2, lo_x + 2, hi_y - 2, hi_x - 2
+        if lo_y < hi_y:
+            spiral[lo_y, lo_x - 2:lo_x + 1] = True
+    masks[0, :62, :62] = spiral[:62, :62]
+    return masks.to(device), 64
+
+
 def nms_inputs(kind: str, h: int, w: int, device, seed: int = 0) -> tuple:
     """``nms_topk`` arguments on synthetic heat maps: ``plateau`` (a constant
     block holding more peaks than K, every pixel of it a peak), ``random``
@@ -679,3 +714,158 @@ def check_clean_flat(a: tuple) -> dict:
     return dict(max_abs_err=float((ok_ - op).abs().max()), max_rel_err=err, keep_differ=alive_diff,
                 culled_plain=culled, ok=alive_diff == 0 and err <= 1e-6,
                 tolerance="ALIVE exact; the whole flat store within 1e-6 relative")
+
+
+# ---------------------------------------------------------------- flow-CRF
+
+def check_render_depths(a: tuple) -> dict:
+    """K13: coverage exact; depth equal (both quantise the same expression;
+    one log-depth bin, 5.3e-6 relative, tolerated)."""
+    dk, dp = R.render_depths_cuda(*a), R.render_depths_plain(*a)
+    cover_diff = int(((dk > 0) != (dp > 0)).sum())
+    rel = float(((dk - dp).abs() / dp.clamp(min=1e-6)).max())
+    return dict(max_abs_err=float((dk - dp).abs().max()), max_rel_err=rel,
+                coverage_differ=cover_diff, covered=int((dp > 0).sum()),
+                ok=cover_diff == 0 and rel <= 6e-6,
+                tolerance="coverage exact; depth within one log-depth bin (6e-6 relative)")
+
+
+def check_flow_prep(a: tuple) -> dict:
+    """K15's resize, blur and pyramids: the same taps in the same order."""
+    pk, pp = FL.flow_prep_cuda(*a), FL.flow_prep_plain(*a)
+    err = max(float((k - p).abs().max()) for k, p in zip(pk, pp))
+    return dict(max_abs_err=err, ok=err <= 1e-3,
+                tolerance="every level within 1e-3 of intensities 0..255 (same taps and order)")
+
+
+def flow_level_inputs(a: tuple, level: int):
+    """(pair, coarser flow) of ``level`` from the plain front end and the plain
+    coarser levels, so both versions of the level see the same inputs."""
+    pyr = FL.flow_prep_plain(*a)
+    flow = None
+    for lvl in range(FL.LEVELS - 1, level, -1):
+        flow = FL.lk_level_plain(pyr[lvl], flow)
+    return pyr[level], flow
+
+
+def check_lk_level(a: tuple, level: int) -> dict:
+    """A K15 level (upsample + 4 Lucas-Kanade iterations) on the same pair and
+    coarser flow: the same arithmetic in the same order."""
+    pair, coarse = flow_level_inputs(a, level)
+    fk = FL.lk_level_cuda(pair, coarse, level)
+    fp = FL.lk_level_plain(pair, coarse)
+    gap = (fk - fp).abs().amax(0)
+    far = float((gap > 1e-4).float().mean())
+    return dict(max_abs_err=float(gap.max()), share_beyond_1e4=far, ok=far <= 1e-3,
+                tolerance="flow within 1e-4 px on >= 99.9% of the cells (a gate may flip "
+                          "at its threshold)")
+
+
+def check_flow(a: tuple) -> dict:
+    fk = FL.dense_flow(*a)
+    fp = FL.dense_flow_plain(*a)
+    gap = (fk - fp).abs().amax(-1)
+    far = float((gap > 1e-3).float().mean())
+    return dict(max_abs_err=float(gap.max()), share_beyond_1e3=far, ok=far <= 2e-3,
+                tolerance="whole flow within 1e-3 px on >= 99.8% of the cells")
+
+
+def check_crf_iteration(a: tuple) -> dict:
+    """One K16 iteration from the same Q (the plain plan's Q0)."""
+    unary, flow, p, _ = a
+    q0, plan_p = CRF.crf_plan_plain(unary, flow, p)
+    qk0, plan_k = CRF.crf_plan_cuda(unary, flow, p)
+    q1k = CRF.crf_iteration_cuda(q0, unary, plan_k, p)
+    q1p = CRF.crf_iteration_plain(q0, unary, plan_p, p)
+    err = float((q1k - q1p).abs().max())
+    err0 = float((qk0 - q0).abs().max())
+    return dict(max_abs_err=err, q0_err=err0, ok=err <= 1e-4 and err0 <= 1e-6,
+                tolerance="Q0 within 1e-6; one iteration within 1e-4 (direct windowed box sums "
+                          "against cumulative sums, 25 slab taps against a 64-wide contraction)")
+
+
+CRF_TIE_EPS = 1e-4  # the one-iteration agreement
+
+
+def _top2_margin(q: torch.Tensor) -> torch.Tensor:
+    """[H, W] gap between the largest and the second largest label of Q."""
+    top = torch.topk(q, 2, dim=0).values
+    return top[0] - top[1]
+
+
+def check_crf(a: tuple, eps: float = CRF_TIE_EPS) -> dict:
+    """All K16 iterations (plan + 10) from the same unary and flow, two ways.
+
+    Step by step: every kernel iteration from the plain chain's previous Q
+    agrees with the plain iteration within 1e-4, as one iteration does.
+    Free-running: the kernel's chain against the plain chain. Mean field with
+    Potts weights of 160 and 40 oscillates and is bistable where labels tie:
+    a difference below the one-iteration agreement (direct windowed box sums
+    against cumulative sums) settles such a cell on the other label, and its
+    neighbours' messages follow. A cell may end on another label only where
+    the plain chain's top-two margin fell below ``eps`` in an iteration; the
+    share of entries beyond 1e-4 is reported."""
+    unary, flow, p, iters = a
+    qp, plan_p = CRF.crf_plan_plain(unary, flow, p)
+    qk, plan_k = CRF.crf_plan_cuda(unary, flow, p)
+    step_err = float((qk - qp).abs().max())
+    margin = torch.full_like(qp[0], float("inf"))
+    for _ in range(iters):
+        forced = CRF.crf_iteration_cuda(qp, unary, plan_k, p)
+        qk = CRF.crf_iteration_cuda(qk, unary, plan_k, p)
+        qp = CRF.crf_iteration_plain(qp, unary, plan_p, p)
+        step_err = max(step_err, float((forced - qp).abs().max()))
+        margin = torch.minimum(margin, _top2_margin(qp))
+    gap = (qk - qp).abs()
+    flipped = qk.argmax(0) != qp.argmax(0)
+    off_ties = flipped & (margin >= eps)
+    return dict(max_abs_err=float(gap.max()), step_err=step_err,
+                argmax_differ=int(flipped.sum()), argmax_differ_off_ties=int(off_ties.sum()),
+                flipped_min_margin=margin[flipped].tolist()[:20],
+                share_beyond_1e4=float((gap > 1e-4).float().mean()),
+                ok=step_err <= 1e-4 and not bool(off_ties.any()),
+                tolerance=f"each of the {iters} iterations from the plain chain's Q within "
+                          f"1e-4; free-running, a cell's label differs only where the plain "
+                          f"chain's top-two margin fell below {eps} in an iteration")
+
+
+def check_components(a: tuple) -> dict:
+    kk, sk = CC.keep_largest_components_cuda(*a)
+    kp, sp_ = CC.keep_largest_components_plain(*a)
+    differ = int((kk != kp).sum())
+    return dict(max_abs_err=float(differ), differing_cells=differ, sizes_kernel=sk.tolist(),
+                sizes_plain=sp_.tolist(), ok=differ == 0 and bool((sk == sp_).all()),
+                tolerance="kept cells and sizes exact")
+
+
+def check_seg_unaries(a: tuple) -> dict:
+    uk, up = FC.unaries_cuda(*a), FC.unaries_plain(*a)
+    errs = {name: float((x.float() - y.float()).abs().max()) for name, x, y in zip(
+        uk._fields, uk, up)}
+    behind = int((uk.behind != up.behind).sum())
+    err = max(errs["p_proj"], errs["unary"], errs["frame_depth_c"])
+    return dict(max_abs_err=err, errors=errs, behind_differ=behind, ok=behind == 0 and err <= 1e-6,
+                tolerance="behind exact; rows and unaries within 1e-6 (the same expressions)")
+
+
+def check_seg_fuse(a: tuple) -> dict:
+    lk, sk = FC.fuse_labels_cuda(*a)
+    lp, sp_ = FC.fuse_labels_plain(*a)
+    differ = int((lk != lp).sum())
+    return dict(max_abs_err=float(differ), differing_cells=differ,
+                ok=differ == 0 and bool((sk == sp_).all()),
+                tolerance="labels and label stack exact given equal inputs")
+
+
+def check_seg_finish(a: tuple) -> dict:
+    ok_ = FC.finish_cuda(*a)
+    op = FC.finish_plain(*a)
+    names = ("mask", "new_label_mask", "has_new_label", "pixel_counts")
+    exact = {n: bool((x == y).all()) for n, x, y in zip(names, ok_[:4], op[:4])}
+    err = float((ok_[4] - op[4]).abs().max())
+    var_err = float((ok_[5] ** 2 - op[5] ** 2).abs().max())
+    return dict(max_abs_err=err, var_err=var_err, exact=exact, has_new_label=bool(op[2]),
+                ok=all(exact.values()) and err <= 1e-5 and var_err <= 2e-5,
+                tolerance="masks, has_new_label and counts exact; depth means within 1e-5 m, "
+                          "variances within 2e-5 m^2 (sums in another order; the one-pass "
+                          "variance cancels)")

@@ -1,9 +1,11 @@
 """Image-space ops: intensity, pyramids, Sobel gradients, bilateral depth
-filter, and the keypoint detectors' Gaussian blur and bilinear sampling.
+filter, the keypoint detectors' Gaussian blur and bilinear sampling, and the
+bilinear resize of the flow-CRF.
 
 Port of the reference package's ``ops/image.py`` in plain PyTorch: the plain
 versions of kernels K1 (``csrc/frame_maps.cu``, the bilateral filter) and K2
-(``csrc/pyramid.cu``, the pyramids and Sobel), which the CPU tests and the
+(``csrc/pyramid.cu``, the pyramids and Sobel), and of K15's front end
+(``csrc/flow.cu``: resize, blur, pyramid), which the CPU tests and the
 kernel checks use. Every stencil keeps the reference's tap order so float sums
 round identically: a tap loop accumulates ``out + w * shifted`` in row-major
 tap order. Invalid depth is 0.0.
@@ -136,6 +138,32 @@ def gaussian_blur(img: torch.Tensor, sigma: float, radius: int) -> torch.Tensor:
     for i in range(2 * radius + 1):
         out2 = out2 + float(k[i]) * padded[i:i + h, :]
     return out2
+
+
+def resize_taps(n_in: int, n_out: int):
+    """(i0, i1, w0, w1) of the align-corners=False bilinear resize of one axis
+    from ``n_in`` to ``n_out`` samples: output k blends input i0[k] with
+    weight w0[k] and i1[k] with w1[k] (the two nonzero entries of each row of
+    the reference's ``_resize_matrix``, computed as it computes them)."""
+    xs = (np.arange(n_out, dtype=np.float64) + 0.5) * (n_in / n_out) - 0.5
+    xs = np.clip(xs, 0.0, n_in - 1.0)
+    x0 = np.floor(xs).astype(np.int64)
+    f = (xs - x0).astype(np.float32)
+    x1 = np.minimum(x0 + 1, n_in - 1)
+    return x0, x1, (1.0 - f).astype(np.float32), f
+
+
+def resize_bilinear(img: torch.Tensor, out_hw) -> torch.Tensor:
+    """Resize [H, W] to ``out_hw`` with bilinear sampling (align corners =
+    False): rows first, then columns, each output the two-tap blend
+    ``w0 * a + w1 * b`` (the reference's separable resize matrices)."""
+    oh, ow = out_hw
+    h, w = img.shape
+    dev = img.device
+    y0, y1, wy0, wy1 = (torch.as_tensor(a).to(dev) for a in resize_taps(h, oh))
+    x0, x1, wx0, wx1 = (torch.as_tensor(a).to(dev) for a in resize_taps(w, ow))
+    rows = wy0[:, None] * img[y0] + wy1[:, None] * img[y1]
+    return wx0 * rows[:, x0] + wx1 * rows[:, x1]
 
 
 def bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -360,6 +360,112 @@ def zbuffer_flat(data, counts, layout: FlatLayout, T_inv, maxd, cam: CameraModel
     return impl(data, counts, layout, T_inv, maxd, cam, time, time_delta)
 
 
+# ---------------------------------------------------------------- K13
+
+class DepthStores(NamedTuple):
+    """The stores K13 reads in place: the global map's bucket and the object
+    slots' buckets, each model's count, and the strides of the global and the
+    object segment (every ``gs``-th global and ``os``-th object column)."""
+
+    gdata: torch.Tensor  # [16, >= bg] global map
+    odata: torch.Tensor  # [S, 16, >= bo] object slots
+    counts: torch.Tensor  # [M] int32 high-water marks (global first)
+    bg: int
+    bo: int
+    gs: int = 2
+    os: int = 1
+
+
+def depth_keys(st: DepthStores, T_inv, maxd, conf, cam_c: CameraModel, time, time_delta):
+    """(cell [N] int64, M * Hc * Wc for rejected surfels; key [N] int32) of
+    K13's scatter: key = (conf_miss << 21) | log-depth bin (2^20 levels)."""
+    dev = st.gdata.device
+    S = st.odata.shape[0]
+    M = 1 + S
+    hc, wc = cam_c.height, cam_c.width
+    npix = hc * wc
+    gi = torch.arange(0, st.bg, st.gs, device=dev)
+    oi = torch.arange(0, S * st.bo, st.os, device=dev)
+    slot, pos = torch.div(oi, st.bo, rounding_mode="floor"), torch.remainder(oi, st.bo)
+    data = torch.cat([st.gdata[:, gi], st.odata[slot, :, pos].T], dim=1)
+    model = torch.cat([torch.zeros_like(gi), slot + 1]).to(torch.int32)
+    at = torch.cat([gi, pos]).to(torch.int32)
+    counts = st.counts.to(dev)
+    alive = (at < counts[model.long()]) & (data[sm.ALIVE] > 0)
+    local = transform_per_model(data, model, T_inv.to(dev))
+    ok = _gates(local, alive, time, time_delta, maxd.to(dev)[model.long()])
+    u, v = _project(local, cam_c)
+    ok = ok & (u >= 0) & (v >= 0) & (u < wc) & (v < hc)
+    miss = (data[sm.CONF] < conf.to(dev)[model.long()]).to(torch.int32)
+    levels = 1 << 20
+    zq = (torch.log2(torch.clamp(local[sm.PZ], min=1e-6)) + 4.0) * (levels / 8.0)
+    zq = torch.clamp(zq.to(torch.int32), 0, levels - 2)
+    key = torch.where(ok, (miss << 21) | zq, torch.full_like(zq, _KEY_INVALID))
+    pix = torch.where(ok, model * npix + v * wc + u, torch.full_like(u, M * npix)).long()
+    return pix, key
+
+
+def render_depths_plain(st: DepthStores, T_inv, maxd, conf, cam_c: CameraModel, time,
+                        time_delta) -> torch.Tensor:
+    """Plain PyTorch K13: [M, Hc, Wc] per-model depth (0 where no surfel)."""
+    dev = st.gdata.device
+    M = 1 + st.odata.shape[0]
+    hc, wc = cam_c.height, cam_c.width
+    npix = hc * wc
+    levels = 1 << 20
+    pix, key = depth_keys(st, T_inv, maxd, conf, cam_c, time, time_delta)
+    kmin = torch.full((M * npix + 1,), _KEY_INVALID, dtype=torch.int32, device=dev)
+    kmin.scatter_reduce_(0, pix, key, reduce="amin", include_self=True)
+    kmin = kmin[: M * npix]
+    zw = torch.exp2((kmin & (levels - 1)).to(torch.float32) * (8.0 / levels) - 4.0)
+    depth = torch.where(kmin != _KEY_INVALID, zw, torch.zeros_like(zw))
+    return depth.reshape(M, hc, wc)
+
+
+def render_depths_cuda(st: DepthStores, T_inv, maxd, conf, cam_c: CameraModel, time,
+                       time_delta) -> torch.Tensor:
+    """K13 on the card: ``csrc/zbuffer.cu`` ``mmf_render_depths`` (the stores
+    read in place; poses, counts, max depths and gates by pointer)."""
+    K.check(st.gdata, torch.float32, "gdata", contiguous=False)
+    K.check(st.odata, torch.float32, "odata", contiguous=False)
+    K.check(st.counts, torch.int32, "counts")
+    for name, t in (("T_inv", T_inv), ("maxd", maxd), ("conf", conf)):
+        K.check(t, torch.float32, name)
+    S = st.odata.shape[0]
+    M = 1 + S
+    if st.gdata.stride(1) != 1 or st.odata.stride(2) != 1:
+        raise ValueError("surfel columns must have unit stride")
+    if tuple(T_inv.shape) != (M, 4, 4) or maxd.shape != (M,) or conf.shape != (M,) \
+            or st.counts.shape != (M,):
+        raise ValueError("T_inv must be [M, 4, 4], counts, maxd and conf [M]")
+    if st.bg > st.gdata.shape[1] or st.bo > st.odata.shape[2]:
+        raise ValueError("bucket beyond the store")
+    hc, wc = cam_c.height, cam_c.width
+    dev = st.gdata.device
+    keys = torch.empty((M * hc * wc,), dtype=torch.int32, device=dev)
+    depth = torch.empty((M, hc, wc), dtype=torch.float32, device=dev)
+    f = K.fn("zbuffer", "mmf_render_depths",
+             [K.P, K.I, K.I, K.I, K.P, K.I, K.L, K.I, K.I, K.I, K.P, K.P, K.P, K.P]
+             + [K.F] * 4 + [K.I, K.I, K.F, K.F, K.P, K.P])
+    K.call("zbuffer.depths", f, K.ptr(st.gdata), st.gdata.stride(0), st.bg, st.gs,
+           K.ptr(st.odata), st.odata.stride(1), st.odata.stride(0), st.bo, S, st.os,
+           K.ptr(st.counts), K.ptr(T_inv), K.ptr(maxd), K.ptr(conf), cam_c.fx, cam_c.fy,
+           cam_c.cx, cam_c.cy, wc, hc, float(time), float(time_delta), K.ptr(keys), K.ptr(depth))
+    return depth
+
+
+def render_depths(st: DepthStores, T_inv, maxd, conf, cam_c: CameraModel, time,
+                  time_delta) -> torch.Tensor:
+    """Per-model predicted depth on the CRF grid [M, Hc, Wc] (the
+    segmentation's reprojection term): every model's strided surfels,
+    gated as the composite index map (no confidence gate when ``conf`` is
+    0), the nearest per cell, confidence-gated surfels before the others."""
+    K.record("zbuffer.depths", st=st, T_inv=T_inv, maxd=maxd, conf=conf, cam_c=cam_c, time=time,
+             time_delta=time_delta)
+    impl = render_depths_cuda if st.gdata.is_cuda else render_depths_plain
+    return impl(st, T_inv, maxd, conf, cam_c, time, time_delta)
+
+
 _WIN_CH =(sm.CR, sm.CG, sm.CB, sm.CONF, sm.NX, sm.NY, sm.NZ, sm.RADIUS, sm.INIT_T)
 
 

@@ -6,9 +6,11 @@
   imports are fine). An AST scan, not ``sys.modules``: the test process may
   have imported jax already.
 - Without CUDA the engine raises unless given ``device="cpu"``; configurations
-  this slice does not port raise NotImplementedError; the default
+  the port does not run yet raise NotImplementedError; the default
   ``odom_init="kp"`` constructs and steps on the CPU, and so does the
-  multi-model engine with external masks (``segmentation.mode="precomputed"``).
+  multi-model engine with external masks (``segmentation.mode="precomputed"``)
+  and with the flow-CRF segmentation (the default mode, "none" alike, also
+  with a segm_lvl tracker of its own).
 """
 
 import ast
@@ -46,6 +48,8 @@ def _forbidden(name):
 
 def test_port_imports_no_jax_and_no_reference_package():
     assert len(FILES) > 10
+    names = {p.name for p in FILES}
+    assert {"flow.py", "crf.py", "components.py", "flow_crf.py"} <= names
     bad = [(str(p.relative_to(ROOT)), m) for p in FILES for m in _imports(p) if _forbidden(m)]
     assert bad == []
 
@@ -59,7 +63,8 @@ def test_engine_needs_cuda_unless_asked_for_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("override", [
-    dict(enable_multi_model=True), dict(reloc_mode=True), dict(close_loops=True),
+    dict(enable_multi_model=True, segmentation=SegmentationConfig(mode="crf")),
+    dict(reloc_mode=True), dict(close_loops=True),
     dict(frame_to_frame_rgb=True), dict(upload_yuv420=True),
 ])
 def test_unported_configurations_raise(override):
@@ -87,9 +92,9 @@ def test_unknown_odom_init_is_refused():
 
 
 @pytest.mark.parametrize("override", [
-    dict(segmentation=SegmentationConfig()),  # flow_crf, the default
+    dict(frame_to_frame_rgb=True),
     dict(segmentation=SegmentationConfig(mode="crf")),
-    dict(odometry=OdometryConfig(segm_lvl=1)),
+    dict(upload_yuv420=True),
     dict(reloc_mode=True), dict(close_loops=True), dict(odom_init="tf"),
 ])
 def test_unported_multi_configurations_raise(override):
@@ -126,3 +131,62 @@ def test_precomputed_multi_engine_steps_on_cpu(tmp_path):
     names = sorted(p.rsplit("/", 1)[-1] for p in eng.export_poses(str(tmp_path)))
     assert names == ["poses-0.txt", "poses-1.txt", "poses-2.txt"]
     assert len((tmp_path / "poses-0.txt").read_text().splitlines()) == 4
+
+
+def _spheres(cam, n):
+    """Frames of three spheres that approach the camera, then move apart."""
+    from multimotionfusion_tpu_torch.io import synthetic
+    from multimotionfusion_tpu_torch.io.frame import FrameData
+
+    cs = [np.array([-0.45, -0.1, 1.4]), np.array([0.45, -0.1, 1.4]), np.array([0.0, 0.3, 1.5])]
+    vel = [np.array([0.02, 0.0, 0.0]), np.array([-0.02, 0.0, 0.0]), np.array([0.0, -0.015, 0.0])]
+    out = []
+    for i in range(n):
+        depth, rgb = synthetic.render(np.eye(4, dtype=np.float32), cam,
+                                      spheres=[(tuple(c), 0.22) for c in cs])
+        out.append(FrameData(rgb=rgb.astype(np.uint8), depth=depth, timestamp=i))
+        cs = [c + (np.array([0.0, 0.0, -0.04]) if i < 3 else v) for c, v in zip(cs, vel)]
+    return out
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One torch thread: six pytest workers share the CPU (see
+    tests/test_torch_segmentation.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("override", [
+    dict(),  # the default flow_crf mode
+    dict(segmentation=SegmentationConfig(mode="none", new_label_min_frac=0.01)),
+    dict(odometry=OdometryConfig(segm_lvl=1)),
+])
+def test_flow_crf_multi_engine_steps_on_cpu(override):
+    """``EngineConfig(enable_multi_model=True)`` with the flow-CRF: the
+    spheres spawn models by themselves (no masks); with segm_lvl != init_lvl
+    the second track table fills at its own level."""
+    cam = CameraModel(width=80, height=60, fx=66.0, fy=66.0, cx=40.0, cy=30.0)
+    cfg = EngineConfig(camera=cam, enable_multi_model=True, object_slots=3,
+                       object_capacity=2048, model_spawn_offset=2,
+                       surfels=SurfelConfig(max_surfels=1 << 13, depth_cutoff=5.0),
+                       keypoints=KeypointConfig(max_keypoints=64, max_tracks=256,
+                                                track_history=8, match_dist_gate=1.0),
+                       ransac=RansacConfig(iterations=32),
+                       **{"segmentation": SegmentationConfig(new_label_min_frac=0.01), **override})
+    assert cfg.segmentation.mode in ("flow_crf", "none") and cfg.odom_init == "kp"
+    eng = MultiMotionFusionTorch(cfg, device="cpu")
+    for f in _spheres(cam, 3):
+        eng.process_frame(f)
+    stats = eng.finish()
+    assert stats["active_objects"] >= 1.0 and len(stats["segment_px"]) == 4
+    assert [e["event"] for e in eng.drain_events()][:1] == ["new_model"]
+    tseg = eng.state.tracks_segm
+    if cfg.odometry.segm_lvl != cfg.odometry.init_lvl:
+        assert tseg.capacity == 256 and bool(tseg.active.any())
+    else:
+        assert tseg.capacity == 1
+    assert eng.last_mask.shape == (60, 80) and int(eng.last_mask.max()) >= 1

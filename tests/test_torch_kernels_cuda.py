@@ -22,6 +22,11 @@ compaction frame), records the inputs of the multi-model kernels at its
 last frame (K11 per level with its owner prep, K5's M-wide steps, K12, K14
 fuse and clean, K10 composite) and of the composite odometry loop, which
 runs on the card against the plain loop on the CPU.
+
+A third run, of the flow-CRF multi-model engine on tests/test_five_movers.py's
+160x120 journey (chip_smoke.five_movers, 17 frames, no masks), records the
+inputs of the segmentation's kernels at its last frame: K13, K15's front end
+and each level, one K16 iteration and all ten, K17 and K18's three stages.
 """
 
 import pytest
@@ -153,4 +158,56 @@ def test_nms_topk_synthetic_heat(kind):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
     r = checks.check_nms_topk(checks.nms_inputs(kind, CAM.height, CAM.width, "cuda"))
+    assert r["ok"], r
+
+
+def test_components_global_scratch():
+    """K17 on a grid whose label planes do not fit in shared memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
+    r = checks.check_components(checks.components_inputs(160, 240, "cuda"))
+    assert r["ok"], r
+
+
+FLOW_CASES = (
+    [("zbuffer.depths", checks.check_render_depths), ("flow.prep", checks.check_flow_prep)]
+    + [(f"flow.L{lvl}", lambda a, lvl=lvl: checks.check_lk_level(a, lvl)) for lvl in LEVELS]
+    + [("flow", checks.check_flow), ("crf.iter", checks.check_crf_iteration),
+       ("crf", checks.check_crf), ("components", checks.check_components),
+       ("segment.unaries", checks.check_seg_unaries), ("segment.fuse", checks.check_seg_fuse),
+       ("segment.finish", checks.check_seg_finish)]
+)
+
+
+def _flow_key(name: str) -> str:
+    """Recorded inputs of a flow-CRF case (K15 and K16 record once a frame)."""
+    return name.split(".")[0] if name.startswith(("flow.", "crf.")) else name
+
+
+@pytest.fixture(scope="module")
+def captured_flow():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
+    from chip_smoke import five_movers
+
+    cfg, frames = five_movers()
+    K.reset_launches()
+    eng = MultiMotionFusionTorch(cfg, device="cuda")
+    for i, f in enumerate(frames):
+        if i == len(frames) - 1:
+            K.start_capture()
+        eng.process_frame(f)
+    out = K.stop_capture()
+    torch.cuda.synchronize()
+    assert eng.finish()["active_objects"] >= 1.0
+    for key in ("zbuffer.depths", "flow.prep", "flow.L0", "crf.plan", "crf.iter", "components",
+                "segment.unaries", "segment.fuse", "segment.finish"):
+        assert K.LAUNCHES.get(key, 0) > 0, key
+    return out
+
+
+@pytest.mark.parametrize("name,check", FLOW_CASES, ids=[n for n, _ in FLOW_CASES])
+def test_flow_crf_kernel_matches_plain(captured_flow, name, check):
+    key = _flow_key(name)
+    r = check(checks.args(key, captured_flow[key]))
     assert r["ok"], r

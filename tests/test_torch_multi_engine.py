@@ -120,14 +120,15 @@ def _jstate(ms):
          "prev_mask": ms.prev_mask, "prev_intensity": ms.prev_intensity,
          "last_spawn": ms.last_spawn}
     d.update({f"tracks.{k}": getattr(ms.tracks, k) for k in ms.tracks._fields})
+    d.update({f"tracks_segm.{k}": getattr(ms.tracks_segm, k) for k in ms.tracks_segm._fields})
     d.update({f"objects.{k}": getattr(ms.objects, k) for k in ms.objects._fields})
     return {k: np.asarray(v) for k, v in d.items()}
 
 
 def _to_reference(template, d):
     """The reference MultiState holding interop dict ``d``; what the dict
-    does not carry (the PRNG key, the fern database, the segm_lvl stub table)
-    comes from ``template``, a reference state of the same frame."""
+    does not carry (the PRNG key, the fern database) comes from
+    ``template``, a reference state of the same frame."""
     def arr(key, like):
         like = np.asarray(like)
         return jnp.asarray(np.asarray(d[key]).astype(like.dtype).reshape(like.shape))
@@ -140,6 +141,7 @@ def _to_reference(template, d):
         smap=sub("smap", ms.smap, ("data", "count")),
         filled=sub("filled", ms.filled, ("color", "vertex_conf", "normal_rad")),
         tracks=sub("tracks", ms.tracks, ms.tracks._fields),
+        tracks_segm=sub("tracks_segm", ms.tracks_segm, ms.tracks_segm._fields),
         objects=sub("objects", ms.objects, ms.objects._fields),
         **{k: arr(k, getattr(ms, k)) for k in ("pose", "prev_pose", "last_intensity_coarse",
                                                "pred_own", "prev_mask", "prev_intensity",

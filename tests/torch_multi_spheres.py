@@ -20,12 +20,34 @@ a script beside the tests, not one of them; chip_smoke.py bounds the same
 error on the card at 640x480. The chip phase's 1 + 40 frames at 160x120:
 
     JAX_PLATFORMS=cpu python -m tests.torch_multi_spheres --div 4 --frames 41
+
+With ``--flow-crf`` the frames carry no masks and both packages run the
+default flow-CRF segmentation (chip_smoke.py's multi_flow_crf phase): each
+slot is associated with the sphere whose ray-sphere mask overlaps the slot's
+mask most on its spawn frame (``chip_smoke.associate_slots``), and the
+readings are printed with the same fields. The check is then that the port
+spawns at least one model and keeps the camera within 0.08 m (the chip
+phase's bounds); spawn frames and centre errors are read, not bounded.
+``--div 1 --chip-capacities --seeds 0-3`` runs the chip phase's own
+configuration (640x480, 2^16 surfels per object, 2^19 global) once per
+engine seed (the RANSAC draws) and prints each package's camera drift per
+seed (about 5 minutes a seed; full size, so on a large machine; with
+``--packages reference`` only the reference, chip_smoke.py's
+REF_FLOW_DRIFT_M). ``--one-step`` instead runs the reference
+free and steps the port from the reference's state before each frame
+(``odom_init=""``: no RANSAC draws), printing per frame the share of mask
+pixels apart, the camera and the largest object pose gap.
 """
+
+import os
+import sys
+
+# run as a file (python tests/<script>.py), the repo root first on the path
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import argparse
 import dataclasses
 import json
-import sys
 
 import numpy as np
 
@@ -37,43 +59,56 @@ from multimotionfusion_tpu_torch.config import CameraModel
 from multimotionfusion_tpu_torch.engine import MultiMotionFusionTorch
 
 
-def scene(div: int, n_frames: int):
+def scene(div: int, n_frames: int, flow_crf: bool = False, capacities=(1 << 14, 1 << 16)):
     """(port config, reference config, frames) of the cut scene."""
     cam = CameraModel(width=640 // div, height=480 // div, fx=528.0 / div, fy=528.0 / div,
                       cx=320.0 / div, cy=240.0 / div)
-    cfg, frames = chip_smoke.multi_frames(n_frames, cam=cam, object_capacity=1 << 14,
-                                          max_surfels=1 << 16)
+    cfg, frames = chip_smoke.multi_frames(n_frames, cam=cam, object_capacity=capacities[0],
+                                          max_surfels=capacities[1], masks=not flow_crf)
     jcfg = J.EngineConfig(
         camera=J.CameraModel(**dataclasses.asdict(cam)), enable_multi_model=True,
         object_slots=cfg.object_slots, object_capacity=cfg.object_capacity,
         surfels=J.SurfelConfig(max_surfels=cfg.surfels.max_surfels),
-        segmentation=J.SegmentationConfig(mode="precomputed"),
+        segmentation=J.SegmentationConfig(mode=cfg.segmentation.mode),
         model_spawn_offset=cfg.model_spawn_offset, upload_yuv420=False, upload_depth_mm=False)
     return cfg, jcfg, frames
 
 
-def _reading(poses, active, ext, pose):
+def _reading(poses, active, ext, pose, masks=None, cam=None, drift=None):
+    """The readings; with ``masks`` [F, H, W] (flow-CRF) the slots' sphere ids
+    come from the mask overlap on each slot's spawn frame."""
+    if masks is not None:
+        ext = chip_smoke.associate_slots(masks, active, cam)
     return dict(active_per_frame=active.sum(1).tolist(), ext_id_per_slot=np.asarray(ext).tolist(),
+                max_camera_drift_m=max(drift) if drift else None,
                 spawn_frames=[int(np.argmax(active[:, k])) for k in range(active.shape[1])
                               if active[:, k].any()],
                 camera_drift_m=float(np.linalg.norm(np.asarray(pose)[:3, 3])),
                 objects=chip_smoke.sphere_errors(poses, active, np.asarray(ext)))
 
 
-def run_port(cfg, frames):
+def run_port(cfg, frames, flow_crf=False):
     eng = MultiMotionFusionTorch(cfg, device="cpu")
+    masks, drift = [], []
     for f in frames:
         eng.process_frame(f)
+        masks.append(np.zeros(cfg.camera.shape, np.int32) if eng.last_mask is None
+                     else eng.last_mask.numpy().copy())
+        drift.append(float(np.linalg.norm(eng.state.pose.numpy()[:3, 3])))
     eng.finish()
     obj_log, _ = eng._lifecycle_logs()
     return _reading(np.stack([p for _, p, _ in obj_log]), np.stack([a for _, _, a in obj_log]),
-                    eng.state.objects.ext_id.numpy(), eng.state.pose.numpy())
+                    eng.state.objects.ext_id.numpy(), eng.state.pose.numpy(),
+                    np.stack(masks) if flow_crf else None, cfg.camera, drift)
 
 
-def run_reference(jcfg, frames):
+def run_reference(jcfg, frames, flow_crf=False):
     eng = MultiMotionFusionTPU(jcfg)
+    masks, drift = [], []
     for f in frames:
         eng.process_frame(FrameData(rgb=f.rgb, depth=f.depth, timestamp=f.timestamp, mask=f.mask))
+        masks.append(np.asarray(eng.mstate.prev_mask))
+        drift.append(float(np.linalg.norm(np.asarray(eng.mstate.pose)[:3, 3])))
     eng.finish()
     # the reference logs object poses from the second frame on
     s = jcfg.object_slots
@@ -83,12 +118,48 @@ def run_reference(jcfg, frames):
         poses.append(np.asarray(p))
         active.append(np.asarray(a))
     return _reading(np.stack(poses), np.stack(active), eng.mstate.objects.ext_id,
-                    eng.mstate.pose)
+                    eng.mstate.pose, np.stack(masks) if flow_crf else None, jcfg.camera, drift)
 
 
-def failures(ref, port):
+def one_step(cfg, jcfg, frames):
+    """Per frame (share of mask pixels apart, camera gap, object gap) of the
+    port stepped from the reference's state against the reference's frame."""
+    from multimotionfusion_tpu_torch import interop
+    from tests.test_torch_flow_crf_engine import gaps, jstate
+
+    cfg, jcfg = dataclasses.replace(cfg, odom_init=""), dataclasses.replace(jcfg, odom_init="")
+    eng = MultiMotionFusionTPU(jcfg)
+    for i, f in enumerate(frames):
+        before = (eng.mstate, eng.tick, (eng._bucket, eng._bucket_obj))
+        eng.process_frame(FrameData(rgb=f.rgb, depth=f.depth, timestamp=f.timestamp, mask=f.mask))
+        eng.finish()
+        if i == 0:
+            continue
+        port = MultiMotionFusionTorch(cfg, device="cpu")
+        port.set_state(interop.multi_state_from_numpy(jstate(before[0]), "cpu"), before[1],
+                       *before[2])
+        port.process_frame(f)
+        port.finish()
+        ref, st = eng.mstate, port.state
+        g = gaps(dict(mask=np.asarray(ref.prev_mask), pose=np.asarray(ref.pose),
+                      obj_pose=np.asarray(ref.objects.pose)),
+                 dict(mask=st.prev_mask.numpy(), pose=st.pose.numpy(),
+                      obj_pose=st.objects.pose.numpy()))
+        print(json.dumps({"frame": i, "mask_share_apart": g[0], "camera_gap": g[1],
+                          "object_gap": g[2],
+                          "active": [int(np.asarray(ref.objects.active).sum()),
+                                     int(st.objects.active.sum())]}), flush=True)
+
+
+def failures(ref, port, flow_crf=False):
     """The checks above that fail, as messages."""
     out = []
+    if flow_crf:
+        if not port["spawn_frames"]:
+            out.append("the port spawned no model")
+        if not port["camera_drift_m"] < 0.08:
+            out.append(f"camera drift {port['camera_drift_m']} m")
+        return out
     for key in ("active_per_frame", "spawn_frames", "ext_id_per_slot"):
         if port[key] != ref[key]:
             out.append(f"{key}: port {port[key]}, reference {ref[key]}")
@@ -106,11 +177,38 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--div", type=int, default=4, help="camera cut: 640/div x 480/div")
     ap.add_argument("--frames", type=int, default=41, help="frames, the first the init frame")
+    ap.add_argument("--flow-crf", action="store_true",
+                    help="no masks: the default flow-CRF segmentation spawns the models")
+    ap.add_argument("--chip-capacities", action="store_true",
+                    help="2^16 surfels per object and 2^19 global, as chip_smoke.py")
+    ap.add_argument("--seeds", default="", help="engine seeds, e.g. 0-3: the camera drift per seed")
+    ap.add_argument("--packages", default="reference,port",
+                    help="with --seeds: the packages to run, e.g. reference")
+    ap.add_argument("--one-step", action="store_true",
+                    help="the port stepped from the reference's state before each frame")
     a = ap.parse_args()
-    cfg, jcfg, frames = scene(a.div, a.frames)
-    readings = dict(reference=run_reference(jcfg, frames), port=run_port(cfg, frames))
+    caps = (1 << 16, 1 << 19) if a.chip_capacities else (1 << 14, 1 << 16)
+    cfg, jcfg, frames = scene(a.div, a.frames, a.flow_crf, caps)
+    if a.one_step:
+        one_step(cfg, jcfg, frames)
+        return 0
+    if a.seeds:
+        lo, _, hi = a.seeds.partition("-")
+        for seed in range(int(lo), int(hi or lo) + 1):
+            run = dict(reference=lambda: run_reference(dataclasses.replace(jcfg, seed=seed),
+                                                       frames, a.flow_crf),
+                       port=lambda: run_port(dataclasses.replace(cfg, seed=seed), frames,
+                                             a.flow_crf))
+            r = {k: run[k]() for k in a.packages.split(",")}
+            print(json.dumps({"seed": seed, **{k: {"max_camera_drift_m": v["max_camera_drift_m"],
+                                                   "camera_drift_m": v["camera_drift_m"],
+                                                   "spawn_frames": v["spawn_frames"]}
+                                               for k, v in r.items()}}), flush=True)
+        return 0
+    readings = dict(reference=run_reference(jcfg, frames, a.flow_crf),
+                    port=run_port(cfg, frames, a.flow_crf))
     print(json.dumps(readings))
-    bad = failures(readings["reference"], readings["port"])
+    bad = failures(readings["reference"], readings["port"], a.flow_crf)
     for msg in bad:
         print(msg, file=sys.stderr)
     return 1 if bad else 0
