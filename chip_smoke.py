@@ -87,6 +87,28 @@ Phases (any failure exits non-zero):
    over the last three frames, more than 120 pixels per label, camera
    within 0.08 m) not worse than the reference package's on the same seeds
    (``journey_tests``);
+5e. relocalisation (``reloc_mode``), launch counts reset before each run:
+   tests/test_reloc.py's journey at 640x480 (the default FernConfig: 500
+   ferns at ÷8): 4 healthy frames, 13 blackout frames, one frame near pose
+   1; lost must be set by the blackout, the map's count must not move while
+   lost, lost must clear on the reappearance and the pose land within
+   RELOC_BOUND_M of the truth; then the bench scene with reloc_mode on: 20
+   frames timed, its stage breakdown and a sync check (0 synchronising calls,
+   lost never set);
+5f. loop closure (``close_loops``): tests/test_loop_closure.py's journey at
+   640x480 with 2^20 surfels and 256 deformation nodes: six frames, a 3 cm
+   self-consistent drift injected, a revisit of frame 0; a match accepted,
+   the pose error after below 0.4 x before, the pose moved > 0.01; every
+   frame under the sync check with exactly one host read (the match flag);
+   the matching frame's device time split into find_frame, optimise and
+   apply_to_map;
+5g. the multi-model path with external masks and both flags on (phase 5b's
+   scene and frames): lost never set, a keyframe inserted after the first,
+   5 active models, camera drift < 0.08 m, no loop closure accepted with a
+   mean constraint error >= 0.02; then K22 (the ÷f frame, encode + block_hd
+   + argmax + fetch, insert, the photometric check; on the reloc journey's
+   inputs) and K23 (the constraint points, the map; on the loop-closure
+   journey's matching frame) against their plain versions;
 6. print ``{"kernels": [...]}``, the card's name and power limit, and as the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -247,7 +269,8 @@ PORT_MODULES = (
     "multimotionfusion_tpu_torch.ops.ransac", "multimotionfusion_tpu_torch.odometry.multi",
     "multimotionfusion_tpu_torch.segmentation.flow", "multimotionfusion_tpu_torch.segmentation.crf",
     "multimotionfusion_tpu_torch.segmentation.components",
-    "multimotionfusion_tpu_torch.segmentation.flow_crf",
+    "multimotionfusion_tpu_torch.segmentation.flow_crf", "multimotionfusion_tpu_torch.model.ferns",
+    "multimotionfusion_tpu_torch.model.deformation",
 )
 
 
@@ -1712,6 +1735,423 @@ def plan_flow():
     return p
 
 
+# ---------------------------------------------------------------- relocalisation, loop closure
+
+FERN_PATH = ("ferns.frame", "ferns.encode_hd", "ferns.insert", "ferns.photo")
+DEFORM_PATH = ("deform.points", "deform.apply_map")
+# the static step's kernels but the compaction frame's (the journeys are short)
+STEP_PATH = tuple(k for k in MAIN_PATH if k != "clean.compact")
+RELOC_PATH = MAIN_PATH + FERN_PATH
+LOOP_PATH = STEP_PATH + FERN_PATH + DEFORM_PATH
+RELOC_FRAMES = 20  # healthy frames with reloc_mode on (bench scene), timed from WARMUP
+# tests/test_reloc.py's bound on the recovered pose; the reference package
+# recovers to 0.0006 m on the same 640x480 frames, on the CPU
+# (python tests/torch_global_journeys.py --div 1 --packages reference)
+RELOC_BOUND_M = 0.06
+RELOC_JOURNEY_FRAMES = 18
+
+
+def reloc_config(**kw):
+    """tests/test_reloc.py's configuration at 640x480 (2^20 surfels, the
+    default FernConfig: 500 ferns at ÷8)."""
+    from multimotionfusion_tpu_torch.config import CameraModel, EngineConfig, SurfelConfig
+
+    return EngineConfig(camera=CameraModel(), enable_multi_model=False, odom_init="",
+                        reloc_mode=True, surfels=SurfelConfig(max_surfels=1 << 20,
+                                                              depth_cutoff=5.0), **kw)
+
+
+def reloc_frames(cam):
+    """tests/test_reloc.py's journey: 4 frames of healthy tracking, 13
+    blackout frames (zero depth, black colour), one frame near pose 1;
+    (frames, its true pose)."""
+    from multimotionfusion_tpu_torch.io import synthetic
+    from multimotionfusion_tpu_torch.io.frame import FrameData
+
+    frames = []
+    for i in range(4):
+        d, rgb = synthetic.render(synthetic.pose((0, 0.04 * i, 0), (0.06 * i, 0, 0)), cam)
+        frames.append(FrameData(rgb=rgb.astype(np.uint8), depth=d, timestamp=i))
+    black = FrameData(rgb=np.zeros((cam.height, cam.width, 3), np.uint8),
+                      depth=np.zeros((cam.height, cam.width), np.float32), timestamp=99)
+    frames += [black] * 13
+    T_true = synthetic.pose((0, 0.04 + 0.01, 0), (0.06 + 0.01, 0, 0))
+    d, rgb = synthetic.render(T_true, cam)
+    frames.append(FrameData(rgb=rgb.astype(np.uint8), depth=d, timestamp=100))
+    return frames, T_true
+
+
+def run_reloc(K):
+    """The static relocalisation journey (launch counts reset before it):
+    lost after the blackout, the map's count still while lost, lost cleared
+    on the reappearance and the pose within RELOC_BOUND_M of the truth."""
+    from multimotionfusion_tpu_torch.engine import MultiMotionFusionTorch
+
+    cfg = reloc_config()
+    frames, T_true = reloc_frames(cfg.camera)
+    last = len(frames) - 1
+    plain_calls, captured, per_frame = {}, {}, []
+    K.reset_launches()
+    with count_plain_calls(plain_calls):
+        engine = MultiMotionFusionTorch(cfg, device=DEVICE)
+        for i, f in enumerate(frames):
+            if i in (1, last):
+                K.start_capture()
+            engine.process_frame(f)
+            st = engine.state
+            per_frame.append(tuple(t.clone() for t in (st.smap.count, st.lost, st.bad_track_count,
+                                                       st.ferns.count)))
+            if i == 1:  # a frame that inserts a keyframe
+                captured["ferns.insert"] = K.stop_capture()["ferns.insert"]
+            elif i == last:  # the relocalising frame
+                captured.update({k: v for k, v in K.stop_capture().items()
+                                 if k.startswith("ferns.") and k != "ferns.insert"})
+        engine.finish()
+    launches = dict(K.LAUNCHES)
+    rows = [[int(x) for x in r] for r in per_frame]
+    count, lost = [r[0] for r in rows], [bool(r[1]) for r in rows]
+    T_est = engine.state.pose.cpu().numpy()
+    delta = np.linalg.inv(T_true) @ T_est
+    err = float(np.linalg.norm(delta[:3, 3]))
+    lost_frames = [i for i in range(4, last) if lost[i]]
+    out = {"phase": "reloc_journey", "frames": len(frames), "surfels_per_frame": count,
+           "lost_per_frame": lost, "bad_track_count_per_frame": [r[2] for r in rows],
+           "keyframes_per_frame": [r[3] for r in rows], "pose_err_m": err,
+           "bound_m": RELOC_BOUND_M, "launches": launches, "plain_calls": plain_calls,
+           "gpu": _gpu_line()}
+    print(json.dumps(out))
+    failed = [f"plain versions ran on the reloc path: {plain_calls}"] if plain_calls else []
+    failed += [] if lost[last - 1] and not lost[3] else ["lost not set by the blackout"]
+    failed += [] if len({count[i] for i in lost_frames}) == 1 else [
+        "the map's count moved while lost"]
+    failed += [] if not lost[last] else ["lost not cleared on the reappearance"]
+    failed += [] if err < RELOC_BOUND_M else [f"relocalised pose {err} m off the truth"]
+    failed += [f"kernel {k} was not launched on the reloc path" for k in STEP_PATH + FERN_PATH
+               if launches.get(k, 0) <= 0]
+    return launches, captured, failed
+
+
+def run_reloc_healthy(K, frames):
+    """Healthy tracking with reloc_mode on (the bench scene, launch counts
+    reset before): ms per frame from WARMUP, every kernel of the path
+    launched, lost never set; then the stage breakdown and the sync check."""
+    from multimotionfusion_tpu_torch.engine import MultiMotionFusionTorch
+
+    cfg = dataclasses.replace(static_frames(0)[0], reloc_mode=True)
+    plain_calls, ms, lost = {}, [], []
+    K.reset_launches()
+    with count_plain_calls(plain_calls):
+        engine = MultiMotionFusionTorch(cfg, device=DEVICE)
+        engine.process_frame(frames[0])
+        for i in range(1, RELOC_FRAMES + 1):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            engine.process_frame(frames[i])
+            end.record()
+            end.synchronize()
+            lost.append(engine.state.lost)
+            if i > WARMUP:
+                ms.append(start.elapsed_time(end))
+        engine.finish()
+    launches = dict(K.LAUNCHES)
+    lost = [bool(x) for x in lost]
+    print(json.dumps({"phase": "reloc_healthy", "frames": RELOC_FRAMES + 1, "timed_frames": len(ms),
+                      "ms_per_frame_median": statistics.median(ms),
+                      "ms_per_frame_p75": statistics.quantiles(ms, n=4)[2],
+                      "keyframes": int(engine.state.ferns.count), "lost_any": any(lost),
+                      "launches": launches, "plain_calls": plain_calls, "gpu": _gpu_line()}))
+    rest = frames[RELOC_FRAMES + 1:]
+    run_stages(K, engine, rest[:2 * STAGE_FRAMES], "reloc_stages")
+    syncs = run_sync_check(engine, rest[2 * STAGE_FRAMES:], "reloc_sync_check")
+    failed = [f"plain versions ran on the healthy reloc path: {plain_calls}"] if plain_calls else []
+    failed += ["lost set on healthy frames"] if any(lost) else []
+    failed += [f"kernel {k} was not launched on the healthy reloc path" for k in RELOC_PATH
+               if launches.get(k, 0) <= 0]
+    return syncs, failed
+
+
+def loop_config():
+    """tests/test_loop_closure.py's _cfg() at 640x480 with the bench
+    capacities (2^20 surfels, 256 deformation nodes) and the default
+    FernConfig (500 ferns at ÷8: 300 constraint points)."""
+    from multimotionfusion_tpu_torch.config import (CameraModel, DeformationConfig, EngineConfig,
+                                                    KeypointConfig, SurfelConfig)
+
+    return EngineConfig(camera=CameraModel(), enable_multi_model=False, odom_init="",
+                        close_loops=True,
+                        surfels=SurfelConfig(max_surfels=1 << 20, depth_cutoff=5.0, time_delta=3),
+                        keypoints=KeypointConfig(max_keypoints=64, max_tracks=256,
+                                                 track_history=8),
+                        deformation=DeformationConfig(max_nodes=256, iterations=3),
+                        loop_accept_cons_err=0.02)
+
+
+def drift_state(state, D):
+    """A rigid drift D applied to the pose and, in place, to every live
+    surfel (the self-consistent error dense tracking cannot observe)."""
+    from multimotionfusion_tpu_torch.model import surfel_map as sm
+
+    Dt = torch.as_tensor(D, device=state.pose.device)
+    alive = state.smap.alive_mask()
+    pos = state.smap.data[sm.PX:sm.PZ + 1]
+    pos.copy_(torch.where(alive[None], Dt[:3, :3] @ pos + Dt[:3, 3:4], pos))
+    return state._replace(pose=Dt @ state.pose, prev_pose=Dt @ state.prev_pose)
+
+
+class SpanEvents:
+    """CUDA events around calls of ``module.attr`` while inside (device ms)."""
+
+    def __init__(self, module, attr):
+        self.module, self.attr, self.pairs = module, attr, []
+
+    def __enter__(self):
+        self.fn = getattr(self.module, self.attr)
+
+        def timed(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.fn(*args, **kwargs)
+            end.record()
+            self.pairs.append((start, end))
+            return out
+
+        setattr(self.module, self.attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.fn)
+
+    def ms(self):
+        return sum(s.elapsed_time(e) for s, e in self.pairs)
+
+
+def run_loop_closure(K):
+    """The static loop-closure journey (tests/test_loop_closure.py's): six
+    frames on a short path, a 3 cm self-consistent drift injected, a revisit
+    of frame 0; every frame under the sync check (one host read a frame: the
+    match flag); the matching frame's device time split into find_frame,
+    optimise and apply_to_map."""
+    from multimotionfusion_tpu_torch import engine as E
+    from multimotionfusion_tpu_torch.engine import MultiMotionFusionTorch
+    from multimotionfusion_tpu_torch.io import synthetic
+    from multimotionfusion_tpu_torch.io.frame import FrameData
+    from multimotionfusion_tpu_torch.model import deformation as DG
+    from multimotionfusion_tpu_torch.model import ferns as FN
+
+    cfg = loop_config()
+    cam = cfg.camera
+    gt = [synthetic.pose((0.0, 0.0015 * i, 0.0), (0.002 * i, 0.0, 0.0)) for i in range(6)]
+
+    def frame(T, i):
+        depth, rgb = synthetic.render(T, cam)
+        return FrameData(rgb=rgb.astype(np.uint8), depth=depth, timestamp=i)
+
+    frames = [frame(T, i) for i, T in enumerate(gt)] + [frame(gt[0], 6)]
+    D = np.eye(4, dtype=np.float32)
+    D[:3, 3] = (0.03, -0.02, 0.01)
+    plain_calls, syncs = {}, []
+    K.reset_launches()
+    with count_plain_calls(plain_calls):
+        engine = MultiMotionFusionTorch(cfg, device=DEVICE)
+        engine.process_frame(frames[0])
+        for i in range(1, 7):
+            if i == 6:
+                engine.finish()
+                engine.state = drift_state(engine.state, D)
+                pose_drifted = engine.state.pose.cpu().numpy()
+                K.start_capture()
+            with contextlib.ExitStack() as spans:
+                ev = {name: spans.enter_context(SpanEvents(mod, name)) for mod, name in
+                      ((FN, "find_frame"), (DG, "optimise"), (DG, "apply_to_map"))}
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                with sync_watch(E, "_frame_core") as caught:
+                    start.record()
+                    engine.process_frame(frames[i])
+                    end.record()
+                    torch.cuda.synchronize()
+                syncs.append(len(_syncs(caught)))
+            if i == 6:
+                captured = {k: v for k, v in K.stop_capture().items() if k.startswith("deform.")}
+                split = {k: e.ms() for k, e in ev.items()}
+                split["frame"] = start.elapsed_time(end)
+        engine.finish()
+    launches = dict(K.LAUNCHES)
+    matches = engine.pose_matches()
+    T_true = gt[0]
+    pose = engine.state.pose.cpu().numpy()
+    err_before = float(np.linalg.norm((D @ T_true)[:3, 3] - T_true[:3, 3]))
+    err_after = float(np.linalg.norm(pose[:3, 3] - T_true[:3, 3]))
+    moved = float(np.linalg.norm(pose - pose_drifted))
+    print(json.dumps({
+        "phase": "loop_closure_journey", "frames": 7,
+        "matches": [{k: v for k, v in m.items() if not k.endswith("_pose")} for m in matches],
+        "pose_err_before_m": err_before, "pose_err_after_m": err_after, "pose_moved": moved,
+        "matching_frame_device_ms": split, "host_reads_per_frame": syncs,
+        "keyframes": int(engine.state.ferns.count), "launches": launches,
+        "plain_calls": plain_calls, "gpu": _gpu_line()}))
+    failed = [f"plain versions ran on the loop-closure path: {plain_calls}"] if plain_calls else []
+    failed += [] if matches and matches[-1]["accepted"] else ["no accepted PoseMatch"]
+    failed += [] if err_after < 0.4 * err_before else [
+        f"pose error {err_after} m not below 0.4 x {err_before} m"]
+    failed += [] if moved > 0.01 else ["the pose did not move from the drifted estimate"]
+    failed += [] if syncs == [1] * 6 else [f"host reads per frame {syncs}, not 1"]
+    failed += [f"kernel {k} was not launched on the loop-closure path" for k in LOOP_PATH
+               if launches.get(k, 0) <= 0]
+    return launches, captured, failed
+
+
+def run_multi_global(K, cfg, frames):
+    """The multi-model step with external masks and both reloc_mode and
+    close_loops on (the five spheres, 1 + MULTI_FRAMES frames, launch counts
+    reset before): lost never set, a keyframe inserted after the first, 5
+    active models, camera drift < 0.08 m, no PoseMatch accepted with a mean
+    constraint error >= 0.02."""
+    from multimotionfusion_tpu_torch.engine import MultiMotionFusionTorch
+
+    cfg = dataclasses.replace(cfg, reloc_mode=True, close_loops=True)
+    plain_calls, lost, ms = {}, [], []
+    K.reset_launches()
+    with count_plain_calls(plain_calls):
+        engine = MultiMotionFusionTorch(cfg, device=DEVICE)
+        engine.process_frame(frames[0])
+        for i in range(1, MULTI_FRAMES + 1):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            engine.process_frame(frames[i])
+            end.record()
+            end.synchronize()
+            lost.append(engine.state.lost)
+            if i >= MULTI_TIMED_FROM:
+                ms.append(start.elapsed_time(end))
+        stats = engine.finish()
+    launches = dict(K.LAUNCHES)
+    lost = [bool(x) for x in lost]
+    matches = engine.pose_matches()
+    drift = float(np.linalg.norm(engine.state.pose.cpu().numpy()[:3, 3]))
+    bad = [m for m in matches if m["accepted"] and not m["mean_cons_err"] < 0.02]
+    keyframes = int(engine.state.ferns.count)
+    print(json.dumps({
+        "phase": "multi_reloc_loops", "frames": MULTI_FRAMES + 1,
+        "active_objects": stats["active_objects"], "camera_drift_m": drift,
+        "lost_any": any(lost), "keyframes": keyframes,
+        "matches": [{k: v for k, v in m.items() if not k.endswith("_pose")} for m in matches],
+        "ms_per_frame_median": statistics.median(ms), "launches": launches,
+        "plain_calls": plain_calls, "gpu": _gpu_line()}))
+    failed = [f"plain versions ran on the multi reloc path: {plain_calls}"] if plain_calls else []
+    failed += ["lost set on the multi-model path"] if any(lost) else []
+    failed += [] if keyframes >= 2 else ["no keyframe inserted after the first"]
+    failed += [] if stats["active_objects"] == 5.0 else [
+        f"{stats['active_objects']} active models at the end, not 5"]
+    failed += [] if drift < 0.08 else [f"camera drift {drift} m out of bounds"]
+    failed += [f"accepted loop closures with mean_cons_err >= 0.02: {bad}"] if bad else []
+    failed += [f"kernel {k} was not launched on the multi reloc path" for k in MULTI_PATH + FERN_PATH
+               if launches.get(k, 0) <= 0]
+    return failed
+
+
+def measure_fern_frame(a):
+    from multimotionfusion_tpu_torch.model import ferns as FN
+
+    cam, f = a[2], a[4]
+    n = (cam.height // f) * (cam.width // f)
+    # per fern pixel: 3 depths and 3 colour bytes read; colour, vertex,
+    # normal and depth written; ~40 operations
+    return _measure(lambda: FN.fern_frame_cuda(*a), lambda: FN.fern_frame_plain(*a),
+                    n * (12 + 3 + 3 + 12 + 12 + 4), 40 * n)
+
+
+def measure_fern_encode_hd(a):
+    from multimotionfusion_tpu_torch.model import ferns as FN
+
+    db, frame, _ = a
+    K_, F_ = db.codes.shape
+    hw = frame.depth.numel()
+    stored = int(db.count)
+    # the conservatory, the fern pixels and the stored keyframes' codes in,
+    # the codes and similarities out, the best keyframe fetched (read, then
+    # written as a 4-channel prediction); 3 operations per stored code
+    return _measure(lambda: FN.encode_hd_cuda(db, frame, True),
+                    lambda: FN.encode_hd_plain(db, frame, True),
+                    F_ * (8 + 16 + 3 + 4) + stored * F_ + F_ + 4 * K_ + 8 + 36 * hw + 64
+                    + 44 * hw + 64, 3 * stored * F_, plain_reps=5)
+
+
+def measure_fern_insert(a):
+    from multimotionfusion_tpu_torch.kernels import checks as C
+    from multimotionfusion_tpu_torch.model import ferns as FN
+
+    db, frame, hd, pose, time_, thr, skip = a
+    hw = frame.depth.numel()
+    F_ = db.codes.shape[1]
+    probe = C._db_copy(db)
+    inserted = bool(FN.insert_plain(probe, frame, hd, pose, time_, thr, skip))
+    moved = (27 * hw + F_ + 64) + (36 * hw + F_ + 64 + 4) if inserted else 0
+    copies = iter([C._db_copy(db) for _ in range(48)])
+    return _measure(lambda: FN.insert_cuda(next(copies), frame, hd, pose, time_, thr, skip),
+                    lambda: FN.insert_plain(C._db_copy(db), frame, hd, pose, time_, thr, skip),
+                    moved + 13, 10, inserted=inserted,
+                    timing_note="each call on a fresh copy of the store")
+
+
+def measure_fern_photo(a):
+    from multimotionfusion_tpu_torch.model import ferns as FN
+
+    hw = a[1].shape[0] * a[1].shape[1]
+    # keyframe vertices and colour, the live colour in; ~60 operations a pixel
+    return _measure(lambda: FN.photo_cuda(*a), lambda: FN.photo_plain(*a),
+                    hw * (16 + 12 + 3) + 64 + 16 + 5, 60 * hw)
+
+
+def measure_deform_points(a):
+    from multimotionfusion_tpu_torch.model import deformation as DG
+
+    points, _, graph, k, look_back = a
+    P, N = points.shape[0], graph.num_nodes
+    # the points and the graph in; positions, node ids and weights out; per
+    # point look_back distances (~10 operations), the top-(k+1), k blends (~30)
+    return _measure(lambda: DG.deform_points_cuda(*a), lambda: DG.deform_points_plain(*a),
+                    P * 16 + N * 68 + P * (12 + 8 * k), P * (look_back * 10 + 30 * k))
+
+
+def measure_deform_apply(a):
+    from multimotionfusion_tpu_torch.model import deformation as DG
+    from multimotionfusion_tpu_torch.model import surfel_map as sm
+
+    data, count, graph, k, gate = a
+    n = int(count)
+    alive = int(sm.SurfelMap(data, count).alive_count())
+    copies = iter([data.clone() for _ in range(48)])
+    # the alive flag of every slot below the count, position and time of the
+    # live ones in, their positions out; the graph once
+    return _measure(lambda: DG.apply_to_map_cuda(next(copies), count, graph, k, gate),
+                    lambda: DG.apply_to_map_plain(data.clone(), count, graph, k, gate),
+                    4 * n + 16 * alive + 12 * alive + 68 * graph.num_nodes,
+                    alive * (20 * 10 + 30 * k), live_surfels=alive,
+                    timing_note="each call on a fresh copy of the map")
+
+
+def plan_global():
+    """The relocalisation and loop-closure kernels (K22, K23), as ``plan``."""
+    from multimotionfusion_tpu_torch.kernels import checks as C
+
+    ferns_ = [("ferns.frame", "ferns.frame", "ferns.frame", C.check_fern_frame, measure_fern_frame,
+               "ferns.cu", "model/ferns.py:107"),
+              ("ferns.encode_hd", "ferns.encode_hd", "ferns.encode_hd", C.check_fern_encode_hd,
+               measure_fern_encode_hd, "ferns.cu", "model/ferns.py:116"),
+              ("ferns.insert", "ferns.insert", "ferns.insert", C.check_fern_insert,
+               measure_fern_insert, "ferns.cu", "model/ferns.py:142"),
+              ("ferns.photo", "ferns.photo", "ferns.photo", C.check_fern_photo, measure_fern_photo,
+               "ferns.cu", "model/ferns.py:220")]
+    deform = [("deform.points", "deform.points", "deform.points", C.check_deform_points,
+               measure_deform_points, "deformation.cu", "model/deformation.py:123"),
+              ("deform.apply_map", "deform.apply_map", "deform.apply_map", C.check_deform_apply,
+               measure_deform_apply, "deformation.cu", "model/deformation.py:193")]
+    return ferns_, deform
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -1758,28 +2198,40 @@ def main() -> int:
         f_failed.append(f"camera drifts worse than the reference's: {drifts}")
     five = five_movers_seeds()
 
+    r_launches, r_captured, global_failed = run_reloc(K)
+    r_syncs, h_failed = run_reloc_healthy(K, frames)
+    syncs += r_syncs
+    l_launches, l_captured, l_failed = run_loop_closure(K)
+    global_failed += h_failed + l_failed + run_multi_global(K, m_cfg, m_frames[:MULTI_FRAMES + 1])
+    fern_plan, deform_plan = plan_global()
+
     missing = sorted(({key for _, key, *_ in plan()} - set(captured))
                      | ({key for _, key, *_ in plan_kp()} - set(kp_captured) - set(SYNTHETIC))
                      | ({key for _, key, *_ in plan_multi()} - set(m_captured))
                      | ({key for _, key, *_ in plan_flow()} - set(f_captured) - set(SYNTHETIC))
                      | ({"track", "sparse"} - set(kp_captured))
-                     | ({"multi_track"} - set(m_captured)))
+                     | ({"multi_track"} - set(m_captured))
+                     | ({key for _, key, *_ in fern_plan} - set(r_captured))
+                     | ({key for _, key, *_ in deform_plan} - set(l_captured)))
     if missing:
         raise SystemExit(f"no captured inputs for {missing}")
     kernels = check_kernels(plan(), captured, launches, N_FRAMES)
     kernels += check_kernels(plan_kp(), kp_captured, kp_launches, N_FRAMES)
     kernels += check_kernels(plan_multi(), m_captured, m_launches, MULTI_FRAMES)
     kernels += check_kernels(plan_flow(), f_captured, f_launches, MULTI_FRAMES)
+    kernels += check_kernels(fern_plan, r_captured, r_launches, RELOC_JOURNEY_FRAMES)
+    kernels += check_kernels(deform_plan, l_captured, l_launches, 7)
     loops = [check_loop(captured), check_loop(kp_captured, "odometry_loop[kp]"),
              check_sparse(kp_captured), check_multi_loop(m_captured)]
     print(json.dumps({"kernels": kernels}))
     bad = [k["name"] for k in kernels if not k["ok"]]
     loops_ok = all(r["ok"] for r in loops)
     print(_gpu_line())
-    if bad or not loops_ok or syncs or not five["ok"] or f_failed:
+    if bad or not loops_ok or syncs or not five["ok"] or f_failed or global_failed:
         print(f"chip_smoke: kernels outside tolerance: {bad}; odometry loops, sparse block and "
               f"multi loop ok: {[r['ok'] for r in loops]}; synchronising calls: {syncs}; "
-              f"five movers: {five}; flow-CRF path: {f_failed}", file=sys.stderr)
+              f"five movers: {five}; flow-CRF path: {f_failed}; relocalisation and loop "
+              f"closure: {global_failed}", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -24,7 +24,10 @@
 //     (the only serial step: 4096 values at 2^20 slots), then every block
 //     scatters its kept columns to base + its local rank (warp ballots), so
 //     the order is preserved; slots past the new count are zeroed. The new
-//     count stays on the card.
+//     count stays on the card;
+//   - an optional skip flag read on the card (relocalisation's `lost`: fusion
+//     is skipped while lost) stops every write to the output, which the
+//     engine points at the map's own bucket, so the pre-fusion map stays.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -82,15 +85,16 @@ __device__ inline bool keep_slot(const SurfelArgs& a, const int* vk, int i, floa
 }
 
 __global__ void surfel_pass(SurfelArgs a, const int* __restrict__ vk, uint8_t* __restrict__ keep,
-                            int* __restrict__ block_counts) {
+                            int* __restrict__ block_counts, const bool* __restrict__ skip) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   bool k = false;
+  const bool write = skip == nullptr || !*skip;
   if (i < a.B) {
     float pen;
     k = keep_slot(a, vk, i, &pen);
     if (a.compact) {
       keep[i] = k;
-    } else {
+    } else if (write) {
       for (int c = 0; c < CH; ++c) {
         float v = a.data[c * a.rs_in + i];
         if (c == CONF) v = v * pen;
@@ -142,7 +146,9 @@ __global__ void scan_blocks(const int* __restrict__ counts, int nb, int cap,
 __global__ void scatter(const float* __restrict__ src, int rs_src, int n,
                         const uint8_t* __restrict__ keep, const int* __restrict__ vk,
                         const int* __restrict__ offsets, const int* __restrict__ count,
-                        float* __restrict__ dst, int rs_dst, int cap) {
+                        float* __restrict__ dst, int rs_dst, int cap,
+                        const bool* __restrict__ skip) {
+  if (skip != nullptr && *skip) return;
   __shared__ int warp_base[THREADS / 32];
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -180,12 +186,12 @@ __global__ void scatter(const float* __restrict__ src, int rs_src, int n,
 
 void launch_compaction(const float* src, int rs_src, int n, const uint8_t* keep, const int* vk,
                        int* block_counts, int* offsets, float* dst, int rs_dst, int cap,
-                       int* count_out, cudaStream_t stream) {
+                       int* count_out, const bool* skip, cudaStream_t stream) {
   int nb = (n + THREADS - 1) / THREADS;
   scan_blocks<<<1, SCAN_THREADS, 0, stream>>>(block_counts, nb, cap, offsets, count_out);
   int grid = (max(n, cap) + THREADS - 1) / THREADS;
   scatter<<<grid, THREADS, 0, stream>>>(src, rs_src, n, keep, vk, offsets, count_out, dst,
-                                        rs_dst, cap);
+                                        rs_dst, cap, skip);
 }
 
 }  // namespace
@@ -196,17 +202,17 @@ extern "C" int mmf_clean(const float* data, int rs_in, int B, const int* count, 
                          float conf_thr, float grace, float gate, float coeff, float mask_factor,
                          int compact, int* verdicts, uint8_t* keep, int* block_counts,
                          int* offsets, float* out, int rs_out, int* count_out,
-                         cudaStream_t stream) {
+                         const bool* skip, cudaStream_t stream) {
   fill_verdicts<<<(B + THREADS - 1) / THREADS, THREADS, 0, stream>>>(verdicts, B);
   PixelArgs pa{index, data_local, B, depth, mask, mask_id, H, W, window,
                time, conf_thr, gate, coeff, mask_factor};
   pixel_pass<<<(H * W + THREADS - 1) / THREADS, THREADS, 0, stream>>>(pa, verdicts);
   SurfelArgs sa{data, rs_in, B, count, time, conf_thr, grace, time_delta, compact, out, rs_out};
   surfel_pass<<<(B + THREADS - 1) / THREADS, THREADS, 0, stream>>>(sa, verdicts, keep,
-                                                                    block_counts);
+                                                                    block_counts, skip);
   if (compact)
     launch_compaction(data, rs_in, B, keep, verdicts, block_counts, offsets, out, rs_out, B,
-                      count_out, stream);
+                      count_out, skip, stream);
   return (int)cudaGetLastError();
 }
 
@@ -215,6 +221,6 @@ extern "C" int mmf_compact(const float* src, int rs_src, int n, const uint8_t* k
                            int* count_out, cudaStream_t stream) {
   count_kept<<<(n + THREADS - 1) / THREADS, THREADS, 0, stream>>>(keep, n, block_counts);
   launch_compaction(src, rs_src, n, keep, nullptr, block_counts, offsets, dst, rs_dst, cap,
-                    count_out, stream);
+                    count_out, nullptr, stream);
   return (int)cudaGetLastError();
 }

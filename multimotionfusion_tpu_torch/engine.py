@@ -21,13 +21,21 @@ track -> fuse -> clean -> predict -> pose logging.
   is skipped;
 - ``odom_init=""``: the odometry starts from the previous pose.
 
-All state lives on the compute device, the poses and the track table
-included. On the card the frame step launches only the hand-written kernels
-of ``csrc/`` (K1-K21) plus PyTorch glue on poses, 0-dim
-scalars and (multi-model) per-model vectors and masks; the odometry's loops
-run on the card with done flags, so a steady-state frame reads nothing back
-except, at most every 64 frames, the map's high-water mark (``_buckets``; in
-multi-model mode also the largest object count). The
+After the odometry, and before fusion, the camera model's global
+consistency (both engines): with ``reloc_mode`` the lost detection, the fern
+relocalisation and keyframe insertion (K22 with K2-K5 at the fern scale;
+fusion is skipped while lost), with ``close_loops`` the fern loop closure
+with the embedded deformation of the map (K22, K23; ``global_consistency``).
+
+All state lives on the compute device, the poses, the track table and the
+fern store included. On the card the frame step launches only the
+hand-written kernels of ``csrc/`` (K1-K23) plus PyTorch glue on poses, 0-dim
+scalars and (multi-model) per-model vectors and masks (and the deformation
+graph's dense solve); the odometry's loops run on the card with done flags,
+so a steady-state frame reads nothing back except, at most every 64 frames,
+the map's high-water mark (``_buckets``; in multi-model mode also the
+largest object count) and, with ``close_loops``, one flag a frame (whether
+the fern match passed). The
 multi-model engine logs each frame's object poses, active flags and spawn
 records on the device and reads them only when asked (``drain_events``,
 ``export_poses``).
@@ -44,7 +52,7 @@ import torch
 from multimotionfusion_tpu_torch import kernels as K
 from multimotionfusion_tpu_torch.config import CameraModel, EngineConfig
 from multimotionfusion_tpu_torch.io.frame import FrameData
-from multimotionfusion_tpu_torch.model import fusion, surfel_map as sm
+from multimotionfusion_tpu_torch.model import ferns, fusion, loop_closure, surfel_map as sm
 from multimotionfusion_tpu_torch.model.fillin import FilledMaps, splat_fill
 from multimotionfusion_tpu_torch.odometry import levels as lv
 from multimotionfusion_tpu_torch.odometry import rgbd
@@ -60,8 +68,8 @@ _span = torch.profiler.record_function
 
 
 class GlobalState(NamedTuple):
-    """Single-model engine state (the static path's fields of the reference
-    package's GlobalState), all on the device."""
+    """Single-model engine state (the reference package's GlobalState but its
+    PRNG key), all on the device."""
 
     smap: sm.SurfelMap
     pose: torch.Tensor  # [4,4]
@@ -69,6 +77,24 @@ class GlobalState(NamedTuple):
     filled: FilledMaps  # prediction for the next frame's tracking
     last_intensity_coarse: torch.Tensor  # previous frame coarse intensity
     tracks: Optional[tracker.TrackTable] = None  # keypoint tracks (odom_init="kp")
+    # the fern keyframe store (zero capacity without reloc_mode / close_loops)
+    ferns: Optional[ferns.FernDB] = None
+    bad_track_count: Optional[torch.Tensor] = None  # [] int32 consecutive bad frames
+    lost: Optional[torch.Tensor] = None  # [] bool: relocalisation engaged
+    pose_matches: Optional[loop_closure.MatchLog] = None  # loop-closure records
+
+
+def global_extras(cfg: EngineConfig, device) -> dict:
+    """The fern store (empty; zero capacity unless ``reloc_mode`` or
+    ``close_loops``), ``bad_track_count``, ``lost`` and the match log of a
+    new state."""
+    uses = cfg.reloc_mode or cfg.close_loops
+    return dict(
+        ferns=ferns.create(cfg.ferns, cfg.camera, None if uses else 0, cfg.seed, device),
+        bad_track_count=torch.zeros((), dtype=torch.int32, device=device),
+        lost=torch.zeros((), dtype=torch.bool, device=device),
+        pose_matches=loop_closure.empty_log(device=device),
+    )
 
 
 class FrameStats(NamedTuple):
@@ -197,8 +223,73 @@ def _init_step(rgb_u8, depth_raw, pose0, time, cam: CameraModel, cfg: EngineConf
     if cfg.odom_init == "kp" or cfg.enable_multi_model:  # seed the track table (initGlobalTracks)
         tracks = _seeded_table(frame_lv, depth_filt, time, cam, cfg, sp_net,
                                cfg.odometry.init_lvl)
-    state = GlobalState(smap, pose0, pose0, filled, frame_lv[-1].img, tracks)
+    extras = global_extras(cfg, depth_m.device)
+    if cfg.reloc_mode or cfg.close_loops:  # the first keyframe (K22)
+        frame_s = _fern_frame(rgb_u8, depth_filt, cfg)
+        ferns.add_frame(extras["ferns"], frame_s, ferns.encode_hd(extras["ferns"], frame_s),
+                        pose0, time, cfg.ferns.encoding_threshold)
+    state = GlobalState(smap, pose0, pose0, filled, frame_lv[-1].img, tracks, **extras)
     return state, FrameStats(None, smap)
+
+
+def _fern_frame(rgb_u8, depth_filt, cfg: EngineConfig) -> ferns.FernFrame:
+    return ferns.fern_frame(rgb_u8, depth_filt, cfg.camera, cfg.surfels.depth_cutoff,
+                            cfg.ferns.factor)
+
+
+def _lost_update(A, icp_count, bad_count, lost):
+    """Tracking-lost detection (MultiMotionFusion.cpp:629-695): the GN
+    system's covariance inv(A + 1e-12 I) with a diagonal entry above 1e-4, or
+    fewer than 100 ICP pairs, is a bad frame; more than 10 in a row is lost.
+    (bad_count, lost), on the device."""
+    eye = torch.eye(6, dtype=F32, device=A.device)
+    cov, _ = torch.linalg.inv_ex(A + eye * 1e-12)
+    bad = (torch.max(torch.diagonal(cov)) > 1e-4) | (icp_count < 100)
+    bad_count = torch.where(bad, bad_count + 1, torch.zeros_like(bad_count))
+    return bad_count, lost | (bad_count > 10)
+
+
+def _ferns_update(db: ferns.FernDB, frame_s: ferns.FernFrame, pose, time: int, lost,
+                  cfg: EngineConfig):
+    """Relocalisation and keyframe insertion (reference engine
+    ``_ferns_update``): retrieve and align against the closest keyframe every
+    frame and adopt its pose where lost and every gate passed (the reference
+    computes the retrieval only while lost; the result is the same), then
+    insert the frame unless lost. (pose, relocalised); ``db`` in place."""
+    hd = ferns.encode_hd(db, frame_s, fetch=True)
+    r = ferns.find_frame(db, frame_s, hd, ferns.fern_camera(cfg.camera, cfg.ferns.factor),
+                         photo_thresh=cfg.ferns.photo_thresh)
+    relocalised = lost & r.ok
+    pose = torch.where(relocalised, r.pose, pose)
+    ferns.add_frame(db, frame_s, hd, pose, time, cfg.ferns.encoding_threshold, skip=lost)
+    return pose, relocalised
+
+
+def global_consistency(state, frame_s, odo_A, odo_icp_count, pose, time: int, cfg: EngineConfig):
+    """Lost detection + relocalisation (``reloc_mode``) and loop closure
+    (``close_loops``) of the camera model after its odometry, before fusion
+    (reference order: closeLoops :679, fuse :791). The store, the log and (on
+    an accepted loop closure) ``state.smap`` are updated in place. Returns
+    (pose, bad_track_count, lost); the loop-closure path reads one value
+    back (``loop_closure.attempt``)."""
+    bad_count, lost = state.bad_track_count, state.lost
+    db = state.ferns
+    if cfg.reloc_mode and odo_A is not None:
+        with _span("reloc"):  # K22 + K2-K5 at the fern scale
+            bad_count, lost = _lost_update(odo_A, odo_icp_count, bad_count, lost)
+            pose, relocalised = _ferns_update(db, frame_s, pose, time, lost, cfg)
+            lost = lost & ~relocalised
+            bad_count = torch.where(relocalised, torch.zeros_like(bad_count), bad_count)
+    if cfg.close_loops:
+        with _span("loop_closure"):  # K22, K2-K5 at the fern scale, K23 on a match
+            hd = ferns.encode_hd(db, frame_s, fetch=True)
+            pose, match = loop_closure.attempt(db, state.smap, pose, frame_s, hd, time,
+                                               ferns.fern_camera(cfg.camera, cfg.ferns.factor),
+                                               cfg)
+            loop_closure.log_append(state.pose_matches, match)
+            if not cfg.reloc_mode:  # reloc mode inserts keyframes above
+                ferns.add_frame(db, frame_s, hd, pose, time, cfg.ferns.encoding_threshold)
+    return pose, bad_count, lost
 
 
 def _seeded_table(frame_lv, depth_filt, time, cam: CameraModel, cfg: EngineConfig, sp_net,
@@ -242,6 +333,13 @@ def _frame_core(state: GlobalState, rgb_u8, depth_raw, mask, time: int, weight_m
                              state.last_intensity_coarse, cfg.odometry, cam, T_init=seed,
                              seed_valid=seed_ok)
         pose = odo.pose
+    bad_count, lost = state.bad_track_count, state.lost
+    if cfg.reloc_mode or cfg.close_loops:
+        with _span("ferns"):  # K22: the ÷factor frame
+            frame_s = _fern_frame(rgb_u8, depth_filt, cfg)
+        pose, bad_count, lost = global_consistency(
+            state, frame_s, None if odo is None else odo.A, None if odo is None else odo.icp_count,
+            pose, time, cfg)
     weighting = _fusion_weight(pose, state.prev_pose, weight_multiplier)
 
     sub = state.smap.bucketed(bucket_fuse)
@@ -254,24 +352,29 @@ def _frame_core(state: GlobalState, rgb_u8, depth_raw, mask, time: int, weight_m
     with _span("fuse"):  # K8
         fused = fusion.fuse(sub, fs, im, mask, 0, pose, cam, time, scfg)
     with _span("clean"):  # K7, K9: written straight into the map's bucket
+        # fusion is skipped while lost (MultiMotionFusion.cpp:791): K9 reads
+        # the flag and writes nothing, so the bucket keeps the pre-fusion map
         cleaned = fusion.clean(
             fused, im, depth_filt, mask, 0, cam, time, scfg.time_delta, scfg.conf_threshold,
             scfg, compact=_compact_pred(time, scfg), out=state.smap.data[:, :bucket_fuse],
+            skip=lost if cfg.reloc_mode else None,
         )
-        smap = sm.SurfelMap(data=state.smap.data, count=cleaned.count)
+        count = cleaned.count
+        if cfg.reloc_mode:
+            count = torch.where(lost, sub.count, count)
+        smap = sm.SurfelMap(data=state.smap.data, count=count)
 
     # the next prediction resolves from the PRE-fusion index map
     with _span("splat_resolve"):  # K10 + fill_in
         filled = splat_fill(im, cam, scfg.conf_threshold, time, time, scfg.time_delta,
                             scfg.splat_footprint, _fill_frame(rgb_u8, depth_filt, fs, cfg))
     coarse = frame_lv[cfg.odometry.num_pyr - 1].img
-    new_state = GlobalState(smap, pose, state.pose, filled, coarse, state.tracks)
+    new_state = GlobalState(smap, pose, state.pose, filled, coarse, state.tracks, state.ferns,
+                            bad_count, lost, state.pose_matches)
     return new_state, FrameStats(odo, smap, seed_ok)
 
 
 _UNSUPPORTED = (
-    ("reloc_mode", lambda c: c.reloc_mode),
-    ("close_loops", lambda c: c.close_loops),
     ("frame_to_frame_rgb", lambda c: c.frame_to_frame_rgb),
     ("upload_yuv420", lambda c: c.upload_yuv420),
     ("the legacy CRF segmentation (segmentation.mode='crf')",
@@ -344,6 +447,8 @@ class MultiMotionFusionTorch:
             kcfg = self.cfg.keypoints
             state = state._replace(tracks=tracker.empty(kcfg.max_tracks, kcfg.track_history,
                                                         kcfg.desc_dim, self.device))
+        extras = global_extras(self.cfg, self.device)
+        state = state._replace(**{k: v for k, v in extras.items() if getattr(state, k) is None})
         self.state = state
         self.tick = tick
         self._map_bucket.reset(int(state.smap.count), tick, bucket)
@@ -459,8 +564,26 @@ class MultiMotionFusionTorch:
                 "rgb_count": float(odo.rgb_count) if odo else 0.0,
                 "surfels": float(s.smap.alive_count()),
                 "hwm": float(s.smap.count),
+                "lost": float(self.state.lost),
             }
         return dict(self.stats)
+
+    def pose_matches(self) -> List[Dict]:
+        """Loop-closure PoseMatch records (reference Core/PoseMatch.h), oldest
+        first; at most the log's capacity are kept (one copy to the host)."""
+        if self.state is None:
+            return []
+        log = self.state.pose_matches
+        n, cap = int(log.count), log.capacity
+        times, poses = log.times.cpu().numpy(), log.poses.cpu().numpy()
+        acc, err = log.accepted.cpu().numpy(), log.cons_err.cpu().numpy()
+        out = []
+        for i in range(max(0, n - cap), n):
+            s = i % cap
+            out.append({"source_time": int(times[s, 0]), "dest_time": int(times[s, 1]),
+                        "source_pose": poses[s, 0], "dest_pose": poses[s, 1],
+                        "accepted": bool(acc[s]), "mean_cons_err": float(err[s])})
+        return out
 
     def finish(self) -> Dict[str, float]:
         """Wait for the device, then return the latest stats."""

@@ -25,20 +25,26 @@ of the reference's ``lax.cond`` (redetection, the new model's back-dating,
 the spawn, the store snapshot) are computed on every frame and selected, so
 a frame reads nothing back, spawn frames included.
 
-Not ported here: the legacy CRF segmentation, relocalisation and loop
-closure (the engine refuses those configurations; ROADMAP.md).
+The camera model's relocalisation (``reloc_mode``) and loop closure
+(``close_loops``) run after the composite odometry and before the
+segmentation, on the global model's system (``engine.global_consistency``);
+while lost, the global segment keeps its pre-fusion data.
+
+Not ported here: the legacy CRF segmentation (the engine refuses it;
+ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from multimotionfusion_tpu_torch.config import REDETECT_RANSAC, CameraModel, EngineConfig
-from multimotionfusion_tpu_torch.engine import _compact_pred, _detect, _seeded_table
-from multimotionfusion_tpu_torch.model import fusion, surfel_map as sm
+from multimotionfusion_tpu_torch.engine import (_compact_pred, _detect, _fern_frame, _seeded_table,
+                                                global_consistency)
+from multimotionfusion_tpu_torch.model import ferns, fusion, loop_closure, surfel_map as sm
 from multimotionfusion_tpu_torch.model.fillin import FilledMaps, splat_fill
 from multimotionfusion_tpu_torch.odometry import levels as lv
 from multimotionfusion_tpu_torch.odometry import multi as modo
@@ -111,6 +117,11 @@ class MultiState(NamedTuple):
     prev_mask: torch.Tensor  # [H, W] int32 segmentation of the previous frame
     prev_intensity: torch.Tensor  # [H, W]
     last_spawn: torch.Tensor  # [] int32 tick of the last spawn (cool-down)
+    # the camera model's relocalisation and loop-closure state (as GlobalState)
+    ferns: Optional[ferns.FernDB] = None
+    bad_track_count: Optional[torch.Tensor] = None
+    lost: Optional[torch.Tensor] = None
+    pose_matches: Optional[loop_closure.MatchLog] = None
 
 
 def empty_objects(cfg: EngineConfig, device) -> ObjectSlots:
@@ -156,7 +167,8 @@ def init_state(state, rgb_u8, depth_raw, time: int, cfg: EngineConfig, sp_net=No
         pred_own=zeros, last_intensity_coarse=state.last_intensity_coarse, tracks=state.tracks,
         tracks_segm=tracks_segm, objects=empty_objects(cfg, dev), prev_mask=zeros.clone(),
         prev_intensity=rgb_to_intensity(rgb_u8.to(F32)),
-        last_spawn=torch.zeros((), dtype=I32, device=dev),
+        last_spawn=torch.zeros((), dtype=I32, device=dev), ferns=state.ferns,
+        bad_track_count=state.bad_track_count, lost=state.lost, pose_matches=state.pose_matches,
     )
 
 
@@ -519,6 +531,13 @@ def multi_frame_step(state: MultiState, rgb_u8, depth_raw, ext_mask, time: int,
                                T_init, seed_ok, active_all)
         new_pose0, obj_poses_new = odo.poses[0], odo.poses[1:]
 
+    bad_count, lost = state.bad_track_count, state.lost
+    if cfg.reloc_mode or cfg.close_loops:  # the global model's (engine_multi.py:834-873)
+        with _span("ferns"):  # K22: the ÷factor frame
+            frame_s = _fern_frame(rgb_u8, depth_filt, cfg)
+        new_pose0, bad_count, lost = global_consistency(state, frame_s, odo.A[0],
+                                                        odo.icp_count[0], new_pose0, time, cfg)
+
     with _span("segmentation"):
         reactivate = torch.zeros((S,), dtype=torch.bool, device=dev)
         new_ext_id = torch.zeros((), dtype=I32, device=dev)
@@ -571,6 +590,10 @@ def multi_frame_step(state: MultiState, rgb_u8, depth_raw, ext_mask, time: int,
         cleaned = fusion.clean_flat(fused, counts_new, layout, im, win, depth_filt, conf_all, cam,
                                     time, scfg.time_delta, scfg)
         gdata, odata = cleaned[:, :Bg], cleaned[:, Bg:].reshape(sm.CHANNELS, S, Bo)
+        if cfg.reloc_mode:  # the global model's fusion is skipped while lost
+            gdata = torch.where(lost, state.smap.data[:, :Bg], gdata)
+            counts_new = torch.cat([torch.where(lost, state.smap.count, counts_new[0])[None],
+                                    counts_new[1:]])
         if _compact_pred(time, scfg):
             packed, cnts = [], []
             for m, seg_data in enumerate([gdata] + [odata[:, k] for k in range(S)]):
@@ -598,14 +621,15 @@ def multi_frame_step(state: MultiState, rgb_u8, depth_raw, ext_mask, time: int,
     stats = torch.cat([
         torch.stack([odo.icp_error[0], odo.icp_count[0], odo.rgb_error[0], odo.rgb_count[0],
                      smap.alive_count().to(F32), smap.count.to(F32), lc.spawn.to(F32),
-                     objs.active.to(F32).sum(), torch.zeros((), dtype=F32, device=dev)]),
+                     objs.active.to(F32).sum(), lost.to(F32)]),
         seg.pixel_counts.to(F32),
     ])
     new_state = MultiState(
         smap=smap, pose=new_pose0, prev_pose=state.pose, filled=filled, pred_own=win,
         last_intensity_coarse=frame_lv[cfg.odometry.num_pyr - 1].img, tracks=tracks,
         tracks_segm=tracks_segm, objects=objs, prev_mask=lc.mask, prev_intensity=frame_lv[0].img,
-        last_spawn=lc.last_spawn,
+        last_spawn=lc.last_spawn, ferns=state.ferns, bad_track_count=bad_count, lost=lost,
+        pose_matches=state.pose_matches,
     )
     aux = SpawnAux(lc.spawn, lc.any_red, lc.target_slot, lc.refine_T)
     return new_state, stats, lc.mask, aux, odo

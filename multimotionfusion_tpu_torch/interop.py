@@ -20,10 +20,20 @@ every field of the reference's ObjectSlots and the segm_lvl track table
 under ``tracks_segm.<field>`` (the reference's 1-slot stub when segm_lvl ==
 init_lvl; a dict without those keys gets that stub).
 
+Both state kinds also carry the relocalisation and loop-closure state under
+the reference's names: ``ferns.<field>`` for every field of the fern store
+(``model/ferns.FernDB``), ``bad_track_count`` [] int32, ``lost`` [] bool and
+``pose_matches.<field>`` for every field of the match log
+(``model/loop_closure.MatchLog``).
+
 When the ``tracks.*`` keys are absent (a snapshot without a track table) the
 state's ``tracks`` is None, and ``MultiMotionFusionTorch.set_state`` stands in
-an empty table of its configuration. The engine's random generator (the
-RANSAC uniforms) is not part of the state and is not carried.
+an empty table of its configuration; so it does for the fern store, the lost
+flags and the match log when their keys are absent. The engine's random
+generator (the RANSAC uniforms) is not part of the state and is not carried.
+
+Every array of a returned dict is a copy: it shares no memory with the
+engine's tensors, which the next step updates in place.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ import numpy as np
 import torch
 
 from multimotionfusion_tpu_torch.engine import GlobalState
+from multimotionfusion_tpu_torch.model import ferns, loop_closure
 from multimotionfusion_tpu_torch.model.fillin import FilledMaps
 from multimotionfusion_tpu_torch.model.surfel_map import SurfelMap
 from multimotionfusion_tpu_torch.tracking import tracker
@@ -43,38 +54,58 @@ _TRACK_DTYPES = {"seen": torch.bool, "has_depth": torch.bool, "active": torch.bo
                  "last_seen": torch.int32, "nvalid": torch.int32, "model_id": torch.int32}
 
 
+def _np(t: torch.Tensor) -> np.ndarray:
+    """A host copy (never a view of a CPU tensor)."""
+    return t.detach().cpu().numpy().copy()
+
+
 def state_to_numpy(state) -> Dict[str, np.ndarray]:
     out = {
-        "smap.data": state.smap.data.cpu().numpy(),
-        "smap.count": np.asarray(state.smap.count.cpu().numpy(), np.int32),
-        "pose": state.pose.cpu().numpy(),
-        "prev_pose": state.prev_pose.cpu().numpy(),
-        "last_intensity_coarse": state.last_intensity_coarse.cpu().numpy(),
+        "smap.data": _np(state.smap.data),
+        "smap.count": np.asarray(_np(state.smap.count), np.int32),
+        "pose": _np(state.pose),
+        "prev_pose": _np(state.prev_pose),
+        "last_intensity_coarse": _np(state.last_intensity_coarse),
     }
     for k in _FILLED:
-        out[f"filled.{k}"] = getattr(state.filled, k).cpu().numpy()
-    if state.tracks is not None:
-        for k in tracker.FIELDS:
-            out[f"tracks.{k}"] = getattr(state.tracks, k).cpu().numpy()
+        out[f"filled.{k}"] = _np(getattr(state.filled, k))
+    for prefix, nt, fields in (("tracks", state.tracks, tracker.FIELDS),
+                               ("ferns", state.ferns, ferns.FIELDS),
+                               ("pose_matches", state.pose_matches, loop_closure.FIELDS)):
+        if nt is not None:
+            for k in fields:
+                out[f"{prefix}.{k}"] = _np(getattr(nt, k))
+    for k in ("bad_track_count", "lost"):
+        if getattr(state, k) is not None:
+            out[k] = _np(getattr(state, k))
     return out
+
+
+def _group(d, prefix, cls, fields, dtypes, dev):
+    if f"{prefix}.{fields[0]}" not in d:
+        return None
+    return cls(*(dev(f"{prefix}.{k}", dtypes.get(k, torch.float32)) for k in fields))
 
 
 def state_from_numpy(d: Dict[str, np.ndarray], device="cuda") -> GlobalState:
     def dev(key, dtype=torch.float32):
         return torch.as_tensor(np.array(d[key]), dtype=dtype).to(device).contiguous()
 
-    tracks = None
-    if "tracks.xy" in d:
-        tracks = tracker.TrackTable(*(dev(f"tracks.{k}", _TRACK_DTYPES.get(k, torch.float32))
-                                      for k in tracker.FIELDS))
-
+    fdb = _group(d, "ferns", ferns.FernDB, ferns.FIELDS, ferns.DTYPES, dev)
+    log = _group(d, "pose_matches", loop_closure.MatchLog, loop_closure.FIELDS,
+                 loop_closure.DTYPES, dev)
     return GlobalState(
         smap=SurfelMap(data=dev("smap.data"), count=dev("smap.count", torch.int32).reshape(())),
         pose=dev("pose"),
         prev_pose=dev("prev_pose"),
         filled=FilledMaps(*(dev(f"filled.{k}") for k in _FILLED)),
         last_intensity_coarse=dev("last_intensity_coarse"),
-        tracks=tracks,
+        tracks=_group(d, "tracks", tracker.TrackTable, tracker.FIELDS, _TRACK_DTYPES, dev),
+        ferns=None if fdb is None else fdb._replace(count=fdb.count.reshape(())),
+        bad_track_count=(dev("bad_track_count", torch.int32).reshape(())
+                         if "bad_track_count" in d else None),
+        lost=dev("lost", torch.bool).reshape(()) if "lost" in d else None,
+        pose_matches=None if log is None else log._replace(count=log.count.reshape(())),
     )
 
 
@@ -96,11 +127,11 @@ def multi_state_to_numpy(state) -> Dict[str, np.ndarray]:
 
     out = state_to_numpy(state)
     for k in _MULTI_INT + ("prev_intensity",):
-        out[k] = getattr(state, k).cpu().numpy()
+        out[k] = _np(getattr(state, k))
     for k in FIELDS:
-        out[f"objects.{k}"] = getattr(state.objects, k).cpu().numpy()
+        out[f"objects.{k}"] = _np(getattr(state.objects, k))
     for k in tracker.FIELDS:
-        out[f"tracks_segm.{k}"] = getattr(state.tracks_segm, k).cpu().numpy()
+        out[f"tracks_segm.{k}"] = _np(getattr(state.tracks_segm, k))
     return out
 
 
@@ -117,11 +148,8 @@ def multi_state_from_numpy(d: Dict[str, np.ndarray], device="cuda"):
     g = state_from_numpy(d, device)
     objects = ObjectSlots(*(dev(f"objects.{k}", _OBJ_DTYPES.get(k, torch.float32))
                             for k in FIELDS))
-    if "tracks_segm.xy" in d:
-        tracks_segm = tracker.TrackTable(*(dev(f"tracks_segm.{k}",
-                                               _TRACK_DTYPES.get(k, torch.float32))
-                                           for k in tracker.FIELDS))
-    else:
+    tracks_segm = _group(d, "tracks_segm", tracker.TrackTable, tracker.FIELDS, _TRACK_DTYPES, dev)
+    if tracks_segm is None:
         tracks_segm = tracker.empty(1, 2, np.shape(d["tracks.desc"])[1], device)
     return MultiState(
         smap=g.smap, pose=g.pose, prev_pose=g.prev_pose, filled=g.filled,
@@ -130,4 +158,6 @@ def multi_state_from_numpy(d: Dict[str, np.ndarray], device="cuda"):
         prev_mask=dev("prev_mask", torch.int32),
         prev_intensity=dev("prev_intensity"),
         last_spawn=dev("last_spawn", torch.int32).reshape(()),
+        ferns=g.ferns, bad_track_count=g.bad_track_count, lost=g.lost,
+        pose_matches=g.pose_matches,
     )

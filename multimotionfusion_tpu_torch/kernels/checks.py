@@ -15,6 +15,8 @@ import copy
 
 import torch
 
+from multimotionfusion_tpu_torch.model import deformation as DG
+from multimotionfusion_tpu_torch.model import ferns as FN
 from multimotionfusion_tpu_torch.model import fillin
 from multimotionfusion_tpu_torch.model import fusion as FU
 from multimotionfusion_tpu_torch.model import surfel_map as sm
@@ -84,6 +86,13 @@ _ARG_NAMES = {
                         "track_valid", "cfg", "allow_new"),
     "segment.fuse": ("q", "flow", "p_proj", "behind", "active", "cfg", "allow_new"),
     "segment.finish": ("lbl", "largest", "sizes", "fd", "h", "w", "cfg", "allow_new"),
+    "ferns.frame": ("rgb_u8", "depth_filt", "cam", "cutoff", "factor"),
+    "ferns.encode_hd": ("db", "frame", "fetch"),
+    "ferns.insert": ("db", "frame", "hd", "pose", "time", "threshold", "skip"),
+    "ferns.photo": ("T_rel", "kf_vertex", "kf_color", "live_rgb", "cam_s", "count", "best_sim",
+                    "icp_error", "icp_count", "gates"),
+    "deform.points": ("points", "point_times", "graph", "k", "look_back"),
+    "deform.apply_map": ("data", "count", "graph", "k", "gate"),
 }
 
 
@@ -869,3 +878,82 @@ def check_seg_finish(a: tuple) -> dict:
                 tolerance="masks, has_new_label and counts exact; depth means within 1e-5 m, "
                           "variances within 2e-5 m^2 (sums in another order; the one-pass "
                           "variance cancels)")
+
+
+# ---------------------------------------------------------------- K22, K23
+
+def _bits_equal(a, b) -> bool:
+    return a.shape == b.shape and bool((a == b).all())
+
+
+def check_fern_frame(a: tuple) -> dict:
+    fk = FN.fern_frame_cuda(*a)
+    fp = FN.fern_frame_plain(*a)
+    exact = {n: _bits_equal(x, y) for n, x, y in zip(FN.FernFrame._fields, fk, fp)}
+    err = max(_maxerr(x, y) for x, y in zip(fk, fp))
+    return dict(max_abs_err=err, exact=exact, valid_px=int((fp.depth > 0).sum()),
+                ok=all(exact.values()) and int((fp.depth > 0).sum()) > 0,
+                tolerance="colour, vertices, normals and depth equal to the bit (K1's "
+                          "vertex and normal arithmetic, -fmad=false)")
+
+
+def _db_copy(db):
+    return FN.FernDB(*(t.clone() for t in db))
+
+
+def check_fern_encode_hd(a: tuple) -> dict:
+    db, frame, _ = a
+    rk = FN.encode_hd_cuda(db, frame, True)
+    rp = FN.encode_hd_plain(db, frame, True)
+    exact = {n: _bits_equal(x, y) for n, x, y in zip(FN.Retrieval._fields, rk, rp)}
+    return dict(max_abs_err=_maxerr(rk.sim, rp.sim), exact=exact, keyframes=int(db.count),
+                best=int(rp.best), best_sim=float(rp.best_sim),
+                ok=all(exact.values()) and int(db.count) > 0,
+                tolerance="codes, similarities (integer counts, one division), the first "
+                          "argmax and the fetched keyframe equal to the bit")
+
+
+def check_fern_insert(a: tuple) -> dict:
+    db, frame, hd, pose, time, threshold, skip = a
+    dk, dp = _db_copy(db), _db_copy(db)
+    ik = FN.insert_cuda(dk, frame, hd, pose, time, threshold, skip)
+    ip = FN.insert_plain(dp, frame, hd, pose, time, threshold, skip)
+    exact = {n: _bits_equal(x, y) for n, x, y in zip(FN.FIELDS, dk, dp)}
+    return dict(max_abs_err=max(_maxerr(x, y) for x, y in zip(dk, dp)), exact=exact,
+                inserted_kernel=bool(ik), inserted_plain=bool(ip), count_after=int(dp.count),
+                ok=all(exact.values()) and bool(ik) == bool(ip),
+                tolerance="the decision and every field of the store after it equal")
+
+
+def check_fern_photo(a: tuple) -> dict:
+    ek, ok_k = FN.photo_cuda(*a)
+    ep, ok_p = FN.photo_plain(*a)
+    e_k, e_p = float(ek), float(ep)
+    return dict(max_abs_err=abs(e_k - e_p), photo_kernel=e_k, photo_plain=e_p,
+                ok_kernel=bool(ok_k), ok_plain=bool(ok_p),
+                ok=e_k == e_p and bool(ok_k) == bool(ok_p),
+                tolerance="photometric error equal to the bit (the plain version sums in the "
+                          "kernel's block order), the gate decision equal")
+
+
+def check_deform_points(a: tuple) -> dict:
+    ok_, ck = DG.deform_points_cuda(*a)
+    op, cp = DG.deform_points_plain(*a)
+    nid_eq = _bits_equal(ck.nid, cp.nid)
+    err = max(_maxerr(ok_, op), _maxerr(ck.wgt, cp.wgt))
+    return dict(max_abs_err=err, nid_equal=nid_eq, points=int(ok_.shape[0]),
+                bit_equal=_bits_equal(ok_, op) and _bits_equal(ck.wgt, cp.wgt),
+                ok=nid_eq and err <= 1e-6,
+                tolerance="node choices exact; weights and positions to the bit or within "
+                          "1e-6 (m)")
+
+
+def check_deform_apply(a: tuple) -> dict:
+    data, count, graph, k, gate = a
+    dk, dp = data.clone(), data.clone()
+    DG.apply_to_map_cuda(dk, count, graph, k, gate)
+    DG.apply_to_map_plain(dp, count, graph, k, gate)
+    moved = int((dp[:3] != data[:3]).any(0).sum())
+    return dict(max_abs_err=_maxerr(dk, dp), bit_equal=_bits_equal(dk, dp), moved_surfels=moved,
+                ok=_maxerr(dk, dp) <= 1e-6 and moved > 0,
+                tolerance="every surfel to the bit or within 1e-6 (m); some surfel moved")

@@ -232,19 +232,21 @@ def fuse(
 
 def clean_plain(smap: sm.SurfelMap, index_map: IndexMap, depth_input, mask, mask_id,
                 cam: CameraModel, time, time_delta, conf_threshold, cfg: SurfelConfig,
-                compact: bool = False, out=None) -> sm.SurfelMap:
+                compact: bool = False, out=None, skip=None) -> sm.SurfelMap:
     """Plain PyTorch K7 + K9 (same contract as ``clean``)."""
     keep, pen_per_surfel = clean_verdicts(smap, index_map, depth_input, mask, mask_id, cam, time,
                                           time_delta, conf_threshold, cfg)
     cap = smap.capacity
+    write = skip is None or not bool(skip)
     data = smap.data.clone()
     data[sm.CONF] = data[sm.CONF] * pen_per_surfel
     if compact:
-        packed, new_count = sm.compact_plain(data, keep, cap, out)
-        return sm.SurfelMap(data=packed, count=new_count)
+        packed, new_count = sm.compact_plain(data, keep, cap, out if write else None)
+        return sm.SurfelMap(data=packed if write else out, count=new_count)
     data[sm.ALIVE] = torch.where(keep, data[sm.ALIVE], torch.zeros_like(data[sm.ALIVE]))
     if out is not None:
-        out.copy_(data)
+        if write:
+            out.copy_(data)
         data = out
     return sm.SurfelMap(data=data, count=smap.count)
 
@@ -325,13 +327,13 @@ def clean_verdicts(smap: sm.SurfelMap, index_map: IndexMap, depth_input, mask, m
 _CLEAN_ARGS = (
     [K.P, K.I, K.I, K.P, K.P, K.P, K.P, K.P, K.I, K.I, K.I, K.I]  # map, index, depth, mask
     + [K.F] * 7 + [K.I]  # time .. mask factor, compact
-    + [K.P] * 5 + [K.I, K.P]  # scratch, out, out row stride, count out
+    + [K.P] * 5 + [K.I, K.P, K.P]  # scratch, out, out row stride, count out, skip
 )
 
 
 def clean_cuda(smap: sm.SurfelMap, index_map: IndexMap, depth_input, mask, mask_id,
                cam: CameraModel, time, time_delta, conf_threshold, cfg: SurfelConfig,
-               compact: bool = False, out=None) -> sm.SurfelMap:
+               compact: bool = False, out=None, skip=None) -> sm.SurfelMap:
     """K7 + K9 on the card: ``csrc/clean.cu`` (same contract as ``clean``)."""
     data = smap.data
     K.check(data, torch.float32, "data", contiguous=False)
@@ -340,6 +342,8 @@ def clean_cuda(smap: sm.SurfelMap, index_map: IndexMap, depth_input, mask, mask_
     K.check(index_map.data_local, torch.float32, "data_local")
     K.check(depth_input, torch.float32, "depth")
     K.check(mask, torch.int32, "mask")
+    if skip is not None:
+        K.check(skip, torch.bool, "skip")
     h, w = cam.height, cam.width
     cap = data.shape[1]
     if data.shape[0] != sm.CHANNELS or data.stride(1) != 1:
@@ -364,7 +368,7 @@ def clean_cuda(smap: sm.SurfelMap, index_map: IndexMap, depth_input, mask, mask_
         int(cfg.assoc_window), float(time), float(time_delta), float(conf_threshold),
         float(cfg.unstable_grace), float(cfg.clean_see_through_gate), float(cfg.outlier_coeff),
         factor, int(compact), K.ptr(verdicts), K.ptr(keep), K.ptr(counts), K.ptr(offsets),
-        K.ptr(out), out.stride(0), K.ptr(count_out),
+        K.ptr(out), out.stride(0), K.ptr(count_out), None if skip is None else K.ptr(skip),
     )
     return sm.SurfelMap(data=out, count=count_out)
 
@@ -382,6 +386,7 @@ def clean(
     cfg: SurfelConfig,
     compact: bool = False,
     out: torch.Tensor | None = None,
+    skip: torch.Tensor | None = None,
 ) -> sm.SurfelMap:
     """Outlier / redundancy / unstable-age culls, then either a compaction
     (``compact``) or a flag clear of the culled slots (copy_unstable.vert).
@@ -389,14 +394,16 @@ def clean(
     The visual tests run in image space for each pixel's index-map winner and
     scatter their verdicts back to the winning surfel ids. The cleaned
     [16, B] map is written into ``out`` when given (it must not alias
-    ``smap.data``)."""
+    ``smap.data``), unless the 0-dim bool ``skip`` (read on the device) is
+    set: then ``out`` keeps what it held (the returned count is the cleaned
+    one all the same)."""
     K.record("clean.compact" if compact else "clean", data=smap.data, count=smap.count,
              index=index_map.index, data_local=index_map.data_local, depth=depth_input,
              mask=mask, mask_id=mask_id, cam=cam, time=time, time_delta=time_delta,
              conf_threshold=conf_threshold, cfg=cfg, compact=compact)
     impl = clean_cuda if smap.data.is_cuda else clean_plain
     return impl(smap, index_map, depth_input, mask, mask_id, cam, time, time_delta,
-                conf_threshold, cfg, compact, out)
+                conf_threshold, cfg, compact, out, skip)
 
 
 # ---------------------------------------------------------------- K14

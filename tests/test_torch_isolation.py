@@ -10,7 +10,8 @@
   ``odom_init="kp"`` constructs and steps on the CPU, and so does the
   multi-model engine with external masks (``segmentation.mode="precomputed"``)
   and with the flow-CRF segmentation (the default mode, "none" alike, also
-  with a segm_lvl tracker of its own).
+  with a segm_lvl tracker of its own); ``reloc_mode`` and ``close_loops``
+  step in both engines.
 """
 
 import ast
@@ -21,9 +22,9 @@ import torch
 
 import numpy as np
 
-from multimotionfusion_tpu_torch.config import (CameraModel, EngineConfig, KeypointConfig,
-                                                OdometryConfig, RansacConfig, SegmentationConfig,
-                                                SurfelConfig)
+from multimotionfusion_tpu_torch.config import (CameraModel, EngineConfig, FernConfig,
+                                                KeypointConfig, OdometryConfig, RansacConfig,
+                                                SegmentationConfig, SurfelConfig)
 from multimotionfusion_tpu_torch.engine import MultiMotionFusionTorch
 from multimotionfusion_tpu_torch.io.readers import SyntheticLogReader
 
@@ -49,7 +50,8 @@ def _forbidden(name):
 def test_port_imports_no_jax_and_no_reference_package():
     assert len(FILES) > 10
     names = {p.name for p in FILES}
-    assert {"flow.py", "crf.py", "components.py", "flow_crf.py"} <= names
+    assert {"flow.py", "crf.py", "components.py", "flow_crf.py", "ferns.py", "deformation.py",
+            "loop_closure.py"} <= names
     bad = [(str(p.relative_to(ROOT)), m) for p in FILES for m in _imports(p) if _forbidden(m)]
     assert bad == []
 
@@ -64,7 +66,6 @@ def test_engine_needs_cuda_unless_asked_for_cpu(monkeypatch):
 
 @pytest.mark.parametrize("override", [
     dict(enable_multi_model=True, segmentation=SegmentationConfig(mode="crf")),
-    dict(reloc_mode=True), dict(close_loops=True),
     dict(frame_to_frame_rgb=True), dict(upload_yuv420=True),
 ])
 def test_unported_configurations_raise(override):
@@ -95,11 +96,37 @@ def test_unknown_odom_init_is_refused():
     dict(frame_to_frame_rgb=True),
     dict(segmentation=SegmentationConfig(mode="crf")),
     dict(upload_yuv420=True),
-    dict(reloc_mode=True), dict(close_loops=True), dict(odom_init="tf"),
+    dict(odom_init="tf"),
 ])
 def test_unported_multi_configurations_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MultiMotionFusionTorch(EngineConfig(**{**PRECOMPUTED, **override}), device="cpu")
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("kind", ["static", "multi"])
+@pytest.mark.parametrize("flag", ["reloc_mode", "close_loops"])
+def test_reloc_and_loop_closure_step_on_cpu(kind, flag):
+    """``reloc_mode`` and ``close_loops`` construct and step (three frames of
+    a small camera; the multi-model engine with external masks) on the CPU:
+    the fern store holds the first keyframe, nothing is lost, the match log
+    reads back."""
+    cam = CameraModel(width=80, height=60, fx=66.0, fy=66.0, cx=40.0, cy=30.0)
+    base = STATIC if kind == "static" else {
+        **PRECOMPUTED, "object_slots": 2, "object_capacity": 2048, "odom_init": "",
+        "segmentation": SegmentationConfig(mode="precomputed", min_mask_size_px=40)}
+    cfg = EngineConfig(camera=cam, surfels=SurfelConfig(max_surfels=1 << 13, depth_cutoff=5.0),
+                       ferns=FernConfig(num_ferns=200, factor=4), **{**base, flag: True})
+    eng = MultiMotionFusionTorch(cfg, device="cpu")
+    for f in SyntheticLogReader(cam, num_frames=3):
+        if kind == "multi":
+            f.mask = np.zeros((cam.height, cam.width), np.uint8)
+            f.mask[10:25, 10:30] = 7
+        eng.process_frame(f)
+    stats = eng.finish()
+    assert stats["lost"] == 0.0 and stats["surfels"] > 0
+    assert eng.state.ferns.capacity == cfg.ferns.num_ferns and int(eng.state.ferns.count) >= 1
+    assert isinstance(eng.pose_matches(), list) and len(eng.pose_log) == 3
 
 
 def test_precomputed_multi_engine_steps_on_cpu(tmp_path):

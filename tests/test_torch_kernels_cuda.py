@@ -27,6 +27,12 @@ A third run, of the flow-CRF multi-model engine on tests/test_five_movers.py's
 160x120 journey (chip_smoke.five_movers, 17 frames, no masks), records the
 inputs of the segmentation's kernels at its last frame: K13, K15's front end
 and each level, one K16 iteration and all ten, K17 and K18's three stages.
+
+A fourth pair of runs records the relocalisation and loop-closure kernels:
+tests/test_reloc.py's journey at 160x120 (K22's ÷4 frame, retrieval and
+photometric check on the relocalising frame, the insertion on a frame that
+inserts) and tests/test_loop_closure.py's drift journey at 160x120 (K23's
+constraint points and map on the matching frame).
 """
 
 import pytest
@@ -210,4 +216,66 @@ def captured_flow():
 def test_flow_crf_kernel_matches_plain(captured_flow, name, check):
     key = _flow_key(name)
     r = check(checks.args(key, captured_flow[key]))
+    assert r["ok"], r
+
+
+GLOBAL_CASES = [("ferns.frame", checks.check_fern_frame),
+                ("ferns.encode_hd", checks.check_fern_encode_hd),
+                ("ferns.insert", checks.check_fern_insert), ("ferns.photo", checks.check_fern_photo),
+                ("deform.points", checks.check_deform_points),
+                ("deform.apply_map", checks.check_deform_apply)]
+
+
+@pytest.fixture(scope="module")
+def captured_global():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
+    import dataclasses
+
+    import numpy as np
+    from chip_smoke import drift_state, reloc_frames
+
+    from multimotionfusion_tpu_torch.config import DeformationConfig, FernConfig
+    from multimotionfusion_tpu_torch.io import synthetic
+    from multimotionfusion_tpu_torch.io.frame import FrameData
+
+    base = EngineConfig(camera=CAM, enable_multi_model=False, odom_init="",
+                        surfels=SurfelConfig(max_surfels=1 << 16, depth_cutoff=5.0))
+    cfg = dataclasses.replace(base, reloc_mode=True,
+                              ferns=FernConfig(num_ferns=300, factor=4, max_depth=5.0))
+    frames, _ = reloc_frames(CAM)
+    eng = MultiMotionFusionTorch(cfg, device="cuda")
+    out = {}
+    for i, f in enumerate(frames):
+        if i in (1, len(frames) - 1):
+            K.start_capture()
+        eng.process_frame(f)
+        if i == 1:
+            out["ferns.insert"] = K.stop_capture()["ferns.insert"]
+        elif i == len(frames) - 1:
+            out.update({k: v for k, v in K.stop_capture().items()
+                        if k.startswith("ferns.") and k != "ferns.insert"})
+    assert not bool(eng.state.lost)
+    lcfg = dataclasses.replace(
+        base, close_loops=True, surfels=dataclasses.replace(base.surfels, time_delta=3),
+        ferns=FernConfig(num_ferns=200, factor=4), deformation=DeformationConfig(max_nodes=64))
+    eng = MultiMotionFusionTorch(lcfg, device="cuda")
+    gt = [synthetic.pose((0.0, 0.0015 * i, 0.0), (0.002 * i, 0.0, 0.0)) for i in range(6)]
+    for i, T in enumerate(gt + [gt[0]]):
+        if i == 6:
+            eng.finish()
+            D = np.eye(4, dtype=np.float32)
+            D[:3, 3] = (0.03, -0.02, 0.01)
+            eng.state = drift_state(eng.state, D)
+            K.start_capture()
+        depth, rgb = synthetic.render(T, CAM)
+        eng.process_frame(FrameData(rgb=rgb.astype(np.uint8), depth=depth, timestamp=i))
+    out.update({k: v for k, v in K.stop_capture().items() if k.startswith("deform.")})
+    assert eng.pose_matches()[-1]["accepted"]
+    return out
+
+
+@pytest.mark.parametrize("name,check", GLOBAL_CASES, ids=[n for n, _ in GLOBAL_CASES])
+def test_global_kernel_matches_plain(captured_global, name, check):
+    r = check(checks.args(name, captured_global[name]))
     assert r["ok"], r
