@@ -79,6 +79,20 @@ Phases (any failure exits non-zero):
    K13, K15 (front end and each level), K16 (one iteration
    and all ten), K17 (also on a grid beyond shared memory) and K18's three
    stages against their plain versions on the inputs of the last frame;
+5c'. the legacy CoFusion CRF path (multi_legacy_crf): the flow-CRF phase's
+   scene and configuration with ``segmentation.mode="crf"`` (the per-slot
+   step; the odometry's error images on), 1 + 40 frames with launch counts
+   reset before, frames 11-20 under the sync check, frames 21-40 timed;
+   per frame the active models, the camera drift, the segment areas and ms;
+   the spawn frames, the launches a frame and each spawned object's error at
+   its sphere's centre; require every kernel of the path launched (K24a-c,
+   K4's error images, K17 at 640x480), no ``*_plain`` call, and the active
+   count per frame and the spawn frames equal to the reference package's
+   (REF_LEGACY_*); then its stage breakdown; then K4's error-image mode,
+   K24a (centres and assignment, every pass from the plain chain), K24b,
+   K24c (plan, one and ten mean-field steps) and K17 at 640x480 with 7
+   labels (the global scratch) against their plain versions on the inputs
+   of the last frame;
 5d. five_movers: tests/test_five_movers.py's configuration and 17-frame
    journey at 160x120 (the scene from the port's own io/synthetic.py) on
    the card with the engine seeds FIVE_SEEDS: on every seed five spawns at
@@ -203,6 +217,29 @@ FLOW_PATH = MULTI_PATH + (
     "components", "segment.unaries", "segment.fuse", "segment.finish")
 
 
+# the legacy CoFusion CRF's per-slot step (segmentation.mode="crf"): the
+# static step's kernels for every model (the odometry with K4's error-image
+# mode), the keypoints, SLIC and the superpixel CRF (K24a-c) and K17
+LEGACY_PATH = (
+    ("frame_maps.filter", "frame_maps.surfels", "so3_reduce", "so3_step", "gn_step",
+     "seed_select", "gn_reduce.error_images", "zbuffer", "fuse", "clean", "clean.compact",
+     "compact", "splat_resolve", "patch_score", "nms_topk", "patch_desc", "mutual_match",
+     "track_update", "ransac_fit", "slic.centres", "slic.assign", "sp.downsample", "sp.upsample",
+     "legacy_crf.plan", "legacy_crf.iterate", "components")
+    + tuple(f"pyramid.{side}.L{lvl}" for side in ("frame", "pred") for lvl in LEVELS)
+    + tuple(f"gn_reduce.L{lvl}" for lvl in LEVELS)
+)
+# The legacy CRF journey's lifecycle as the reference package runs it on the
+# CPU, on the same frames at the same size (640x480, chip_smoke's
+# capacities):
+#   python tests/torch_legacy_spheres.py --div 1 --chip-capacities --packages reference
+# the active model count per frame (frame 0 the init frame) and the frames
+# with a spawn. On these orbits (0.12 m, ~1.5 cm a frame) no superpixel's
+# ICP error reaches the new-model class, so the reference spawns nothing.
+REF_LEGACY_ACTIVE = (0,) * (1 + MULTI_FRAMES)
+REF_LEGACY_SPAWN_FRAMES = ()
+
+
 def _gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -270,7 +307,8 @@ PORT_MODULES = (
     "multimotionfusion_tpu_torch.segmentation.flow", "multimotionfusion_tpu_torch.segmentation.crf",
     "multimotionfusion_tpu_torch.segmentation.components",
     "multimotionfusion_tpu_torch.segmentation.flow_crf", "multimotionfusion_tpu_torch.model.ferns",
-    "multimotionfusion_tpu_torch.model.deformation",
+    "multimotionfusion_tpu_torch.model.deformation", "multimotionfusion_tpu_torch.segmentation.slic",
+    "multimotionfusion_tpu_torch.segmentation.legacy_crf",
 )
 
 
@@ -1735,6 +1773,231 @@ def plan_flow():
     return p
 
 
+# ---------------------------------------------------------------- legacy CRF
+
+def run_multi_legacy(K, cfg, frames):
+    """Phase 5c': the legacy CoFusion CRF path (multi_legacy_crf), 1 +
+    MULTI_FRAMES frames of the flow-CRF phase's scene."""
+    from multimotionfusion_tpu_torch import engine_multi as EM
+    from multimotionfusion_tpu_torch.engine import MultiMotionFusionTorch
+
+    plain_calls = {}
+    K.reset_launches()
+    with count_plain_calls(plain_calls):
+        engine = MultiMotionFusionTorch(cfg, device=DEVICE)
+        engine.process_frame(frames[0])
+        masks = [torch.zeros((cfg.camera.height, cfg.camera.width), dtype=torch.int32,
+                             device=DEVICE)]
+        ms, syncs, sync_ticks, frame_ms, seg_px, spawned = [], [], [], {}, [], [False]
+        for i in range(1, MULTI_FRAMES + 1):
+            if i == MULTI_FRAMES:
+                K.start_capture()
+            if MULTI_SYNC[0] <= i < MULTI_SYNC[1]:
+                sync_ticks.append(engine.tick)
+                with sync_watch(EM, "multi_frame_step") as caught:
+                    engine.process_frame(frames[i])
+                    torch.cuda.synchronize()
+                syncs += _syncs(caught)
+            else:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                engine.process_frame(frames[i])
+                end.record()
+                end.synchronize()
+                frame_ms[i] = start.elapsed_time(end)
+                if i >= MULTI_TIMED_FROM:
+                    ms.append(frame_ms[i])
+            masks.append(engine.last_mask.clone())
+            seg_px.append(engine._last_stats.multi[9:])
+            spawned.append(engine._last_stats.multi[6])
+            if i == MULTI_FRAMES:
+                captured = K.stop_capture()
+        stats = engine.finish()
+    launches = dict(K.LAUNCHES)
+    print(json.dumps({"phase": "plain_calls_on_legacy_crf_path", "calls": plain_calls}))
+
+    obj_log, _ = engine._lifecycle_logs()
+    active = np.stack([a for _, _, a in obj_log])
+    active_per_frame = [int(a.sum()) for a in active]
+    spawn_frames = [j for j, x in enumerate(spawned) if bool(x)]
+    ext = associate_slots(torch.stack(masks).cpu().numpy(), active, cfg.camera)
+    errs = sphere_errors(np.stack([p for _, p, _ in obj_log]), active, ext)
+    drift = [float(np.linalg.norm(p[:3, 3])) for _, p in engine.pose_log]
+    seg_px = [None] + torch.stack(seg_px).cpu().to(torch.int64).tolist()
+    print(json.dumps({
+        "phase": "multi_legacy_crf", "frames": len(obj_log), "timed_frames": len(ms),
+        "per_frame": [{"frame": j, "active_models": active_per_frame[j],
+                       "camera_drift_m": drift[j], "ms": frame_ms.get(j),
+                       "segment_px": seg_px[j]} for j in range(len(obj_log))],
+        "spawn_frames": spawn_frames, "sphere_id_per_slot": ext.tolist(),
+        "ms_per_frame_median": statistics.median(ms),
+        "ms_per_frame_p75": statistics.quantiles(ms, n=4)[2], "ms_per_frame_min": min(ms),
+        "launches_per_frame": sum(launches.values()) / MULTI_FRAMES,
+        "surfels": stats["surfels"], "segment_px": stats["segment_px"],
+        "active_models": active_per_frame[-1], "camera_drift_m": drift[-1],
+        "max_camera_drift_m": max(drift), "sphere_errors": errs, "launches": launches,
+        "reference_lifecycle": {"active_per_frame": REF_LEGACY_ACTIVE,
+                                "spawn_frames": REF_LEGACY_SPAWN_FRAMES,
+                                "script": "tests/torch_legacy_spheres.py --div 1 "
+                                          "--chip-capacities --packages reference"},
+        "sync_check": {"ticks": sync_ticks, "synchronizing_calls": len(syncs),
+                       "where": sorted(set(syncs))[:10]},
+        "gpu": _gpu_line(),
+    }))
+    failed = [f"plain versions ran on the legacy CRF path: {plain_calls}"] if plain_calls else []
+    failed += [f"kernel {k} was not launched on the legacy CRF path" for k in LEGACY_PATH
+               if launches.get(k, 0) <= 0]
+    if active_per_frame != list(REF_LEGACY_ACTIVE) or spawn_frames != list(REF_LEGACY_SPAWN_FRAMES):
+        failed.append(f"lifecycle {active_per_frame} (spawns {spawn_frames}) differs from the "
+                      f"reference's {REF_LEGACY_ACTIVE} (spawns {REF_LEGACY_SPAWN_FRAMES})")
+    return engine, launches, captured, len(syncs), failed
+
+
+def measure_error_images(a):
+    from multimotionfusion_tpu_torch.odometry import rgbd as RG
+
+    n = a[0].img.numel()
+    # per pixel: the sampling map (16 B), vertices, normals, intensity,
+    # gradients and the validity in; two images out; ~150 operations
+    return _measure(lambda: RG.error_images_cuda(*a), lambda: RG.error_images_plain(*a),
+                    n * (16 + 12 + 12 + 4 + 4 + 4 + 1 + 8), 150 * n)
+
+
+def _slic_state(a):
+    """(image, labels of the last assignment, centres before it, grid) on the card."""
+    from multimotionfusion_tpu_torch.segmentation import slic as SL
+
+    image, sp_size, coh, iters = a
+    h, w, _ = image.shape
+    grid = SL.grid_shape(h, w, sp_size)
+    labels, cen = None, None
+    for it in range(iters):
+        cen = SL.slic_centres_cuda(image, labels, grid[0] * grid[1], grid, sp_size, it)
+        labels = SL.slic_assign_cuda(image, labels, cen, grid, sp_size, coh)
+    return image, labels, cen, grid
+
+
+def measure_slic_centres(a):
+    from multimotionfusion_tpu_torch.segmentation import slic as SL
+
+    image, labels, _, grid = _slic_state(a)
+    s, n = grid[0] * grid[1], labels.numel()
+    ys, xs = torch.meshgrid(torch.arange(image.shape[0], device=DEVICE),
+                            torch.arange(image.shape[1], device=DEVICE), indexing="ij")
+    vals = torch.cat([image.reshape(-1, 3), xs.reshape(-1, 1).float(), ys.reshape(-1, 1).float(),
+                      torch.ones((n, 1), device=DEVICE)], 1)
+    flat = labels.reshape(-1).long()
+    acc = torch.zeros((s, 6), device=DEVICE)
+    # the last pass (radius a[3]): colour and label in, [S, 6] out; 6 adds a pixel
+    return _measure(lambda: SL.slic_centres_cuda(image, labels, s, grid, a[1], a[3]),
+                    lambda: SL.slic_centres_plain(image, labels, s), n * 16 + s * 24, 6 * n,
+                    library=lambda: acc.zero_().index_add_(0, flat, vals),
+                    library_call="index_add_ of the [H*W, 6] sums")
+
+
+def measure_slic_assign(a):
+    from multimotionfusion_tpu_torch.segmentation import slic as SL
+
+    image, labels, cen, grid = _slic_state(a)
+    n = labels.numel()
+    # colour and label in, label out, the centres once; 9 candidates of ~22 operations
+    return _measure(lambda: SL.slic_assign_cuda(image, labels, cen, grid, a[1], a[2]),
+                    lambda: SL.slic_assign_plain(image, labels, cen, grid, a[1], a[2]),
+                    n * 20 + cen.numel() * 4, 9 * 22 * n)
+
+
+def measure_sp_means(a):
+    from multimotionfusion_tpu_torch.segmentation import slic as SL
+
+    images, labels, count, grid, radius = a
+    k, s = images.shape[0], count.shape[0]
+    n = labels.numel()
+    flat = labels.reshape(-1).long()
+    vals = images.reshape(k, -1).T.contiguous()
+    acc = torch.zeros((s, k), device=DEVICE)
+    return _measure(lambda: SL.superpixel_means_cuda(images, labels, grid, SL.SP_SIZE, radius),
+                    lambda: SL.superpixel_means_plain(images, labels, count),
+                    4 * k * n + 4 * n + 4 * k * s, k * n,
+                    library=lambda: acc.zero_().index_add_(0, flat, vals),
+                    library_call="index_add_ of the [H*W, N] sums")
+
+
+def measure_sp_upsample(a):
+    from multimotionfusion_tpu_torch.segmentation import slic as SL
+
+    lbl_sp, labels, nl = a
+    n = labels.numel()
+    return _measure(lambda: SL.upsample_onehot_cuda(*a), lambda: SL.upsample_onehot_plain(*a),
+                    4 * n + 4 * lbl_sp.numel() + nl * n, nl * n)
+
+
+def measure_lcrf_plan(a):
+    from multimotionfusion_tpu_torch.segmentation import legacy_crf as LC
+
+    lows = a[0]
+    s, m = lows.shape[1], a[3].shape[0]
+    nl = m + 1
+    # the means, colours and positions in; unaries, features, Q0 and both
+    # [S, S] kernels out; ~40 operations and two exps an entry
+    return _measure(lambda: LC.crf_plan_cuda(*a), lambda: LC.crf_plan_plain(*a),
+                    4 * lows.numel() + 20 * s + 4 * s * (2 * nl + 6) + 8 * s * s, 42 * s * s)
+
+
+def measure_lcrf_iterate(a, iters):
+    from multimotionfusion_tpu_torch.segmentation import legacy_crf as LC
+
+    plan = LC.crf_plan_cuda(*a)
+    s, nl = plan.q0.shape
+
+    def chain(step):
+        q = plan.q0
+        for it in range(iters):
+            q = step(q, it == iters - 1)
+        return q
+
+    def library(q, last):  # two products and a softmax, TF32 off
+        msg = 40.0 * torch.matmul(plan.k_smooth, q) + 40.0 * torch.matmul(plan.k_app, q)
+        return torch.softmax(-plan.unary - (msg.sum(-1, keepdim=True) - msg), -1)
+
+    # per step both kernels and Q in, Q out; 2 x 2 S^2 L operations
+    return _measure(lambda: chain(lambda q, last: LC.crf_iterate_cuda(q, plan, last)[0]),
+                    lambda: chain(lambda q, last: LC.crf_iterate_plain(q, plan)),
+                    iters * (8 * s * s + 12 * s * nl), iters * 4 * s * s * nl,
+                    library=lambda: chain(library),
+                    library_call="two torch.matmul and torch.softmax per step")
+
+
+def plan_legacy():
+    """The legacy CRF path's new kernels (K4's error images, K24a-c) and K17 at
+    640x480 on the global scratch, as ``plan``."""
+    from multimotionfusion_tpu_torch.kernels import checks as C
+
+    return [
+        ("gn_reduce[error images]", "gn_reduce.error_images", "gn_reduce.error_images",
+         C.check_error_images, measure_error_images, "gn_reduce.cu", "odometry/rgbd.py:1062"),
+        ("slic.centres", "slic", "slic.centres", C.check_slic_centres, measure_slic_centres,
+         "slic.cu", "segmentation/slic.py:47"),
+        ("slic.assign", "slic", "slic.assign", C.check_slic_assign, measure_slic_assign,
+         "slic.cu", "segmentation/slic.py:61"),
+        ("sp.downsample", "sp.downsample", "sp.downsample", C.check_sp_means, measure_sp_means,
+         "slic.cu", "segmentation/slic.py:83"),
+        ("sp.upsample", "sp.upsample", "sp.upsample", C.check_sp_upsample, measure_sp_upsample,
+         "slic.cu", "segmentation/slic.py:95"),
+        ("legacy_crf.plan", "legacy_crf.plan", "legacy_crf.plan", C.check_lcrf_plan,
+         measure_lcrf_plan, "legacy_crf.cu", "segmentation/legacy_crf.py:104"),
+        ("legacy_crf.iterate[1]", "legacy_crf.plan", "legacy_crf.iterate",
+         lambda a: C.check_lcrf_iterate(a, 1), lambda a: measure_lcrf_iterate(a, 1),
+         "legacy_crf.cu", "segmentation/legacy_crf.py:53"),
+        ("legacy_crf.iterate[10]", "legacy_crf.plan", "legacy_crf.iterate",
+         lambda a: C.check_lcrf_iterate(a, 10), lambda a: measure_lcrf_iterate(a, 10),
+         "legacy_crf.cu", "segmentation/legacy_crf.py:53"),
+        ("components[global scratch, 640x480, L=7]", "components", "components",
+         C.check_components, measure_components, "components.cu",
+         "segmentation/components.py:61"),
+    ]
+
+
 # ---------------------------------------------------------------- relocalisation, loop closure
 
 FERN_PATH = ("ferns.frame", "ferns.encode_hd", "ferns.insert", "ferns.photo")
@@ -2196,6 +2459,13 @@ def main() -> int:
         f_cfg, f_frames[:MULTI_FRAMES + 1]).values()]
     if not journey_tests("multi_flow_crf", drifts, REF_FLOW_DRIFT_M)["ok"]:
         f_failed.append(f"camera drifts worse than the reference's: {drifts}")
+    g_cfg = dataclasses.replace(f_cfg, segmentation=dataclasses.replace(f_cfg.segmentation,
+                                                                          mode="crf"))
+    g_engine, g_launches, g_captured, g_syncs, g_failed = run_multi_legacy(K, g_cfg, f_frames)
+    syncs += g_syncs
+    run_stages(K, g_engine, f_frames[MULTI_FRAMES + 1:], "legacy_crf_stages")
+    del g_engine
+    f_failed += g_failed
     five = five_movers_seeds()
 
     r_launches, r_captured, global_failed = run_reloc(K)
@@ -2211,6 +2481,7 @@ def main() -> int:
                      | ({key for _, key, *_ in plan_flow()} - set(f_captured) - set(SYNTHETIC))
                      | ({"track", "sparse"} - set(kp_captured))
                      | ({"multi_track"} - set(m_captured))
+                     | ({key for _, key, *_ in plan_legacy()} - set(g_captured))
                      | ({key for _, key, *_ in fern_plan} - set(r_captured))
                      | ({key for _, key, *_ in deform_plan} - set(l_captured)))
     if missing:
@@ -2219,6 +2490,7 @@ def main() -> int:
     kernels += check_kernels(plan_kp(), kp_captured, kp_launches, N_FRAMES)
     kernels += check_kernels(plan_multi(), m_captured, m_launches, MULTI_FRAMES)
     kernels += check_kernels(plan_flow(), f_captured, f_launches, MULTI_FRAMES)
+    kernels += check_kernels(plan_legacy(), g_captured, g_launches, MULTI_FRAMES)
     kernels += check_kernels(fern_plan, r_captured, r_launches, RELOC_JOURNEY_FRAMES)
     kernels += check_kernels(deform_plan, l_captured, l_launches, 7)
     loops = [check_loop(captured), check_loop(kp_captured, "odometry_loop[kp]"),
@@ -2230,7 +2502,8 @@ def main() -> int:
     if bad or not loops_ok or syncs or not five["ok"] or f_failed or global_failed:
         print(f"chip_smoke: kernels outside tolerance: {bad}; odometry loops, sparse block and "
               f"multi loop ok: {[r['ok'] for r in loops]}; synchronising calls: {syncs}; "
-              f"five movers: {five}; flow-CRF path: {f_failed}; relocalisation and loop "
+              f"five movers: {five}; flow-CRF and legacy CRF paths: {f_failed}; "
+              f"relocalisation and loop "
               f"closure: {global_failed}", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,6 +47,7 @@ struct PixelArgs {
   const int* mask;
   int mask_id, H, W, window;
   float time, conf_thr, gate, coeff, mask_factor;
+  const float* conf_p;  // the confidence gate on the card (a per-slot gate); nullptr: conf_thr
 };
 
 __global__ void pixel_pass(PixelArgs a, int* __restrict__ vk) {
@@ -56,7 +57,8 @@ __global__ void pixel_pass(PixelArgs a, int* __restrict__ vk) {
   if (i < 0) return;
   int y = p / a.W, x = p % a.W;
   int count, z_count;
-  window_counts(a.index, a.dl, a.B, nullptr, 0, a.H, a.W, a.window, x, y, i, a.conf_thr, a.time,
+  const float conf_thr = a.conf_p != nullptr ? *a.conf_p : a.conf_thr;
+  window_counts(a.index, a.dl, a.B, nullptr, 0, a.H, a.W, a.window, x, y, i, conf_thr, a.time,
                 &count, &z_count);
   float qz = a.dl[PZ * a.B + i];
   bool viol;
@@ -76,12 +78,14 @@ struct SurfelArgs {
   int compact;
   float* out;
   int rs_out;
+  const float* conf_p;
 };
 
 __device__ inline bool keep_slot(const SurfelArgs& a, const int* vk, int i, float* pen) {
   bool alive = i < *a.count && a.data[ALIVE * a.rs_in + i] > 0.f;
   return keep_surfel(alive, vk[i], a.data[LAST_T * a.rs_in + i], a.data[CONF * a.rs_in + i],
-                     a.time, a.grace, a.conf_thr, a.time_delta, pen);
+                     a.time, a.grace, a.conf_p != nullptr ? *a.conf_p : a.conf_thr, a.time_delta,
+                     pen);
 }
 
 __global__ void surfel_pass(SurfelArgs a, const int* __restrict__ vk, uint8_t* __restrict__ keep,
@@ -202,12 +206,13 @@ extern "C" int mmf_clean(const float* data, int rs_in, int B, const int* count, 
                          float conf_thr, float grace, float gate, float coeff, float mask_factor,
                          int compact, int* verdicts, uint8_t* keep, int* block_counts,
                          int* offsets, float* out, int rs_out, int* count_out,
-                         const bool* skip, cudaStream_t stream) {
+                         const bool* skip, const float* conf_p, cudaStream_t stream) {
   fill_verdicts<<<(B + THREADS - 1) / THREADS, THREADS, 0, stream>>>(verdicts, B);
   PixelArgs pa{index, data_local, B, depth, mask, mask_id, H, W, window,
-               time, conf_thr, gate, coeff, mask_factor};
+               time, conf_thr, gate, coeff, mask_factor, conf_p};
   pixel_pass<<<(H * W + THREADS - 1) / THREADS, THREADS, 0, stream>>>(pa, verdicts);
-  SurfelArgs sa{data, rs_in, B, count, time, conf_thr, grace, time_delta, compact, out, rs_out};
+  SurfelArgs sa{data, rs_in, B, count, time, conf_thr, grace, time_delta, compact, out, rs_out,
+                conf_p};
   surfel_pass<<<(B + THREADS - 1) / THREADS, THREADS, 0, stream>>>(sa, verdicts, keep,
                                                                     block_counts, skip);
   if (compact)

@@ -30,6 +30,10 @@
 //   state on the card (csrc/gn_step.cu), and every kernel returns at once
 //   when the GN loop's done flag is set, so the host enqueues the fixed
 //   iteration budget without reading anything back.
+// Error-image mode (rgbd.py:1062-1075, the legacy CRF's input): one more
+//   evaluation of level 0 on the full grid at the final pose, enqueued after
+//   the loop with no host read; one thread per pixel writes the two [H, W]
+//   images (the ICP distance of rgbd.py:450, 0.001 diff^2 of :532).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -128,7 +132,54 @@ __global__ void finalize(Params P, const float* partials, int blocks, int pass, 
   sums[v] = s;
 }
 
+// error-image mode: one thread per pixel of the full level-0 grid at the
+// final pose; the ICP distance where the association is in bounds (0 where
+// not finite) and 0.001 diff^2 where the photometric correspondence is valid
+__global__ void __launch_bounds__(THREADS)
+error_images(Params P, const void* pred, const float* vmap, const float* nmap, const float* img,
+             const float* didx, const float* didy, const uint8_t* sv, float* icp_img,
+             float* rgb_img) {
+  int q = blockIdx.x * THREADS + threadIdx.x;
+  if (q >= P.Hs * P.Ws) return;
+  const Pose T = load_pose(P.Tinv);
+  Pixel px;
+  eval_pixel(P, T, pred, vmap, nmap, img, didx, didy, sv, q, px);
+  float e_icp = 0.f, e_rgb = 0.f;
+  if (P.use_icp) {
+    bool in_bounds = px.d_ok && px.n_ok && px.vcp[2] > 0.f && px.v_valid;
+    float dist = norm3(px.d[0] - px.vcp[0], px.d[1] - px.vcp[1], px.d[2] - px.vcp[2]);
+    e_icp = in_bounds && isfinite(dist) ? dist : 0.f;
+  }
+  if (P.use_rgb) {
+    float cp[3], diff;
+    bool valid = rgb_corr(P, px, cp, &diff);
+    e_rgb = valid ? 0.001f * diff * diff : 0.f;
+  }
+  icp_img[q] = e_icp;
+  rgb_img[q] = e_rgb;
+}
+
 }  // namespace
+
+extern "C" int mmf_gn_error_images(const void* pred, int compact, int H, int W, const float* vmap,
+                                   const float* nmap, const float* img, const float* didx,
+                                   const float* didy, const uint8_t* static_valid,
+                                   const float* Tinv, float fx, float fy, float cx, float cy,
+                                   int use_icp, int use_rgb, float dist_thresh,
+                                   float angle_thresh, float max_dd, float max_depth_rgb,
+                                   float* icp_img, float* rgb_img, cudaStream_t stream) {
+  Params P;
+  P.Tinv = Tinv;
+  P.done = nullptr;
+  P.fx = fx; P.fy = fy; P.cx = cx; P.cy = cy;
+  P.H = H; P.W = W; P.stride = 1; P.Hs = H; P.Ws = W;
+  P.compact = compact; P.use_icp = use_icp; P.use_rgb = use_rgb; P.rgb_only = 0;
+  P.dist_thresh = dist_thresh; P.angle_thresh = angle_thresh; P.max_dd = max_dd;
+  P.max_depth_rgb = max_depth_rgb; P.sobel_scale = 0.f; P.scale2 = 1.f;
+  error_images<<<(H * W + THREADS - 1) / THREADS, THREADS, 0, stream>>>(
+      P, pred, vmap, nmap, img, didx, didy, static_valid, icp_img, rgb_img);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int mmf_gn_reduce(const void* pred, int compact, int H, int W, const float* vmap,
                              const float* nmap, const float* img, const float* didx,

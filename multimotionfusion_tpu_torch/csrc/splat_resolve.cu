@@ -44,7 +44,8 @@ struct Fill {
 
 struct Comp {
   const float* conf_all;  // [M] per-model confidence gate; nullptr: static mode
-  const int* own;         // [H, W] winner model of each index-map pixel
+  const int* own;         // [H, W] winner model of each index-map pixel; nullptr with
+                          // conf_all: one gate read by pointer (an object slot's)
   int M;
 };
 
@@ -70,7 +71,8 @@ __global__ void resolve(const int* __restrict__ index, const float* __restrict__
   float best_z = 3.4e38f;
   int best = -1;
   float att[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  int own_p = cm.conf_all != nullptr ? cm.own[p] : 0;
+  int own_p = cm.own != nullptr ? cm.own[p] : 0;
+  if (cm.conf_all != nullptr && cm.own == nullptr) conf_t = cm.conf_all[0];
   int r = window / 2;
   for (int dy = -r; dy < window - r; ++dy) {
     int yy = y + dy;
@@ -81,7 +83,7 @@ __global__ void resolve(const int* __restrict__ index, const float* __restrict__
       int c = index[yy * W + xx];
       if (c < 0) continue;
       float gate = conf_t;
-      if (cm.conf_all != nullptr) {
+      if (cm.own != nullptr) {
         int oq = cm.own[yy * W + xx];
         if (oq != own_p) continue;
         gate = cm.conf_all[oq];  // a tap with a surfel has a model < M

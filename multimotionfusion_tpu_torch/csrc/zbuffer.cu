@@ -20,6 +20,8 @@
 //   pose never visits the host. The first frame's dedicated splat render
 //   (rasterize.py:splat_predict) adds the splat.vert gates conf >= threshold
 //   and last_t <= max_time (``gated``) instead of masking a copy of the map.
+//   The max depth and the confidence gate may be read by pointer instead
+//   (an object slot's, kept on the card: the legacy CRF's per-slot renders).
 // K12 (the flat store of all models: the global bucket [0, bg), then slot k's
 //   bucket [bg + k bo, bg + (k + 1) bo), model k + 1): the same one-thread-
 //   per-surfel scatter, with the surfel's model from its flat id; it is
@@ -55,9 +57,12 @@ __global__ void scatter_keys(const float* __restrict__ data, int rs, int n,
                              float fx, float fy, float cx, float cy, int W, int H, float time,
                              float time_delta, float max_depth, int gated, float conf_threshold,
                              float max_time, int id_bits, int* __restrict__ keys,
-                             float* __restrict__ data_local) {
+                             float* __restrict__ data_local, const float* __restrict__ max_depth_p,
+                             const float* __restrict__ conf_p) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  if (max_depth_p != nullptr) max_depth = *max_depth_p;
+  if (conf_p != nullptr) conf_threshold = *conf_p;
   float pl[3];
   write_local(data, rs, n, i, Tm, data_local, pl);
   float z = pl[2];
@@ -218,14 +223,15 @@ extern "C" int mmf_zbuffer(const float* data, int row_stride, int n, const int* 
                            const float* T_inv, float fx, float fy, float cx, float cy, int W,
                            int H, float time, float time_delta, float max_depth, int gated,
                            float conf_threshold, float max_time, int id_bits, int* keys,
-                           float* data_local, int* index, cudaStream_t stream) {
+                           float* data_local, int* index, const float* max_depth_p,
+                           const float* conf_p, cudaStream_t stream) {
   const int threads = 256;
   int npix = W * H;
   fill_int<<<(npix + threads - 1) / threads, threads, 0, stream>>>(keys, npix, KEY_INVALID);
   if (n > 0)
     scatter_keys<<<(n + threads - 1) / threads, threads, 0, stream>>>(
         data, row_stride, n, count, T_inv, fx, fy, cx, cy, W, H, time, time_delta, max_depth,
-        gated, conf_threshold, max_time, id_bits, keys, data_local);
+        gated, conf_threshold, max_time, id_bits, keys, data_local, max_depth_p, conf_p);
   unpack_keys<<<(npix + threads - 1) / threads, threads, 0, stream>>>(keys, npix, id_bits,
                                                                       index);
   return (int)cudaGetLastError();

@@ -4,8 +4,10 @@ and the multi-model step.
 Port of the reference package's ``engine.py`` for ``enable_multi_model=False``
 with every pose initialisation (``odom_init``), and for
 ``enable_multi_model=True`` with the flow-CRF segmentation (the default
-``segmentation.mode``) or external masks (``mode="precomputed"``)
-(``engine_multi.multi_frame_step``; ``odom_init`` "kp" or ""): upload ->
+``segmentation.mode``), external masks (``mode="precomputed"``) or the
+legacy CoFusion CRF (``mode="crf"``, a per-slot step that turns the
+odometry's error images on) (``engine_multi.multi_frame_step``;
+``odom_init`` "kp" or ""): upload ->
 depth filter ->
 (first frame) initialise -> [keypoints -> track table -> RANSAC seed] ->
 track -> fuse -> clean -> predict -> pose logging.
@@ -29,7 +31,7 @@ with the embedded deformation of the map (K22, K23; ``global_consistency``).
 
 All state lives on the compute device, the poses, the track table and the
 fern store included. On the card the frame step launches only the
-hand-written kernels of ``csrc/`` (K1-K23) plus PyTorch glue on poses, 0-dim
+hand-written kernels of ``csrc/`` (K1-K24) plus PyTorch glue on poses, 0-dim
 scalars and (multi-model) per-model vectors and masks (and the deformation
 graph's dense solve); the odometry's loops run on the card with done flags,
 so a steady-state frame reads nothing back except, at most every 64 frames,
@@ -43,6 +45,7 @@ records on the device and reads them only when asked (``drain_events``,
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Dict, List, NamedTuple, Optional
 
@@ -377,10 +380,18 @@ def _frame_core(state: GlobalState, rgb_u8, depth_raw, mask, time: int, weight_m
 _UNSUPPORTED = (
     ("frame_to_frame_rgb", lambda c: c.frame_to_frame_rgb),
     ("upload_yuv420", lambda c: c.upload_yuv420),
-    ("the legacy CRF segmentation (segmentation.mode='crf')",
-     lambda c: c.enable_multi_model and c.segmentation.mode == "crf"),
     ("odom_init='tf' in multi-model mode", lambda c: c.enable_multi_model and c.odom_init == "tf"),
 )
+
+
+def _normalize_cfg(cfg: EngineConfig) -> EngineConfig:
+    """Cross-field implications (reference engine.py:533-547): the legacy CRF
+    of the multi-model mode reads every model's ICP error image, so "crf"
+    turns the odometry's error images on."""
+    if cfg.enable_multi_model and cfg.segmentation.mode == "crf" and not cfg.odometry.error_images:
+        cfg = dataclasses.replace(
+            cfg, odometry=dataclasses.replace(cfg.odometry, error_images=True))
+    return cfg
 
 
 class MultiMotionFusionTorch:
@@ -389,6 +400,7 @@ class MultiMotionFusionTorch:
     ``frame.mask`` carries their ids)."""
 
     def __init__(self, cfg: EngineConfig, device="cuda"):
+        cfg = _normalize_cfg(cfg)
         for name, test in _UNSUPPORTED:
             if test(cfg):
                 raise NotImplementedError(

@@ -30,8 +30,14 @@ The camera model's relocalisation (``reloc_mode``) and loop closure
 segmentation, on the global model's system (``engine.global_consistency``);
 while lost, the global segment keeps its pre-fusion data.
 
-Not ported here: the legacy CRF segmentation (the engine refuses it;
-ROADMAP.md).
+The legacy CoFusion CRF (``segmentation.mode="crf"``) takes a per-slot
+step instead (``_multi_frame_step_legacy``): it needs every model's ICP
+error image over the whole frame, which the composite passes do not make.
+Each slot renders its own prediction at its previous pose (K6 + K10) and is
+tracked on its own (K2-K5, masked to its id, with error images), then
+renders its index map at the new pose (K6); the legacy CRF (K24a-c, K17)
+segments; each slot fuses and cleans on its own (K8, K9); the global model
+takes the static step's passes (K6, K8, K7/K9, K10 + fill-in).
 """
 
 from __future__ import annotations
@@ -48,9 +54,10 @@ from multimotionfusion_tpu_torch.model import ferns, fusion, loop_closure, surfe
 from multimotionfusion_tpu_torch.model.fillin import FilledMaps, splat_fill
 from multimotionfusion_tpu_torch.odometry import levels as lv
 from multimotionfusion_tpu_torch.odometry import multi as modo
+from multimotionfusion_tpu_torch.odometry import rgbd
 from multimotionfusion_tpu_torch.ops import frame_maps, ransac, rasterize
 from multimotionfusion_tpu_torch.ops.image import rgb_to_intensity
-from multimotionfusion_tpu_torch.segmentation import flow_crf
+from multimotionfusion_tpu_torch.segmentation import flow_crf, legacy_crf
 from multimotionfusion_tpu_torch.segmentation.precomputed import precomputed_segmentation
 from multimotionfusion_tpu_torch.tracking import tracker
 from multimotionfusion_tpu_torch.utils import se3
@@ -273,7 +280,7 @@ def _use_segm_tracker(cfg: EngineConfig) -> bool:
 
 
 def _flow_crf_mode(cfg: EngineConfig) -> bool:
-    """Every mode but "precomputed" (and the refused "crf") runs the flow-CRF."""
+    """Every mode but "precomputed" and "crf" (the legacy step) runs the flow-CRF."""
     return cfg.segmentation.mode not in ("precomputed", "crf")
 
 
@@ -324,6 +331,8 @@ class LifecycleOut(NamedTuple):
     fs_w: sm.FrameSurfels
     objects: ObjectSlots  # data and counts with the spawn written, poses and flags updated
     last_spawn: torch.Tensor
+    claim: torch.Tensor  # [] bool: a spawn or a redetection claimed ``target_slot``
+    new_maxd: torch.Tensor  # [] the claimed slot's max depth
 
 
 def _lifecycle_update(obj: ObjectSlots, seg: SegResult, tracks, kps, depth_m, depth_filt, rgb_u8,
@@ -452,7 +461,8 @@ def _lifecycle_update(obj: ObjectSlots, seg: SegResult, tracks, kps, depth_m, de
         ext_id=obj_ext_id,
     )
     last = torch.where(claim, torch.full_like(last_spawn, time), last_spawn)
-    return LifecycleOut(mask, spawn, any_red, target_slot, refine_T, fs_w, objects, last)
+    return LifecycleOut(mask, spawn, any_red, target_slot, refine_T, fs_w, objects, last, claim,
+                        new_maxd)
 
 
 def _flow_crf(state: MultiState, intensity, depth_filt, new_pose0, obj_poses_new, active_all,
@@ -493,7 +503,11 @@ def multi_frame_step(state: MultiState, rgb_u8, depth_raw, ext_mask, time: int,
     """One multi-model frame (tick > 1). ``layout`` holds the global and the
     object work buckets. Returns (state, stats [9 + M] on the device, final
     mask, SpawnAux, odometry result). Writes the global map's bucket and the
-    track table in place."""
+    track table in place. The legacy CRF mode ("crf") takes the per-slot
+    step (reference engine_multi.py:751-753)."""
+    if cfg.segmentation.mode == "crf":
+        return _multi_frame_step_legacy(state, rgb_u8, depth_raw, time, weight_multiplier, cam,
+                                        cfg, layout.bg, sp_net, gen)
     scfg = cfg.surfels
     obj = state.objects
     S = obj.num_slots
@@ -633,3 +647,169 @@ def multi_frame_step(state: MultiState, rgb_u8, depth_raw, ext_mask, time: int,
     )
     aux = SpawnAux(lc.spawn, lc.any_red, lc.target_slot, lc.refine_T)
     return new_state, stats, lc.mask, aux, odo
+
+
+def _multi_frame_step_legacy(state: MultiState, rgb_u8, depth_raw, time: int, weight_multiplier,
+                             cam: CameraModel, cfg: EngineConfig, bucket_fuse: int, sp_net=None,
+                             gen=None):
+    """The per-slot multi-model step of the legacy CoFusion CRF (reference
+    engine_multi.py:1195-1531): the CRF reads every model's ICP error image
+    over the whole frame. Same returns as ``multi_frame_step``; the odometry
+    result is the global model's. Each slot's prediction at its previous pose
+    is rendered in the step (the state carries no per-slot images); every
+    slot scalar (confidence gate, max depth, count) is read on the card."""
+    scfg = cfg.surfels
+    ocfg = cfg.odometry
+    obj = state.objects
+    S = obj.num_slots
+    M = 1 + S
+    dev = depth_raw.device
+    ticks = time - 1  # the previous frame's render window
+
+    with _span("frame_inputs"):  # K1
+        depth_m, depth_filt = frame_maps.frame_depth(depth_raw)
+    with _span("levels"):  # K2: the frame side of the global model (mask id 0)
+        frame_lv = lv.frame_levels(depth_filt, rgb_u8, state.prev_mask, cam, ocfg)
+        preds0 = lv.pred_levels(state.filled.vertex_conf, state.filled.normal_rad,
+                                state.filled.color, cam, ocfg)
+
+    with _span("sparse"):  # K19, K20, K21
+        tracks = state.tracks
+        kps = _detect(frame_lv[ocfg.init_lvl].img, cfg, sp_net)
+        pair = tracker.update(tracks, kps, depth_filt, time, cam, cfg.keypoints)
+        tracks_segm = state.tracks_segm
+        if _use_segm_tracker(cfg):  # the legacy CRF reads no velocities; the table advances
+            lvl = ocfg.segm_lvl
+            tracker.update(tracks_segm, _detect(frame_lv[lvl].img, cfg, sp_net, lvl), depth_filt,
+                           time, cam, cfg.keypoints)
+        if cfg.odom_init == "kp":
+            seeds, seed_ok = _kp_seeds(tracks, pair, time, state.pose, obj, cfg, gen)
+        else:
+            seeds = torch.cat([state.pose[None], obj.pose], dim=0)
+            seed_ok = torch.zeros((M,), dtype=torch.bool, device=dev)
+
+    with _span("slot_predictions"):  # K6 + K10 per slot at its previous pose
+        opred = [rasterize.splat_predict(sm.SurfelMap(obj.data[k], obj.count[k]), obj.pose[k],
+                                         cam, obj.conf_t[k], ticks, ticks, scfg.time_delta,
+                                         obj.max_depth[k], scfg.splat_footprint)
+                 for k in range(S)]
+
+    with _span("odometry"):  # K3-K5: the global model, then each slot (mask id k + 1)
+        odo0 = rgbd.track(state.pose, lv.gn_levels(frame_lv, preds0, cam, ocfg),
+                          state.last_intensity_coarse, ocfg, cam,
+                          T_init=seeds[0] if cfg.odom_init == "kp" else None,
+                          seed_valid=seed_ok[0] if cfg.odom_init == "kp" else None)
+        new_pose0 = odo0.pose
+        obj_poses, icp_imgs = [], [odo0.icp_error_image]
+        for k in range(S):
+            flv = lv.frame_levels(depth_filt, rgb_u8, state.prev_mask, cam, ocfg, k + 1)
+            pk = opred[k]
+            preds = lv.pred_levels(pk.vertex_conf, pk.normal_rad, pk.color, cam, ocfg)
+            odo = rgbd.track(obj.pose[k], lv.gn_levels(flv, preds, cam, ocfg),
+                             state.last_intensity_coarse, ocfg, cam, T_init=seeds[k + 1],
+                             seed_valid=seed_ok[k + 1])
+            obj_poses.append(odo.pose)
+            icp_imgs.append(odo.icp_error_image)
+        obj_poses_new = torch.where(obj.active[:, None, None], torch.stack(obj_poses), obj.pose)
+
+    bad_count, lost = state.bad_track_count, state.lost
+    if cfg.reloc_mode:  # the legacy step relocalises; it does not close loops
+        with _span("ferns"):  # K22: the ÷factor frame
+            frame_s = _fern_frame(rgb_u8, depth_filt, cfg)
+        new_pose0, bad_count, lost = global_consistency(
+            state, frame_s, odo0.A, odo0.icp_count, new_pose0, time,
+            dataclasses.replace(cfg, close_loops=False))
+
+    with _span("slot_indices"):  # K6 per slot at its new pose
+        oim = [rasterize.predict_indices(sm.SurfelMap(obj.data[k], obj.count[k]),
+                                         obj_poses_new[k], cam, time, scfg.time_delta,
+                                         obj.max_depth[k]) for k in range(S)]
+
+    with _span("segmentation"):  # K24a-c, K17
+        active_all = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev), obj.active])
+        conf_imgs = torch.stack([state.filled.vertex_conf[..., 3]]
+                                + [p.vertex_conf[..., 3] for p in opred])
+        allow_new = cfg.enable_model_spawning and cfg.object_slots > 0
+        lres = legacy_crf.legacy_crf_segmentation(
+            rgb_u8.to(F32), depth_filt, torch.stack(icp_imgs), conf_imgs, active_all,
+            cfg.segmentation, allow_new=allow_new)
+        mu, sd = _depth_stats(lres.mask, lres.new_label_mask, depth_filt, M)
+        seg = SegResult(lres.mask, lres.new_label_mask, lres.has_new_label, lres.pixel_counts,
+                        mu, sd)
+
+    with _span("lifecycle"):
+        # the confidence maturation reads each slot's own prediction
+        ks = torch.arange(1, S + 1, dtype=I32, device=dev)[:, None, None]
+        sel = seg.mask[None] == ks
+        seg_conf_sum = torch.sum(torch.where(sel, conf_imgs[1:], torch.zeros_like(conf_imgs[1:])),
+                                 dim=(1, 2))
+        seg_conf_cnt = torch.sum(sel.to(F32), dim=(1, 2))
+        lc = _lifecycle_update(obj, seg, tracks, kps, depth_m, depth_filt, rgb_u8, new_pose0,
+                               state.prev_pose, obj_poses_new, time, state.last_spawn,
+                               weight_multiplier, seg_conf_sum, seg_conf_cnt,
+                               torch.zeros((S,), dtype=torch.bool, device=dev),
+                               torch.zeros((), dtype=I32, device=dev), cam, cfg, gen,
+                               tracks_segm if _use_segm_tracker(cfg) else None)
+        objs = lc.objects
+        # the claimed slot's index map again from its new map (the reference's
+        # lax.cond, computed every frame and selected)
+        t = lc.target_slot.reshape(1)
+        re_im = rasterize.predict_indices(
+            sm.SurfelMap(objs.data.index_select(0, t)[0], objs.count.index_select(0, t)[0]),
+            objs.pose.index_select(0, t)[0], cam, time, scfg.time_delta, lc.new_maxd)
+        slots = torch.arange(S, dtype=I32, device=dev)
+        is_claim = (slots == lc.target_slot) & lc.claim
+        oim = [rasterize.IndexMap(torch.where(is_claim[k], re_im.index, im.index),
+                                  torch.where(is_claim[k], re_im.data_local, im.data_local))
+               for k, im in enumerate(oim)]
+
+    sub = state.smap.bucketed(bucket_fuse)
+    with _span("zbuffer"):  # K6: the global model's index map at its new pose
+        im0 = rasterize.predict_indices(sub, new_pose0, cam, time, scfg.time_delta,
+                                        scfg.depth_cutoff)
+    with _span("fuse"):  # K8: the global model (mask id 0)
+        fused0 = fusion.fuse(sub, lc.fs_w, im0, lc.mask, 0, new_pose0, cam, time, scfg)
+    with _span("clean"):  # K7, K9: written straight into the global map's bucket
+        cleaned0 = fusion.clean(
+            fused0, im0, depth_filt, lc.mask, 0, cam, time, scfg.time_delta, scfg.conf_threshold,
+            scfg, compact=_compact_pred(time, scfg), out=state.smap.data[:, :bucket_fuse],
+            skip=lost if cfg.reloc_mode else None)
+        count0 = torch.where(lost, sub.count, cleaned0.count) if cfg.reloc_mode else \
+            cleaned0.count
+        smap = sm.SurfelMap(data=state.smap.data, count=count0)
+    with _span("splat_resolve"):  # K10 + fill-in from the pre-fusion index map
+        filled = splat_fill(im0, cam, scfg.conf_threshold, time, time, scfg.time_delta,
+                            scfg.splat_footprint,
+                            rasterize.FillFrame(rgb_u8, depth_filt, lc.fs_w.data,
+                                                scfg.depth_cutoff, cfg.frame_to_frame_rgb))
+
+    with _span("slot_fusion"):  # K8, K9 per slot, its confidence gate and depth band
+        pz = lc.fs_w.data[sm.PZ]
+        odata, ocount = [], []
+        for k in range(S):
+            omap = sm.SurfelMap(objs.data[k], objs.count[k])
+            fs_k = sm.FrameSurfels(lc.fs_w.data, lc.fs_w.valid & (pz <= objs.max_depth[k]))
+            fused = fusion.fuse(omap, fs_k, oim[k], lc.mask, k + 1, objs.pose[k], cam, time, scfg)
+            cleaned = fusion.clean(fused, oim[k], depth_filt, lc.mask, k + 1, cam, time,
+                                   scfg.time_delta, objs.conf_t[k], scfg,
+                                   compact=_compact_pred(time, scfg))
+            odata.append(torch.where(objs.active[k], cleaned.data, omap.data))
+            ocount.append(torch.where(objs.active[k], cleaned.count, omap.count))
+        objs = objs._replace(data=torch.stack(odata), count=torch.stack(ocount))
+
+    stats = torch.cat([
+        torch.stack([odo0.icp_error, odo0.icp_count, odo0.rgb_error, odo0.rgb_count,
+                     smap.alive_count().to(F32), smap.count.to(F32), lc.spawn.to(F32),
+                     objs.active.to(F32).sum(), lost.to(F32)]),
+        seg.pixel_counts.to(F32),
+    ])
+    new_state = MultiState(
+        smap=smap, pose=new_pose0, prev_pose=state.pose, filled=filled,
+        pred_own=torch.zeros_like(state.pred_own),  # unused by the legacy step
+        last_intensity_coarse=frame_lv[ocfg.num_pyr - 1].img, tracks=tracks,
+        tracks_segm=tracks_segm, objects=objs, prev_mask=lc.mask, prev_intensity=frame_lv[0].img,
+        last_spawn=lc.last_spawn, ferns=state.ferns, bad_track_count=bad_count, lost=lost,
+        pose_matches=state.pose_matches,
+    )
+    aux = SpawnAux(lc.spawn, lc.any_red, lc.target_slot, lc.refine_T)
+    return new_state, stats, lc.mask, aux, odo0

@@ -30,6 +30,8 @@ from multimotionfusion_tpu_torch.segmentation import components as CC
 from multimotionfusion_tpu_torch.segmentation import crf as CRF
 from multimotionfusion_tpu_torch.segmentation import flow as FL
 from multimotionfusion_tpu_torch.segmentation import flow_crf as FC
+from multimotionfusion_tpu_torch.segmentation import legacy_crf as LC
+from multimotionfusion_tpu_torch.segmentation import slic as SL
 from multimotionfusion_tpu_torch.tracking import superpoint as SP
 from multimotionfusion_tpu_torch.tracking import tracker as TR
 
@@ -93,6 +95,11 @@ _ARG_NAMES = {
                     "icp_error", "icp_count", "gates"),
     "deform.points": ("points", "point_times", "graph", "k", "look_back"),
     "deform.apply_map": ("data", "count", "graph", "k", "gate"),
+    "gn_reduce.error_images": ("lv", "Rt_inv", "cam_l", "p"),
+    "slic": ("image", "sp_size", "coh_weight", "iterations"),
+    "sp.downsample": ("images", "labels", "count", "grid_hw", "radius"),
+    "sp.upsample": ("lbl_sp", "labels", "n_labels"),
+    "legacy_crf.plan": ("lows", "mean_color", "mean_xy", "active", "allow_new"),
 }
 
 
@@ -957,3 +964,130 @@ def check_deform_apply(a: tuple) -> dict:
     return dict(max_abs_err=_maxerr(dk, dp), bit_equal=_bits_equal(dk, dp), moved_surfels=moved,
                 ok=_maxerr(dk, dp) <= 1e-6 and moved > 0,
                 tolerance="every surfel to the bit or within 1e-6 (m); some surfel moved")
+
+
+# ---------------------------------------------------------------- K4 error images, K24
+
+def check_error_images(a: tuple) -> dict:
+    """K4's error-image mode against its plain version. The plain version
+    transforms the vertices with a contraction (as the reference does), the
+    kernel term by term (as its GN sums do): an ulp of the warp coordinate
+    moves a bilinear blend that straddles a depth or an intensity step."""
+    ik, rk = rgbd.error_images_cuda(*a)
+    ip, rp = rgbd.error_images_plain(*a)
+    zero_differ = int(((ik == 0) != (ip == 0)).sum() + ((rk == 0) != (rp == 0)).sum())
+    err_icp = float((ik - ip).abs().max())
+    rel_rgb = float(((rk - rp).abs() / rp.abs().clamp(min=1.0)).max())
+    n = ik.numel()
+    return dict(max_abs_err=max(err_icp, float((rk - rp).abs().max())), icp_err_m=err_icp,
+                rgb_rel_err=rel_rgb, zero_set_differ=zero_differ,
+                icp_nonzero=int((ik != 0).sum()), rgb_nonzero=int((rk != 0).sum()),
+                icp_beyond_1e5=int(((ik - ip).abs() > 1e-5).sum()),
+                bit_equal=_bits_equal(ik, ip) and _bits_equal(rk, rp),
+                ok=zero_differ <= 1e-4 * n and err_icp <= 2e-4 and rel_rgb <= 2e-4,
+                tolerance="zero sets equal on >= 99.99% of the pixels (a gate may flip at its "
+                          "threshold); ICP distances within 2e-4 m and 0.001 diff^2 within "
+                          "2e-4 relative (|a-b| / max(|b|, 1)): the plain contraction and the "
+                          "kernel's terms round the warp apart by an ulp, and a bilinear blend "
+                          "across a depth or an intensity step amplifies it (measured 8.2e-5)")
+
+
+def _slic_chain(a: tuple):
+    """(image, [labels after each assignment], [centres of each pass]) of the
+    plain SLIC on the CPU: its sums run in pixel order (the reference's)."""
+    image, sp_size, coh, iters = a
+    img = image.cpu()
+    h, w, _ = img.shape
+    grid_hw = SL.grid_shape(h, w, sp_size)
+    labels = [SL.grid_labels(h, w, sp_size, "cpu")]
+    centres = []
+    for _ in range(iters):
+        centres.append(SL.slic_centres_plain(img, labels[-1], grid_hw[0] * grid_hw[1]))
+        labels.append(SL.slic_assign_plain(img, labels[-1], centres[-1], grid_hw, sp_size, coh))
+    centres.append(SL.slic_centres_plain(img, labels[-1], grid_hw[0] * grid_hw[1]))
+    return grid_hw, labels, centres
+
+
+def check_slic_centres(a: tuple) -> dict:
+    """Every centres pass of K24a from the plain chain's labels, against the
+    plain version's sums in pixel order (on the CPU; on the card the plain
+    version's index_add_ adds in atomic order)."""
+    image, sp_size, _, iters = a
+    grid_hw, labels, centres = _slic_chain(a)
+    err, equal = 0.0, True
+    for it, (lab, cen) in enumerate(zip(labels, centres)):
+        ck = SL.slic_centres_cuda(image, None if it == 0 else lab.to(image.device),
+                                  cen.shape[0], grid_hw, sp_size, it).cpu()
+        err = max(err, float((ck - cen).abs().max()))
+        equal = equal and _bits_equal(ck, cen)
+    return dict(max_abs_err=err, bit_equal=equal, passes=iters + 1, ok=equal,
+                tolerance="every pass bit-equal to the plain sums in pixel order")
+
+
+def check_slic_assign(a: tuple) -> dict:
+    """Every assignment of K24a from the plain chain's labels and centres."""
+    image, sp_size, coh, iters = a
+    grid_hw, labels, centres = _slic_chain(a)
+    differ = 0
+    for it in range(iters):
+        lk = SL.slic_assign_cuda(image, None if it == 0 else labels[it].to(image.device),
+                                 centres[it].to(image.device), grid_hw, sp_size, coh).cpu()
+        differ += int((lk != labels[it + 1]).sum())
+    return dict(max_abs_err=float(differ), differing_pixels=differ, passes=iters,
+                ok=differ == 0, tolerance="labels exact (the same terms in the same order)")
+
+
+def check_sp_means(a: tuple) -> dict:
+    images, labels, count, grid_hw, radius = a
+    mk = SL.superpixel_means_cuda(images, labels, grid_hw, SL.SP_SIZE, radius).cpu()
+    mp = SL.superpixel_means_plain(images.cpu(), labels.cpu(), count.cpu())
+    return dict(max_abs_err=float((mk - mp).abs().max()), bit_equal=_bits_equal(mk, mp),
+                ok=_bits_equal(mk, mp),
+                tolerance="bit-equal to the plain sums in pixel order (on the CPU)")
+
+
+def check_sp_upsample(a: tuple) -> dict:
+    uk, up = SL.upsample_onehot_cuda(*a), SL.upsample_onehot_plain(*a)
+    differ = int((uk != up).sum())
+    return dict(max_abs_err=float(differ), differing_cells=differ, ok=differ == 0,
+                tolerance="masks exact")
+
+
+def check_lcrf_plan(a: tuple) -> dict:
+    pk, pp = LC.crf_plan_cuda(*a), LC.crf_plan_plain(*a)
+    errs = {n: float((x - y).abs().max()) for n, x, y in zip(pk._fields, pk, pp)}
+    exact = {n: _bits_equal(x, y) for n, x, y in zip(pk._fields, pk, pp)}
+    ok = exact["unary"] and exact["feat"] and errs["k_smooth"] <= 1e-6 and errs["k_app"] <= 1e-6 \
+        and errs["q0"] <= 1e-6
+    return dict(max_abs_err=max(errs.values()), errors=errs, exact=exact, ok=ok,
+                tolerance="unaries and features exact; kernel matrices and Q0 within 1e-6 "
+                          "(expf against the CPU's exp; row sums in another fixed order)")
+
+
+LCRF_TIE_EPS = 1e-5
+
+
+def check_lcrf_iterate(a: tuple, iters: int = 1, eps: float = LCRF_TIE_EPS) -> dict:
+    """``iters`` K24c mean-field steps from the plain plan, kernel against the
+    plain steps (torch.matmul, TF32 off): each step from the plain chain's Q
+    within 1e-5; free-running, a superpixel's label differs only where the
+    plain chain's top-two margin fell below ``eps``."""
+    plan = LC.crf_plan_plain(*a)
+    qp = qk = plan.q0
+    step_err, lk = 0.0, None
+    margin = torch.full((qp.shape[0],), float("inf"), device=qp.device)
+    for it in range(iters):
+        last = it == iters - 1
+        forced, _ = LC.crf_iterate_cuda(qp, plan)
+        qk, lk = LC.crf_iterate_cuda(qk, plan, want_labels=last)
+        qp = LC.crf_iterate_plain(qp, plan)
+        step_err = max(step_err, float((forced - qp).abs().max()))
+        top2 = torch.topk(qp, 2, dim=-1).values
+        margin = torch.minimum(margin, top2[:, 0] - top2[:, 1])
+    flipped = lk.long() != qp.argmax(-1)
+    off_ties = flipped & (margin >= eps)
+    return dict(max_abs_err=float((qk - qp).abs().max()), step_err=step_err,
+                argmax_differ=int(flipped.sum()), argmax_differ_off_ties=int(off_ties.sum()),
+                ok=step_err <= 1e-5 and not bool(off_ties.any()),
+                tolerance=f"each step from the plain chain's Q within 1e-5; labels differ only "
+                          f"where the plain top-two margin fell below {eps}")

@@ -40,6 +40,7 @@ from multimotionfusion_tpu_torch.ops.rasterize import (
     _pixel_rays,
     gather_attr_images,
     check_pose,
+    scalar_arg,
     take_small,
     transform_per_model,
 )
@@ -328,6 +329,7 @@ _CLEAN_ARGS = (
     [K.P, K.I, K.I, K.P, K.P, K.P, K.P, K.P, K.I, K.I, K.I, K.I]  # map, index, depth, mask
     + [K.F] * 7 + [K.I]  # time .. mask factor, compact
     + [K.P] * 5 + [K.I, K.P, K.P]  # scratch, out, out row stride, count out, skip
+    + [K.P]  # the confidence gate by pointer (or null)
 )
 
 
@@ -360,15 +362,17 @@ def clean_cuda(smap: sm.SurfelMap, index_map: IndexMap, depth_input, mask, mask_
     counts, offsets = sm.compaction_scratch(cap, dev)
     count_out = torch.empty((), dtype=torch.int32, device=dev) if compact else smap.count
     factor = 0.5 + 0.5 * (1.0 - cfg.outlier_coeff / 10.0)
+    conf_threshold, conf_p = scalar_arg(conf_threshold, "conf_threshold")
     f = K.fn("clean", "mmf_clean", _CLEAN_ARGS)
     K.call(
         "clean.compact" if compact else "clean", f, K.ptr(data), data.stride(0), cap,
         K.ptr(smap.count), K.ptr(index_map.index),
         K.ptr(index_map.data_local), K.ptr(depth_input), K.ptr(mask), int(mask_id), h, w,
-        int(cfg.assoc_window), float(time), float(time_delta), float(conf_threshold),
+        int(cfg.assoc_window), float(time), float(time_delta), conf_threshold,
         float(cfg.unstable_grace), float(cfg.clean_see_through_gate), float(cfg.outlier_coeff),
         factor, int(compact), K.ptr(verdicts), K.ptr(keep), K.ptr(counts), K.ptr(offsets),
         K.ptr(out), out.stride(0), K.ptr(count_out), None if skip is None else K.ptr(skip),
+        conf_p,
     )
     return sm.SurfelMap(data=out, count=count_out)
 

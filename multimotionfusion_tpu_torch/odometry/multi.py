@@ -497,8 +497,10 @@ def multi_track(T_prev: torch.Tensor, levels: List[MultiLevel], last_next_img_l2
     use_rgb = cfg.rgb_only or cfg.icp_weight < 100
     if not use_icp:
         raise ValueError("composite multi-model odometry requires the ICP term")
-    if cfg.rgb_only or cfg.error_images:
-        raise NotImplementedError("rgb_only / error images are not ported for the multi path")
+    if cfg.rgb_only:
+        raise NotImplementedError("rgb_only is not ported for the multi path")
+    # cfg.error_images is not read here: the composite odometry writes no
+    # error images, as the reference's odometry/multi.py does not
     M = n_models
     K.record("multi_track", T_prev=T_prev, levels=levels, last_next_img_l2=last_next_img_l2,
              cfg=cfg, cam=cam, n_models=n_models, T_init=T_init, seed_valid=seed_valid,

@@ -20,6 +20,10 @@ Port of the reference package's ``odometry/rgbd.py``, with its loops on the card
   on the card, the keypoint initialisation) starts the Gauss-Newton loop from
   the seed or the SO(3) pose: ``seed_select`` (K5) picks by validity and, by
   two ``gn_reduce`` evaluations at the coarsest level, by the dense error;
+- with ``cfg.error_images`` (the legacy CRF's input) one more level-0
+  evaluation on the full grid at the final pose writes the per-pixel ICP
+  and photometric error images (K4's error-image mode, enqueued after the
+  loop);
 - the 0.3 m divergence guard reverts the whole update (a device select).
 
 On CPU tensors every wrapper takes its plain PyTorch version (same module).
@@ -53,6 +57,10 @@ class OdometryResult(NamedTuple):
     A: torch.Tensor  # [6,6] last fused normal matrix
     b: torch.Tensor  # [6]
     state: torch.Tensor  # [S_SIZE] the loop state the fields above view
+    # with ``cfg.error_images``: level 0's per-pixel ICP distance and
+    # 0.001 diff^2 at the final pose (the legacy CRF's input), else None
+    icp_error_image: Optional[torch.Tensor] = None
+    rgb_error_image: Optional[torch.Tensor] = None
 
 
 class LevelData(NamedTuple):
@@ -470,6 +478,70 @@ def gn_reduce(lv: GNLevel, Rt_inv: torch.Tensor, cam_l: CameraModel, scale2: flo
     return gn_reduce_plain(lv, Rt_inv, cam_l, scale2, p, done)
 
 
+def error_images_plain(lv: GNLevel, Rt_inv: torch.Tensor, cam_l: CameraModel, p: GNParams):
+    """Plain K4 error-image mode: (ICP distance [H, W] where the association
+    is in bounds and finite, 0.001 diff^2 [H, W] where the photometric
+    correspondence is valid; zeros elsewhere and for a term that is off) on
+    the full grid of ``lv`` (rgbd.py:450 icp_system, :532 rgb_correspondences)."""
+    dev = lv.img.device
+    Rt_inv = Rt_inv.to(dev, F32)
+    Ri, ti = Rt_inv[:3, :3], Rt_inv[:3, 3]
+    vcp = torch.einsum("ij,hwj->hwi", Ri, lv.vmap) + ti
+    z = vcp[..., 2]
+    safe_z = torch.where(z != 0, z, torch.ones_like(z))
+    uf = vcp[..., 0] * cam_l.fx / safe_z + cam_l.cx
+    vf = vcp[..., 1] * cam_l.fy / safe_z + cam_l.cy
+    d_cp, d_ok, _, n_ok, dl, dl_ok, il, il_ok = _sample(lv, uf, vf, cam_l, p)
+    zero = torch.zeros_like(z)
+    icp_img = rgb_img = zero
+    if p.use_icp:
+        in_bounds = d_ok & n_ok & (z > 0) & (lv.vmap[..., 2] > 0)
+        e = d_cp - vcp
+        dist = torch.sqrt(e[..., 0] * e[..., 0] + e[..., 1] * e[..., 1] + e[..., 2] * e[..., 2])
+        icp_img = torch.where(in_bounds & torch.isfinite(dist), dist, zero)
+    if p.use_rgb:
+        valid = lv.static_valid & dl_ok & il_ok & (torch.abs(z - dl) <= p.max_depth_delta_rgb)
+        diff = torch.where(valid, lv.img - il, zero)
+        rgb_img = torch.where(valid, 0.001 * diff * diff, zero)
+    return icp_img, rgb_img
+
+
+_ERR_ARGS = ([K.P, K.I, K.I, K.I] + [K.P] * 6 + [K.P] + [K.F] * 4 + [K.I, K.I] + [K.F] * 4
+             + [K.P, K.P])
+
+
+def error_images_cuda(lv: GNLevel, Rt_inv: torch.Tensor, cam_l: CameraModel, p: GNParams):
+    """K4's error-image mode on the card: ``csrc/gn_reduce.cu``
+    ``mmf_gn_error_images``, one launch over the full level-0 grid; ``Rt_inv``
+    is read by pointer."""
+    check_pose(Rt_inv, "Rt_inv")
+    K.check(lv.pred, torch.bfloat16 if lv.compact else F32, "pred")
+    for name in ("vmap", "nmap", "img", "didx", "didy"):
+        K.check(getattr(lv, name), F32, name)
+    K.check(lv.static_valid, torch.bool, "static_valid")
+    h, w = lv.img.shape
+    if tuple(lv.pred.shape) != (h, w, 8):
+        raise ValueError("pred must be [H, W, 8]")
+    icp_img = torch.empty((h, w), dtype=F32, device=lv.img.device)
+    rgb_img = torch.empty((h, w), dtype=F32, device=lv.img.device)
+    f = K.fn("gn_reduce", "mmf_gn_error_images", _ERR_ARGS)
+    K.call(
+        "gn_reduce.error_images", f, K.ptr(lv.pred), int(lv.compact), h, w, K.ptr(lv.vmap),
+        K.ptr(lv.nmap), K.ptr(lv.img), K.ptr(lv.didx), K.ptr(lv.didy), K.ptr(lv.static_valid),
+        K.ptr(Rt_inv), cam_l.fx, cam_l.fy, cam_l.cx, cam_l.cy, int(p.use_icp), int(p.use_rgb),
+        p.dist_thresh, p.angle_thresh, p.max_depth_delta_rgb, p.max_depth_rgb,
+        K.ptr(icp_img), K.ptr(rgb_img),
+    )
+    return icp_img, rgb_img
+
+
+def error_images(lv: GNLevel, Rt_inv: torch.Tensor, cam_l: CameraModel, p: GNParams):
+    """(ICP error image, RGB error image) of ``lv``'s full grid at ``Rt_inv``."""
+    K.record("gn_reduce.error_images", lv=lv, Rt_inv=Rt_inv, cam_l=cam_l, p=p)
+    impl = error_images_cuda if lv.img.is_cuda else error_images_plain
+    return impl(lv, Rt_inv, cam_l, p)
+
+
 def _sym(tri: torch.Tensor, n: int = 7) -> torch.Tensor:
     iu = torch.triu_indices(n, n)
     S = torch.zeros((n, n), dtype=F32)
@@ -820,8 +892,6 @@ def track(T_prev: torch.Tensor, gl: List[GNLevel], last_next_img_l2: torch.Tenso
     bool on the device; True when None) is set and the SO(3) pose otherwise,
     and before the coarsest level the dense error at that start and at the
     SO(3) pose decides which one it keeps."""
-    if cfg.error_images:
-        raise NotImplementedError("odometry error images are not ported yet (ROADMAP.md)")
     use_icp = (not cfg.rgb_only) and cfg.icp_weight > 0
     use_rgb = cfg.rgb_only or cfg.icp_weight < 100
     K.record("track", T_prev=T_prev, gl=gl, last_next_img_l2=last_next_img_l2, cfg=cfg, cam=cam,
@@ -852,6 +922,15 @@ def track(T_prev: torch.Tensor, gl: List[GNLevel], last_next_img_l2: torch.Tenso
             sums = gn_reduce(lv, Rt_inv, cam.level(i), sp.scale2, params, level=i, done=done)
             gn_step(st, sums, sp, last=j == iters - 1)
 
+    # the optional error images (the legacy CRF's input): one more level-0
+    # evaluation on the full grid at the final pose (rgbd.py:1062-1075)
+    err_imgs = (None, None)
+    if cfg.error_images:
+        h, w = gl[0].img.shape
+        err_imgs = (torch.zeros((h, w), dtype=F32, device=T_prev.device),) * 2
+        if schedule[0] > 0:
+            err_imgs = error_images(gl[0]._replace(stride=1), Rt_inv, cam.level(0), params)
+
     T_new = T_prev @ Rt_inv
     if use_rgb:
         diverged = torch.linalg.norm(T_new[:3, 3] - T_prev[:3, 3]) > cfg.divergence_trans_norm
@@ -859,6 +938,7 @@ def track(T_prev: torch.Tensor, gl: List[GNLevel], last_next_img_l2: torch.Tenso
     return OdometryResult(
         T_new, st[S_ICP_ERR], st[S_ICP_COUNT], st[S_RGB_ERR], st[S_RGB_COUNT], st[S_SO3_ERR],
         st[S_SO3_COUNT], st[S_LAST_A:S_LAST_A + 36].view(6, 6), st[S_LAST_B:S_LAST_B + 6], st,
+        *err_imgs,
     )
 
 

@@ -202,13 +202,25 @@ def zbuffer_plain(data, count, T_inv, cam: CameraModel, time, time_delta, max_de
 
 
 _ZB_ARGS = ([K.P, K.I, K.I, K.P, K.P] + [K.F] * 4 + [K.I, K.I] + [K.F] * 3 + [K.I, K.F, K.F]
-            + [K.I, K.P, K.P, K.P])
+            + [K.I, K.P, K.P, K.P, K.P, K.P])
+
+
+def scalar_arg(x, name: str):
+    """(float, pointer) of a kernel scalar that is either a Python number or a
+    0-dim float32 tensor on the card (read there by pointer, no host read)."""
+    if isinstance(x, torch.Tensor):
+        K.check(x, torch.float32, name)
+        if x.dim() != 0:
+            raise ValueError(f"{name} must be 0-dim")
+        return 0.0, K.ptr(x)
+    return float(x), None
 
 
 def zbuffer_cuda(data, count, T_inv, cam: CameraModel, time, time_delta, max_depth,
                  splat_gates=None):
     """K6 on the card: ``csrc/zbuffer.cu`` (same contract as ``zbuffer_plain``;
-    ``T_inv`` is read by pointer)."""
+    ``T_inv``, and ``max_depth`` and the confidence gate where they are
+    0-dim tensors, are read by pointer)."""
     K.check(data, torch.float32, "data", contiguous=False)
     K.check(count, torch.int32, "count")
     check_pose(T_inv, "T_inv")
@@ -223,11 +235,13 @@ def zbuffer_cuda(data, count, T_inv, cam: CameraModel, time, time_delta, max_dep
     data_local = torch.empty((sm.CHANNELS, n), dtype=torch.float32, device=dev)
     index = torch.empty((h, w), dtype=torch.int32, device=dev)
     f = K.fn("zbuffer", "mmf_zbuffer", _ZB_ARGS)
+    max_depth, max_depth_p = scalar_arg(max_depth, "max_depth")
+    conf_threshold, conf_p = scalar_arg(conf_threshold, "conf_threshold")
     K.call(
         "zbuffer", f, K.ptr(data), data.stride(0), n, K.ptr(count), K.ptr(T_inv),
-        cam.fx, cam.fy, cam.cx, cam.cy, w, h, float(time), float(time_delta), float(max_depth),
-        int(gated), float(conf_threshold), float(max_time), _id_bits_for(n),
-        K.ptr(keys), K.ptr(data_local), K.ptr(index),
+        cam.fx, cam.fy, cam.cx, cam.cy, w, h, float(time), float(time_delta), max_depth,
+        int(gated), conf_threshold, float(max_time), _id_bits_for(n),
+        K.ptr(keys), K.ptr(data_local), K.ptr(index), max_depth_p, conf_p,
     )
     return index, data_local
 
@@ -585,6 +599,11 @@ def splat_resolve_cuda(index, data_local, cam: CameraModel, conf_threshold, time
                      1.0 / cam.fx, 1.0 / cam.fy, float(fill.depth_cutoff), int(fill.passthrough),
                      None if fill.gate is None else K.ptr(fill.gate)]
     comp_args = [None, None, 0]
+    conf_threshold, conf_p = scalar_arg(conf_threshold, "conf_threshold")
+    if conf_p is not None:  # one gate read by pointer (no owner image)
+        if composite is not None:
+            raise ValueError("a composite resolve takes its gates from composite.conf_all")
+        comp_args = [conf_p, None, 1]
     if composite is not None:
         K.check(composite.conf_all, torch.float32, "conf_all")
         K.check(composite.own, torch.int32, "own")

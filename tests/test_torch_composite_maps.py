@@ -30,6 +30,7 @@ from multimotionfusion_tpu_torch.model import fillin as tfill
 from multimotionfusion_tpu_torch.ops import rasterize as tr
 from multimotionfusion_tpu_torch.utils import se3 as tse3
 from tests import torch_flat_scene as sc
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 TCAM = TCameraModel(**sc.CAMK)
 LAYOUT = tr.FlatLayout(sc.BG, sc.BO, sc.SLOTS)

@@ -26,19 +26,10 @@ from multimotionfusion_tpu.model import surfel_map as jsm
 from multimotionfusion_tpu_torch.config import DeformationConfig
 from multimotionfusion_tpu_torch.model import deformation as tdg
 from multimotionfusion_tpu_torch.model import surfel_map as tsm
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 CFGK = dict(max_nodes=32, k_neighbours=4, iterations=5)
 JCFG, TCFG = JCfg(**CFGK), DeformationConfig(**CFGK)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread while this module runs (six pytest workers share the
-    CPU; see tests/test_torch_segmentation.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a, dtype=torch.float32):

@@ -30,6 +30,7 @@ from multimotionfusion_tpu.ops import maps as jmaps
 from multimotionfusion_tpu_torch.config import CameraModel, FernConfig
 from multimotionfusion_tpu_torch.model import ferns as tf
 from tests import synthetic
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 CAMK = dict(width=160, height=120, fx=132.0, fy=132.0, cx=80.0, cy=60.0)
 CAM = CameraModel(**CAMK)
@@ -39,16 +40,6 @@ CAM_S = tf.fern_camera(CAM, 4)
 JCAM_S = JCam(width=40, height=30, fx=33.0, fy=33.0, cx=20.0, cy=15.0)
 JOCFG = JOdo(num_pyr=2, iterations=(10, 5), so3_prealign=False, mask_icp=False, mask_rgb=False,
              min_grad_magnitudes=(5.0, 3.0))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread while this module runs (six pytest workers share the
-    CPU; see tests/test_torch_segmentation.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _poses(n):

@@ -43,8 +43,9 @@ from multimotionfusion_tpu_torch import config as T
 from multimotionfusion_tpu_torch import interop
 from multimotionfusion_tpu_torch.engine import MultiMotionFusionTorch
 from multimotionfusion_tpu_torch.segmentation import flow_crf as tfc
-from tests.test_torch_segmentation import (  # noqa: F401 (an autouse fixture)
-    LABEL_SCORES, RecordingJnp, _t, check_segmentation, near_ties, one_torch_thread)
+from tests.test_torch_segmentation import (LABEL_SCORES, RecordingJnp, _t, check_segmentation,
+                                           near_ties)
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 CAMK = dict(width=80, height=60, fx=66.0, fy=66.0, cx=40.0, cy=30.0)
 N_FRAMES = 6

@@ -36,6 +36,7 @@ from multimotionfusion_tpu_torch.model import surfel_map as tsm
 from multimotionfusion_tpu_torch.odometry import levels as tlv
 from multimotionfusion_tpu_torch.ops import frame_maps as tfm
 from multimotionfusion_tpu_torch.ops import rasterize as tr
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 CAMS = {
     "80x60": dict(width=80, height=60, fx=66.0, fy=66.0, cx=40.0, cy=30.0),

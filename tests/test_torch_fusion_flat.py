@@ -28,6 +28,7 @@ from multimotionfusion_tpu_torch.model import surfel_map as tsm
 from multimotionfusion_tpu_torch.ops import rasterize as tr
 from multimotionfusion_tpu_torch.utils import se3 as tse3
 from tests import torch_flat_scene as sc
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 TCAM = TCameraModel(**sc.CAMK)
 TCFG = TSurfelConfig(max_surfels=8192, depth_cutoff=5.0)

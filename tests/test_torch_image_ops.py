@@ -22,6 +22,7 @@ from multimotionfusion_tpu.ops import maps as jmaps
 from multimotionfusion_tpu_torch.config import CameraModel as TCameraModel
 from multimotionfusion_tpu_torch.ops import image as timg
 from multimotionfusion_tpu_torch.ops import maps as tmaps
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 CAMS = {
     "80x60": dict(width=80, height=60, fx=66.0, fy=66.0, cx=40.0, cy=30.0),

@@ -6,7 +6,9 @@
   imports are fine). An AST scan, not ``sys.modules``: the test process may
   have imported jax already.
 - Without CUDA the engine raises unless given ``device="cpu"``; configurations
-  the port does not run yet raise NotImplementedError; the default
+  the port does not run yet raise NotImplementedError; the legacy CRF
+  (``segmentation.mode="crf"``, static and precomputed-mask base
+  configurations) turns the odometry's error images on and steps; the default
   ``odom_init="kp"`` constructs and steps on the CPU, and so does the
   multi-model engine with external masks (``segmentation.mode="precomputed"``)
   and with the flow-CRF segmentation (the default mode, "none" alike, also
@@ -51,7 +53,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert len(FILES) > 10
     names = {p.name for p in FILES}
     assert {"flow.py", "crf.py", "components.py", "flow_crf.py", "ferns.py", "deformation.py",
-            "loop_closure.py"} <= names
+            "loop_closure.py", "slic.py", "legacy_crf.py"} <= names
     bad = [(str(p.relative_to(ROOT)), m) for p in FILES for m in _imports(p) if _forbidden(m)]
     assert bad == []
 
@@ -69,8 +71,40 @@ def test_engine_needs_cuda_unless_asked_for_cpu(monkeypatch):
     dict(frame_to_frame_rgb=True), dict(upload_yuv420=True),
 ])
 def test_unported_configurations_raise(override):
+    if override.get("segmentation") is not None:  # the legacy CRF is ported: it steps
+        _legacy_crf_steps({**STATIC, **override})
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MultiMotionFusionTorch(EngineConfig(**{**STATIC, **override}), device="cpu")
+
+
+def _legacy_crf_steps(kw):
+    """The legacy CRF multi-model engine (``segmentation.mode="crf"``) on a
+    small camera: the odometry's error images turn on, three frames of the
+    approaching spheres step on the CPU, the mask is a label image."""
+    cam = CameraModel(width=80, height=60, fx=66.0, fy=66.0, cx=40.0, cy=30.0)
+    cfg = EngineConfig(**{**kw, "camera": cam, "object_slots": 2, "object_capacity": 2048,
+                          "surfels": SurfelConfig(max_surfels=1 << 13, depth_cutoff=5.0),
+                          "keypoints": KeypointConfig(max_keypoints=64, max_tracks=256,
+                                                      track_history=8),
+                          "ransac": RansacConfig(iterations=32)})
+    assert cfg.enable_multi_model and cfg.segmentation.mode == "crf"
+    assert not cfg.odometry.error_images
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        eng = MultiMotionFusionTorch(cfg, device="cpu")
+        assert eng.cfg.odometry.error_images
+        for f in _spheres(cam, 3):
+            eng.process_frame(f)
+        stats = eng.finish()
+    finally:
+        torch.set_num_threads(n)
+    assert stats["surfels"] > 0 and len(stats["segment_px"]) == 3
+    mask = eng.last_mask
+    assert mask.shape == (60, 80) and int(mask.min()) >= 0 and int(mask.max()) <= 2
+    assert eng._last_stats.odo.icp_error_image.shape == (60, 80)
+    assert len(eng.pose_log) == 3
 
 
 def test_default_kp_engine_steps_on_cpu():
@@ -99,6 +133,9 @@ def test_unknown_odom_init_is_refused():
     dict(odom_init="tf"),
 ])
 def test_unported_multi_configurations_raise(override):
+    if override.get("segmentation") is not None:  # the legacy CRF is ported: it steps
+        _legacy_crf_steps({**PRECOMPUTED, **override})
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MultiMotionFusionTorch(EngineConfig(**{**PRECOMPUTED, **override}), device="cpu")
 

@@ -33,6 +33,10 @@ tests/test_reloc.py's journey at 160x120 (K22's ÷4 frame, retrieval and
 photometric check on the relocalising frame, the insertion on a frame that
 inserts) and tests/test_loop_closure.py's drift journey at 160x120 (K23's
 constraint points and map on the matching frame).
+
+A fifth run, of the legacy CRF multi-model engine (``segmentation.mode="crf"``)
+on chip_smoke.py's spheres at 160x120, records K4's error-image mode, K24a-c
+(SLIC, the superpixel means and upsample, the superpixel CRF) and K17.
 """
 
 import pytest
@@ -278,4 +282,58 @@ def captured_global():
 @pytest.mark.parametrize("name,check", GLOBAL_CASES, ids=[n for n, _ in GLOBAL_CASES])
 def test_global_kernel_matches_plain(captured_global, name, check):
     r = check(checks.args(name, captured_global[name]))
+    assert r["ok"], r
+
+
+LEGACY_CASES = [("gn_reduce.error_images", checks.check_error_images),
+                ("slic.centres", checks.check_slic_centres),
+                ("slic.assign", checks.check_slic_assign),
+                ("sp.downsample", checks.check_sp_means), ("sp.upsample", checks.check_sp_upsample),
+                ("legacy_crf.plan", checks.check_lcrf_plan),
+                ("legacy_crf.iterate[1]", lambda a: checks.check_lcrf_iterate(a, 1)),
+                ("legacy_crf.iterate[10]", lambda a: checks.check_lcrf_iterate(a, 10)),
+                ("components", checks.check_components)]
+
+
+def _legacy_key(name: str) -> str:
+    """Recorded inputs of a legacy CRF case (SLIC and the CRF record once a frame)."""
+    if name.startswith("slic."):
+        return "slic"
+    return "legacy_crf.plan" if name.startswith("legacy_crf.") else name
+
+
+@pytest.fixture(scope="module")
+def captured_legacy():
+    """A 160x120 run of the legacy CRF multi-model engine on chip_smoke.py's
+    spheres (no masks, ``segmentation.mode="crf"``, 12 frames): the inputs
+    of K4's error images, K24a-c and K17 at its last frame."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
+    import dataclasses
+
+    from chip_smoke import multi_frames
+
+    from multimotionfusion_tpu_torch.config import SegmentationConfig
+
+    cfg, frames = multi_frames(12, cam=CAM, object_capacity=1 << 14, max_surfels=1 << 16,
+                               masks=False)
+    cfg = dataclasses.replace(cfg, segmentation=SegmentationConfig(mode="crf"))
+    K.reset_launches()
+    eng = MultiMotionFusionTorch(cfg, device="cuda")
+    for i, f in enumerate(frames):
+        if i == len(frames) - 1:
+            K.start_capture()
+        eng.process_frame(f)
+    out = K.stop_capture()
+    torch.cuda.synchronize()
+    for key in ("gn_reduce.error_images", "slic.centres", "slic.assign", "sp.downsample",
+                "sp.upsample", "legacy_crf.plan", "legacy_crf.iterate", "components"):
+        assert K.LAUNCHES.get(key, 0) > 0, key
+    return out
+
+
+@pytest.mark.parametrize("name,check", LEGACY_CASES, ids=[n for n, _ in LEGACY_CASES])
+def test_legacy_crf_kernel_matches_plain(captured_legacy, name, check):
+    key = _legacy_key(name)
+    r = check(checks.args(key, captured_legacy[key]))
     assert r["ok"], r

@@ -30,6 +30,7 @@ from multimotionfusion_tpu.tracking import superpoint as jsp
 from multimotionfusion_tpu_torch.ops import image as timg
 from multimotionfusion_tpu_torch.tracking import superpoint as tsp
 from tests import synthetic
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 CAM = CameraModel(width=160, height=120, fx=132.0, fy=132.0, cx=80.0, cy=60.0)
 K = 256

@@ -33,6 +33,7 @@ from multimotionfusion_tpu_torch.config import KeypointConfig as TKeypointConfig
 from multimotionfusion_tpu_torch.config import SurfelConfig as TSurfelConfig
 from multimotionfusion_tpu_torch.engine import MultiMotionFusionTorch
 from multimotionfusion_tpu_torch.tracking import tracker as ttr
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 CAMK = dict(width=160, height=120, fx=132.0, fy=132.0, cx=80.0, cy=60.0)
 KK = dict(max_keypoints=256, max_tracks=1024, track_history=8, detector="patch",

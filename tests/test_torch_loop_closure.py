@@ -45,6 +45,7 @@ from multimotionfusion_tpu_torch.engine import MultiMotionFusionTorch
 from multimotionfusion_tpu_torch.model import ferns as tf
 from multimotionfusion_tpu_torch.model import loop_closure as tlc
 from multimotionfusion_tpu_torch.model import surfel_map as tsm
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 CAMK = dict(width=80, height=60, fx=66.0, fy=66.0, cx=40.0, cy=30.0)
 
@@ -57,16 +58,6 @@ def cfg_of(C):
         keypoints=C.KeypointConfig(max_keypoints=64, max_tracks=256, track_history=8),
         ferns=C.FernConfig(num_ferns=200, factor=4),
         deformation=C.DeformationConfig(max_nodes=64, iterations=3), loop_accept_cons_err=0.02)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread while this module runs (six pytest workers share the
-    CPU; see tests/test_torch_segmentation.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a, dtype=torch.float32):

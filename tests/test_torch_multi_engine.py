@@ -41,6 +41,7 @@ from multimotionfusion_tpu.io.frame import FrameData
 from multimotionfusion_tpu_torch import config as T
 from multimotionfusion_tpu_torch import interop
 from multimotionfusion_tpu_torch.engine import MultiMotionFusionTorch
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 CAMK = dict(width=80, height=60, fx=66.0, fy=66.0, cx=40.0, cy=30.0)
 H, W = CAMK["height"], CAMK["width"]

@@ -18,6 +18,7 @@ import pytest
 
 from tests.test_torch_multi_engine import (CAMERA_TOGETHER, _rot_deg, check_lifecycle,
                                            check_one_step, gt_pose, run_journey)
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 @pytest.fixture(scope="module")

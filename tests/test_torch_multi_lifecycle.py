@@ -40,6 +40,7 @@ from multimotionfusion_tpu_torch.segmentation import precomputed as tpc
 from multimotionfusion_tpu_torch.tracking import superpoint as tsp
 from multimotionfusion_tpu_torch.tracking import tracker as ttr
 from tests.test_torch_multi_engine import CAMK, H, W, _cfg
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 # ---------------------------------------------------------------- segmentation

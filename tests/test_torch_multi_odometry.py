@@ -37,6 +37,7 @@ from multimotionfusion_tpu_torch.config import OdometryConfig as TOdometryConfig
 from multimotionfusion_tpu_torch.odometry import multi as tmulti
 from multimotionfusion_tpu_torch.odometry import rgbd as trgbd
 from multimotionfusion_tpu_torch.odometry.levels import FrameLevel, _min_scale
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 CAMK = dict(width=160, height=120, fx=132.0, fy=132.0, cx=80.0, cy=60.0)
 CAM, TCAM = CameraModel(**CAMK), TCameraModel(**CAMK)

@@ -32,6 +32,7 @@ from multimotionfusion_tpu_torch.odometry import rgbd as trgbd
 from multimotionfusion_tpu_torch.ops import image as timg
 from multimotionfusion_tpu_torch.ops import maps as tmaps
 from multimotionfusion_tpu_torch.utils import se3 as tse3
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 CAMK = dict(width=160, height=120, fx=132.0, fy=132.0, cx=80.0, cy=60.0)
 CAM, TCAM = CameraModel(**CAMK), TCameraModel(**CAMK)

@@ -29,6 +29,7 @@ from multimotionfusion_tpu.config import RansacConfig
 from multimotionfusion_tpu.ops import ransac as jr
 from multimotionfusion_tpu_torch.config import RansacConfig as TRansacConfig
 from multimotionfusion_tpu_torch.ops import ransac as tr
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 N = 4096
 TIED = RansacConfig(inlier_threshold=5.0)

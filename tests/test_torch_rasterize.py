@@ -28,6 +28,7 @@ from multimotionfusion_tpu.ops import rasterize as jr
 from multimotionfusion_tpu_torch.config import CameraModel as TCameraModel
 from multimotionfusion_tpu_torch.model import surfel_map as tsm
 from multimotionfusion_tpu_torch.ops import rasterize as tr
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 CAMK = dict(width=80, height=60, fx=66.0, fy=66.0, cx=40.0, cy=30.0)
 CAM, TCAM = CameraModel(**CAMK), TCameraModel(**CAMK)

@@ -40,6 +40,7 @@ from multimotionfusion_tpu_torch import config as T
 from multimotionfusion_tpu_torch import interop
 from multimotionfusion_tpu_torch.engine import MultiMotionFusionTorch
 from tests import synthetic
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 CAMK = dict(width=160, height=120, fx=132.0, fy=132.0, cx=80.0, cy=60.0)
 H, W = CAMK["height"], CAMK["width"]
@@ -53,16 +54,6 @@ def cfg_of(C, **kw):
         camera=C.CameraModel(**CAMK), enable_multi_model=False, odom_init="", reloc_mode=True,
         surfels=C.SurfelConfig(max_surfels=65536, depth_cutoff=5.0),
         ferns=C.FernConfig(num_ferns=300, factor=4, max_depth=5.0), **kw)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread while this module runs (six pytest workers share the
-    CPU; see tests/test_torch_segmentation.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def frames():

@@ -22,7 +22,7 @@ from multimotionfusion_tpu_torch import config as T
 from multimotionfusion_tpu_torch import interop
 from multimotionfusion_tpu_torch.engine import MultiMotionFusionTorch
 from tests.test_torch_flow_crf_engine import cfg_of, frames, jstate
-from tests.test_torch_segmentation import one_torch_thread  # noqa: F401 (an autouse fixture)
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 N = 5
 EXACT = ("active", "last_seen", "nvalid", "model_id")

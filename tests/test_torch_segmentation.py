@@ -56,20 +56,10 @@ from multimotionfusion_tpu_torch.segmentation import crf as tcrf
 from multimotionfusion_tpu_torch.segmentation import flow as tflow
 from multimotionfusion_tpu_torch.segmentation import flow_crf as tfc
 from multimotionfusion_tpu_torch.utils import se3 as tse3
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 CAMK = dict(width=80, height=60, fx=66.0, fy=66.0, cx=40.0, cy=30.0)
 H, W = CAMK["height"], CAMK["width"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread while this module runs: the suite runs six pytest
-    workers on the CPU, and a torch pool of one thread per core in each
-    oversubscribes it many times over (a 1.5 s test took 375 s)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a, dtype=None):

@@ -28,6 +28,7 @@ from multimotionfusion_tpu_torch.config import KeypointConfig as TKeypointConfig
 from multimotionfusion_tpu_torch.tracking import superpoint as tsp
 from multimotionfusion_tpu_torch.tracking import tracker as ttr
 from tests import synthetic
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 CAMK = dict(width=160, height=120, fx=132.0, fy=132.0, cx=80.0, cy=60.0)
 CAM, TCAM = CameraModel(**CAMK), TCameraModel(**CAMK)
