@@ -92,7 +92,16 @@ Phases (any failure exits non-zero):
    K24a (centres and assignment, every pass from the plain chain), K24b,
    K24c (plan, one and ten mean-field steps) and K17 at 640x480 with 7
    labels (the global scratch) against their plain versions on the inputs
-   of the last frame;
+   of the last frame; the same kernels' lines also give each library
+   yardstick's device time (``library_device_ms``);
+5c''. SLIC on hand-made label images (``checks.slic_label_cases``, 487x651:
+   the regular grid, whose last row and column of cells own the pixels
+   beyond 480 and 640; a superpixel of > 20,000 pixels that spans many of
+   the kernels' list chunks, empty superpixels, labels five cells from their
+   pixel's cell, speckle on the edge cells): the boxes, centres and
+   assignment of K24a and the means of K24b for N = 1, 13 and 40 images
+   against the plain versions on the CPU, boxes and labels exact, sums
+   bit-equal;
 5d. five_movers: tests/test_five_movers.py's configuration and 17-frame
    journey at 160x120 (the scene from the port's own io/synthetic.py) on
    the card with the engine seeds FIVE_SEEDS: on every seed five spawns at
@@ -261,18 +270,23 @@ def _time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, reps: int = 20) -> float:
+def _device_ms(fn, reps: int = 20, tries: int = 3):
     """Device time of the work one call of ``fn`` enqueues (kernels, memsets,
     copies; torch.profiler), without the host's launch overhead that ``_time_ms``
-    sees when the host is the slower side."""
+    sees when the host is the slower side. A profile that recorded no device
+    work at all is taken again; None (not measured) after ``tries`` such."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / reps
+    return None
 
 
 def _bound(bytes_moved: float, flops: float):
@@ -499,7 +513,7 @@ def measure_zbuffer(a):
     return dict(
         ms=_time_ms(lambda: R.zbuffer_cuda(*a)), device_ms=_device_ms(lambda: R.zbuffer_cuda(*a)),
         plain_ms=_time_ms(lambda: R.zbuffer_plain(*a)),
-        library_ms=_time_ms(lambda: buf.scatter_reduce_(0, pix, key, reduce="amin")),
+        **_library(lambda: buf.scatter_reduce_(0, pix, key, reduce="amin")),
         bound_ms=bound, bound_by=by,
     )
 
@@ -519,7 +533,7 @@ def measure_splat(a):
         ms=_time_ms(lambda: R.splat_resolve_cuda(*a)),
         device_ms=_device_ms(lambda: R.splat_resolve_cuda(*a)),
         plain_ms=_time_ms(lambda: fillin.splat_fill_plain(*a), reps=5),
-        library_ms=None, bound_ms=bound, bound_by=by,
+        **_library(None), bound_ms=bound, bound_by=by,
     )
 
 
@@ -534,7 +548,7 @@ def measure_fuse(a):
         ms=_time_ms(lambda: FU.fuse_cuda(*a, want_assoc=False)),
         device_ms=_device_ms(lambda: FU.fuse_cuda(*a, want_assoc=False)),
         plain_ms=_time_ms(lambda: FU.fuse_plain(*a), reps=5),
-        library_ms=None, bound_ms=bound, bound_by=by,
+        **_library(None), bound_ms=bound, bound_by=by,
     )
 
 
@@ -552,7 +566,7 @@ def measure_gn(a, level):
         ms=_time_ms(lambda: rgbd.gn_reduce_cuda(*a, level=level)),
         device_ms=_device_ms(lambda: rgbd.gn_reduce_cuda(*a, level=level)),
         plain_ms=_time_ms(lambda: rgbd.gn_reduce_plain(*a)),
-        library_ms=_time_ms(lambda: (icp_rows.T @ icp_rows, rgb_rows.T @ rgb_rows)),
+        **_library(lambda: (icp_rows.T @ icp_rows, rgb_rows.T @ rgb_rows)),
         bound_ms=bound, bound_by=by,
     )
 
@@ -568,7 +582,7 @@ def measure_frame_depth(a):
         ms=_time_ms(lambda: FM.frame_depth_cuda(*a)),
         device_ms=_device_ms(lambda: FM.frame_depth_cuda(*a)),
         plain_ms=_time_ms(lambda: FM.frame_depth_plain(*a), reps=3),
-        library_ms=None, bound_ms=bound, bound_by=by,
+        **_library(None), bound_ms=bound, bound_by=by,
     )
 
 
@@ -582,7 +596,7 @@ def measure_frame_surfels(a):
         ms=_time_ms(lambda: FM.frame_surfels_cuda(*a)),
         device_ms=_device_ms(lambda: FM.frame_surfels_cuda(*a)),
         plain_ms=_time_ms(lambda: FM.frame_surfels_plain(*a), reps=5),
-        library_ms=None, bound_ms=bound, bound_by=by,
+        **_library(None), bound_ms=bound, bound_by=by,
     )
 
 
@@ -626,7 +640,7 @@ def measure_pyr_frame(a, level):
     return dict(
         ms=_time_ms(run), device_ms=_device_ms(run),
         plain_ms=_time_ms(lambda: LV.frame_levels_plain(*a), reps=5),
-        library_ms=_time_ms(lambda: [c() for c in conv]), bound_ms=bound, bound_by=by,
+        **_library(lambda: [c() for c in conv]), bound_ms=bound, bound_by=by,
     )
 
 
@@ -650,7 +664,7 @@ def measure_pyr_pred(a, level):
     return dict(
         ms=_time_ms(run), device_ms=_device_ms(run),
         plain_ms=_time_ms(lambda: LV.pred_levels_plain(*a), reps=5),
-        library_ms=_time_ms(conv) if conv else None, bound_ms=bound, bound_by=by,
+        **_library(conv), bound_ms=bound, bound_by=by,
     )
 
 
@@ -662,7 +676,7 @@ def measure_odo_init(a):
         ms=_time_ms(lambda: rgbd.odo_init_cuda(*a)),
         device_ms=_device_ms(lambda: rgbd.odo_init_cuda(*a)),
         plain_ms=_time_ms(lambda: rgbd.odo_init_plain(*a)),
-        library_ms=None, bound_ms=bound, bound_by=by,
+        **_library(None), bound_ms=bound, bound_by=by,
     )
 
 
@@ -678,7 +692,7 @@ def measure_so3_reduce(a):
         ms=_time_ms(lambda: rgbd.so3_reduce_cuda(*a)),
         device_ms=_device_ms(lambda: rgbd.so3_reduce_cuda(*a)),
         plain_ms=_time_ms(lambda: rgbd.so3_reduce_plain(*a)),
-        library_ms=_time_ms(lambda: rows.T @ rows), bound_ms=bound, bound_by=by,
+        **_library(lambda: rows.T @ rows), bound_ms=bound, bound_by=by,
     )
 
 
@@ -698,7 +712,7 @@ def measure_step(a, kind):
         ms=_time_ms(lambda: cuda(fresh(), *rest)),
         device_ms=_device_ms(lambda: cuda(fresh(), *rest)),
         plain_ms=_time_ms(lambda: plain(state.clone(), *rest), reps=5),
-        library_ms=_time_ms(lambda: torch.linalg.eigh(A)), bound_ms=bound, bound_by=by,
+        **_library(lambda: torch.linalg.eigh(A)), bound_ms=bound, bound_by=by,
         timing_note="each call on a fresh copy of the recorded state (one 512-byte copy included)",
     )
 
@@ -731,7 +745,7 @@ def measure_clean(a):
         ms=_time_ms(lambda: FU.clean_cuda(*args, out=out)),
         device_ms=_device_ms(lambda: FU.clean_cuda(*args, out=out)),
         plain_ms=_time_ms(lambda: FU.clean_plain(*args), reps=5),
-        library_ms=_time_ms(library), bound_ms=bound, bound_by=by, kept=n_keep,
+        **_library(library), bound_ms=bound, bound_by=by, kept=n_keep,
     )
 
 
@@ -744,7 +758,7 @@ def measure_compact(a):
     return dict(
         ms=_time_ms(lambda: sm.compact_cuda(*a)), device_ms=_device_ms(lambda: sm.compact_cuda(*a)),
         plain_ms=_time_ms(lambda: sm.compact_plain(*a), reps=5),
-        library_ms=_time_ms(lambda: data[:, keep]), bound_ms=bound, bound_by=by,
+        **_library(lambda: data[:, keep]), bound_ms=bound, bound_by=by,
     )
 
 
@@ -760,7 +774,7 @@ def measure_patch_score(a):
         ms=_time_ms(lambda: SP.patch_score_cuda(*a)),
         device_ms=_device_ms(lambda: SP.patch_score_cuda(*a)),
         plain_ms=_time_ms(lambda: SP.patch_score_plain(*a), reps=5),
-        library_ms=None, bound_ms=bound, bound_by=by,
+        **_library(None), bound_ms=bound, bound_by=by,
     )
 
 
@@ -782,7 +796,7 @@ def measure_nms(a):
     return dict(
         ms=_time_ms(lambda: SP.nms_topk_cuda(*a)), device_ms=_device_ms(lambda: SP.nms_topk_cuda(*a)),
         plain_ms=_time_ms(lambda: SP.nms_topk_plain(*a), reps=5),
-        library_ms=_time_ms(library), bound_ms=bound, bound_by=by,
+        **_library(library), bound_ms=bound, bound_by=by,
     )
 
 
@@ -795,7 +809,7 @@ def measure_patch_desc(a):
     return dict(
         ms=_time_ms(lambda: SP.patch_desc_cuda(*a)), device_ms=_device_ms(lambda: SP.patch_desc_cuda(*a)),
         plain_ms=_time_ms(lambda: SP.patch_desc_plain(*a), reps=5),
-        library_ms=None, bound_ms=bound, bound_by=by,
+        **_library(None), bound_ms=bound, bound_by=by,
     )
 
 
@@ -814,7 +828,7 @@ def measure_mutual_match(a):
         ms=_time_ms(lambda: TR.mutual_match_cuda(*a)),
         device_ms=_device_ms(lambda: TR.mutual_match_cuda(*a)),
         plain_ms=_time_ms(lambda: TR.mutual_match_plain(*a), reps=3),
-        library_ms=_time_ms(library), bound_ms=bound, bound_by=by,
+        **_library(library), bound_ms=bound, bound_by=by,
     )
 
 
@@ -836,7 +850,7 @@ def measure_track_update(a):
         ms=_time_ms(run), device_ms=_device_ms(run),
         plain_ms=_time_ms(lambda: TR.update_plain(TR.TrackTable(*(x.clone() for x in table)),
                                                   *a[1:]), reps=3),
-        library_ms=None, bound_ms=bound, bound_by=by,
+        **_library(None), bound_ms=bound, bound_by=by,
         timing_note="the update kernels alone, given the matches; repeated on one copy of the "
                     "recorded table",
     )
@@ -854,7 +868,7 @@ def measure_ransac(a):
     return dict(
         ms=_time_ms(lambda: RS.ransac_fit_cuda(*a)), device_ms=_device_ms(lambda: RS.ransac_fit_cuda(*a)),
         plain_ms=_time_ms(lambda: RS.ransac_fit_plain(*a), reps=3),
-        library_ms=None, bound_ms=bound, bound_by=by,
+        **_library(None), bound_ms=bound, bound_by=by,
     )
 
 
@@ -868,16 +882,25 @@ def measure_seed_select(a):
         ms=_time_ms(lambda: rgbd.seed_select_cuda(fresh(), *rest)),
         device_ms=_device_ms(lambda: rgbd.seed_select_cuda(fresh(), *rest)),
         plain_ms=_time_ms(lambda: rgbd.seed_select_plain(state.clone(), *rest), reps=5),
-        library_ms=None, bound_ms=bound, bound_by=by,
+        **_library(None), bound_ms=bound, bound_by=by,
         timing_note="each call on a fresh copy of the recorded state (one 512-byte copy included)",
     )
+
+
+def _library(fn) -> dict:
+    """The yardstick's time as ``ms`` takes the kernel's (CUDA events over
+    back-to-back calls) and its device time as ``device_ms`` (torch.profiler);
+    None where no single PyTorch call computes the same function."""
+    if fn is None:
+        return dict(library_ms=None, library_device_ms=None)
+    return dict(library_ms=_time_ms(fn), library_device_ms=_device_ms(fn))
 
 
 def _measure(cuda, plain, bytes_moved, flops, library=None, plain_reps=3, **extra):
     bound, by = _bound(bytes_moved, flops)
     return dict(ms=_time_ms(cuda), device_ms=_device_ms(cuda),
                 plain_ms=_time_ms(plain, reps=plain_reps),
-                library_ms=None if library is None else _time_ms(library),
+                **_library(library),
                 bound_ms=bound, bound_by=by, **extra)
 
 
@@ -1865,23 +1888,24 @@ def measure_error_images(a):
 
 
 def _slic_state(a):
-    """(image, labels of the last assignment, centres before it, grid) on the card."""
+    """(image, labels of the last assignment, their boxes, centres before it,
+    grid) on the card."""
     from multimotionfusion_tpu_torch.segmentation import slic as SL
 
     image, sp_size, coh, iters = a
     h, w, _ = image.shape
     grid = SL.grid_shape(h, w, sp_size)
-    labels, cen = None, None
-    for it in range(iters):
-        cen = SL.slic_centres_cuda(image, labels, grid[0] * grid[1], grid, sp_size, it)
-        labels = SL.slic_assign_cuda(image, labels, cen, grid, sp_size, coh)
-    return image, labels, cen, grid
+    labels, bounds, cen = None, None, None
+    for _ in range(iters):
+        cen = SL.slic_centres_cuda(image, labels, grid[0] * grid[1], grid, sp_size, bounds)
+        labels, bounds = SL.slic_assign_cuda(image, labels, cen, grid, sp_size, coh)
+    return image, labels, bounds, cen, grid
 
 
 def measure_slic_centres(a):
     from multimotionfusion_tpu_torch.segmentation import slic as SL
 
-    image, labels, _, grid = _slic_state(a)
+    image, labels, bounds, _, grid = _slic_state(a)
     s, n = grid[0] * grid[1], labels.numel()
     ys, xs = torch.meshgrid(torch.arange(image.shape[0], device=DEVICE),
                             torch.arange(image.shape[1], device=DEVICE), indexing="ij")
@@ -1889,9 +1913,11 @@ def measure_slic_centres(a):
                       torch.ones((n, 1), device=DEVICE)], 1)
     flat = labels.reshape(-1).long()
     acc = torch.zeros((s, 6), device=DEVICE)
-    # the last pass (radius a[3]): colour and label in, [S, 6] out; 6 adds a pixel
-    return _measure(lambda: SL.slic_centres_cuda(image, labels, s, grid, a[1], a[3]),
-                    lambda: SL.slic_centres_plain(image, labels, s), n * 16 + s * 24, 6 * n,
+    # the last pass, with the assignment's boxes (as on the path): colour,
+    # label and the boxes in, [S, 6] out; 6 adds a pixel
+    return _measure(lambda: SL.slic_centres_cuda(image, labels, s, grid, a[1], bounds),
+                    lambda: SL.slic_centres_plain(image, labels, s),
+                    n * 16 + s * 16 + s * 24, 6 * n,
                     library=lambda: acc.zero_().index_add_(0, flat, vals),
                     library_call="index_add_ of the [H*W, 6] sums")
 
@@ -1899,26 +1925,28 @@ def measure_slic_centres(a):
 def measure_slic_assign(a):
     from multimotionfusion_tpu_torch.segmentation import slic as SL
 
-    image, labels, cen, grid = _slic_state(a)
+    image, labels, _, cen, grid = _slic_state(a)
     n = labels.numel()
-    # colour and label in, label out, the centres once; 9 candidates of ~22 operations
+    # colour and label in, label out, the centres once, the boxes out; 9
+    # candidates of ~22 operations
     return _measure(lambda: SL.slic_assign_cuda(image, labels, cen, grid, a[1], a[2]),
                     lambda: SL.slic_assign_plain(image, labels, cen, grid, a[1], a[2]),
-                    n * 20 + cen.numel() * 4, 9 * 22 * n)
+                    n * 20 + cen.numel() * 4 + cen.shape[0] * 16, 9 * 22 * n)
 
 
 def measure_sp_means(a):
     from multimotionfusion_tpu_torch.segmentation import slic as SL
 
-    images, labels, count, grid, radius = a
+    images, labels, count, grid, bounds = a
     k, s = images.shape[0], count.shape[0]
     n = labels.numel()
     flat = labels.reshape(-1).long()
     vals = images.reshape(k, -1).T.contiguous()
     acc = torch.zeros((s, k), device=DEVICE)
-    return _measure(lambda: SL.superpixel_means_cuda(images, labels, grid, SL.SP_SIZE, radius),
+    # the images and the labels read once, the boxes in, [N, S] out
+    return _measure(lambda: SL.superpixel_means_cuda(images, labels, grid, bounds),
                     lambda: SL.superpixel_means_plain(images, labels, count),
-                    4 * k * n + 4 * n + 4 * k * s, k * n,
+                    4 * k * n + 4 * n + 16 * s + 4 * k * s, k * n,
                     library=lambda: acc.zero_().index_add_(0, flat, vals),
                     library_call="index_add_ of the [H*W, N] sums")
 
@@ -1996,6 +2024,17 @@ def plan_legacy():
          C.check_components, measure_components, "components.cu",
          "segmentation/components.py:61"),
     ]
+
+
+def run_slic_cases() -> list:
+    """Phase 5c'': K24a and K24b on hand-made label images against the plain
+    versions on the CPU (``checks.check_slic_cases``)."""
+    from multimotionfusion_tpu_torch.kernels import checks as C
+
+    r = C.check_slic_cases(DEVICE)
+    torch.cuda.synchronize()
+    print(json.dumps({"phase": "slic_cases", **r}))
+    return [] if r["ok"] else [f"SLIC on hand-made labels: {r['cases']}"]
 
 
 # ---------------------------------------------------------------- relocalisation, loop closure
@@ -2465,7 +2504,7 @@ def main() -> int:
     syncs += g_syncs
     run_stages(K, g_engine, f_frames[MULTI_FRAMES + 1:], "legacy_crf_stages")
     del g_engine
-    f_failed += g_failed
+    f_failed += g_failed + run_slic_cases()
     five = five_movers_seeds()
 
     r_launches, r_captured, global_failed = run_reloc(K)

@@ -97,7 +97,7 @@ _ARG_NAMES = {
     "deform.apply_map": ("data", "count", "graph", "k", "gate"),
     "gn_reduce.error_images": ("lv", "Rt_inv", "cam_l", "p"),
     "slic": ("image", "sp_size", "coh_weight", "iterations"),
-    "sp.downsample": ("images", "labels", "count", "grid_hw", "radius"),
+    "sp.downsample": ("images", "labels", "count", "grid_hw", "bounds"),
     "sp.upsample": ("lbl_sp", "labels", "n_labels"),
     "legacy_crf.plan": ("lows", "mean_color", "mean_xy", "active", "allow_new"),
 }
@@ -1009,15 +1009,16 @@ def _slic_chain(a: tuple):
 
 
 def check_slic_centres(a: tuple) -> dict:
-    """Every centres pass of K24a from the plain chain's labels, against the
-    plain version's sums in pixel order (on the CPU; on the card the plain
-    version's index_add_ adds in atomic order)."""
+    """Every centres pass of K24a from the plain chain's labels (their boxes
+    from ``label_bounds_cuda``), against the plain version's sums in pixel
+    order (on the CPU; on the card the plain version's index_add_ adds in
+    atomic order)."""
     image, sp_size, _, iters = a
     grid_hw, labels, centres = _slic_chain(a)
     err, equal = 0.0, True
     for it, (lab, cen) in enumerate(zip(labels, centres)):
         ck = SL.slic_centres_cuda(image, None if it == 0 else lab.to(image.device),
-                                  cen.shape[0], grid_hw, sp_size, it).cpu()
+                                  cen.shape[0], grid_hw, sp_size).cpu()
         err = max(err, float((ck - cen).abs().max()))
         equal = equal and _bits_equal(ck, cen)
     return dict(max_abs_err=err, bit_equal=equal, passes=iters + 1, ok=equal,
@@ -1025,25 +1026,128 @@ def check_slic_centres(a: tuple) -> dict:
 
 
 def check_slic_assign(a: tuple) -> dict:
-    """Every assignment of K24a from the plain chain's labels and centres."""
+    """Every assignment of K24a from the plain chain's labels and centres,
+    and the bounding boxes of its epilogue."""
     image, sp_size, coh, iters = a
     grid_hw, labels, centres = _slic_chain(a)
-    differ = 0
+    differ = box_differ = 0
     for it in range(iters):
-        lk = SL.slic_assign_cuda(image, None if it == 0 else labels[it].to(image.device),
-                                 centres[it].to(image.device), grid_hw, sp_size, coh).cpu()
-        differ += int((lk != labels[it + 1]).sum())
-    return dict(max_abs_err=float(differ), differing_pixels=differ, passes=iters,
-                ok=differ == 0, tolerance="labels exact (the same terms in the same order)")
+        lk, bk = SL.slic_assign_cuda(image, None if it == 0 else labels[it].to(image.device),
+                                     centres[it].to(image.device), grid_hw, sp_size, coh)
+        differ += int((lk.cpu() != labels[it + 1]).sum())
+        box_differ += int((bk.cpu() != SL.label_bounds_plain(labels[it + 1],
+                                                             bk.shape[0])).sum())
+    return dict(max_abs_err=float(differ + box_differ), differing_pixels=differ,
+                differing_box_fields=box_differ, passes=iters,
+                ok=differ == 0 and box_differ == 0,
+                tolerance="labels exact (the same terms in the same order); bounding boxes exact")
 
 
 def check_sp_means(a: tuple) -> dict:
-    images, labels, count, grid_hw, radius = a
-    mk = SL.superpixel_means_cuda(images, labels, grid_hw, SL.SP_SIZE, radius).cpu()
+    """K24b with the boxes the path handed it (the assignment's) and with its
+    own (``label_bounds_cuda``), against the plain sums in pixel order."""
+    images, labels, count, grid_hw, bounds = a
     mp = SL.superpixel_means_plain(images.cpu(), labels.cpu(), count.cpu())
-    return dict(max_abs_err=float((mk - mp).abs().max()), bit_equal=_bits_equal(mk, mp),
-                ok=_bits_equal(mk, mp),
-                tolerance="bit-equal to the plain sums in pixel order (on the CPU)")
+    runs = [SL.superpixel_means_cuda(images, labels, grid_hw, b).cpu() for b in (bounds, None)]
+    equal = all(_bits_equal(mk, mp) for mk in runs)
+    return dict(max_abs_err=max(float((mk - mp).abs().max()) for mk in runs), bit_equal=equal,
+                ok=equal, tolerance="bit-equal to the plain sums in pixel order (on the CPU), "
+                                    "with the path's boxes and with the kernel's own")
+
+
+SLIC_CASE_HW = (487, 651)  # a 30 x 40 grid; the last cells own the rows and columns beyond
+SLIC_BIG, SLIC_EMPTY, SLIC_REACH = 410, 115, 820  # cells (10, 10), (2, 35), (20, 20)
+
+
+def slic_label_cases(device, seed: int = 0):
+    """Hand-made SLIC inputs at 487x651 (seeded colour): [(name, image,
+    labels or None)]. "grid": the regular grid (the last row and column of
+    cells own the pixels beyond 480 and 640). "handmade": label 410 owns
+    the block of rows and columns 96..255, cells 6..15 (25,600 pixels less
+    the speckle below: many chunks of the kernels' lists), which leaves the
+    block's other cells nearly empty; label 820 (cell (20, 20)) also owns the cells (15,
+    25) and (25, 15), five cells away; 2 % of the pixels take a label up to
+    five cells from their own cell (the edge cells' pixels among them);
+    label 115 (cell (2, 35)) gives all its pixels to label 114."""
+    g = torch.Generator().manual_seed(seed)
+    h, w = SLIC_CASE_HW
+    sp = SL.SP_SIZE
+    gy, gx = SL.grid_shape(h, w, sp)
+    image = torch.rand((h, w, 3), generator=g) * 255.0
+    lab = SL.grid_labels(h, w, sp, "cpu").clone()
+    lab[96:256, 96:256] = SLIC_BIG
+    for cy, cx in ((15, 25), (25, 15)):
+        lab[cy * sp:(cy + 1) * sp, cx * sp:(cx + 1) * sp] = SLIC_REACH
+    flat = lab.view(-1)
+    pick = torch.randperm(h * w, generator=g)[:h * w // 50]
+    cy = torch.clamp(torch.div(pick // w, sp, rounding_mode="floor"), max=gy - 1)
+    cx = torch.clamp(torch.div(pick % w, sp, rounding_mode="floor"), max=gx - 1)
+    off = torch.randint(-5, 6, (2, pick.numel()), generator=g)
+    flat[pick] = ((cy + off[0]).clamp(0, gy - 1) * gx + (cx + off[1]).clamp(0, gx - 1)).to(
+        flat.dtype)
+    lab[lab == SLIC_EMPTY] = SLIC_EMPTY - 1
+    return [("grid", image.to(device), None), ("handmade", image.to(device), lab.to(device))]
+
+
+def slic_case_facts(labels: torch.Tensor, grid_hw) -> dict:
+    """What a label image exercises: its largest and empty superpixels, the
+    farthest a label lies from its pixel's grid cell (in cells), and whether
+    pixels beyond the grid's last full cell carry labels of the last row or
+    column."""
+    h, w = labels.shape
+    gy, gx = grid_hw
+    sp = SL.SP_SIZE
+    count = torch.bincount(labels.reshape(-1).long(), minlength=gy * gx)
+    cell = SL.grid_labels(h, w, sp, labels.device)
+    reach = torch.maximum((labels // gx - cell // gx).abs(), (labels % gx - cell % gx).abs())
+    return dict(largest=int(count.max()), empty=int((count == 0).sum()),
+                max_reach_cells=int(reach.max()),
+                edge_rows=int((labels[gy * sp:] // gx == gy - 1).sum()),
+                edge_cols=int((labels[:, gx * sp:] % gx == gx - 1).sum()))
+
+
+def check_slic_cases(device, seed: int = 0, n_images=(1, 13, 40)) -> dict:
+    """K24a (bounds, centres, assignment) and K24b on ``slic_label_cases``
+    against the plain versions on the CPU: boxes and labels exact, sums
+    bit-equal; the means for N = 1, 13 and 40 seeded images, with the
+    kernel's own boxes and with the plain ones."""
+    g = torch.Generator().manual_seed(seed + 1)
+    cases, err, ok = {}, 0.0, True
+    for name, image, labels in slic_label_cases(device, seed):
+        h, w, _ = image.shape
+        grid_hw = SL.grid_shape(h, w, SL.SP_SIZE)
+        s = grid_hw[0] * grid_hw[1]
+        lab_c = SL.grid_labels(h, w, SL.SP_SIZE, "cpu") if labels is None else labels.cpu()
+        lab = lab_c.to(device)
+        img_c = image.cpu()
+        cen = SL.slic_centres_plain(img_c, lab_c, s)
+        box = SL.label_bounds_plain(lab_c, s)
+        ck = SL.slic_centres_cuda(image, labels, s, grid_hw, SL.SP_SIZE).cpu()
+        bk = SL.label_bounds_cuda(lab, s).cpu()
+        lk, abk = SL.slic_assign_cuda(image, labels, cen.to(device), grid_hw, SL.SP_SIZE,
+                                      SL.COH_WEIGHT)
+        lp = SL.slic_assign_plain(img_c, lab_c, cen, grid_hw, SL.SP_SIZE, SL.COH_WEIGHT)
+        r = dict(facts=slic_case_facts(lab_c, grid_hw), centres_bit_equal=_bits_equal(ck, cen),
+                 bounds_exact=bool((bk == box).all()),
+                 assign_differing_pixels=int((lk.cpu() != lp).sum()),
+                 assign_bounds_exact=bool((abk.cpu() == SL.label_bounds_plain(lp, s)).all()))
+        err = max(err, float((ck - cen).abs().max()))
+        for n in n_images:
+            images = torch.rand((n, h, w), generator=g)
+            mp = SL.superpixel_means_plain(images, lab_c, cen[:, 5])
+            ims = images.to(device)
+            runs = [SL.superpixel_means_cuda(ims, lab, grid_hw, b).cpu()
+                    for b in (None, box.to(device))]
+            err = max([err] + [float((mk - mp).abs().max()) for mk in runs])
+            r[f"means_bit_equal[N={n}]"] = all(_bits_equal(mk, mp) for mk in runs)
+        r["ok"] = (r["centres_bit_equal"] and r["bounds_exact"] and r["assign_bounds_exact"]
+                   and r["assign_differing_pixels"] == 0
+                   and all(v for k, v in r.items() if k.startswith("means_bit_equal")))
+        ok = ok and r["ok"]
+        cases[name] = r
+    return dict(max_abs_err=err, cases=cases, ok=ok,
+                tolerance="boxes and labels exact; centres and means bit-equal to the plain "
+                          "sums in pixel order (on the CPU)")
 
 
 def check_sp_upsample(a: tuple) -> dict:

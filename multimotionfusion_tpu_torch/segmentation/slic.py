@@ -20,14 +20,18 @@ Each wrapper launches its kernel for CUDA tensors and takes its plain
 PyTorch version (``*_plain``; scatter-adds with ``index_add_``, sequential
 in pixel order on the CPU) only for CPU tensors.
 
-A label can move at most one cell per iteration, so after ``t`` assignments
-every pixel of superpixel s lies within ``t`` cells of s's grid cell; the
-kernels' centre sums scan that window (``radius`` = the assignments so far).
+On the card each superpixel's sums run over its bounding box, row by row,
+which meets its pixels in global row-major order: ``[S, 4]`` int32 (y min,
+x min, y max, x max; -1 for an empty label). The assignment writes the
+boxes of the labels it makes (``slic_assign`` returns them beside the
+labels; ``SlicResult.bounds``); the regular grid's are its cells; for a
+label image from elsewhere ``label_bounds_cuda`` computes them
+(``label_bounds_plain`` is its twin).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -46,6 +50,7 @@ class SlicResult(NamedTuple):
     mean_xy: torch.Tensor  # [S, 2]
     count: torch.Tensor  # [S]
     grid_hw: Tuple[int, int]  # (rows, cols) of the superpixel grid
+    bounds: Optional[torch.Tensor] = None  # [S, 4] bounding boxes of the labels (card)
 
 
 def grid_shape(h: int, w: int, sp_size: int = SP_SIZE) -> Tuple[int, int]:
@@ -130,6 +135,20 @@ def superpixel_means_plain(images: torch.Tensor, labels: torch.Tensor,
     return (acc / torch.clamp(count, min=1.0)[:, None]).T.contiguous()
 
 
+def label_bounds_plain(labels: torch.Tensor, s: int) -> torch.Tensor:
+    """[S, 4] int32 (y min, x min, y max, x max) of each label's pixels; -1
+    for a label without pixels."""
+    h, w = labels.shape
+    dev = labels.device
+    flat = labels.reshape(-1).long()
+    ys = torch.arange(h, dtype=I32, device=dev)[:, None].expand(h, w).reshape(-1)
+    xs = torch.arange(w, dtype=I32, device=dev)[None, :].expand(h, w).reshape(-1)
+    empty = torch.full((s,), -1, dtype=I32, device=dev)
+    return torch.stack([empty.scatter_reduce(0, flat, v, red, include_self=False)
+                        for v, red in ((ys, "amin"), (xs, "amin"), (ys, "amax"), (xs, "amax"))],
+                       dim=1)
+
+
 def upsample_onehot_plain(lbl_sp: torch.Tensor, labels: torch.Tensor, n_labels: int
                           ) -> torch.Tensor:
     """[L, H, W] bool: pixel p's superpixel carries label l."""
@@ -146,23 +165,49 @@ def _check_image(image: torch.Tensor) -> None:
         raise ValueError("image must be [H, W, 3]")
 
 
-def slic_centres_cuda(image, labels, s: int, grid_hw, sp_size: int, radius: int) -> torch.Tensor:
+def _check_bounds(bounds, s: int) -> None:
+    K.check(bounds, I32, "bounds")
+    if tuple(bounds.shape) != (s, 4):
+        raise ValueError(f"bounds must be [{s}, 4]")
+
+
+def label_bounds_cuda(labels, s: int) -> torch.Tensor:
+    """The bounding boxes of a label image on the card: ``csrc/slic.cu``
+    ``mmf_slic_bounds`` (a memset, then one thread per pixel)."""
+    K.check(labels, I32, "labels")
+    h, w = labels.shape
+    out = torch.empty((s, 4), dtype=I32, device=labels.device)
+    f = K.fn("slic", "mmf_slic_bounds", [K.P, K.I, K.I, K.I, K.P])
+    K.call("slic.bounds", f, K.ptr(labels), h * w, w, s, K.ptr(out))
+    return out
+
+
+def slic_centres_cuda(image, labels, s: int, grid_hw, sp_size: int,
+                      bounds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K24a centres on the card: ``csrc/slic.cu`` ``mmf_slic_centres``;
-    ``labels`` None means the regular grid."""
+    ``labels`` None means the regular grid; without ``bounds`` a label
+    image's boxes are computed first (``label_bounds_cuda``)."""
     _check_image(image)
     if labels is not None:
         K.check(labels, I32, "labels")
+        if bounds is None:
+            bounds = label_bounds_cuda(labels, s)
+        _check_bounds(bounds, s)
+    elif bounds is not None:
+        raise ValueError("bounds without labels")
     h, w, _ = image.shape
     out = torch.empty((s, 6), dtype=F32, device=image.device)
-    f = K.fn("slic", "mmf_slic_centres", [K.P, K.P, K.I, K.I, K.I, K.I, K.I, K.I, K.P])
-    K.call("slic.centres", f, K.ptr(image), None if labels is None else K.ptr(labels), h, w,
-           grid_hw[0], grid_hw[1], sp_size, int(radius), K.ptr(out))
+    f = K.fn("slic", "mmf_slic_centres", [K.P, K.P, K.P, K.I, K.I, K.I, K.I, K.I, K.P])
+    K.call("slic.centres", f, K.ptr(image), None if labels is None else K.ptr(labels),
+           None if bounds is None else K.ptr(bounds), h, w, grid_hw[0], grid_hw[1], sp_size,
+           K.ptr(out))
     return out
 
 
 def slic_assign_cuda(image, labels, centres, grid_hw, sp_size: int,
-                     coh_weight: float) -> torch.Tensor:
-    """K24a assignment on the card: ``csrc/slic.cu`` ``mmf_slic_assign``."""
+                     coh_weight: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K24a assignment on the card: ``csrc/slic.cu`` ``mmf_slic_assign``;
+    (the new labels, their [S, 4] bounding boxes)."""
     _check_image(image)
     K.check(centres, F32, "centres")
     if labels is not None:
@@ -170,26 +215,33 @@ def slic_assign_cuda(image, labels, centres, grid_hw, sp_size: int,
     h, w, c = image.shape
     coh, sqrt_c, sp = _xy_scale(c, sp_size, coh_weight)
     out = torch.empty((h, w), dtype=I32, device=image.device)
+    bounds = torch.empty((grid_hw[0] * grid_hw[1], 4), dtype=I32, device=image.device)
     f = K.fn("slic", "mmf_slic_assign", [K.P, K.P, K.P, K.I, K.I, K.I, K.I, K.I, K.F, K.F,
-                                         K.F, K.P])
+                                         K.F, K.P, K.P])
     K.call("slic.assign", f, K.ptr(image), None if labels is None else K.ptr(labels),
-           K.ptr(centres), h, w, grid_hw[0], grid_hw[1], sp_size, coh, sqrt_c, sp, K.ptr(out))
-    return out
+           K.ptr(centres), h, w, grid_hw[0], grid_hw[1], sp_size, coh, sqrt_c, sp, K.ptr(out),
+           K.ptr(bounds))
+    return out, bounds
 
 
-def superpixel_means_cuda(images, labels, grid_hw, sp_size: int, radius: int) -> torch.Tensor:
+def superpixel_means_cuda(images, labels, grid_hw,
+                          bounds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K24b on the card: ``csrc/slic.cu`` ``mmf_sp_means``, every image in one
-    launch (each superpixel's count is found again by the scan)."""
+    launch that reads the labels once (each superpixel's count is the
+    length of its pixel list); without ``bounds`` they are computed first."""
     K.check(images, F32, "images")
     K.check(labels, I32, "labels")
     n, h, w = images.shape
     if tuple(labels.shape) != (h, w):
         raise ValueError("images must be [N, H, W] over the [H, W] labels")
     s = grid_hw[0] * grid_hw[1]
+    if bounds is None:
+        bounds = label_bounds_cuda(labels, s)
+    _check_bounds(bounds, s)
     out = torch.empty((n, s), dtype=F32, device=images.device)
-    f = K.fn("slic", "mmf_sp_means", [K.P, K.I, K.P, K.I, K.I, K.I, K.I, K.I, K.I, K.P])
-    K.call("sp.downsample", f, K.ptr(images), n, K.ptr(labels), h, w, grid_hw[0], grid_hw[1],
-           sp_size, int(radius), K.ptr(out))
+    f = K.fn("slic", "mmf_sp_means", [K.P, K.I, K.P, K.P, K.I, K.I, K.I, K.I, K.P])
+    K.call("sp.downsample", f, K.ptr(images), n, K.ptr(labels), K.ptr(bounds), h, w, grid_hw[0],
+           grid_hw[1], K.ptr(out))
     return out
 
 
@@ -205,10 +257,11 @@ def upsample_onehot_cuda(lbl_sp, labels, n_labels: int) -> torch.Tensor:
 
 # ---------------------------------------------------------------- API
 
-def slic_centres(image, labels, grid_hw, sp_size: int = SP_SIZE, radius: int = ITERATIONS):
+def slic_centres(image, labels, grid_hw, sp_size: int = SP_SIZE,
+                 bounds: Optional[torch.Tensor] = None):
     s = grid_hw[0] * grid_hw[1]
     if image.is_cuda:
-        return slic_centres_cuda(image, labels, s, grid_hw, sp_size, radius)
+        return slic_centres_cuda(image, labels, s, grid_hw, sp_size, bounds)
     if labels is None:
         labels = grid_labels(image.shape[0], image.shape[1], sp_size, image.device)
     return slic_centres_plain(image, labels, s)
@@ -216,11 +269,12 @@ def slic_centres(image, labels, grid_hw, sp_size: int = SP_SIZE, radius: int = I
 
 def slic_assign(image, labels, centres, grid_hw, sp_size: int = SP_SIZE,
                 coh_weight: float = COH_WEIGHT):
+    """(labels, their bounding boxes on the card; None on the CPU)."""
     if image.is_cuda:
         return slic_assign_cuda(image, labels, centres, grid_hw, sp_size, coh_weight)
     if labels is None:
         labels = grid_labels(image.shape[0], image.shape[1], sp_size, image.device)
-    return slic_assign_plain(image, labels, centres, grid_hw, sp_size, coh_weight)
+    return slic_assign_plain(image, labels, centres, grid_hw, sp_size, coh_weight), None
 
 
 def slic(image: torch.Tensor, sp_size: int = SP_SIZE, coh_weight: float = COH_WEIGHT,
@@ -231,24 +285,24 @@ def slic(image: torch.Tensor, sp_size: int = SP_SIZE, coh_weight: float = COH_WE
     K.record("slic", image=image, sp_size=sp_size, coh_weight=coh_weight, iterations=iterations)
     h, w, c = image.shape
     grid_hw = grid_shape(h, w, sp_size)
-    labels = None  # the regular grid
-    for it in range(iterations):
-        centres = slic_centres(image, labels, grid_hw, sp_size, it)
-        labels = slic_assign(image, labels, centres, grid_hw, sp_size, coh_weight)
+    labels, bounds = None, None  # the regular grid
+    for _ in range(iterations):
+        centres = slic_centres(image, labels, grid_hw, sp_size, bounds)
+        labels, bounds = slic_assign(image, labels, centres, grid_hw, sp_size, coh_weight)
     if labels is None:
         labels = grid_labels(h, w, sp_size, image.device)
-    centres = slic_centres(image, labels, grid_hw, sp_size, iterations)
-    return SlicResult(labels, centres[:, :c], centres[:, c:c + 2], centres[:, c + 2], grid_hw)
+    centres = slic_centres(image, labels, grid_hw, sp_size, bounds)
+    return SlicResult(labels, centres[:, :c], centres[:, c:c + 2], centres[:, c + 2], grid_hw,
+                      bounds)
 
 
-def superpixel_means(images: torch.Tensor, res: SlicResult,
-                     radius: int = ITERATIONS) -> torch.Tensor:
+def superpixel_means(images: torch.Tensor, res: SlicResult) -> torch.Tensor:
     """[N, S] mean of each [N, H, W] image per superpixel of ``res``
     (``downsample_to_superpixels`` of every image)."""
     K.record("sp.downsample", images=images, labels=res.labels, count=res.count,
-             grid_hw=res.grid_hw, radius=radius)
+             grid_hw=res.grid_hw, bounds=res.bounds)
     if images.is_cuda:
-        return superpixel_means_cuda(images, res.labels, res.grid_hw, SP_SIZE, radius)
+        return superpixel_means_cuda(images, res.labels, res.grid_hw, res.bounds)
     return superpixel_means_plain(images, res.labels, res.count)
 
 

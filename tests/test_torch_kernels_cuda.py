@@ -37,6 +37,9 @@ constraint points and map on the matching frame).
 A fifth run, of the legacy CRF multi-model engine (``segmentation.mode="crf"``)
 on chip_smoke.py's spheres at 160x120, records K4's error-image mode, K24a-c
 (SLIC, the superpixel means and upsample, the superpixel CRF) and K17.
+K24a and K24b also run on hand-made label images
+(``checks.check_slic_cases``: a superpixel over many list chunks, empty
+ones, labels five cells away, the edge cells; N = 1, 13 and 40 images).
 """
 
 import pytest
@@ -336,4 +339,11 @@ def captured_legacy():
 def test_legacy_crf_kernel_matches_plain(captured_legacy, name, check):
     key = _legacy_key(name)
     r = check(checks.args(key, captured_legacy[key]))
+    assert r["ok"], r
+
+
+def test_slic_hand_made_labels_match_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
+    r = checks.check_slic_cases("cuda")
     assert r["ok"], r

@@ -8,7 +8,16 @@ sphere scene with seeded noise.
 - given the reference's labels, ``superpixel_means`` (the depth and a stack
   of seeded images) within 1e-6 relative of ``downsample_to_superpixels``;
 - the labels back on the pixels: ``upsample_onehot`` equals the reference's
-  ``upsample_from_superpixels`` compared with each label.
+  ``upsample_from_superpixels`` compared with each label;
+- ``label_bounds_plain`` (the twin of the kernels' bounding boxes) on the
+  reference's labels: each box is its superpixel's extent and lies within
+  the five cells a label can move in five assignments; summing each box row
+  by row, in the order the kernels sum, reproduces the reference's
+  ``downsample_to_superpixels`` bit for bit;
+- the same box sums on the hand-made label images of the kernels' card
+  check (``checks.slic_label_cases``: a superpixel over many list chunks,
+  empty ones, labels five cells away, the edge cells), which are what they
+  claim, equal the plain centres and means bit for bit (N = 1, 13, 40).
 """
 
 import jax.numpy as jnp
@@ -18,6 +27,7 @@ import torch
 
 from multimotionfusion_tpu.config import CameraModel
 from multimotionfusion_tpu.segmentation import slic as jslic
+from multimotionfusion_tpu_torch.kernels import checks
 from multimotionfusion_tpu_torch.segmentation import slic as tslic
 from tests import synthetic
 from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
@@ -75,3 +85,99 @@ def test_upsample_matches_reference(scene):
         np.asarray(ref.labels)), 4).numpy()
     for lbl in range(4):
         np.testing.assert_array_equal(got[lbl], want == lbl)
+
+
+def _box_sums(values, labels, bounds):
+    """([N, S] sums, [S] counts) of ``values`` [N, H, W] over each label's
+    box, row by row: each label's pixels in row-major order, added one by one
+    in float32 from 0, as the kernels' lanes add them."""
+    n, s = values.shape[0], bounds.shape[0]
+    sums, cnt = np.zeros((n, s), np.float32), np.zeros(s, np.float32)
+    for lbl in range(s):
+        y0, x0, y1, x1 = (int(v) for v in bounds[lbl])
+        if y1 < 0:
+            continue
+        vals = values[:, y0:y1 + 1, x0:x1 + 1][:, labels[y0:y1 + 1, x0:x1 + 1] == lbl]
+        cnt[lbl] = vals.shape[1]
+        sums[:, lbl] = np.cumsum(vals, axis=1, dtype=np.float32)[:, -1]
+    return sums, cnt
+
+
+def _bits(a):
+    return np.ascontiguousarray(a, np.float32).view(np.uint32)
+
+
+def test_label_bounds_on_reference_labels(scene):
+    img, depth, ref, rng = scene
+    labels = np.array(ref.labels)
+    gy, gx = ref.grid_hw
+    s = gy * gx
+    bounds = tslic.label_bounds_plain(torch.from_numpy(labels), s).numpy()
+    sp = tslic.SP_SIZE
+    h, w = labels.shape
+    for lbl in range(s):
+        ys, xs = np.nonzero(labels == lbl)
+        if ys.size == 0:
+            assert (bounds[lbl] == -1).all()
+            continue
+        np.testing.assert_array_equal(bounds[lbl], (ys.min(), xs.min(), ys.max(), xs.max()))
+        # a label moves at most one cell per assignment: five cells of its own
+        cy, cx = divmod(lbl, gx)
+        r = tslic.ITERATIONS
+        assert bounds[lbl, 0] >= max(cy - r, 0) * sp and bounds[lbl, 1] >= max(cx - r, 0) * sp
+        assert bounds[lbl, 2] < (h if cy + r >= gy - 1 else (cy + r + 1) * sp)
+        assert bounds[lbl, 3] < (w if cx + r >= gx - 1 else (cx + r + 1) * sp)
+    images = np.concatenate([depth[None], rng.uniform(0, 0.3, (4,) + depth.shape)]).astype(
+        np.float32)
+    sums, cnt = _box_sums(images, labels, bounds)
+    np.testing.assert_array_equal(cnt, np.asarray(ref.count))
+    got = sums / np.maximum(cnt, np.float32(1.0))
+    for k in range(images.shape[0]):
+        want = np.asarray(jslic.downsample_to_superpixels(jnp.asarray(images[k]), ref))
+        np.testing.assert_array_equal(_bits(got[k]), _bits(want))
+
+
+@pytest.fixture(scope="module")
+def hand_made():
+    return checks.slic_label_cases("cpu")[1]
+
+
+def test_hand_made_labels_are_what_they_claim(hand_made):
+    _, image, labels = hand_made
+    grid_hw = tslic.grid_shape(*labels.shape)
+    facts = checks.slic_case_facts(labels, grid_hw)
+    assert facts["largest"] >= 20000
+    assert facts["empty"] >= 1
+    assert facts["max_reach_cells"] == 5
+    assert facts["edge_rows"] > 0 and facts["edge_cols"] > 0
+    assert labels.shape[0] % tslic.SP_SIZE and labels.shape[1] % tslic.SP_SIZE
+    assert not (labels == checks.SLIC_EMPTY).any()
+
+
+def test_box_centres_match_plain_on_hand_made_labels(hand_made):
+    _, image, labels = hand_made
+    s = tslic.grid_shape(*labels.shape)
+    s = s[0] * s[1]
+    lab = labels.numpy()
+    bounds = tslic.label_bounds_plain(labels, s).numpy()
+    h, w, _ = image.shape
+    ys, xs = np.mgrid[:h, :w].astype(np.float32)
+    values = np.concatenate([np.moveaxis(image.numpy(), -1, 0), xs[None], ys[None]])
+    sums, cnt = _box_sums(values, lab, bounds)
+    want = tslic.slic_centres_plain(image, labels, s).numpy()
+    np.testing.assert_array_equal(cnt, want[:, 5])
+    got = (sums / np.maximum(cnt, np.float32(1.0))).T
+    np.testing.assert_array_equal(_bits(got), _bits(want[:, :5]))
+
+
+@pytest.mark.parametrize("n", [1, 13, 40])
+def test_box_means_match_plain_on_hand_made_labels(hand_made, n):
+    _, _, labels = hand_made
+    s = tslic.grid_shape(*labels.shape)
+    s = s[0] * s[1]
+    images = np.random.default_rng(n).uniform(0, 5, (n,) + tuple(labels.shape)).astype(np.float32)
+    bounds = tslic.label_bounds_plain(labels, s).numpy()
+    sums, cnt = _box_sums(images, labels.numpy(), bounds)
+    want = tslic.superpixel_means_plain(torch.from_numpy(images), labels, torch.from_numpy(cnt))
+    np.testing.assert_array_equal(_bits(sums / np.maximum(cnt, np.float32(1.0))),
+                                  _bits(want.numpy()))
