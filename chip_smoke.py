@@ -77,7 +77,7 @@ Phases (any failure exits non-zero):
    reference package's own over seeds (``journey_tests``: one-sided tests
    at JOURNEY_ALPHA of the share below 0.08 m and of the drifts); then
    K13, K15 (front end and each level), K16 (one iteration
-   and all ten), K17 (also on a grid beyond shared memory) and K18's three
+   and all ten), K17 (also on a 240x160 stack) and K18's three
    stages against their plain versions on the inputs of the last frame;
 5c'. the legacy CoFusion CRF path (multi_legacy_crf): the flow-CRF phase's
    scene and configuration with ``segmentation.mode="crf"`` (the per-slot
@@ -91,7 +91,7 @@ Phases (any failure exits non-zero):
    (REF_LEGACY_*); then its stage breakdown; then K4's error-image mode,
    K24a (centres and assignment, every pass from the plain chain), K24b,
    K24c (plan, one and ten mean-field steps) and K17 at 640x480 with 7
-   labels (the global scratch) against their plain versions on the inputs
+   labels against their plain versions on the inputs
    of the last frame; the same kernels' lines also give each library
    yardstick's device time (``library_device_ms``);
 5c''. SLIC on hand-made label images (``checks.slic_label_cases``, 487x651:
@@ -102,6 +102,12 @@ Phases (any failure exits non-zero):
    assignment of K24a and the means of K24b for N = 1, 13 and 40 images
    against the plain versions on the CPU, boxes and labels exact, sums
    bit-equal;
+5c'''. K17 on hand-made [6, H, W] mask stacks (phase ``components_cases``,
+   ``checks.component_cases`` at 480x640, 120x160 and 487x651: a spiral
+   longer than the 64 sweeps across tile edges and corners, two equal
+   squares in different tiles, an all-True and an empty label, a one-cell
+   component in the last row and column, blobs) against the plain version
+   on the CPU, kept cells and sizes exact;
 5d. five_movers: tests/test_five_movers.py's configuration and 17-frame
    journey at 160x120 (the scene from the port's own io/synthetic.py) on
    the card with the engine seeds FIVE_SEEDS: on every seed five spawns at
@@ -247,6 +253,10 @@ LEGACY_PATH = (
 # ICP error reaches the new-model class, so the reference spawns nothing.
 REF_LEGACY_ACTIVE = (0,) * (1 + MULTI_FRAMES)
 REF_LEGACY_SPAWN_FRAMES = ()
+# device ms and device launches a frame of the two CRF paths with K16's
+# six-launch iteration and K17's one block a label (PERF.md section 5), printed
+# beside this run's stage phases
+EARLIER_DEVICE = {"flow_crf_stages": (6.65, 1059.5), "legacy_crf_stages": (16.54, 2120.2)}
 
 
 def _gpu_line() -> str:
@@ -490,6 +500,8 @@ def run_stages(K, engine, frames, tag="stages") -> None:
         "wrapper_launches_per_frame": wrappers,
         "top_kernels_ms_per_frame": [
             {"name": name, "ms": v[0], "launches_per_frame": v[1] / n} for name, v in top],
+        **({"earlier_device_ms_and_launches_per_frame": EARLIER_DEVICE[tag]}
+           if tag in EARLIER_DEVICE else {}),
         "gpu": _gpu_line(),
     }))
 
@@ -1120,7 +1132,7 @@ def plan_multi():
     return p
 
 
-SYNTHETIC = ("superpoint", "plateau", "components_global")
+SYNTHETIC = ("superpoint", "plateau", "components_240x160")
 
 
 def check_kernels(lines, captured, launches, n_frames):
@@ -1129,7 +1141,7 @@ def check_kernels(lines, captured, launches, n_frames):
 
     kernels = []
     for name, key, launch_key, check, measure, src, rep in lines:
-        if key == "components_global":  # a grid beyond shared memory: the global scratch
+        if key == "components_240x160":  # a synthetic stack between the path's two sizes
             a = checks.components_inputs(160, 240, DEVICE)
         elif key in SYNTHETIC:
             a = checks.nms_inputs(key, 480, 640, DEVICE)
@@ -1706,7 +1718,7 @@ def measure_crf_iteration(a):
     pad = k1.numel() // 2
     return _measure(lambda: CRF.crf_iteration_cuda(q0, unary, plan_k, p),
                     lambda: CRF.crf_iteration_plain(q0, unary, plan_p, p),
-                    3 * 4 * L * h * w + 8 * h * w, _crf_ops(unary, p),
+                    3 * 4 * L * h * w + 5 * h * w, _crf_ops(unary, p),
                     library=lambda: F.conv2d(q0[:, None], k2, padding=pad),
                     library_note="the Gaussian message alone: one conv2d with the 19x19 "
                                  "three-box kernel (other border truncation)")
@@ -1784,7 +1796,7 @@ def plan_flow():
            "segmentation/crf.py:246"),
           ("components", "components", "components", C.check_components, measure_components,
            "components.cu", "segmentation/components.py:61"),
-          ("components[global scratch, 240x160]", "components_global", "components",
+          ("components[240x160]", "components_240x160", "components",
            C.check_components, measure_components, "components.cu",
            "segmentation/components.py:61"),
           ("segment.unaries", "segment.unaries", "segment.unaries", C.check_seg_unaries,
@@ -1998,7 +2010,7 @@ def measure_lcrf_iterate(a, iters):
 
 def plan_legacy():
     """The legacy CRF path's new kernels (K4's error images, K24a-c) and K17 at
-    640x480 on the global scratch, as ``plan``."""
+    640x480, as ``plan``."""
     from multimotionfusion_tpu_torch.kernels import checks as C
 
     return [
@@ -2020,7 +2032,7 @@ def plan_legacy():
         ("legacy_crf.iterate[10]", "legacy_crf.plan", "legacy_crf.iterate",
          lambda a: C.check_lcrf_iterate(a, 10), lambda a: measure_lcrf_iterate(a, 10),
          "legacy_crf.cu", "segmentation/legacy_crf.py:53"),
-        ("components[global scratch, 640x480, L=7]", "components", "components",
+        ("components[640x480, L=7]", "components", "components",
          C.check_components, measure_components, "components.cu",
          "segmentation/components.py:61"),
     ]
@@ -2035,6 +2047,17 @@ def run_slic_cases() -> list:
     torch.cuda.synchronize()
     print(json.dumps({"phase": "slic_cases", **r}))
     return [] if r["ok"] else [f"SLIC on hand-made labels: {r['cases']}"]
+
+
+def run_components_cases() -> list:
+    """Phase 5c''': K17 on hand-made mask stacks against the plain version on
+    the CPU (``checks.check_components_cases``)."""
+    from multimotionfusion_tpu_torch.kernels import checks as C
+
+    r = C.check_components_cases(DEVICE)
+    torch.cuda.synchronize()
+    print(json.dumps({"phase": "components_cases", **r}))
+    return [] if r["ok"] else [f"K17 on hand-made stacks: {r['cases']}"]
 
 
 # ---------------------------------------------------------------- relocalisation, loop closure
@@ -2504,7 +2527,7 @@ def main() -> int:
     syncs += g_syncs
     run_stages(K, g_engine, f_frames[MULTI_FRAMES + 1:], "legacy_crf_stages")
     del g_engine
-    f_failed += g_failed + run_slic_cases()
+    f_failed += g_failed + run_slic_cases() + run_components_cases()
     five = five_movers_seeds()
 
     r_launches, r_captured, global_failed = run_reloc(K)

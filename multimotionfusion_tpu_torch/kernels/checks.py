@@ -527,7 +527,17 @@ def components_inputs(h: int, w: int, device, labels: int = 3, seed: int = 0) ->
         field = torch.nn.functional.avg_pool2d(field, 9, stride=1, padding=4)
     masks = (field[:, 0] > field.mean()).clone()
     spiral = torch.zeros((h, w), dtype=torch.bool)
-    lo_y, lo_x, hi_y, hi_x = 2, 2, min(h, 60) - 3, min(w, 60) - 3
+    rows, cols = min(h, 60) - 4, min(w, 60) - 4
+    spiral[2:2 + rows, 2:2 + cols] = _spiral(rows, cols)
+    masks[0, :62, :62] = spiral[:62, :62]
+    return masks.to(device), 64
+
+
+def _spiral(rows: int, cols: int) -> torch.Tensor:
+    """A square spiral in a rows x cols box (walls one cell wide, one cell
+    apart): its geodesic length exceeds 64 from about 20 x 20 on."""
+    spiral = torch.zeros((rows, cols), dtype=torch.bool)
+    lo_y, lo_x, hi_y, hi_x = 0, 0, rows - 1, cols - 1
     while lo_y < hi_y and lo_x < hi_x:
         spiral[lo_y, lo_x:hi_x + 1] = True
         spiral[lo_y:hi_y + 1, hi_x] = True
@@ -536,8 +546,7 @@ def components_inputs(h: int, w: int, device, labels: int = 3, seed: int = 0) ->
         lo_y, lo_x, hi_y, hi_x = lo_y + 2, lo_x + 2, hi_y - 2, hi_x - 2
         if lo_y < hi_y:
             spiral[lo_y, lo_x - 2:lo_x + 1] = True
-    masks[0, :62, :62] = spiral[:62, :62]
-    return masks.to(device), 64
+    return spiral
 
 
 def nms_inputs(kind: str, h: int, w: int, device, seed: int = 0) -> tuple:
@@ -852,6 +861,59 @@ def check_components(a: tuple) -> dict:
     return dict(max_abs_err=float(differ), differing_cells=differ, sizes_kernel=sk.tolist(),
                 sizes_plain=sp_.tolist(), ok=differ == 0 and bool((sk == sp_).all()),
                 tolerance="kept cells and sizes exact")
+
+
+# sizes of the hand-made K17 stacks: the legacy CRF's image, the flow-CRF's
+# grid, and sides that neither tile side (64, 32) divides
+COMPONENT_CASE_HW = ((480, 640), (120, 160), (487, 651))
+COMPONENT_LABELS = ("spiral", "equal_sizes", "all_true", "empty", "last_cell", "blobs")
+
+
+def component_cases(h: int, w: int, device, seed: int = 0) -> torch.Tensor:
+    """A hand-made [6, h, w] mask stack for K17 (``COMPONENT_LABELS``):
+    0 the spiral of ``components_inputs`` (58 x 58, scaled up three times
+    where the image allows) placed off the tile grid, so it crosses tile
+    edges and corners; 1 two equal 9 x 9
+    squares in different tiles (the lower id, the top one, must win); 2 all
+    True (one ball wider than 64 sweeps: it splits); 3 empty; 4 a one-cell
+    component on the last row and column; 5 blobs of a smoothed random field."""
+    masks = torch.zeros((len(COMPONENT_LABELS), h, w), dtype=torch.bool)
+    scale = 3 if min(h, w) >= 3 * 58 + 40 else 1
+    sp = _spiral(58, 58).repeat_interleave(scale, 0).repeat_interleave(scale, 1)
+    y0, x0 = 29, 47
+    masks[0, y0:y0 + sp.shape[0], x0:x0 + sp.shape[1]] = sp
+    masks[1, 5:14, w - 20:w - 11] = True
+    masks[1, h - 30:h - 21, 7:16] = True
+    masks[2] = True
+    masks[4, h - 1, w - 1] = True
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    field = torch.rand((1, 1, h, w), generator=g)
+    for _ in range(3):
+        field = torch.nn.functional.avg_pool2d(field, 9, stride=1, padding=4)
+    masks[5] = field[0, 0] > field.mean()
+    return masks.to(device)
+
+
+def check_components_cases(device) -> dict:
+    """K17 on ``component_cases`` at each of ``COMPONENT_CASE_HW`` against the
+    plain version on the CPU: kept cells and sizes exact."""
+    cases, ok = {}, True
+    for h, w in COMPONENT_CASE_HW:
+        masks = component_cases(h, w, device)
+        kk, sk = CC.keep_largest_components_cuda(masks)
+        kp, sp_ = CC.keep_largest_components_plain(masks.cpu())
+        differ = (kk.cpu() != kp).flatten(1).sum(1)
+        r = dict(differing_cells=dict(zip(COMPONENT_LABELS, differ.tolist())),
+                 sizes_kernel=dict(zip(COMPONENT_LABELS, sk.tolist())),
+                 sizes_plain=dict(zip(COMPONENT_LABELS, sp_.tolist())),
+                 spiral_split=0 < int(sp_[0]) < int(masks[0].sum()),
+                 top_square_kept=bool(kp[1, 5:14, w - 20:w - 11].all()),
+                 last_cell_kept=bool(kp[4, h - 1, w - 1]) and int(sp_[4]) == 1)
+        r["ok"] = (int(differ.sum()) == 0 and bool((sk.cpu() == sp_).all()) and r["spiral_split"]
+                   and r["top_square_kept"] and r["last_cell_kept"] and int(sp_[3]) == 0)
+        ok = ok and r["ok"]
+        cases[f"{h}x{w}"] = r
+    return dict(cases=cases, ok=ok, tolerance="kept cells and sizes exact")
 
 
 def check_seg_unaries(a: tuple) -> dict:

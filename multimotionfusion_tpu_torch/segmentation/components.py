@@ -12,6 +12,12 @@ argmax of the size histogram over those ids.
 CUDA tensors and takes its plain PyTorch version (``*_plain``) only for CPU
 tensors; ``connected_components``, ``keep_largest_component`` and
 ``component_sizes_at_pixels`` are plain functions of the same propagation.
+
+The kernel sweeps tiles: each block loads a tile plus a halo of ``HALO``
+cells, runs up to ``HALO`` sweeps in shared memory and writes the tile back,
+``ceil(iters / HALO)`` passes in all. A path of at most ``HALO`` cells from
+the tile stays inside the loaded region, so the tile's labels equal the
+whole-image sweeps' exactly (``tiling`` picks the tile side).
 """
 
 from __future__ import annotations
@@ -24,9 +30,16 @@ from multimotionfusion_tpu_torch import kernels as K
 
 I32 = torch.int32
 ITERS = 64
-# dynamic shared memory one H100 block may use beside the kernel's 8 KB of
-# static reduction arrays
-SMEM_LIMIT = 232448 - 8192
+HALO = 16  # the sweeps a tile's pass runs, and its halo
+SMS = 132  # an H100's streaming multiprocessors
+
+
+def tiling(l: int, h: int, w: int) -> Tuple[int, int]:
+    """(tile side, halo) of ``csrc/components.cu`` for an [l, h, w] stack:
+    64-cell tiles (96 x 96 regions, 73.7 KB of shared memory a block) where
+    they give two blocks an SM, else 32-cell tiles (64 x 64 regions)."""
+    blocks64 = l * -(-h // 64) * -(-w // 64)
+    return (64 if blocks64 >= 2 * SMS else 32), HALO
 
 
 def _sweeps(masks: torch.Tensor, iters: int) -> torch.Tensor:
@@ -96,23 +109,24 @@ def keep_largest_components_plain(masks: torch.Tensor, iters: int = ITERS
 
 def keep_largest_components_cuda(masks: torch.Tensor, iters: int = ITERS
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K17 on the card: ``csrc/components.cu``, one block per label."""
+    """K17 on the card: ``csrc/components.cu``, tiled passes with a halo,
+    then the histogram's argmax and the kept masks."""
     K.check(masks, torch.bool, "masks")
     if masks.dim() != 3:
         raise ValueError("masks must be [L, H, W]")
     l, h, w = masks.shape
     n = h * w
+    dev = masks.device
+    tile, halo = tiling(l, h, w)
     keep = torch.empty_like(masks)
-    sizes = torch.empty((l,), dtype=I32, device=masks.device)
-    # two int16 label planes, the mask and the histogram in shared memory;
-    # grids beyond a block's 227 KB go through global scratch of the same
-    # layout (int32 labels)
-    scratch = None
-    if 2 * n * 2 + n + 4 * (n + 1) > SMEM_LIMIT:
-        scratch = torch.empty((l, 3 * n + 1), dtype=I32, device=masks.device)
-    f = K.fn("components", "mmf_components", [K.P, K.I, K.I, K.I, K.I, K.P, K.P, K.P])
-    K.call("components", f, K.ptr(masks), l, h, w, int(iters),
-           None if scratch is None else K.ptr(scratch), K.ptr(keep), K.ptr(sizes))
+    sizes = torch.empty((l,), dtype=I32, device=dev)
+    planes = torch.empty((2, l, n), dtype=I32, device=dev)
+    # the L 64-bit argmax words, then the [L, n + 1] histogram (zeroed in the kernel)
+    counts = torch.empty((2 * l + l * (n + 1),), dtype=I32, device=dev)
+    f = K.fn("components", "mmf_components", [K.P, K.I, K.I, K.I, K.I, K.I, K.I]
+             + [K.P] * 4)
+    K.call("components", f, K.ptr(masks), l, h, w, int(iters), tile, halo, K.ptr(planes),
+           K.ptr(counts), K.ptr(keep), K.ptr(sizes))
     return keep, sizes
 
 

@@ -21,7 +21,11 @@ Each iteration subtracts the self-message, forms the Potts pairwise term
 ``crf_plan`` (the iteration-invariant part: binning, occupancy, the slab
 kernel, the initial softmax) and ``crf_iteration`` launch ``csrc/crf.cu`` for
 CUDA tensors and take their plain PyTorch versions (``*_plain``) only for CPU
-tensors; ``mean_field`` chains them.
+tensors; ``mean_field`` chains them. On the card an iteration is two
+launches: both messages in one (blocks that splat a label's Q into four
+slabs of the pooled grid and blur them in shared memory, and blocks that
+run the Gaussian's six box passes on a band of ``GAUSS_BAND`` rows of a
+label with its halo), then the per-pixel update; the plan is three.
 """
 
 from __future__ import annotations
@@ -38,7 +42,9 @@ F32 = torch.float32
 I32 = torch.int32
 GRID_BINS = 8
 OFFS = (-2, -1, 0, 1, 2)  # the slab blur's taps
-MAX_LINE = 192  # the longest line a box pass of csrc/crf.cu holds in shared memory
+GAUSS_BAND = 8  # rows of the Gaussian message a block of csrc/crf.cu writes
+SLAB_GROUP = 4  # slabs of the grid a block of csrc/crf.cu splats and blurs
+SMEM_LIMIT = 232448  # shared memory an H100 block may use
 
 
 class CrfParams(NamedTuple):
@@ -190,14 +196,19 @@ class CardPlan(NamedTuple):
     """The iteration-invariant state of ``csrc/crf.cu``."""
 
     params: torch.Tensor  # [16] f32: fmin, scale, the slab taps of each feature
-    bins: torch.Tensor  # [H*W] int32 slab of each pixel
+    bins: torch.Tensor  # [H*W] uint8 slab of each pixel
     norm: torch.Tensor  # [H*W] f32 blurred occupancy at each pixel's slab
     ds: int
 
 
-def _check_lines(h: int, w: int, ds: int) -> None:
-    if max(h, w, h // ds, w // ds) > MAX_LINE:
-        raise ValueError(f"a CRF grid line longer than {MAX_LINE} does not fit csrc/crf.cu")
+def _check_smem(h: int, w: int, ds: int, rg: int) -> None:
+    """Raise where csrc/crf.cu's blocks would need more shared memory than a
+    block has: two [hp, wp | 1] planes of each slab of a group, two
+    [band + 6 rg, w | 1] row blocks of the Gaussian."""
+    grid = 2 * SLAB_GROUP * (h // ds) * ((w // ds) | 1)
+    gauss = 2 * (GAUSS_BAND + 6 * rg) * (w | 1)
+    if 4 * max(grid, gauss) > SMEM_LIMIT:
+        raise ValueError(f"a {h}x{w} CRF grid does not fit csrc/crf.cu's shared memory")
 
 
 def crf_plan_cuda(unary: torch.Tensor, flow: torch.Tensor, p: CrfParams):
@@ -208,19 +219,20 @@ def crf_plan_cuda(unary: torch.Tensor, flow: torch.Tensor, p: CrfParams):
     if tuple(flow.shape) != (h, w, 2):
         raise ValueError("flow must be [H, W, 2]")
     ds = pool_of(h, w)
-    _check_lines(h, w, ds)
+    _check_smem(h, w, ds, 0)
     dev = unary.device
     hp, wp = h // ds, w // ds
+    rb = box_radius(p.sigma_xy / ds)
     q = torch.empty_like(unary)
     params = torch.empty((16,), dtype=F32, device=dev)
-    bins = torch.empty((h * w,), dtype=I32, device=dev)
+    bins = torch.empty((h * w,), dtype=torch.uint8, device=dev)
     norm = torch.empty((h * w,), dtype=F32, device=dev)
-    occ = torch.empty((hp * wp * GRID_BINS ** 2,), dtype=F32, device=dev)
+    occ = torch.empty((GRID_BINS ** 2 * hp * wp,), dtype=F32, device=dev)
     f = K.fn("crf", "mmf_crf_plan", [K.P, K.P, K.I, K.I, K.I, K.I, K.F, K.F, K.I, K.F]
              + [K.P] * 5)
     K.call("crf.plan", f, K.ptr(unary), K.ptr(flow), nl, h, w, ds, float(p.feature_scale),
-           float(p.sigma_f), box_radius(p.sigma_xy / ds), 1.0 / float(2 * box_radius(
-               p.sigma_xy / ds) + 1), K.ptr(q), K.ptr(params), K.ptr(bins), K.ptr(norm), K.ptr(occ))
+           float(p.sigma_f), rb, 1.0 / float(2 * rb + 1), K.ptr(q), K.ptr(params), K.ptr(bins),
+           K.ptr(norm), K.ptr(occ))
     return q, CardPlan(params, bins, norm, ds)
 
 
@@ -233,19 +245,21 @@ def crf_iteration_cuda(q: torch.Tensor, unary: torch.Tensor, plan: CardPlan,
     if max(1, int(2.0 * p.gauss_sigma)) <= 4:
         raise ValueError("csrc/crf.cu implements the three-box Gaussian message (sigma >= 2.5)")
     ds = plan.ds
-    hp, wp = h // ds, w // ds
-    dev = q.device
-    out = torch.empty_like(q)
-    gauss = torch.empty((2, nl, h, w), dtype=F32, device=dev)
-    grid = torch.empty((hp * wp * GRID_BINS ** 2 * nl,), dtype=F32, device=dev)
+    if q.data_ptr() % 16:
+        raise ValueError("q must be 16-byte aligned (csrc/crf.cu loads a pooled cell's row at once)")
     rg = box_radius(p.gauss_sigma)
     rb = box_radius(p.sigma_xy / ds)
+    _check_smem(h, w, ds, rg)
+    dev = q.device
+    out = torch.empty_like(q)
+    gauss = torch.empty_like(q)
+    grid = torch.empty((nl * GRID_BINS ** 2 * (h // ds) * (w // ds),), dtype=F32, device=dev)
     f = K.fn("crf", "mmf_crf_iteration", [K.P, K.P, K.P, K.P, K.P, K.I, K.I, K.I, K.I, K.I, K.F,
-                                          K.I, K.F, K.F, K.F, K.P, K.P, K.P])
+                                          K.I, K.F, K.F, K.F, K.I, K.P, K.P, K.P])
     K.call("crf.iter", f, K.ptr(q), K.ptr(unary), K.ptr(plan.params), K.ptr(plan.bins),
            K.ptr(plan.norm), nl, h, w, ds, rg, 1.0 / float(2 * rg + 1), rb,
-           1.0 / float(2 * rb + 1), float(p.gauss_weight), float(p.bil_weight), K.ptr(gauss),
-           K.ptr(grid), K.ptr(out))
+           1.0 / float(2 * rb + 1), float(p.gauss_weight), float(p.bil_weight), GAUSS_BAND,
+           K.ptr(gauss), K.ptr(grid), K.ptr(out))
     return out
 
 

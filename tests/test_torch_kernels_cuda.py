@@ -39,7 +39,8 @@ on chip_smoke.py's spheres at 160x120, records K4's error-image mode, K24a-c
 (SLIC, the superpixel means and upsample, the superpixel CRF) and K17.
 K24a and K24b also run on hand-made label images
 (``checks.check_slic_cases``: a superpixel over many list chunks, empty
-ones, labels five cells away, the edge cells; N = 1, 13 and 40 images).
+ones, labels five cells away, the edge cells; N = 1, 13 and 40 images), and
+K17 on hand-made mask stacks (``checks.check_components_cases``).
 """
 
 import pytest
@@ -175,10 +176,21 @@ def test_nms_topk_synthetic_heat(kind):
 
 
 def test_components_global_scratch():
-    """K17 on a grid whose label planes do not fit in shared memory."""
+    """K17 on a 240x160 stack (32-cell tiles, four passes): kept cells and
+    sizes exact."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
     r = checks.check_components(checks.components_inputs(160, 240, "cuda"))
+    assert r["ok"], r
+
+
+def test_components_hand_made_stacks():
+    """K17 on ``checks.component_cases`` at 480x640, 120x160 and 487x651 (a
+    spiral across tile edges, equal sizes in different tiles, all-True,
+    empty, the last cell alone, blobs) against the plain version on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
+    r = checks.check_components_cases("cuda")
     assert r["ok"], r
 
 
