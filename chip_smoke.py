@@ -5,7 +5,11 @@
 
 Phases (any failure exits non-zero):
 1. build every CUDA kernel of ``multimotionfusion_tpu_torch/csrc`` (nvcc, in
-   parallel) and print the build seconds and each kernel's register use;
+   parallel) and print the build seconds and each kernel's registers, shared
+   memory, stack frame and spills (ptxas -v); require K5's step kernels
+   (``REGISTER_ONLY``) to have no stack frame and no spills; print the
+   device time of an empty one-thread kernel (the launch floor, beside the
+   step kernels' lines);
 2. run ``MultiMotionFusionTorch`` on the card with the static 640x480
    configuration (``odom_init=""``, single model, 2^20 surfel capacity) over
    the synthetic scene (1 init frame + 45 frames), print the median and p75
@@ -108,6 +112,16 @@ Phases (any failure exits non-zero):
    squares in different tiles, an all-True and an empty label, a one-cell
    component in the last row and column, blobs) against the plain version
    on the CPU, kept cells and sizes exact;
+5c''''. K5's solve on hand-made systems (phase ``solve_cases``,
+   ``checks.solve_cases``: well-conditioned, diagonals six decades apart, the
+   sphere-spin near-degeneracy either side of the 1e-4 cut, rank-deficient,
+   all zero, inf, NaN, repeated eigenvalues and exact ties; N = 6 and 3)
+   through the test entry ``mmf_solve_cases``, x and the eigenvalues
+   bit-equal to the float32 emulation ``checks.solve_preconditioned_emulated``;
+5c'''''. the work of K5's solves on the systems recorded for the ``gn_step``
+   and ``gn_step_multi`` lines (phase ``solve_work``): sweeps and rotations
+   counted on the CPU by the emulation (``checks.jacobi_work``), not
+   measured on the card;
 5d. five_movers: tests/test_five_movers.py's configuration and 17-frame
    journey at 160x120 (the scene from the port's own io/synthetic.py) on
    the card with the engine seeds FIVE_SEEDS: on every seed five spawns at
@@ -149,6 +163,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -253,10 +269,16 @@ LEGACY_PATH = (
 # ICP error reaches the new-model class, so the reference spawns nothing.
 REF_LEGACY_ACTIVE = (0,) * (1 + MULTI_FRAMES)
 REF_LEGACY_SPAWN_FRAMES = ()
-# device ms and device launches a frame of the two CRF paths with K16's
-# six-launch iteration and K17's one block a label (PERF.md section 5), printed
-# beside this run's stage phases
-EARLIER_DEVICE = {"flow_crf_stages": (6.65, 1059.5), "legacy_crf_stages": (16.54, 2120.2)}
+# device ms and device launches a frame of every path before K5's solve in
+# registers and K11's last-block sums (PERF.md), printed beside this run's
+# stage phases
+EARLIER_DEVICE = {"stages": (1.29, 268.2), "kp_stages": (1.52, 347.2),
+                  "multi_stages": (5.43, 984.7), "flow_crf_stages": (5.88, 1023.5),
+                  "legacy_crf_stages": (7.21, 2125.8)}
+# the odometry's step and reduction kernels, shown apart in the stage phases
+GN_KERNELS = ("gn_step", "so3_step", "pass1", "pass2", "finalize", "Memset")
+# kernels of gn_step.cu that must keep their solve in registers (ptxas -v)
+REGISTER_ONLY = ("so3_step", "gn_step", "gn_step_multi")
 
 
 def _gpu_line() -> str:
@@ -283,8 +305,12 @@ def _time_ms(fn, reps: int = 20) -> float:
 def _device_ms(fn, reps: int = 20, tries: int = 3):
     """Device time of the work one call of ``fn`` enqueues (kernels, memsets,
     copies; torch.profiler), without the host's launch overhead that ``_time_ms``
-    sees when the host is the slower side. A profile that recorded no device
-    work at all is taken again; None (not measured) after ``tries`` such."""
+    sees when the host is the slower side: the device events of a profile of
+    ``reps`` calls over ``reps``. A profile that recorded no device work at
+    all is taken again; None (not measured) after ``tries`` such. A
+    profile's first device events go unrecorded, so this reads low where a
+    call has few; ``_device_profile`` counts them all. This one stays for
+    rows comparable with earlier PRs'."""
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
@@ -297,6 +323,56 @@ def _device_ms(fn, reps: int = 20, tries: int = 3):
         if total > 0:
             return total / 1e3 / reps
     return None
+
+
+def _device_profile(fn, reps: int = 20, warm: int = 10):
+    """Device work one call of ``fn`` enqueues, every event counted: ``warm``
+    calls first inside the profile (its first device events go unrecorded),
+    then ``reps`` calls in a marked range, and only the device events that
+    start in it. Returns (ms, device launches, {kernel name: ms}), all per
+    call; (None, None, {}) where no event was recorded."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(warm):
+            fn()
+        torch.cuda.synchronize()
+        with torch.profiler.record_function("mmf_timed_calls"):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    marks = [e for e in prof.events() if e.name == "mmf_timed_calls"]
+    if not marks:
+        return None, None, {}
+    t0 = marks[0].time_range.start
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.time_range.start >= t0 and e.name != "mmf_timed_calls"]
+    if not events:
+        return None, None, {}
+    by_name = defaultdict(float)
+    for e in events:
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3 / reps
+    total = sum(e.time_range.elapsed_us() for e in events)
+    return total / 1e3 / reps, len(events) / reps, dict(by_name)
+
+
+def _kernel_ms(by_name: dict, kernel: str):
+    """Device ms of the kernels named ``kernel`` in a ``_device_profile``."""
+    hits = [ms for name, ms in by_name.items() if f"::{kernel}(" in name]
+    return sum(hits) if hits else None
+
+
+def launch_floor_ms():
+    """Device time of an empty one-thread kernel (``gn_step.cu`` ``mmf_empty``)
+    on the current stream: the least a single-block step kernel can take."""
+    from multimotionfusion_tpu_torch import kernels as K
+
+    f = K.fn("gn_step", "mmf_empty", [])
+
+    def empty():
+        if f(torch.cuda.current_stream().cuda_stream) != 0:
+            raise RuntimeError("the empty kernel failed to launch")
+
+    return _device_ms(empty), _device_profile(empty)[0]
 
 
 def _bound(bytes_moved: float, flops: float):
@@ -493,6 +569,8 @@ def run_stages(K, engine, frames, tag="stages") -> None:
             k[1] += 1
     busy = sum(v[0] for v in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]
+    gn = {name: {"ms": v[0], "launches_per_frame": v[1] / n} for name, v in kernels.items()
+          if any(k in name for k in GN_KERNELS)}
     print(json.dumps({
         "phase": tag, "frames": n, "wall_ms_per_frame": wall, "stages_per_frame": stages,
         "device_kernel_ms_per_frame": busy, "device_busy_share": busy / wall,
@@ -500,13 +578,14 @@ def run_stages(K, engine, frames, tag="stages") -> None:
         "wrapper_launches_per_frame": wrappers,
         "top_kernels_ms_per_frame": [
             {"name": name, "ms": v[0], "launches_per_frame": v[1] / n} for name, v in top],
+        "odometry_kernels_ms_per_frame": gn,
         **({"earlier_device_ms_and_launches_per_frame": EARLIER_DEVICE[tag]}
            if tag in EARLIER_DEVICE else {}),
         "gpu": _gpu_line(),
     }))
 
 
-def _states(state, n=48):
+def _states(state, n=128):
     """Fresh copies of a loop state (a step updates its state in place)."""
     copies = iter([state.clone() for _ in range(n)])
     return lambda: next(copies)
@@ -720,12 +799,18 @@ def measure_step(a, kind):
     # the state and the sums in and out; a Jacobi eigensolve of n x n
     # (~8 sweeps of n(n-1)/2 rotations of 12 n operations) and the update
     bound, by = _bound(2 * 4 * rgbd.S_SIZE + 4 * 64, 8 * n * (n - 1) // 2 * 12 * n + 500)
+    dev, n_dev, by_name = _device_profile(lambda: cuda(fresh(), *rest))
     return dict(
         ms=_time_ms(lambda: cuda(fresh(), *rest)),
-        device_ms=_device_ms(lambda: cuda(fresh(), *rest)),
+        device_ms=_device_ms(lambda: cuda(fresh(), *rest)), device_ms_exact=dev,
+        kernel_device_ms_exact=_kernel_ms(by_name, f"{kind}_step"),
+        device_launches_per_call=n_dev, launch_floor_ms=LAUNCH_FLOOR_MS[0],
+        launch_floor_ms_exact=LAUNCH_FLOOR_MS[1],
         plain_ms=_time_ms(lambda: plain(state.clone(), *rest), reps=5),
         **_library(lambda: torch.linalg.eigh(A)), bound_ms=bound, bound_by=by,
-        timing_note="each call on a fresh copy of the recorded state (one 512-byte copy included)",
+        timing_note="each call on a fresh copy of the recorded state, the copies made before "
+                    "the timing; device_ms as earlier PRs took it, device_ms_exact every "
+                    "device event of a call, kernel_device_ms_exact the step kernel's own",
     )
 
 
@@ -942,11 +1027,14 @@ def measure_gn_multi(a, level):
     P = ((h + s - 1) // s) * ((w + s - 1) // s)
     tap_bytes = 16 if lv.compact else 32
     full = lambda: MO.gn_multi_cuda(*a, level=level)  # noqa: E731
+    dev, n_dev, by_name = _device_profile(full)
     return _measure(full, lambda: MO.gn_multi_plain(*a),
                     P * (37 + 8) + min(4 * P, h * w) * (tap_bytes + 4) + 64 * 4 * M, P * 300,
                     library=lambda: (torch.einsum("pm,pi,pj->mij", onehot, icp_rows, icp_rows),
                                      torch.einsum("pm,pi,pj->mij", onehot, rgb_rows, rgb_rows)),
-                    library_note="owner-weighted rows.T @ rows (einsum over the one-hot owner)")
+                    library_note="owner-weighted rows.T @ rows (einsum over the one-hot owner)",
+                    device_ms_exact=dev, device_launches_per_call=n_dev,
+                    pass_device_ms_exact={k: _kernel_ms(by_name, k) for k in ("pass1", "pass2")})
 
 
 def measure_multi_step(a, kind):
@@ -965,9 +1053,27 @@ def measure_multi_step(a, kind):
     M = state.numel() // rgbd.S_SIZE - 1
     fresh = _states(state)
     flops = M * (8 * 15 * 12 * 6 + 500) if kind == "step" else 100 * M
+    extra, library = {}, None
+    if kind == "step":
+        sums, sp = rest[0], rest[2]
+        w2 = torch.tensor(sp.icp_weight, dtype=torch.float32) ** 2
+        systems = []
+        for m in range(M):
+            S_icp, _, S_rgb, _, _ = rgbd.systems_from_sums(sums[m], sp.scale2)
+            systems.append(S_rgb[:6, :6] + w2 * S_icp[:6, :6] if sp.use_rgb else S_icp[:6, :6])
+        A = torch.stack(systems).to(DEVICE)
+        library = lambda: torch.linalg.eigh(A)  # noqa: E731
+        dev, n_dev, by_name = _device_profile(lambda: cuda(fresh(), *rest))
+        extra = dict(device_ms_exact=dev,
+                     kernel_device_ms_exact=_kernel_ms(by_name, "gn_step_multi"),
+                     device_launches_per_call=n_dev, launch_floor_ms=LAUNCH_FLOOR_MS[0],
+                     launch_floor_ms_exact=LAUNCH_FLOOR_MS[1],
+                     library_note="batched torch.linalg.eigh of the M 6x6 systems (the "
+                                  "eigensolve alone, part of the step)")
     return _measure(lambda: cuda(fresh(), *rest), lambda: plain(state.clone(), *rest),
-                    2 * 4 * state.numel() + 4 * 64 * M, flops,
-                    timing_note="each call on a fresh copy of the recorded state")
+                    2 * 4 * state.numel() + 4 * 64 * M, flops, library=library,
+                    timing_note="each call on a fresh copy of the recorded state, the copies "
+                                "made before the timing", **extra)
 
 
 def measure_zbuffer_flat(a):
@@ -2060,6 +2166,52 @@ def run_components_cases() -> list:
     return [] if r["ok"] else [f"K17 on hand-made stacks: {r['cases']}"]
 
 
+def run_solve_cases() -> list:
+    """Phase 5c'''': K5's solve_preconditioned<6> and <3> on the card (test
+    entry ``mmf_solve_cases``) on ``checks.solve_cases`` (well-conditioned,
+    diagonals six decades apart, the sphere-spin near-degeneracy either side
+    of the 1e-4 cut, rank-deficient, all zero, inf, NaN, repeated
+    eigenvalues and exact ties) against the float32 emulation
+    (``checks.solve_preconditioned_emulated``): x and w bit-equal."""
+    from multimotionfusion_tpu_torch.kernels import checks as C
+
+    r = C.check_solve_cases(DEVICE)
+    torch.cuda.synchronize()
+    print(json.dumps({"phase": "solve_cases", **r}))
+    return [] if r["ok"] else [f"K5's solve on hand-made systems: {r['cases']}"]
+
+
+def run_solve_work(captured, m_captured) -> None:
+    """Phase 5c''''': the work of K5's eigensolve on the systems recorded for
+    the ``gn_step`` and ``gn_step_multi`` lines, counted on the CPU by the
+    float32 emulation (``checks.jacobi_work``): (sweeps, rotations) of each
+    solve the recorded step applies. A count, not a measurement on the card;
+    the kernel is bit-equal to the emulation (phase ``solve_cases``), so it
+    makes the same rotations."""
+    from multimotionfusion_tpu_torch.kernels import checks as C
+    from multimotionfusion_tpu_torch.odometry import multi as MO
+    from multimotionfusion_tpu_torch.odometry import rgbd
+
+    def system(sums, sp, use_icp):
+        S_icp, _, S_rgb, _, _ = rgbd.systems_from_sums(sums.cpu(), sp.scale2)
+        w2 = torch.tensor(sp.icp_weight, dtype=torch.float32) ** 2
+        A = (S_rgb[:6, :6] + w2 * S_icp[:6, :6] if use_icp and sp.use_rgb
+             else S_icp[:6, :6] if use_icp else S_rgb[:6, :6])
+        return C.jacobi_work(A.numpy())
+
+    state, sums, sp, _ = C.args("gn_step", captured["gn_step"])
+    single = ([system(sums, sp, sp.use_icp)] if float(state[rgbd.S_GN_DONE]) == 0 else [])
+    state, sums, M, sp, _ = C.args("gn_step_multi", m_captured["gn_step_multi"])
+    rows = state.cpu().view(M + 1, rgbd.S_SIZE)
+    multi = [system(sums[m], sp, True) for m in range(M)
+             if rows[M, rgbd.S_GN_DONE] == 0 and rows[m, rgbd.S_GN_DONE] == 0
+             and rows[m, MO.S_ACTIVE] != 0]
+    print(json.dumps({"phase": "solve_work", "gn_step": single, "gn_step_multi": multi,
+                      "what": "(sweeps, rotations) of each solve the recorded step applies, "
+                              "counted by checks.jacobi_work (the float32 emulation, on the "
+                              "CPU), not measured on the card"}))
+
+
 # ---------------------------------------------------------------- relocalisation, loop closure
 
 FERN_PATH = ("ferns.frame", "ferns.encode_hd", "ferns.insert", "ferns.photo")
@@ -2477,6 +2629,52 @@ def plan_global():
     return ferns_, deform
 
 
+LAUNCH_FLOOR_MS = (None, None)  # (device_ms, exact) of an empty kernel; set by main
+
+
+def _short_name(mangled: str) -> str:
+    """A kernel's name from its mangled one: the last nested name before the
+    arguments, with an integer template argument
+    (`_ZN12_GLOBAL__N_111solve_casesILi3EEEv...` -> `solve_cases<3>`)."""
+    i = 3 if mangled.startswith("_ZN") else 2 if mangled.startswith("_Z") else 0
+    parts = []
+    while 0 < i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        parts.append(mangled[j:j + n])
+        i = j + n
+    if not parts:
+        return mangled
+    t = re.match(r"ILi(\d+)E", mangled[i:])
+    return f"{parts[-1]}<{t.group(1)}>" if t else parts[-1]
+
+
+def ptxas_table(log: str) -> dict:
+    """Per kernel of one ``nvcc -Xptxas -v`` log: registers, shared memory,
+    stack frame and spill bytes."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", ln)
+        if m:
+            cur = out.setdefault(_short_name(m.group(1)), dict(
+                registers=None, smem=0, stack_frame=0, spill_stores=0, spill_loads=0))
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            cur["stack_frame"], cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -2486,10 +2684,21 @@ def main() -> int:
     # the library yardsticks compare with full float32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # a fresh build, so that the compiler's report covers every kernel
+    shutil.rmtree(K.BUILD_DIR, ignore_errors=True)
     t_build = K.build_all()
-    regs = {k: [ln.strip() for ln in v.splitlines() if "registers" in ln]
-            for k, v in K.BUILD_LOG.items()}
-    print(json.dumps({"phase": "build", "seconds": t_build, "ptxas": regs}))
+    ptxas = {k: ptxas_table(v) for k, v in K.BUILD_LOG.items()}
+    in_registers = {k: ptxas["gn_step"].get(k) for k in REGISTER_ONLY}
+    registers_only = all(v is not None and v["stack_frame"] == 0 and v["spill_stores"] == 0
+                         and v["spill_loads"] == 0 for v in in_registers.values())
+    print(json.dumps({"phase": "build", "seconds": t_build, "ptxas": ptxas,
+                      "k5_steps": in_registers, "k5_steps_registers_only": registers_only}))
+    if not registers_only:
+        raise SystemExit(f"K5's step kernels use local memory: {in_registers}")
+    global LAUNCH_FLOOR_MS
+    LAUNCH_FLOOR_MS = launch_floor_ms()
+    print(json.dumps({"phase": "launch_floor", "device_ms": LAUNCH_FLOOR_MS[0],
+                      "device_ms_exact": LAUNCH_FLOOR_MS[1], "gpu": _gpu_line()}))
 
     cfg, frames, gt_poses = static_frames(N_FRAMES + 2 * STAGE_FRAMES + SYNC_FRAMES)
     engine, launches, captured = run_engine(K, cfg, frames, gt_poses)
@@ -2527,7 +2736,7 @@ def main() -> int:
     syncs += g_syncs
     run_stages(K, g_engine, f_frames[MULTI_FRAMES + 1:], "legacy_crf_stages")
     del g_engine
-    f_failed += g_failed + run_slic_cases() + run_components_cases()
+    f_failed += g_failed + run_slic_cases() + run_components_cases() + run_solve_cases()
     five = five_movers_seeds()
 
     r_launches, r_captured, global_failed = run_reloc(K)
@@ -2555,6 +2764,7 @@ def main() -> int:
     kernels += check_kernels(plan_legacy(), g_captured, g_launches, MULTI_FRAMES)
     kernels += check_kernels(fern_plan, r_captured, r_launches, RELOC_JOURNEY_FRAMES)
     kernels += check_kernels(deform_plan, l_captured, l_launches, 7)
+    run_solve_work(captured, m_captured)
     loops = [check_loop(captured), check_loop(kp_captured, "odometry_loop[kp]"),
              check_sparse(kp_captured), check_multi_loop(m_captured)]
     print(json.dumps({"kernels": kernels}))

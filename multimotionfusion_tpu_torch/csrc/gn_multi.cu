@@ -28,11 +28,26 @@
 //     SO(3) pose of the seed arbitration); its four taps must all belong to
 //     that owner; the ICP and RGB rows are gn_reduce's (csrc/gn_pixel.cuh).
 //     Each block reduces its rows per model (warp shuffles over the lanes of
-//     one model, a warp that holds no pixel of a model skips it) into
-//     per-block partials [M, 64]; a second kernel sums the partials in block
-//     order. No float atomics: results are the same run to run. As in
-//     gn_reduce, pass 2 reads each owner's RGB count and sum(diff^2) from
-//     pass 1's sums on the card for the row weight 1 / (sigma_val + |diff|).
+//     one model, only for the models present in the warp: a lane of another
+//     model adds +0 to the same tree) into per-block partials
+//     [blocks, M, NV], the slots in use only. No float atomics: results are
+//     the same run to run. As in gn_reduce, pass 2 reads each owner's RGB
+//     count and sum(diff^2) from pass 1's sums on the card for the row
+//     weight 1 / (sigma_val + |diff|).
+//   - the last block finalises: every block makes its partials visible
+//     (__threadfence) and draws a ticket from a counter of the library's own
+//     (one per pass; the last block sets it back to 0). The block that draws
+//     the last ticket stages the partials through shared memory (16-byte
+//     loads, a chunk's all in flight), and each of its threads adds its slot's values in
+//     block order from 0.f: the order of the separate one-block finalize
+//     kernel this replaces, so `sums` is bit-equal to it (no partial is -0
+//     and no sum starts at -0, so skipping the +0 of a model absent from a
+//     warp changes no bit). Pass 1's last block writes every slot of `sums`
+//     (zeros where neither pass has a value), which replaces the memset;
+//     when the loop is done every block returns and block 0 of pass 1
+//     writes the zeros. One evaluation is 2 launches (1 without RGB). The
+//     counters make two evaluations on two streams at once unsafe: the
+//     engine runs them on one stream.
 //   - every kernel returns at once when the level loop's done flag (the
 //     state's last row) is set: every model has stopped.
 
@@ -47,6 +62,9 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int SLOTS = 64;
 constexpr int MAXM = 8;
+
+// the passes' tickets (pass 1, pass 2): 0 between evaluations
+__device__ unsigned g_ticket[2];
 
 // ---------------------------------------------------------------- owner prep
 
@@ -123,45 +141,128 @@ __device__ inline int eval_owned(const Params& P, const Multi& A, const void* pr
   return o;
 }
 
-// per-model block reduction of NV accumulators into partials[block][m * 64 + slot]
+// the slot in sums' 64-float row of accumulator i of a pass
+template <int PASS>
+__device__ __forceinline__ int slot_of(int i) {
+  return PASS == 1 ? (i < 28 ? i : 56 + (i - 28)) : 28 + i;
+}
+
+constexpr int STAGE = 8192;  // floats of the last block's staging buffer (32 KB)
+
+// per-model block reduction of NV accumulators into partials[block][m][i]
+// (M x NV floats a block); a warp reduces only the models its lanes hold
 template <int NV>
-__device__ inline void block_reduce_models(const float* acc, int owner, int M,
-                                           float (*sh)[MAXM][32], const int* slot,
-                                           float* partials) {
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int m = 0; m < M; ++m) {
-    bool mine = owner == m;
-    bool any = __ballot_sync(0xffffffffu, mine) != 0u;
+__device__ __forceinline__ void block_reduce_models(const float* acc, int owner, int M,
+                                                    float (*sh)[MAXM][32], unsigned* present,
+                                                    float* partials) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned todo = __ballot_sync(0xffffffffu, owner < M);
+  unsigned models = 0u;
+  while (todo) {
+    const int m = __shfl_sync(0xffffffffu, owner, __ffs(todo) - 1);
+    const bool mine = owner == m;
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       float v = mine ? acc[i] : 0.f;
-      if (any)
-        for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-      if (lane == 0) sh[warp][m][i] = any ? v : 0.f;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+      if (lane == 0) sh[warp][m][i] = v;
     }
+    models |= 1u << m;
+    todo &= ~__ballot_sync(0xffffffffu, mine);
   }
+  if (lane == 0) present[warp] = models;
   __syncthreads();
-  for (int t = threadIdx.x; t < M * NV; t += THREADS) {
-    int m = t / NV, i = t % NV;
+  const int MN = M * NV;
+  for (int t = threadIdx.x; t < MN; t += THREADS) {
+    const int m = t / NV, i = t % NV;
     float s = 0.f;
-    for (int wp = 0; wp < WARPS; ++wp) s += sh[wp][m][i];
-    partials[blockIdx.x * (MAXM * SLOTS) + m * SLOTS + slot[i]] = s;
+#pragma unroll
+    for (int wp = 0; wp < WARPS; ++wp)
+      if (present[wp] >> m & 1u) s += sh[wp][m][i];
+    partials[blockIdx.x * MN + t] = s;
   }
 }
 
-__constant__ int PASS1_SLOTS[31] = {0,  1,  2,  3,  4,  5,  6,  7,  8,  9,  10,
-                                    11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21,
-                                    22, 23, 24, 25, 26, 27, 56, 57, 58};
-__constant__ int PASS2_SLOTS[28] = {28, 29, 30, 31, 32, 33, 34, 35, 36, 37,
-                                    38, 39, 40, 41, 42, 43, 44, 45, 46, 47,
-                                    48, 49, 50, 51, 52, 53, 54, 55};
+// true in the block that draws the last ticket, once every block's partials
+// are visible; that block sets the counter back to 0
+__device__ __forceinline__ bool last_block(unsigned* ticket) {
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned t = atomicAdd(ticket, 1u);
+    last = t == gridDim.x - 1;
+    if (last) *ticket = 0u;
+  }
+  __syncthreads();
+  return last;
+}
+
+// the last block's fixed-order sum over blocks of one pass's partials
+// (thread t < M x NV owns model t / NV, accumulator t % NV); pass 1 also
+// writes zeros into every other slot of sums. The partials pass through the
+// staging buffer in chunks of whole blocks, a multiple of 4 so that every
+// chunk starts 16-byte aligned: each thread has all its 16-byte loads of a
+// chunk in flight at once.
+template <int NV, int PASS>
+__device__ __forceinline__ void finish_sums(const float* partials, int M, float* stage,
+                                            float* sums) {
+  const int MN = M * NV, blocks = gridDim.x;
+  const int chunk = (STAGE / MN) & ~3;  // whole blocks a stage
+  float s = 0.f;
+  for (int b0 = 0; b0 < blocks; b0 += chunk) {
+    const int n = min(chunk, blocks - b0) * MN;
+    const float* src = partials + b0 * MN;
+    const float4* src4 = reinterpret_cast<const float4*>(src);
+    float4* stage4 = reinterpret_cast<float4*>(stage);
+    constexpr int PER = STAGE / 4 / THREADS;  // 16-byte loads a thread, at most
+    float4 v[PER];
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int e = threadIdx.x + k * THREADS;
+      if (4 * e + 3 < n) v[k] = __ldcg(src4 + e);
+    }
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int e = threadIdx.x + k * THREADS;
+      if (4 * e + 3 < n) stage4[e] = v[k];
+    }
+    for (int e = (n & ~3) + threadIdx.x; e < n; e += THREADS) stage[e] = __ldcg(src + e);
+    __syncthreads();
+    if (threadIdx.x < MN)
+      for (int e = threadIdx.x; e < n; e += MN) s += stage[e];
+    __syncthreads();
+  }
+  if (threadIdx.x < MN) {
+    const int m = threadIdx.x / NV, i = threadIdx.x % NV;
+    sums[m * SLOTS + slot_of<PASS>(i)] = s;
+  }
+  if (PASS == 1)
+    for (int e = threadIdx.x; e < MAXM * SLOTS; e += THREADS) {
+      const int m = e / SLOTS, v = e % SLOTS;
+      if (m >= M || (v >= 28 && v < 56) || v >= 59) sums[e] = 0.f;
+    }
+}
+
+// the shared memory of a pass: the block reduction's scratch, then (in the
+// last block only) the staging buffer of finish_sums
+union __align__(16) PassShared {
+  float sh[WARPS][MAXM][32];
+  float stage[STAGE];
+};
 
 // pass 1: per model the ICP system, ICP count, RGB count and sum(diff^2)
 __global__ void __launch_bounds__(THREADS)
 pass1(Params P, Multi A, const void* pred, const float* vmap, const float* nmap, const float* img,
-      const float* didx, const float* didy, const uint8_t* sv, float* partials) {
-  if (is_done(P)) return;
-  __shared__ float sh[WARPS][MAXM][32];
+      const float* didx, const float* didy, const uint8_t* sv, float* partials, float* sums) {
+  if (is_done(P)) {  // sums of a finished loop are zeros
+    if (blockIdx.x == 0)
+      for (int e = threadIdx.x; e < MAXM * SLOTS; e += THREADS) sums[e] = 0.f;
+    return;
+  }
+  __shared__ PassShared smem;
+  __shared__ unsigned present[WARPS];
   float acc[31];
 #pragma unroll
   for (int i = 0; i < 31; ++i) acc[i] = 0.f;
@@ -182,16 +283,17 @@ pass1(Params P, Multi A, const void* pred, const float* vmap, const float* nmap,
       acc[28] = 1.f;
     }
   }
-  block_reduce_models<31>(acc, o, A.M, sh, PASS1_SLOTS, partials);
+  block_reduce_models<31>(acc, o, A.M, smem.sh, present, partials);
+  if (last_block(&g_ticket[0])) finish_sums<31, 1>(partials, A.M, smem.stage, sums);
 }
 
 // pass 2: per model the weighted RGB system (each owner's count from pass 1)
 __global__ void __launch_bounds__(THREADS)
 pass2(Params P, Multi A, const void* pred, const float* vmap, const float* nmap, const float* img,
-      const float* didx, const float* didy, const uint8_t* sv, const float* sums,
-      float* partials) {
+      const float* didx, const float* didy, const uint8_t* sv, float* partials, float* sums) {
   if (is_done(P)) return;
-  __shared__ float sh[WARPS][MAXM][32];
+  __shared__ PassShared smem;
+  __shared__ unsigned present[WARPS];
   float acc[28];
 #pragma unroll
   for (int i = 0; i < 28; ++i) acc[i] = 0.f;
@@ -206,20 +308,8 @@ pass2(Params P, Multi A, const void* pred, const float* vmap, const float* nmap,
     float row[7];
     if (rgb_row(P, px, sigma_val, row)) add_outer(acc, row);
   }
-  block_reduce_models<28>(acc, o, A.M, sh, PASS2_SLOTS, partials);
-}
-
-// fixed-order sum over blocks of one pass's slots, every model
-__global__ void finalize(Params P, int M, const float* partials, int blocks, int pass,
-                         float* sums) {
-  if (is_done(P)) return;
-  int t = threadIdx.x;
-  int m = t / SLOTS, v = t % SLOTS;
-  bool mine = pass == 1 ? (v < 28 || (v >= 56 && v < 59)) : (v >= 28 && v < 56);
-  if (m >= M || !mine) return;
-  float s = 0.f;
-  for (int b = 0; b < blocks; ++b) s += partials[b * (MAXM * SLOTS) + m * SLOTS + v];
-  sums[m * SLOTS + v] = s;
+  block_reduce_models<28>(acc, o, A.M, smem.sh, present, partials);
+  if (last_block(&g_ticket[1])) finish_sums<28, 2>(partials, A.M, smem.stage, sums);
 }
 
 }  // namespace
@@ -251,14 +341,10 @@ extern "C" int mmf_gn_multi(const void* pred, int compact, int H, int W, const f
   P.dist_thresh = dist_thresh; P.angle_thresh = angle_thresh; P.max_dd = max_dd;
   P.max_depth_rgb = max_depth_rgb; P.sobel_scale = sobel_scale; P.scale2 = scale2;
   Multi A{Tinv, tstride, M, own, bank_own};
-  cudaMemsetAsync(sums, 0, sizeof(float) * MAXM * SLOTS, stream);
   pass1<<<blocks, THREADS, 0, stream>>>(P, A, pred, vmap, nmap, img, didx, didy, static_valid,
-                                        partials);
-  finalize<<<1, MAXM * SLOTS, 0, stream>>>(P, M, partials, blocks, 1, sums);
-  if (use_rgb) {
+                                        partials, sums);
+  if (use_rgb)
     pass2<<<blocks, THREADS, 0, stream>>>(P, A, pred, vmap, nmap, img, didx, didy, static_valid,
-                                          sums, partials);
-    finalize<<<1, MAXM * SLOTS, 0, stream>>>(P, M, partials, blocks, 2, sums);
-  }
+                                          partials, sums);
   return (int)cudaGetLastError();
 }

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import copy
 
+import numpy as np
 import torch
 
 from multimotionfusion_tpu_torch.model import deformation as DG
@@ -349,6 +350,230 @@ def check_gn_step(a: tuple) -> dict:
                 and bool((sk[flags] == spl[flags]).all()),
                 tolerance="pose within 1e-5 m and 1e-5 rad, lastA within 1e-4 relative "
                           "(Frobenius), errors/counts within 1e-4 relative, flags exact")
+
+
+# ---------------------------------------------------------------- K5's solve
+
+_F = np.float32
+
+
+def _jacobi_eigh_emulated(a: list):
+    """``csrc/gn_step.cu`` ``jacobi_eigh<N>`` on an N x N list of float32
+    scalars (rotated in place), op by op: (w ascending, V, sweeps run,
+    rotations made)."""
+    n = len(a)
+    V = [[_F(1.0) if i == j else _F(0.0) for j in range(n)] for i in range(n)]
+    sweeps = rotations = 0
+    for _ in range(40):
+        sweeps += 1
+        rotated = False
+        for p in range(n - 1):
+            for q in range(p + 1, n):
+                apq = a[p][q]
+                if abs(apq) <= _F(1e-10) * (abs(a[p][p]) + abs(a[q][q])) or apq == _F(0.0):
+                    a[p][q] = a[q][p] = _F(0.0)
+                    continue
+                rotated = True
+                rotations += 1
+                theta = (a[q][q] - a[p][p]) / (_F(2.0) * apq)
+                t = _F(1.0) / (abs(theta) + np.sqrt(theta * theta + _F(1.0)))
+                if theta < _F(0.0):
+                    t = -t
+                if not np.isfinite(theta * theta):
+                    t = _F(0.5) / theta
+                c = _F(1.0) / np.sqrt(t * t + _F(1.0))
+                s = t * c
+                for k in range(n):
+                    akp, akq = a[k][p], a[k][q]
+                    a[k][p] = c * akp - s * akq
+                    a[k][q] = s * akp + c * akq
+                for k in range(n):
+                    apk, aqk = a[p][k], a[q][k]
+                    a[p][k] = c * apk - s * aqk
+                    a[q][k] = s * apk + c * aqk
+                for k in range(n):
+                    vkp, vkq = V[k][p], V[k][q]
+                    V[k][p] = c * vkp - s * vkq
+                    V[k][q] = s * vkp + c * vkq
+        if not rotated:
+            break
+    w = [a[i][i] for i in range(n)]
+    for i in range(n - 1):  # selection sort: the first minimum, strict <
+        m = i
+        for j in range(i + 1, n):
+            if w[j] < w[m]:
+                m = j
+        if m != i:
+            w[i], w[m] = w[m], w[i]
+            for k in range(n):
+                V[k][i], V[k][m] = V[k][m], V[k][i]
+    return w, V, sweeps, rotations
+
+
+def _jacobi_scaled(A):
+    """The kernel's Jacobi scaling of A (float32): (dinv, D^-1/2 A D^-1/2)."""
+    n = A.shape[0]
+    dinv = [_F(1.0) / np.sqrt(np.fmax(A[i, i], _F(1e-12))) for i in range(n)]
+    return dinv, [[A[i, j] * dinv[i] * dinv[j] for j in range(n)] for i in range(n)]
+
+
+def jacobi_work(A) -> tuple:
+    """(sweeps, rotations) of K5's eigensolve on the Jacobi-scaled A."""
+    with np.errstate(all="ignore"):
+        return _jacobi_eigh_emulated(_jacobi_scaled(np.asarray(A, dtype=_F))[1])[2:]
+
+
+def solve_preconditioned_emulated(A, b):
+    """K5's ``solve_preconditioned<N>`` (``csrc/gn_step.cu``) in numpy float32
+    scalars, op by op in the kernel's order: Jacobi scaling, cyclic Jacobi
+    rotations with the kernel's skip rule and ``t``, at most 40 sweeps, the
+    selection sort, the truncation at 1e-4 of the largest eigenvalue and x =
+    0 where not finite. Every constant is float32, so nothing widens; IEEE
+    + - * / and sqrt round alike here and on the card under -fmad=false, so
+    the kernel's x and w are bit-equal to these. Returns (x [N], w [N]) as
+    float32 arrays."""
+    A = np.asarray(A, dtype=_F)
+    b = np.asarray(b, dtype=_F)
+    n = b.shape[0]
+    with np.errstate(all="ignore"):
+        dinv, ah = _jacobi_scaled(A)
+        bh = [b[i] * dinv[i] for i in range(n)]
+        w, V = _jacobi_eigh_emulated(ah)[:2]
+        wmax = np.fmax(w[n - 1], _F(1e-12))
+        tmp = []
+        for k in range(n):
+            inv_w = (_F(1.0) / (_F(1.0) if w[k] == _F(0.0) else w[k])
+                     if w[k] > _F(1e-4) * wmax else _F(0.0))
+            s = _F(0.0)
+            for i in range(n):
+                s = s + V[i][k] * bh[i]
+            tmp.append(inv_w * s)
+        x = []
+        for i in range(n):
+            s = _F(0.0)
+            for k in range(n):
+                s = s + V[i][k] * tmp[k]
+            x.append(s * dinv[i])
+    x = np.array(x, dtype=_F)
+    if not np.isfinite(x).all():
+        x = np.zeros(n, dtype=_F)
+    return x, np.array(w, dtype=_F)
+
+
+SOLVE_NEAR_CUT = ("spin_below_cut", "spin_above_cut")  # smallest at 1e-5 / 1e-3 of the largest
+SOLVE_NEAR_CUT_CASES = tuple(f"{name}{suffix}" for name in SOLVE_NEAR_CUT for suffix in ("", "_full"))
+
+
+def solve_cases(n: int, seed: int = 0):
+    """Hand-made systems for K5's N x N solve (N = 3 or 6), float32:
+    [(name, A [N, N], b [N])]. b = A x with x ~ U(-0.05, 0.05), a GN step's
+    scale, where A is finite. "well_conditioned": eigenvalues 1..8;
+    "scaled_six_decades": a unit-diagonal well-conditioned C between
+    diagonals 1..1e6; "spin_below_cut" / "spin_above_cut": the sphere-spin
+    near-degeneracy of a lone sphere's system (ROADMAP queue 3 #8): one
+    eigenvalue at 1e-5 / 1e-3 of the largest, either side of the solve's
+    1e-4 cut, between diagonals of 1e4 (translation) and 1 (rotation), and
+    a step (|x| <= 0.05) whose scaled component along that weakest
+    direction is a twentieth of its others' scale (a lone sphere's data
+    hardly move its spin); "spin_below_cut_full" / "spin_above_cut_full":
+    the same systems with that component at its others' scale;
+    "rank_deficient": J^T J of an (N - 2) x N J; "all_zero"; "inf" (A[0, 1]
+    and A[1, 0]) and "nan" (b[1]), whose x is 0; "repeated_eigenvalues": pairs of equal
+    eigenvalues in a random basis; "exact_ties": unit-diagonal identical
+    2x2 blocks (N = 6), whose rotations give bit-equal eigenvalues out of
+    order, or diag(4, 1, 1) (N = 3), exactly the identity once scaled: the
+    sort's ties."""
+    rng = np.random.default_rng(seed * 7 + n)
+
+    def orth():
+        return np.linalg.qr(rng.standard_normal((n, n)))[0]
+
+    def spd(eig, Q=None):
+        Q = orth() if Q is None else Q
+        A = Q @ np.diag(eig) @ Q.T
+        return (A + A.T) / 2
+
+    def unit_diag(A):
+        d = 1.0 / np.sqrt(np.diag(A))
+        return A * d[:, None] * d[None, :]
+
+    x = rng.uniform(-0.05, 0.05, n)
+    cases = []
+
+    def add(name, A, b=None):
+        A = np.asarray(A, dtype=np.float64)
+        b = A @ x if b is None else b
+        cases.append((name, A.astype(_F), np.asarray(b).astype(_F)))
+
+    add("well_conditioned", spd(np.linspace(1.0, 8.0, n)))
+    D = np.sqrt(10.0 ** np.linspace(0.0, 6.0, n))
+    add("scaled_six_decades", unit_diag(spd(np.linspace(1.0, 8.0, n))) * D[:, None] * D[None, :])
+    S = np.where(np.arange(n) < n // 2, 100.0, 1.0)
+    for name, small in zip(SOLVE_NEAR_CUT, (1e-5, 1e-3)):
+        eig = np.concatenate([[small], np.linspace(0.3, 1.0, n - 1)])
+        A = spd(eig) * S[:, None] * S[None, :]
+        d = 1.0 / np.sqrt(np.diag(A))
+        c = rng.uniform(-1.0, 1.0, n)  # the step in the scaled system's eigenbasis
+        Q = np.linalg.eigh(A * d[:, None] * d[None, :])[1]
+        for suffix, weak in (("", 0.05), ("_full", 1.0)):
+            xs = d * (Q @ (c * np.where(np.arange(n) == 0, weak, 1.0)))
+            add(name + suffix, A, A @ (xs * 0.05 / np.abs(xs).max()))
+    J = rng.standard_normal((n - 2, n))
+    add("rank_deficient", J.T @ J)
+    add("all_zero", np.zeros((n, n)), np.zeros(n))
+    A = spd(np.linspace(1.0, 8.0, n))
+    b = A @ x
+    A[0, 1] = A[1, 0] = np.inf
+    add("inf", A, b)
+    A = spd(np.linspace(1.0, 8.0, n))
+    b = A @ x
+    b[1] = np.nan
+    add("nan", A, b)
+    add("repeated_eigenvalues", spd(np.repeat(np.arange(1.0, n // 2 + 2), 2)[:n]))
+    if n == 6:
+        blk = lambda r: np.array([[1.0, r], [r, 1.0]])  # noqa: E731
+        T = np.zeros((6, 6))
+        for k, r in enumerate((0.5, 0.25, 0.5)):
+            T[2 * k:2 * k + 2, 2 * k:2 * k + 2] = blk(r)
+        add("exact_ties", T)
+    else:
+        add("exact_ties", np.diag([4.0, 1.0, 1.0]))
+    return cases
+
+
+def check_solve_cases(device) -> dict:
+    """K5's ``solve_preconditioned<6>`` and ``<3>`` on the card (test entry
+    ``mmf_solve_cases``) on ``solve_cases`` against
+    ``solve_preconditioned_emulated``: x and w bit-equal (w's NaNs as NaNs);
+    and the steps' ``sincos_step`` bit-equal to ``sinf``/``cosf`` on every
+    float below 105615 in magnitude (``mmf_trig_cases``)."""
+    cases, ok = {}, True
+    for n in (6, 3):
+        cs = solve_cases(n)
+        A = torch.from_numpy(np.stack([c[1] for c in cs])).to(device)
+        b = torch.from_numpy(np.stack([c[2] for c in cs])).to(device)
+        xk, wk = (t.cpu().numpy() for t in rgbd.solve_cases_cuda(A, b))
+        for k, (name, Ak, bk) in enumerate(cs):
+            xe, we = solve_preconditioned_emulated(Ak, bk)
+            x_eq = bool((xk[k].view(np.int32) == xe.view(np.int32)).all())
+            w_eq = bool(((wk[k].view(np.int32) == we.view(np.int32))
+                         | (np.isnan(wk[k]) & np.isnan(we))).all())
+            cases[f"{name}[N={n}]"] = dict(x_bit_equal=x_eq, w_bit_equal=w_eq,
+                                           x=[float(v) for v in xk[k]])
+            ok = ok and x_eq and w_eq
+    # the steps' sine and cosine (csrc/gn_step.cu sincos_step) against sinf
+    # and cosf on every float below 105615 (test entry mmf_trig_cases)
+    from multimotionfusion_tpu_torch import kernels as K
+
+    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    K.call("trig_cases", K.fn("gn_step", "mmf_trig_cases", [K.P]), K.ptr(counts))
+    trig_bad, trig_n = (int(v) for v in counts.cpu())
+    ok = ok and trig_bad == 0 and trig_n > 2_000_000_000
+    return dict(cases=cases, trig_checked=trig_n, trig_mismatches=trig_bad, ok=ok,
+                max_abs_err=0.0 if ok else None,
+                tolerance="x and the eigenvalues bit-equal to the float32 emulation; the "
+                          "steps' sine and cosine bit-equal to sinf and cosf on every float "
+                          "below 105615 in magnitude")
 
 
 def check_track(a: tuple) -> dict:

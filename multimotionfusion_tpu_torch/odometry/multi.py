@@ -287,7 +287,11 @@ def gn_multi_cuda(ml: MultiLevel, Tinv_all: torch.Tensor, cam_l: CameraModel, sc
     """K11 on the card: ``csrc/gn_multi.cu`` ``mmf_gn_multi`` (same contract as
     ``gn_multi_plain``; launches counted per level, ``gn_multi.L<level>``).
     ``Tinv_all`` is [M, 4, 4] or, for all models at one pose, [4, 4]; both are
-    read by pointer (rows of the loop state)."""
+    read by pointer (rows of the loop state). Two device launches (pass 1
+    and, with RGB, pass 2); the last block of each sums the per-block
+    partials in block order into ``sums``, and pass 1 writes every slot, so
+    ``sums`` needs no clearing (zeros once ``done`` is set). Evaluations
+    share the kernel library's block tickets: enqueue them on one stream."""
     lv = ml.gl
     K.check(Tinv_all, F32, "Tinv_all", contiguous=False)
     if done is not None:
@@ -315,7 +319,7 @@ def gn_multi_cuda(ml: MultiLevel, Tinv_all: torch.Tensor, cam_l: CameraModel, sc
     hs, ws = (h + s - 1) // s, (w + s - 1) // s
     blocks = max(1, (hs * ws + _GNM_THREADS - 1) // _GNM_THREADS)
     dev = lv.img.device
-    partials = torch.empty((blocks, MAX_MODELS * N_SLOTS), dtype=F32, device=dev)
+    partials = torch.empty((blocks, n_models * 31), dtype=F32, device=dev)  # pass 1's 31 slots
     sums = torch.empty((MAX_MODELS, N_SLOTS), dtype=F32, device=dev)
     f = K.fn("gn_multi", "mmf_gn_multi", _GNM_ARGS)
     K.call(
@@ -467,6 +471,9 @@ def gn_step_multi_plain(state, sums, M: int, sp: rgbd.StepParams, last: bool) ->
 
 
 def gn_step_multi_cuda(state, sums, M: int, sp: rgbd.StepParams, last: bool) -> None:
+    """K5 (M-wide GN) on the card: ``csrc/gn_step.cu`` ``mmf_gn_step_multi``,
+    one block, one thread a model; a model's 6x6 solve (in registers) runs
+    only where its update is applied."""
     K.check(state, F32, "state")
     K.check(sums, F32, "sums", contiguous=False)
     if sums.stride() != (N_SLOTS, 1):

@@ -709,7 +709,9 @@ def so3_step_plain(state: torch.Tensor, sums: torch.Tensor, verbatim: bool = Fal
 
 
 def so3_step_cuda(state: torch.Tensor, sums: torch.Tensor, verbatim: bool = False) -> None:
-    """K5 (SO(3)) on the card: ``csrc/gn_step.cu``."""
+    """K5 (SO(3)) on the card: ``csrc/gn_step.cu`` ``mmf_so3_step``, one
+    thread; the 3x3 solve (in registers) runs only where the step is
+    applied."""
     K.check(state, F32, "state")
     K.check(sums, F32, "sums")
     K.call("so3_step", K.fn("gn_step", "mmf_so3_step", [K.P, K.P, K.I]), K.ptr(state),
@@ -779,13 +781,31 @@ def gn_step_plain(state: torch.Tensor, sums: torch.Tensor, sp: StepParams, last:
 
 
 def gn_step_cuda(state: torch.Tensor, sums: torch.Tensor, sp: StepParams, last: bool) -> None:
-    """K5 (GN) on the card: ``csrc/gn_step.cu``."""
+    """K5 (GN) on the card: ``csrc/gn_step.cu`` ``mmf_gn_step``, one thread;
+    the 6x6 solve (in registers) runs only where the update is applied."""
     K.check(state, F32, "state")
     K.check(sums, F32, "sums")
     w = np.float32(sp.icp_weight)
     f = K.fn("gn_step", "mmf_gn_step", [K.P, K.P, K.F, K.F, K.F] + [K.I] * 5)
     K.call("gn_step", f, K.ptr(state), K.ptr(sums), float(sp.scale2), float(w * w), float(sp.eps),
            int(sp.use_icp), int(sp.use_rgb), int(sp.rgb_only), int(sp.level), int(last))
+
+
+def solve_cases_cuda(A: torch.Tensor, b: torch.Tensor):
+    """Test entry of K5's solve on the card (``mmf_solve_cases``): the
+    kernel's ``solve_preconditioned<N>`` on each of n systems, A [n, N, N]
+    and b [n, N] with N = 3 or 6; returns (x [n, N], the Jacobi-scaled
+    system's eigenvalues w [n, N], ascending). On no path of the engine."""
+    K.check(A, F32, "A")
+    K.check(b, F32, "b")
+    n, N = b.shape
+    if N not in (3, 6) or tuple(A.shape) != (n, N, N):
+        raise ValueError("solve_cases takes A [n, N, N] and b [n, N] with N = 3 or 6")
+    x = torch.empty_like(b)
+    w = torch.empty_like(b)
+    f = K.fn("gn_step", "mmf_solve_cases", [K.P, K.P, K.I, K.I, K.P, K.P])
+    K.call("solve_cases", f, K.ptr(A), K.ptr(b), n, N, K.ptr(x), K.ptr(w))
+    return x, w
 
 
 def gn_step(state: torch.Tensor, sums: torch.Tensor, sp: StepParams, last: bool) -> None:

@@ -40,7 +40,10 @@ on chip_smoke.py's spheres at 160x120, records K4's error-image mode, K24a-c
 K24a and K24b also run on hand-made label images
 (``checks.check_slic_cases``: a superpixel over many list chunks, empty
 ones, labels five cells away, the edge cells; N = 1, 13 and 40 images), and
-K17 on hand-made mask stacks (``checks.check_components_cases``).
+K17 on hand-made mask stacks (``checks.check_components_cases``). K5's solve
+runs on hand-made systems through its test entry (``checks.check_solve_cases``:
+bit-equal to the float32 emulation that ``tests/test_torch_gn_solve.py`` holds
+to the reference).
 """
 
 import pytest
@@ -358,4 +361,14 @@ def test_slic_hand_made_labels_match_plain():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
     r = checks.check_slic_cases("cuda")
+    assert r["ok"], r
+
+
+def test_solve_cases_bit_equal_to_emulation():
+    """K5's ``solve_preconditioned<6>`` and ``<3>`` (``mmf_solve_cases``) on
+    ``checks.solve_cases``: x and the eigenvalues bit-equal to
+    ``checks.solve_preconditioned_emulated``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
+    r = checks.check_solve_cases("cuda")
     assert r["ok"], r
