@@ -7,9 +7,8 @@ Phases (any failure exits non-zero):
 1. build every CUDA kernel of ``multimotionfusion_tpu_torch/csrc`` (nvcc, in
    parallel) and print the build seconds and each kernel's registers, shared
    memory, stack frame and spills (ptxas -v); require K5's step kernels
-   (``REGISTER_ONLY``) to have no stack frame and no spills; print the
-   device time of an empty one-thread kernel (the launch floor, beside the
-   step kernels' lines);
+   (``REGISTER_ONLY``) to have no stack frame and no spills, and K4's
+   passes and K8's and K14's association kernels (``NO_SPILLS``) no spills;
 2. run ``MultiMotionFusionTorch`` on the card with the static 640x480
    configuration (``odom_init=""``, single model, 2^20 surfel capacity) over
    the synthetic scene (1 init frame + 45 frames), print the median and p75
@@ -40,7 +39,10 @@ Phases (any failure exits non-zero):
    version and, where one exists, a single PyTorch library call computing the
    same function (CUDA events over back-to-back calls, so host launch overhead
    counts where the host is slower), plus the kernel's device time alone
-   (torch.profiler); run the whole odometry loop on the card and, from the
+   (``_device_profile``: torch.profiler, every device event of 20 calls
+   after 10 warm-up calls; by kernel for K4, K5's steps, K8, K11 and K14;
+   K4's sums also bit-equal to the block-order float32 sum of the call's
+   partials); run the whole odometry loop on the card and, from the
    same inputs, the plain loop on the CPU; the same for the keypoint
    kernels on the inputs of one steady-state kp frame (``nms_topk`` also on
    a random-weight SuperPoint heat map and on a plateau), the seeded
@@ -122,6 +124,13 @@ Phases (any failure exits non-zero):
    and ``gn_step_multi`` lines (phase ``solve_work``): sweeps and rotations
    counted on the CPU by the emulation (``checks.jacobi_work``), not
    measured on the card;
+5c. the append scan of K8's and K14's association kernels on
+   hand-made flags and owners (phase ``scan_cases``, ``checks.scan_cases``:
+   no new flag, all new, one model, M = 8, pixels with no owner, appends
+   clipped by, at, one below and far below each segment's room, n not a
+   multiple of the 256-pixel tile) through their test entries
+   (``mmf_fuse_scan_cases``, ``mmf_fuse_flat_scan_cases``): prefix and
+   counts exact against torch.cumsum;
 5d. five_movers: tests/test_five_movers.py's configuration and 17-frame
    journey at 160x120 (the scene from the port's own io/synthetic.py) on
    the card with the engine seeds FIVE_SEEDS: on every seed five spawns at
@@ -269,16 +278,21 @@ LEGACY_PATH = (
 # ICP error reaches the new-model class, so the reference spawns nothing.
 REF_LEGACY_ACTIVE = (0,) * (1 + MULTI_FRAMES)
 REF_LEGACY_SPAWN_FRAMES = ()
-# device ms and device launches a frame of every path before K5's solve in
-# registers and K11's last-block sums (PERF.md), printed beside this run's
-# stage phases
-EARLIER_DEVICE = {"stages": (1.29, 268.2), "kp_stages": (1.52, 347.2),
-                  "multi_stages": (5.43, 984.7), "flow_crf_stages": (5.88, 1023.5),
-                  "legacy_crf_stages": (7.21, 2125.8)}
-# the odometry's step and reduction kernels, shown apart in the stage phases
+# device ms and device launches a frame of every path before K4's last-block
+# sums and the fuse scan folded into the association (PERF.md), printed
+# beside this run's stage phases
+EARLIER_DEVICE = {"stages": (1.24, 268.1), "kp_stages": (1.47, 347.1),
+                  "multi_stages": (4.72, 921.5), "flow_crf_stages": (4.63, 960.4),
+                  "legacy_crf_stages": (7.12, 2125.6)}
+# the odometry's step and reduction kernels and the fusion's, shown apart in
+# the stage phases
 GN_KERNELS = ("gn_step", "so3_step", "pass1", "pass2", "finalize", "Memset")
+FUSE_KERNELS = ("assoc", "scan_new", "scan_models", "arbitrate", "apply", "fill_int")
 # kernels of gn_step.cu that must keep their solve in registers (ptxas -v)
 REGISTER_ONLY = ("so3_step", "gn_step", "gn_step_multi")
+# kernels that must not spill (ptxas -v): K4's passes, K8's and K14's
+# association with the append scan
+NO_SPILLS = {"gn_reduce": ("pass1", "pass2"), "fuse": ("assoc",), "fuse_flat": ("assoc",)}
 
 
 def _gpu_line() -> str:
@@ -302,77 +316,60 @@ def _time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, reps: int = 20, tries: int = 3):
-    """Device time of the work one call of ``fn`` enqueues (kernels, memsets,
-    copies; torch.profiler), without the host's launch overhead that ``_time_ms``
-    sees when the host is the slower side: the device events of a profile of
-    ``reps`` calls over ``reps``. A profile that recorded no device work at
-    all is taken again; None (not measured) after ``tries`` such. A
-    profile's first device events go unrecorded, so this reads low where a
-    call has few; ``_device_profile`` counts them all. This one stays for
-    rows comparable with earlier PRs'."""
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(e.time_range.elapsed_us() for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-        if total > 0:
-            return total / 1e3 / reps
-    return None
-
-
-def _device_profile(fn, reps: int = 20, warm: int = 10):
+def _device_profile(fn, reps: int = 20, warm: int = 10, tries: int = 3):
     """Device work one call of ``fn`` enqueues, every event counted: ``warm``
     calls first inside the profile (its first device events go unrecorded),
     then ``reps`` calls in a marked range, and only the device events that
     start in it. Returns (ms, device launches, {kernel name: ms}), all per
-    call; (None, None, {}) where no event was recorded."""
+    call. A profile that recorded no device event is taken again; (None,
+    None, {}) (not measured) after ``tries`` such."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(warm):
-            fn()
-        torch.cuda.synchronize()
-        with torch.profiler.record_function("mmf_timed_calls"):
-            for _ in range(reps):
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(warm):
                 fn()
             torch.cuda.synchronize()
-    marks = [e for e in prof.events() if e.name == "mmf_timed_calls"]
-    if not marks:
-        return None, None, {}
-    t0 = marks[0].time_range.start
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.time_range.start >= t0 and e.name != "mmf_timed_calls"]
-    if not events:
-        return None, None, {}
-    by_name = defaultdict(float)
-    for e in events:
-        by_name[e.name] += e.time_range.elapsed_us() / 1e3 / reps
-    total = sum(e.time_range.elapsed_us() for e in events)
-    return total / 1e3 / reps, len(events) / reps, dict(by_name)
+            with torch.profiler.record_function("mmf_timed_calls"):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+        marks = [e for e in prof.events() if e.name == "mmf_timed_calls"]
+        if not marks:
+            continue
+        t0 = marks[0].time_range.start
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.time_range.start >= t0 and e.name != "mmf_timed_calls"]
+        if not events:
+            continue
+        by_name = defaultdict(float)
+        for e in events:
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3 / reps
+        total = sum(e.time_range.elapsed_us() for e in events)
+        return total / 1e3 / reps, len(events) / reps, dict(by_name)
+    return None, None, {}
 
 
-def _kernel_ms(by_name: dict, kernel: str):
-    """Device ms of the kernels named ``kernel`` in a ``_device_profile``."""
-    hits = [ms for name, ms in by_name.items() if f"::{kernel}(" in name]
-    return sum(hits) if hits else None
+def _kernel_name(event: str) -> str:
+    """A device event's short name: a kernel's unqualified name
+    (``(anonymous namespace)::assoc(...)`` -> ``assoc``), else the event's."""
+    if event.startswith("Mem"):  # Memcpy / Memset
+        return event[:60]
+    name = event.replace("(anonymous namespace)::", "").split("(", 1)[0].split("<", 1)[0]
+    return name.rsplit("::", 1)[-1][:60]
 
 
-def launch_floor_ms():
-    """Device time of an empty one-thread kernel (``gn_step.cu`` ``mmf_empty``)
-    on the current stream: the least a single-block step kernel can take."""
-    from multimotionfusion_tpu_torch import kernels as K
-
-    f = K.fn("gn_step", "mmf_empty", [])
-
-    def empty():
-        if f(torch.cuda.current_stream().cuda_stream) != 0:
-            raise RuntimeError("the empty kernel failed to launch")
-
-    return _device_ms(empty), _device_profile(empty)[0]
+def _device(fn, by_kernel: bool = False) -> dict:
+    """``device_ms`` and ``device_launches_per_call`` of one call of ``fn``
+    (``_device_profile``); with ``by_kernel``, also each kernel's ms a call
+    (``device_ms_by_kernel``) by its short name."""
+    ms, n, by_name = _device_profile(fn)
+    out = dict(device_ms=ms, device_launches_per_call=n)
+    if by_kernel:
+        merged = defaultdict(float)
+        for name, v in by_name.items():
+            merged[_kernel_name(name)] += v
+        out["device_ms_by_kernel"] = dict(merged)
+    return out
 
 
 def _bound(bytes_moved: float, flops: float):
@@ -571,6 +568,8 @@ def run_stages(K, engine, frames, tag="stages") -> None:
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]
     gn = {name: {"ms": v[0], "launches_per_frame": v[1] / n} for name, v in kernels.items()
           if any(k in name for k in GN_KERNELS)}
+    fuse = {name: {"ms": v[0], "launches_per_frame": v[1] / n} for name, v in kernels.items()
+            if any(f"::{k}(" in name for k in FUSE_KERNELS)}
     print(json.dumps({
         "phase": tag, "frames": n, "wall_ms_per_frame": wall, "stages_per_frame": stages,
         "device_kernel_ms_per_frame": busy, "device_busy_share": busy / wall,
@@ -578,14 +577,19 @@ def run_stages(K, engine, frames, tag="stages") -> None:
         "wrapper_launches_per_frame": wrappers,
         "top_kernels_ms_per_frame": [
             {"name": name, "ms": v[0], "launches_per_frame": v[1] / n} for name, v in top],
-        "odometry_kernels_ms_per_frame": gn,
+        "odometry_kernels_ms_per_frame": gn, "fusion_kernels_ms_per_frame": fuse,
         **({"earlier_device_ms_and_launches_per_frame": EARLIER_DEVICE[tag]}
            if tag in EARLIER_DEVICE else {}),
         "gpu": _gpu_line(),
     }))
 
 
-def _states(state, n=128):
+# calls of a kernel a measurement makes at most: _time_ms's 1 + 20 and
+# _device_profile's 10 + 20 in each of its 3 tries
+MEASURE_CALLS = 1 + 20 + 3 * 30
+
+
+def _states(state, n=MEASURE_CALLS):
     """Fresh copies of a loop state (a step updates its state in place)."""
     copies = iter([state.clone() for _ in range(n)])
     return lambda: next(copies)
@@ -602,7 +606,7 @@ def measure_zbuffer(a):
     n = a[0].shape[1]
     bound, by = _bound(2 * 64 * n + 4 * npix, 40 * n)
     return dict(
-        ms=_time_ms(lambda: R.zbuffer_cuda(*a)), device_ms=_device_ms(lambda: R.zbuffer_cuda(*a)),
+        ms=_time_ms(lambda: R.zbuffer_cuda(*a)), **_device(lambda: R.zbuffer_cuda(*a)),
         plain_ms=_time_ms(lambda: R.zbuffer_plain(*a)),
         **_library(lambda: buf.scatter_reduce_(0, pix, key, reduce="amin")),
         bound_ms=bound, bound_by=by,
@@ -622,7 +626,7 @@ def measure_splat(a):
     bound, by = _bound(4 * npix + 13 * 4 * n_win + 49 * npix + 23 * n_fill, 25 * 40 * npix)
     return dict(
         ms=_time_ms(lambda: R.splat_resolve_cuda(*a)),
-        device_ms=_device_ms(lambda: R.splat_resolve_cuda(*a)),
+        **_device(lambda: R.splat_resolve_cuda(*a)),
         plain_ms=_time_ms(lambda: fillin.splat_fill_plain(*a), reps=5),
         **_library(None), bound_ms=bound, bound_by=by,
     )
@@ -635,11 +639,14 @@ def measure_fuse(a):
     n, npix = a[0].shape[1], cam.height * cam.width
     n_cb = npix // 4
     bound, by = _bound(2 * 64 * n + 64 * n_cb + 4 * npix + 28 * n_cb + 64 * n_cb, 16 * 60 * n_cb)
+    new = (FU.fuse_cuda(*a)[2] == -1).to(torch.int32)  # the association's new flags
     return dict(
         ms=_time_ms(lambda: FU.fuse_cuda(*a, want_assoc=False)),
-        device_ms=_device_ms(lambda: FU.fuse_cuda(*a, want_assoc=False)),
+        **_device(lambda: FU.fuse_cuda(*a, want_assoc=False), by_kernel=True),
         plain_ms=_time_ms(lambda: FU.fuse_plain(*a), reps=5),
-        **_library(None), bound_ms=bound, bound_by=by,
+        **_library(lambda: torch.cumsum(new, 0)), bound_ms=bound, bound_by=by,
+        library_note="torch.cumsum of the checkerboard's new flags: the append scan alone",
+        new_flags=int(new.sum()),
     )
 
 
@@ -655,7 +662,7 @@ def measure_gn(a, level):
     bound, by = _bound(P * 37 + min(4 * P, h * w) * tap_bytes + 59 * 4, P * 300)
     return dict(
         ms=_time_ms(lambda: rgbd.gn_reduce_cuda(*a, level=level)),
-        device_ms=_device_ms(lambda: rgbd.gn_reduce_cuda(*a, level=level)),
+        **_device(lambda: rgbd.gn_reduce_cuda(*a, level=level), by_kernel=True),
         plain_ms=_time_ms(lambda: rgbd.gn_reduce_plain(*a)),
         **_library(lambda: (icp_rows.T @ icp_rows, rgb_rows.T @ rgb_rows)),
         bound_ms=bound, bound_by=by,
@@ -671,7 +678,7 @@ def measure_frame_depth(a):
     bound, by = _bound(a[0].element_size() * npix + 8 * npix, 169 * 12 * npix)
     return dict(
         ms=_time_ms(lambda: FM.frame_depth_cuda(*a)),
-        device_ms=_device_ms(lambda: FM.frame_depth_cuda(*a)),
+        **_device(lambda: FM.frame_depth_cuda(*a)),
         plain_ms=_time_ms(lambda: FM.frame_depth_plain(*a), reps=3),
         **_library(None), bound_ms=bound, bound_by=by,
     )
@@ -685,7 +692,7 @@ def measure_frame_surfels(a):
     bound, by = _bound((4 + 4 + 3 + 64 + 1) * npix, 80 * npix)
     return dict(
         ms=_time_ms(lambda: FM.frame_surfels_cuda(*a)),
-        device_ms=_device_ms(lambda: FM.frame_surfels_cuda(*a)),
+        **_device(lambda: FM.frame_surfels_cuda(*a)),
         plain_ms=_time_ms(lambda: FM.frame_surfels_plain(*a), reps=5),
         **_library(None), bound_ms=bound, bound_by=by,
     )
@@ -729,7 +736,7 @@ def measure_pyr_frame(a, level):
     bytes_out = (4 * 3 + 24 + 1 + (4 if level else 0)) * npix
     bound, by = _bound(bytes_in + bytes_out, (50 * (level > 0) + 60) * npix)
     return dict(
-        ms=_time_ms(run), device_ms=_device_ms(run),
+        ms=_time_ms(run), **_device(run),
         plain_ms=_time_ms(lambda: LV.frame_levels_plain(*a), reps=5),
         **_library(lambda: [c() for c in conv]), bound_ms=bound, bound_by=by,
     )
@@ -753,7 +760,7 @@ def measure_pyr_pred(a, level):
         bytes_moved, conv = 12 * hp * wp + (12 + 32) * npix, _conv_yardstick(3, hp, wp, True)
     bound, by = _bound(bytes_moved, 200 * npix)
     return dict(
-        ms=_time_ms(run), device_ms=_device_ms(run),
+        ms=_time_ms(run), **_device(run),
         plain_ms=_time_ms(lambda: LV.pred_levels_plain(*a), reps=5),
         **_library(conv), bound_ms=bound, bound_by=by,
     )
@@ -765,7 +772,7 @@ def measure_odo_init(a):
     bound, by = _bound(4 * rgbd.S_SIZE, rgbd.S_SIZE)
     return dict(
         ms=_time_ms(lambda: rgbd.odo_init_cuda(*a)),
-        device_ms=_device_ms(lambda: rgbd.odo_init_cuda(*a)),
+        **_device(lambda: rgbd.odo_init_cuda(*a)),
         plain_ms=_time_ms(lambda: rgbd.odo_init_plain(*a)),
         **_library(None), bound_ms=bound, bound_by=by,
     )
@@ -781,7 +788,7 @@ def measure_so3_reduce(a):
     bound, by = _bound(8 * npix + 4 * rgbd.N_SO3_SUMS, 150 * int(found.sum()))
     return dict(
         ms=_time_ms(lambda: rgbd.so3_reduce_cuda(*a)),
-        device_ms=_device_ms(lambda: rgbd.so3_reduce_cuda(*a)),
+        **_device(lambda: rgbd.so3_reduce_cuda(*a)),
         plain_ms=_time_ms(lambda: rgbd.so3_reduce_plain(*a)),
         **_library(lambda: rows.T @ rows), bound_ms=bound, bound_by=by,
     )
@@ -799,18 +806,13 @@ def measure_step(a, kind):
     # the state and the sums in and out; a Jacobi eigensolve of n x n
     # (~8 sweeps of n(n-1)/2 rotations of 12 n operations) and the update
     bound, by = _bound(2 * 4 * rgbd.S_SIZE + 4 * 64, 8 * n * (n - 1) // 2 * 12 * n + 500)
-    dev, n_dev, by_name = _device_profile(lambda: cuda(fresh(), *rest))
     return dict(
         ms=_time_ms(lambda: cuda(fresh(), *rest)),
-        device_ms=_device_ms(lambda: cuda(fresh(), *rest)), device_ms_exact=dev,
-        kernel_device_ms_exact=_kernel_ms(by_name, f"{kind}_step"),
-        device_launches_per_call=n_dev, launch_floor_ms=LAUNCH_FLOOR_MS[0],
-        launch_floor_ms_exact=LAUNCH_FLOOR_MS[1],
+        **_device(lambda: cuda(fresh(), *rest), by_kernel=True),
         plain_ms=_time_ms(lambda: plain(state.clone(), *rest), reps=5),
         **_library(lambda: torch.linalg.eigh(A)), bound_ms=bound, bound_by=by,
         timing_note="each call on a fresh copy of the recorded state, the copies made before "
-                    "the timing; device_ms as earlier PRs took it, device_ms_exact every "
-                    "device event of a call, kernel_device_ms_exact the step kernel's own",
+                    "the timing",
     )
 
 
@@ -840,7 +842,7 @@ def measure_clean(a):
         library = lambda: data_local.index_select(1, flat)  # noqa: E731
     return dict(
         ms=_time_ms(lambda: FU.clean_cuda(*args, out=out)),
-        device_ms=_device_ms(lambda: FU.clean_cuda(*args, out=out)),
+        **_device(lambda: FU.clean_cuda(*args, out=out)),
         plain_ms=_time_ms(lambda: FU.clean_plain(*args), reps=5),
         **_library(library), bound_ms=bound, bound_by=by, kept=n_keep,
     )
@@ -853,7 +855,7 @@ def measure_compact(a):
     n = data.shape[1]
     bound, by = _bound(64 * int(keep.sum()) + n + 64 * capacity, 4 * n)
     return dict(
-        ms=_time_ms(lambda: sm.compact_cuda(*a)), device_ms=_device_ms(lambda: sm.compact_cuda(*a)),
+        ms=_time_ms(lambda: sm.compact_cuda(*a)), **_device(lambda: sm.compact_cuda(*a)),
         plain_ms=_time_ms(lambda: sm.compact_plain(*a), reps=5),
         **_library(lambda: data[:, keep]), bound_ms=bound, bound_by=by,
     )
@@ -869,7 +871,7 @@ def measure_patch_score(a):
     bound, by = _bound(12 * npix, 105 * npix)
     return dict(
         ms=_time_ms(lambda: SP.patch_score_cuda(*a)),
-        device_ms=_device_ms(lambda: SP.patch_score_cuda(*a)),
+        **_device(lambda: SP.patch_score_cuda(*a)),
         plain_ms=_time_ms(lambda: SP.patch_score_plain(*a), reps=5),
         **_library(None), bound_ms=bound, bound_by=by,
     )
@@ -891,7 +893,7 @@ def measure_nms(a):
         return torch.topk(peaks.reshape(-1), k)
 
     return dict(
-        ms=_time_ms(lambda: SP.nms_topk_cuda(*a)), device_ms=_device_ms(lambda: SP.nms_topk_cuda(*a)),
+        ms=_time_ms(lambda: SP.nms_topk_cuda(*a)), **_device(lambda: SP.nms_topk_cuda(*a)),
         plain_ms=_time_ms(lambda: SP.nms_topk_plain(*a), reps=5),
         **_library(library), bound_ms=bound, bound_by=by,
     )
@@ -904,7 +906,7 @@ def measure_patch_desc(a):
     # 64 samples and 64 outputs a keypoint, ~6 operations each
     bound, by = _bound(k * (8 + 64 * 4 + 64 * 4), 6 * 64 * k)
     return dict(
-        ms=_time_ms(lambda: SP.patch_desc_cuda(*a)), device_ms=_device_ms(lambda: SP.patch_desc_cuda(*a)),
+        ms=_time_ms(lambda: SP.patch_desc_cuda(*a)), **_device(lambda: SP.patch_desc_cuda(*a)),
         plain_ms=_time_ms(lambda: SP.patch_desc_plain(*a), reps=5),
         **_library(None), bound_ms=bound, bound_by=by,
     )
@@ -923,7 +925,7 @@ def measure_mutual_match(a):
 
     return dict(
         ms=_time_ms(lambda: TR.mutual_match_cuda(*a)),
-        device_ms=_device_ms(lambda: TR.mutual_match_cuda(*a)),
+        **_device(lambda: TR.mutual_match_cuda(*a)),
         plain_ms=_time_ms(lambda: TR.mutual_match_plain(*a), reps=3),
         **_library(library), bound_ms=bound, bound_by=by,
     )
@@ -944,7 +946,7 @@ def measure_track_update(a):
     bound, by = _bound(k * (8 + 4 * d + 1 + 4 + 4) + k * (4 * d + 8 + 12 + 2 + 9)
                        + cap * (9 + 2 + 24 + 2 + 25), 30 * cap + 20 * k)
     return dict(
-        ms=_time_ms(run), device_ms=_device_ms(run),
+        ms=_time_ms(run), **_device(run),
         plain_ms=_time_ms(lambda: TR.update_plain(TR.TrackTable(*(x.clone() for x in table)),
                                                   *a[1:]), reps=3),
         **_library(None), bound_ms=bound, bound_by=by,
@@ -963,7 +965,7 @@ def measure_ransac(a):
     # iterations per candidate
     bound, by = _bound(n * 25 + c * 12 + 64 + n, c * n * 75 + c * 2 * 40 * 40)
     return dict(
-        ms=_time_ms(lambda: RS.ransac_fit_cuda(*a)), device_ms=_device_ms(lambda: RS.ransac_fit_cuda(*a)),
+        ms=_time_ms(lambda: RS.ransac_fit_cuda(*a)), **_device(lambda: RS.ransac_fit_cuda(*a)),
         plain_ms=_time_ms(lambda: RS.ransac_fit_plain(*a), reps=3),
         **_library(None), bound_ms=bound, bound_by=by,
     )
@@ -977,7 +979,7 @@ def measure_seed_select(a):
     bound, by = _bound(2 * 4 * rgbd.S_SIZE + 64 + 1 + 2 * 4 * rgbd.N_SUMS, 100)
     return dict(
         ms=_time_ms(lambda: rgbd.seed_select_cuda(fresh(), *rest)),
-        device_ms=_device_ms(lambda: rgbd.seed_select_cuda(fresh(), *rest)),
+        **_device(lambda: rgbd.seed_select_cuda(fresh(), *rest)),
         plain_ms=_time_ms(lambda: rgbd.seed_select_plain(state.clone(), *rest), reps=5),
         **_library(None), bound_ms=bound, bound_by=by,
         timing_note="each call on a fresh copy of the recorded state (one 512-byte copy included)",
@@ -986,16 +988,17 @@ def measure_seed_select(a):
 
 def _library(fn) -> dict:
     """The yardstick's time as ``ms`` takes the kernel's (CUDA events over
-    back-to-back calls) and its device time as ``device_ms`` (torch.profiler);
+    back-to-back calls) and its device time as ``device_ms`` (``_device_profile``);
     None where no single PyTorch call computes the same function."""
     if fn is None:
         return dict(library_ms=None, library_device_ms=None)
-    return dict(library_ms=_time_ms(fn), library_device_ms=_device_ms(fn))
+    return dict(library_ms=_time_ms(fn), library_device_ms=_device_profile(fn)[0])
 
 
-def _measure(cuda, plain, bytes_moved, flops, library=None, plain_reps=3, **extra):
+def _measure(cuda, plain, bytes_moved, flops, library=None, plain_reps=3, by_kernel=False,
+             **extra):
     bound, by = _bound(bytes_moved, flops)
-    return dict(ms=_time_ms(cuda), device_ms=_device_ms(cuda),
+    return dict(ms=_time_ms(cuda), **_device(cuda, by_kernel),
                 plain_ms=_time_ms(plain, reps=plain_reps),
                 **_library(library),
                 bound_ms=bound, bound_by=by, **extra)
@@ -1027,14 +1030,12 @@ def measure_gn_multi(a, level):
     P = ((h + s - 1) // s) * ((w + s - 1) // s)
     tap_bytes = 16 if lv.compact else 32
     full = lambda: MO.gn_multi_cuda(*a, level=level)  # noqa: E731
-    dev, n_dev, by_name = _device_profile(full)
     return _measure(full, lambda: MO.gn_multi_plain(*a),
                     P * (37 + 8) + min(4 * P, h * w) * (tap_bytes + 4) + 64 * 4 * M, P * 300,
                     library=lambda: (torch.einsum("pm,pi,pj->mij", onehot, icp_rows, icp_rows),
                                      torch.einsum("pm,pi,pj->mij", onehot, rgb_rows, rgb_rows)),
                     library_note="owner-weighted rows.T @ rows (einsum over the one-hot owner)",
-                    device_ms_exact=dev, device_launches_per_call=n_dev,
-                    pass_device_ms_exact={k: _kernel_ms(by_name, k) for k in ("pass1", "pass2")})
+                    by_kernel=True)
 
 
 def measure_multi_step(a, kind):
@@ -1063,11 +1064,7 @@ def measure_multi_step(a, kind):
             systems.append(S_rgb[:6, :6] + w2 * S_icp[:6, :6] if sp.use_rgb else S_icp[:6, :6])
         A = torch.stack(systems).to(DEVICE)
         library = lambda: torch.linalg.eigh(A)  # noqa: E731
-        dev, n_dev, by_name = _device_profile(lambda: cuda(fresh(), *rest))
-        extra = dict(device_ms_exact=dev,
-                     kernel_device_ms_exact=_kernel_ms(by_name, "gn_step_multi"),
-                     device_launches_per_call=n_dev, launch_floor_ms=LAUNCH_FLOOR_MS[0],
-                     launch_floor_ms_exact=LAUNCH_FLOOR_MS[1],
+        extra = dict(by_kernel=True,
                      library_note="batched torch.linalg.eigh of the M 6x6 systems (the "
                                   "eigensolve alone, part of the step)")
     return _measure(lambda: cuda(fresh(), *rest), lambda: plain(state.clone(), *rest),
@@ -1095,8 +1092,16 @@ def measure_fuse_flat(a):
     cam, layout = a[12], a[2]
     n, npix = layout.total, cam.height * cam.width
     n_cb = npix // 4
+    M = layout.n_models
+    _, _, flags, own = FU.fuse_flat_cuda(*a, with_flags=True)
+    new = ((flags >> 1) & 1) > 0
+    hot = ((own[None] == torch.arange(M, device=DEVICE)[:, None]) & new[None]).to(torch.int32)
     return _measure(lambda: FU.fuse_flat_cuda(*a), lambda: FU.fuse_flat_plain(*a),
-                    2 * 64 * n + 64 * n_cb + 12 * npix + 32 * n_cb + 64 * n_cb, 16 * 60 * n_cb)
+                    2 * 64 * n + 64 * n_cb + 12 * npix + 32 * n_cb + 64 * n_cb, 16 * 60 * n_cb,
+                    library=lambda: torch.cumsum(hot, 1), by_kernel=True,
+                    library_note="torch.cumsum along the [M, n] one-hot of new flags by owner: "
+                                 "the append scan alone",
+                    new_flags_per_model=hot.sum(1).tolist())
 
 
 def measure_clean_flat(a):
@@ -2181,6 +2186,20 @@ def run_solve_cases() -> list:
     return [] if r["ok"] else [f"K5's solve on hand-made systems: {r['cases']}"]
 
 
+def run_scan_cases() -> list:
+    """Phase 5c: the append scan of K8's and K14's association kernels on
+    hand-made flags and owners (``checks.scan_cases``: no new flag, all new,
+    one model, M = 8, pixels with no owner, appends clipped by, at, one below
+    and far below each segment's room, n not a multiple of the tile) through
+    their test entries: prefix and counts exact against torch.cumsum."""
+    from multimotionfusion_tpu_torch.kernels import checks as C
+
+    r = C.check_scan_cases(DEVICE)
+    torch.cuda.synchronize()
+    print(json.dumps({"phase": "scan_cases", **r}))
+    return [] if r["ok"] else [f"the fuse scan on hand-made flags: {r['cases']}"]
+
+
 def run_solve_work(captured, m_captured) -> None:
     """Phase 5c''''': the work of K5's eigensolve on the systems recorded for
     the ``gn_step`` and ``gn_step_multi`` lines, counted on the CPU by the
@@ -2566,7 +2585,7 @@ def measure_fern_insert(a):
     probe = C._db_copy(db)
     inserted = bool(FN.insert_plain(probe, frame, hd, pose, time_, thr, skip))
     moved = (27 * hw + F_ + 64) + (36 * hw + F_ + 64 + 4) if inserted else 0
-    copies = iter([C._db_copy(db) for _ in range(48)])
+    copies = iter([C._db_copy(db) for _ in range(MEASURE_CALLS)])
     return _measure(lambda: FN.insert_cuda(next(copies), frame, hd, pose, time_, thr, skip),
                     lambda: FN.insert_plain(C._db_copy(db), frame, hd, pose, time_, thr, skip),
                     moved + 13, 10, inserted=inserted,
@@ -2600,7 +2619,7 @@ def measure_deform_apply(a):
     data, count, graph, k, gate = a
     n = int(count)
     alive = int(sm.SurfelMap(data, count).alive_count())
-    copies = iter([data.clone() for _ in range(48)])
+    copies = iter([data.clone() for _ in range(MEASURE_CALLS)])
     # the alive flag of every slot below the count, position and time of the
     # live ones in, their positions out; the graph once
     return _measure(lambda: DG.apply_to_map_cuda(next(copies), count, graph, k, gate),
@@ -2627,9 +2646,6 @@ def plan_global():
               ("deform.apply_map", "deform.apply_map", "deform.apply_map", C.check_deform_apply,
                measure_deform_apply, "deformation.cu", "model/deformation.py:193")]
     return ferns_, deform
-
-
-LAUNCH_FLOOR_MS = (None, None)  # (device_ms, exact) of an empty kernel; set by main
 
 
 def _short_name(mangled: str) -> str:
@@ -2691,14 +2707,16 @@ def main() -> int:
     in_registers = {k: ptxas["gn_step"].get(k) for k in REGISTER_ONLY}
     registers_only = all(v is not None and v["stack_frame"] == 0 and v["spill_stores"] == 0
                          and v["spill_loads"] == 0 for v in in_registers.values())
+    no_spills = {f"{lib}.{k}": ptxas[lib].get(k) for lib, ks in NO_SPILLS.items() for k in ks}
+    spill_free = all(v is not None and v["spill_stores"] == 0 and v["spill_loads"] == 0
+                     for v in no_spills.values())
     print(json.dumps({"phase": "build", "seconds": t_build, "ptxas": ptxas,
-                      "k5_steps": in_registers, "k5_steps_registers_only": registers_only}))
+                      "k5_steps": in_registers, "k5_steps_registers_only": registers_only,
+                      "k4_k8_k14": no_spills, "k4_k8_k14_no_spills": spill_free}))
     if not registers_only:
         raise SystemExit(f"K5's step kernels use local memory: {in_registers}")
-    global LAUNCH_FLOOR_MS
-    LAUNCH_FLOOR_MS = launch_floor_ms()
-    print(json.dumps({"phase": "launch_floor", "device_ms": LAUNCH_FLOOR_MS[0],
-                      "device_ms_exact": LAUNCH_FLOOR_MS[1], "gpu": _gpu_line()}))
+    if not spill_free:
+        raise SystemExit(f"K4's passes or the fuse association spill: {no_spills}")
 
     cfg, frames, gt_poses = static_frames(N_FRAMES + 2 * STAGE_FRAMES + SYNC_FRAMES)
     engine, launches, captured = run_engine(K, cfg, frames, gt_poses)
@@ -2737,6 +2755,7 @@ def main() -> int:
     run_stages(K, g_engine, f_frames[MULTI_FRAMES + 1:], "legacy_crf_stages")
     del g_engine
     f_failed += g_failed + run_slic_cases() + run_components_cases() + run_solve_cases()
+    f_failed += run_scan_cases()
     five = five_movers_seeds()
 
     r_launches, r_captured, global_failed = run_reloc(K)

@@ -11,22 +11,22 @@
 //   bucket [bg + k bo, bg + (k + 1) bo) (model k + 1); `counts` [M] are the
 //   segments' high-water marks. Poses, max depths, active flags, counts and
 //   confidence gates are [M] tensors on the card, read by pointer.
-// fuse_flat (six launches, no host round trip):
+// fuse_flat (five launches, no host round trip):
 //   1. copy the store into the output and fill the slot -> source inverse
-//      map;
+//      map (and, behind it, the append scan's status words and ticket);
 //   2. assoc: one thread per pixel of the time-parity checkerboard:
 //      participation (its mask owner is a model, active, depth within
 //      min(owner's max depth, cutoff), 4-neighbour depth support), then the
 //      4x4 window search (offsets -2..+1) over candidates OF THE OWNER's
-//      model only (winner model == mask), K8's gates;
-//   3. scan: one block forms, per model, the exclusive prefix sum of the new
-//      flags of that model's pixels in source order (an M-way Hillis-Steele
-//      scan, one model after the other), and the new counts, clipped to each
+//      model only (winner model == mask), K8's gates; then, through
+//      surfel.cuh's append_scan (warp m looks back for model m), per model
+//      the exclusive prefix sum of the new flags of that model's pixels in
+//      source order; the last tile writes the new counts, clipped to each
 //      segment's room;
-//   4. arbitrate: merges 0..n_cb-1, then appends n_cb..2n_cb-1, atomicMin
+//   3. arbitrate: merges 0..n_cb-1, then appends n_cb..2n_cb-1, atomicMin
 //      their source id into inv[dst] (append dst = segment base + count +
 //      rank, dropped beyond the segment): the lowest source wins;
-//   5. apply: the winning source writes its column, merged or new, in its
+//   4. apply: the winning source writes its column, merged or new, in its
 //      OWNER's model frame (camera -> model pose of the owner).
 // clean_flat (three launches, no compaction; the caller repacks each
 //   segment every compact_every frames with K9):
@@ -48,8 +48,7 @@ namespace {
 #include "surfel.cuh"
 
 constexpr int THREADS = 256;
-constexpr int SCAN_THREADS = 1024;
-constexpr int MAXM = 8;
+constexpr int MAXM = SCAN_MAXM;
 
 struct Flat {
   int bg, bo, slots;
@@ -80,17 +79,15 @@ struct Assoc {
   int window;
 };
 
-__global__ void assoc(Assoc a, int* __restrict__ target, int* __restrict__ flags,
-                      int* __restrict__ own_out) {
-  int wc = a.W / 2, hc = a.H / 2;
-  int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= wc * hc) return;
+// the pixel's target id and merge / new flags (bit 0 / bit 1); its owner
+__device__ inline int assoc_pixel(const Assoc& a, int k, int* __restrict__ target, int* own_out) {
+  int wc = a.W / 2;
   int y = 2 * (k / wc) + a.par, x = 2 * (k % wc) + a.par;
   int NP = a.W * a.H;
   int p = y * a.W + x;
   const float* frame = a.frame;
   int own = a.mask[p];
-  own_out[k] = own;
+  *own_out = own;
   float fz = frame[PZ * NP + p];
   float fnx = frame[NX * NP + p], fny = frame[NY * NP + p], fnz = frame[NZ * NP + p];
   bool neigh = (x > 0 && frame[PZ * NP + p - 1] > 0.f) && (x + 1 < a.W && frame[PZ * NP + p + 1] > 0.f) &&
@@ -118,42 +115,56 @@ __global__ void assoc(Assoc a, int* __restrict__ target, int* __restrict__ flags
   }
   bool merging = part && best >= 0;
   target[k] = best;
-  flags[k] = (merging ? 1 : 0) | ((part && !merging) ? 2 : 0);
+  return (merging ? 1 : 0) | ((part && !merging) ? 2 : 0);
 }
 
-// per model, the exclusive prefix sum of its new flags in source order, and
-// the new counts clipped to each segment's room
-__global__ void scan_models(const int* __restrict__ flags, const int* __restrict__ own, int n,
-                            int M, Flat F, const int* __restrict__ counts,
-                            int* __restrict__ prefix, int* __restrict__ counts_out) {
-  __shared__ int sh[SCAN_THREADS];
-  int tid = threadIdx.x;
-  int chunk = (n + SCAN_THREADS - 1) / SCAN_THREADS;
-  int lo = min(tid * chunk, n), hi = min(lo + chunk, n);
-  for (int m = 0; m < M; ++m) {
-    int s = 0;
-    for (int i = lo; i < hi; ++i) s += (own[i] == m) && ((flags[i] >> 1) & 1);
-    sh[tid] = s;
-    __syncthreads();
-    for (int off = 1; off < SCAN_THREADS; off <<= 1) {  // inclusive Hillis-Steele
-      int v = (tid >= off) ? sh[tid - off] : 0;
-      __syncthreads();
-      sh[tid] += v;
-      __syncthreads();
-    }
-    int run = sh[tid] - s;
-    for (int i = lo; i < hi; ++i) {
-      if (own[i] != m) continue;
-      prefix[i] = run;
-      run += (flags[i] >> 1) & 1;
-    }
-    if (tid == SCAN_THREADS - 1) {
-      int c = counts[m];
-      int room = max(end_of(F, m) - base_of(F, m) - c, 0);
-      counts_out[m] = c + min(sh[tid], room);
-    }
-    __syncthreads();
+// the new counts after the appends, clipped to each segment's room
+__device__ inline void write_counts(const ScanShared& sc, int tile, int tiles, int M, Flat F,
+                                    const int* __restrict__ counts,
+                                    int* __restrict__ counts_out) {
+  if (tile == tiles - 1 && threadIdx.x < M) {
+    const int m = threadIdx.x;
+    int c = counts[m];
+    int room = max(end_of(F, m) - base_of(F, m) - c, 0);
+    counts_out[m] = c + min(sc.total[m], room);
   }
+}
+
+// the prefix is written where the pixel has a model (the only pixels whose
+// prefix an append reads)
+__global__ void __launch_bounds__(SCAN_TILE)
+assoc(Assoc a, Flat F, const int* __restrict__ counts, unsigned* __restrict__ scan,
+      unsigned fill, int* __restrict__ target, int* __restrict__ flags, int* __restrict__ own_out,
+      int* __restrict__ prefix, int* __restrict__ counts_out) {
+  __shared__ ScanShared sc;
+  const int n = (a.W / 2) * (a.H / 2), tiles = gridDim.x;
+  const int tile = scan_ticket(scan, tiles, a.M, fill, sc);
+  const int k = tile * SCAN_TILE + threadIdx.x;
+  int f = 0, own = a.M;
+  if (k < n) {
+    f = assoc_pixel(a, k, target, &own);
+    flags[k] = f;
+    own_out[k] = own;
+  }
+  const int pre = append_scan(scan, a.M, tile, (f & 2) != 0, own, sc);
+  if (k < n && own >= 0 && own < a.M) prefix[k] = pre;
+  write_counts(sc, tile, tiles, a.M, F, counts, counts_out);
+}
+
+// test entry: the append scan alone on given flags and owners
+__global__ void __launch_bounds__(SCAN_TILE)
+scan_cases(const int* __restrict__ flags, const int* __restrict__ own, int n, int M, Flat F,
+           const int* __restrict__ counts, unsigned* __restrict__ scan, unsigned fill,
+           int* __restrict__ prefix, int* __restrict__ counts_out) {
+  __shared__ ScanShared sc;
+  const int tiles = gridDim.x;
+  const int tile = scan_ticket(scan, tiles, M, fill, sc);
+  const int k = tile * SCAN_TILE + threadIdx.x;
+  const int o = k < n ? own[k] : M;
+  const bool newf = k < n && ((flags[k] >> 1) & 1);
+  const int pre = append_scan(scan, M, tile, newf, o, sc);
+  if (k < n && o >= 0 && o < M) prefix[k] = pre;
+  write_counts(sc, tile, tiles, M, F, counts, counts_out);
 }
 
 __device__ inline int dest(int k, int n_cb, const int* target, const int* flags, const int* own,
@@ -279,19 +290,39 @@ extern "C" int mmf_fuse_flat(const float* data, int row_stride, int bg, int bo, 
   int N = bg + slots * bo;
   int n_cb = (W / 2) * (H / 2);
   int n_src = 2 * n_cb;
+  if (n_cb < 1 || n_src >= (int)SCAN_VALUE) return (int)cudaErrorInvalidValue;
+  // inv: [N] slot -> source, then the append scan's [tiles, M] status words
+  // and its ticket, all filled with n_src
+  const int tiles = scan_tiles(n_cb), filled = N + tiles * M + 1;
+  unsigned* scan = reinterpret_cast<unsigned*>(inv + N);
   cudaMemcpy2DAsync(out, sizeof(float) * N, data, sizeof(float) * row_stride, sizeof(float) * N,
                     CH, cudaMemcpyDeviceToDevice, stream);
-  fill_int<<<(N + THREADS - 1) / THREADS, THREADS, 0, stream>>>(inv, N, n_src);
+  fill_int<<<(filled + THREADS - 1) / THREADS, THREADS, 0, stream>>>(inv, filled, n_src);
   Assoc a{frame, frame_valid, mask, win_model, index, data_local, N, maxd, active, M,
           fx, fy, cx, cy, W, H, par, depth_cutoff, gate, window};
-  assoc<<<(n_cb + THREADS - 1) / THREADS, THREADS, 0, stream>>>(a, target, flags, own);
-  scan_models<<<1, SCAN_THREADS, 0, stream>>>(flags, own, n_cb, M, F, counts, prefix,
-                                              counts_out);
+  assoc<<<tiles, SCAN_TILE, 0, stream>>>(a, F, counts, scan, (unsigned)n_src, target, flags, own,
+                                         prefix, counts_out);
   arbitrate<<<(n_src + THREADS - 1) / THREADS, THREADS, 0, stream>>>(target, flags, own, prefix,
                                                                       counts, n_cb, F, inv);
   apply<<<(n_src + THREADS - 1) / THREADS, THREADS, 0, stream>>>(
       frame, data_local, N, target, flags, own, prefix, counts, inv, n_cb, F, poses, W, H, par,
       time, out);
+  return (int)cudaGetLastError();
+}
+
+// test entry: the append scan of assoc alone, on given flags (bit 1: new)
+// and owners, for the M = 1 + slots models of the layout; scratch holds
+// scan_tiles(n) * M + 1 ints
+extern "C" int mmf_fuse_flat_scan_cases(const int* flags, const int* own, int n, int bg, int bo,
+                                        int slots, const int* counts, unsigned* scratch,
+                                        int* prefix, int* counts_out, cudaStream_t stream) {
+  const int M = 1 + slots;
+  if (M > MAXM || n < 1 || n >= (int)SCAN_VALUE) return (int)cudaErrorInvalidValue;
+  const int tiles = scan_tiles(n), fill = n;
+  fill_int<<<(tiles * M + 1 + THREADS - 1) / THREADS, THREADS, 0, stream>>>(
+      reinterpret_cast<int*>(scratch), tiles * M + 1, fill);
+  scan_cases<<<tiles, SCAN_TILE, 0, stream>>>(flags, own, n, M, Flat{bg, bo, slots}, counts,
+                                              scratch, (unsigned)fill, prefix, counts_out);
   return (int)cudaGetLastError();
 }
 

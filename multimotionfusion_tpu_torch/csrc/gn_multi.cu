@@ -34,12 +34,13 @@
 //     the same run to run. As in gn_reduce, pass 2 reads each owner's RGB
 //     count and sum(diff^2) from pass 1's sums on the card for the row
 //     weight 1 / (sigma_val + |diff|).
-//   - the last block finalises: every block makes its partials visible
-//     (__threadfence) and draws a ticket from a counter of the library's own
-//     (one per pass; the last block sets it back to 0). The block that draws
-//     the last ticket stages the partials through shared memory (16-byte
-//     loads, a chunk's all in flight), and each of its threads adds its slot's values in
-//     block order from 0.f: the order of the separate one-block finalize
+//   - the last block finalises (csrc/gn_sums.cuh, shared with K4): every
+//     block makes its partials visible (__threadfence) and draws a ticket
+//     from a counter of the library's own (one per pass; the last block sets
+//     it back to 0). The block that draws the last ticket stages the
+//     partials through shared memory (16-byte loads, a chunk's all in
+//     flight), and each of its threads adds its slot's values in block
+//     order from 0.f: the order of the separate one-block finalize
 //     kernel this replaces, so `sums` is bit-equal to it (no partial is -0
 //     and no sum starts at -0, so skipping the +0 of a model absent from a
 //     warp changes no bit). Pass 1's last block writes every slot of `sums`
@@ -55,12 +56,10 @@
 #include <stdint.h>
 
 #include "gn_pixel.cuh"
+#include "gn_sums.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int SLOTS = 64;
 constexpr int MAXM = 8;
 
 // the passes' tickets (pass 1, pass 2): 0 between evaluations
@@ -141,14 +140,6 @@ __device__ inline int eval_owned(const Params& P, const Multi& A, const void* pr
   return o;
 }
 
-// the slot in sums' 64-float row of accumulator i of a pass
-template <int PASS>
-__device__ __forceinline__ int slot_of(int i) {
-  return PASS == 1 ? (i < 28 ? i : 56 + (i - 28)) : 28 + i;
-}
-
-constexpr int STAGE = 8192;  // floats of the last block's staging buffer (32 KB)
-
 // per-model block reduction of NV accumulators into partials[block][m][i]
 // (M x NV floats a block); a warp reduces only the models its lanes hold
 template <int NV>
@@ -182,67 +173,6 @@ __device__ __forceinline__ void block_reduce_models(const float* acc, int owner,
       if (present[wp] >> m & 1u) s += sh[wp][m][i];
     partials[blockIdx.x * MN + t] = s;
   }
-}
-
-// true in the block that draws the last ticket, once every block's partials
-// are visible; that block sets the counter back to 0
-__device__ __forceinline__ bool last_block(unsigned* ticket) {
-  __shared__ bool last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned t = atomicAdd(ticket, 1u);
-    last = t == gridDim.x - 1;
-    if (last) *ticket = 0u;
-  }
-  __syncthreads();
-  return last;
-}
-
-// the last block's fixed-order sum over blocks of one pass's partials
-// (thread t < M x NV owns model t / NV, accumulator t % NV); pass 1 also
-// writes zeros into every other slot of sums. The partials pass through the
-// staging buffer in chunks of whole blocks, a multiple of 4 so that every
-// chunk starts 16-byte aligned: each thread has all its 16-byte loads of a
-// chunk in flight at once.
-template <int NV, int PASS>
-__device__ __forceinline__ void finish_sums(const float* partials, int M, float* stage,
-                                            float* sums) {
-  const int MN = M * NV, blocks = gridDim.x;
-  const int chunk = (STAGE / MN) & ~3;  // whole blocks a stage
-  float s = 0.f;
-  for (int b0 = 0; b0 < blocks; b0 += chunk) {
-    const int n = min(chunk, blocks - b0) * MN;
-    const float* src = partials + b0 * MN;
-    const float4* src4 = reinterpret_cast<const float4*>(src);
-    float4* stage4 = reinterpret_cast<float4*>(stage);
-    constexpr int PER = STAGE / 4 / THREADS;  // 16-byte loads a thread, at most
-    float4 v[PER];
-#pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      const int e = threadIdx.x + k * THREADS;
-      if (4 * e + 3 < n) v[k] = __ldcg(src4 + e);
-    }
-#pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      const int e = threadIdx.x + k * THREADS;
-      if (4 * e + 3 < n) stage4[e] = v[k];
-    }
-    for (int e = (n & ~3) + threadIdx.x; e < n; e += THREADS) stage[e] = __ldcg(src + e);
-    __syncthreads();
-    if (threadIdx.x < MN)
-      for (int e = threadIdx.x; e < n; e += MN) s += stage[e];
-    __syncthreads();
-  }
-  if (threadIdx.x < MN) {
-    const int m = threadIdx.x / NV, i = threadIdx.x % NV;
-    sums[m * SLOTS + slot_of<PASS>(i)] = s;
-  }
-  if (PASS == 1)
-    for (int e = threadIdx.x; e < MAXM * SLOTS; e += THREADS) {
-      const int m = e / SLOTS, v = e % SLOTS;
-      if (m >= M || (v >= 28 && v < 56) || v >= 59) sums[e] = 0.f;
-    }
 }
 
 // the shared memory of a pass: the block reduction's scratch, then (in the
@@ -284,7 +214,7 @@ pass1(Params P, Multi A, const void* pred, const float* vmap, const float* nmap,
     }
   }
   block_reduce_models<31>(acc, o, A.M, smem.sh, present, partials);
-  if (last_block(&g_ticket[0])) finish_sums<31, 1>(partials, A.M, smem.stage, sums);
+  if (last_block(&g_ticket[0])) finish_sums<31, 1, MAXM>(partials, A.M, smem.stage, sums);
 }
 
 // pass 2: per model the weighted RGB system (each owner's count from pass 1)
@@ -309,7 +239,7 @@ pass2(Params P, Multi A, const void* pred, const float* vmap, const float* nmap,
     if (rgb_row(P, px, sigma_val, row)) add_outer(acc, row);
   }
   block_reduce_models<28>(acc, o, A.M, smem.sh, present, partials);
-  if (last_block(&g_ticket[1])) finish_sums<28, 2>(partials, A.M, smem.stage, sums);
+  if (last_block(&g_ticket[1])) finish_sums<28, 2, MAXM>(partials, A.M, smem.stage, sums);
 }
 
 }  // namespace

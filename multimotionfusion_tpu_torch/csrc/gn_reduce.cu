@@ -8,27 +8,34 @@
 //   reads ~38 bytes of frame fields and four taps of the prediction map
 //   (16 bytes each at level 0, bf16; 32 at the coarse levels, f32); 76,800
 //   pixels at levels 0 (stride-2 grid) and 1, 19,200 at level 2. That is a
-//   few MB per evaluation, i.e. microseconds, so the four launches per call
+//   few MB per evaluation, i.e. microseconds, so the launches per call
 //   and the host read of the result dominate.
 // Design: every thread evaluates pixels of the (strided) grid: transform by
 //   inv(result_Rt), project, fetch the four bilinear taps, apply the ICP gates
 //   and the RGB gates (rgb_static_valid precomputed per level), and adds the
 //   outer products of its rows to register accumulators: no [P, 7] row matrix
 //   is written. Blocks reduce with warp shuffles and shared memory into
-//   per-block partials; a second kernel sums the partials in a fixed order.
-//   No float atomics, so results are the same run to run.
+//   per-block partials ([blocks, 31] for pass 1, then [blocks, 28] for pass
+//   2 from the next 16-byte boundary: both stay written after the call). The
+//   block that draws a pass's last ticket sums the partials in block order
+//   from 0.f (csrc/gn_sums.cuh, shared with K11), the order of the one-block
+//   finalize kernel this replaced, so `sums` is bit-equal to it. No float
+//   atomics, so results are the same run to run.
 //   The RGB row weight 1 / (sigma_val + |diff|) needs this iteration's RGB
 //   count (sigma_val = count * scale2 unless the error is 0), so the call
 //   takes two passes: pass 1 reduces the ICP system, the ICP count, the RGB
-//   count and sum(diff^2); its finalize writes them to `sums`; pass 2 reads
-//   the count from `sums` on the device (no host round trip) and reduces the
-//   weighted RGB system.
+//   count and sum(diff^2), and its last block writes them and zeros in every
+//   other slot of `sums`; pass 2 reads the count from `sums` on the device
+//   (no host round trip) and reduces the weighted RGB system. One evaluation
+//   is 2 launches (1 without RGB). The ticket counters make two evaluations
+//   on two streams at once unsafe: the port runs them on one stream.
 // Output `sums` (64 floats): [0:28] upper triangle of S_icp, [28:56] of
 //   S_rgb, [56] ICP count, [57] RGB count, [58] sum(diff^2), all on the
 //   evaluated grid (the caller scales by stride^2).
 // The pose increment inv(result_Rt) is read by pointer from the odometry's
 //   state on the card (csrc/gn_step.cu), and every kernel returns at once
-//   when the GN loop's done flag is set, so the host enqueues the fixed
+//   when the GN loop's done flag is set (block 0 of pass 1 then writes the
+//   zeros of a finished loop's sums), so the host enqueues the fixed
 //   iteration budget without reading anything back.
 // Error-image mode (rgbd.py:1062-1075, the legacy CRF's input): one more
 //   evaluation of level 0 on the full grid at the final pose, enqueued after
@@ -39,16 +46,17 @@
 #include <stdint.h>
 
 #include "gn_pixel.cuh"
+#include "gn_sums.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int SLOTS = 64;
+// the passes' tickets (pass 1, pass 2): 0 between evaluations
+__device__ unsigned g_ticket[2];
 
+// block reduction of NV accumulators into this block's row of partials
+// ([blocks, NV]): warp shuffles, then the warps' sums in warp order
 template <int NV>
-__device__ inline void block_reduce(float* acc, float (*sh)[SLOTS], const int* slot,
-                                    float* partials) {
+__device__ inline void block_reduce(float* acc, float (*sh)[SLOTS], float* partials) {
   int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int i = 0; i < NV; ++i) {
     float v = acc[i];
@@ -59,24 +67,28 @@ __device__ inline void block_reduce(float* acc, float (*sh)[SLOTS], const int* s
   if (threadIdx.x < NV) {
     float s = 0.f;
     for (int w = 0; w < WARPS; ++w) s += sh[w][threadIdx.x];
-    partials[blockIdx.x * SLOTS + slot[threadIdx.x]] = s;
+    partials[blockIdx.x * NV + threadIdx.x] = s;
   }
 }
 
-__constant__ int PASS1_SLOTS[31] = {0,  1,  2,  3,  4,  5,  6,  7,  8,  9,  10,
-                                    11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21,
-                                    22, 23, 24, 25, 26, 27, 56, 57, 58};
-__constant__ int PASS2_SLOTS[28] = {28, 29, 30, 31, 32, 33, 34, 35, 36, 37,
-                                    38, 39, 40, 41, 42, 43, 44, 45, 46, 47,
-                                    48, 49, 50, 51, 52, 53, 54, 55};
+// the shared memory of a pass: the block reduction's scratch, then (in the
+// last block only) the staging buffer of finish_sums
+union __align__(16) PassShared {
+  float sh[WARPS][SLOTS];
+  float stage[STAGE];
+};
 
 // pass 1: ICP system + ICP count + RGB count + sum(diff^2)
 __global__ void __launch_bounds__(THREADS)
 pass1(Params P, const void* pred, const float* vmap, const float* nmap, const float* img,
-      const float* didx, const float* didy, const uint8_t* sv, float* partials) {
-  if (is_done(P)) return;
+      const float* didx, const float* didy, const uint8_t* sv, float* partials, float* sums) {
+  if (is_done(P)) {  // sums of a finished loop are zeros
+    if (blockIdx.x == 0)
+      for (int e = threadIdx.x; e < SLOTS; e += THREADS) sums[e] = 0.f;
+    return;
+  }
   const Pose T = load_pose(P.Tinv);
-  __shared__ float sh[WARPS][SLOTS];
+  __shared__ PassShared smem;
   float acc[31];
   for (int i = 0; i < 31; ++i) acc[i] = 0.f;
   int n = P.Hs * P.Ws;
@@ -95,17 +107,17 @@ pass1(Params P, const void* pred, const float* vmap, const float* nmap, const fl
       acc[28] += 1.f;
     }
   }
-  block_reduce<31>(acc, sh, PASS1_SLOTS, partials);
+  block_reduce<31>(acc, smem.sh, partials);
+  if (last_block(&g_ticket[0])) finish_sums<31, 1, 1>(partials, 1, smem.stage, sums);
 }
 
 // pass 2: the weighted RGB system (needs pass 1's RGB count and sum(diff^2))
 __global__ void __launch_bounds__(THREADS)
 pass2(Params P, const void* pred, const float* vmap, const float* nmap, const float* img,
-      const float* didx, const float* didy, const uint8_t* sv, const float* sums,
-      float* partials) {
+      const float* didx, const float* didy, const uint8_t* sv, float* partials, float* sums) {
   if (is_done(P)) return;
   const Pose T = load_pose(P.Tinv);
-  __shared__ float sh[WARPS][SLOTS];
+  __shared__ PassShared smem;
   float acc[28];
   for (int i = 0; i < 28; ++i) acc[i] = 0.f;
   float rgb_size = sums[57] * P.scale2;
@@ -118,18 +130,8 @@ pass2(Params P, const void* pred, const float* vmap, const float* nmap, const fl
     float row[7];
     if (rgb_row(P, px, sigma_val, row)) add_outer(acc, row);
   }
-  block_reduce<28>(acc, sh, PASS2_SLOTS, partials);
-}
-
-// fixed-order sum over blocks of the partials of one pass's slots
-__global__ void finalize(Params P, const float* partials, int blocks, int pass, float* sums) {
-  if (is_done(P)) return;
-  int v = threadIdx.x;
-  bool mine = pass == 1 ? (v < 28 || (v >= 56 && v < 59)) : (v >= 28 && v < 56);
-  if (!mine) return;
-  float s = 0.f;
-  for (int b = 0; b < blocks; ++b) s += partials[b * SLOTS + v];
-  sums[v] = s;
+  block_reduce<28>(acc, smem.sh, partials);
+  if (last_block(&g_ticket[1])) finish_sums<28, 2, 1>(partials, 1, smem.stage, sums);
 }
 
 // error-image mode: one thread per pixel of the full level-0 grid at the
@@ -196,14 +198,12 @@ extern "C" int mmf_gn_reduce(const void* pred, int compact, int H, int W, const 
   P.compact = compact; P.use_icp = use_icp; P.use_rgb = use_rgb; P.rgb_only = rgb_only;
   P.dist_thresh = dist_thresh; P.angle_thresh = angle_thresh; P.max_dd = max_dd;
   P.max_depth_rgb = max_depth_rgb; P.sobel_scale = sobel_scale; P.scale2 = scale2;
-  cudaMemsetAsync(sums, 0, sizeof(float) * SLOTS, stream);
+  // pass 2's partials start at the first 16-byte boundary after pass 1's
+  float* partials2 = partials + ((blocks * 31 + 3) & ~3);
   pass1<<<blocks, THREADS, 0, stream>>>(P, pred, vmap, nmap, img, didx, didy, static_valid,
-                                        partials);
-  finalize<<<1, SLOTS, 0, stream>>>(P, partials, blocks, 1, sums);
-  if (use_rgb) {
+                                        partials, sums);
+  if (use_rgb)
     pass2<<<blocks, THREADS, 0, stream>>>(P, pred, vmap, nmap, img, didx, didy, static_valid,
-                                          sums, partials);
-    finalize<<<1, SLOTS, 0, stream>>>(P, partials, blocks, 2, sums);
-  }
+                                          partials2, sums);
   return (int)cudaGetLastError();
 }

@@ -184,8 +184,37 @@ def check_fuse(a: tuple) -> dict:
     )
 
 
+def block_order_sum(partials: torch.Tensor) -> torch.Tensor:
+    """[blocks, n] float32 partials -> [n]: each column added from +0 in block
+    order, in float32 on the CPU (the order of K4's and K11's last-block
+    sums)."""
+    s = torch.zeros(partials.shape[1], dtype=torch.float32)
+    for row in partials.cpu():
+        s = s + row
+    return s
+
+
+def gn_sums_from_partials(p1: torch.Tensor, p2=None) -> torch.Tensor:
+    """gn_reduce's [N_SUMS] sums from its pass-1 ([blocks, 31]) and pass-2
+    ([blocks, 28], or None without RGB: zeros) partials, summed in block
+    order (``block_order_sum``)."""
+    s1 = block_order_sum(p1)
+    s2 = block_order_sum(p2) if p2 is not None else torch.zeros(28, dtype=torch.float32)
+    return torch.cat([s1[:28], s2, s1[28:]])
+
+
 def check_gn(a: tuple, level: int) -> dict:
-    sk = rgbd.gn_reduce_cuda(*a, level=level).cpu()
+    """The sums against the plain version (1e-4), and bit-equal to the
+    block-order float32 sum of the same call's partials (zeros once the
+    loop is done)."""
+    sk, p1, p2 = rgbd.gn_reduce_cuda(*a, level=level, with_partials=True)
+    sk = sk.cpu()
+    done = a[5] is not None and bool(a[5].cpu() != 0)
+    if done:
+        expect = torch.zeros(rgbd.N_SUMS, dtype=torch.float32)
+    else:
+        expect = gn_sums_from_partials(p1, p2 if a[4].use_rgb else None)
+    block_order = torch.equal(sk.view(torch.int32), expect.view(torch.int32))
     sp = rgbd.gn_reduce_plain(*a).cpu()
     Sk_i, Sp_i = rgbd._sym(sk[0:28]), rgbd._sym(sp[0:28])
     Sk_r, Sp_r = rgbd._sym(sk[28:56]), rgbd._sym(sp[28:56])
@@ -195,11 +224,135 @@ def check_gn(a: tuple, level: int) -> dict:
     scalars = float(((sk[56:59] - sp[56:59]).abs() / sp[56:59].abs().clamp(min=1.0)).max())
     return dict(
         max_abs_err=float((sk - sp).abs().max()), rel_frob_icp=e_icp, rel_frob_rgb=e_rgb,
-        counts_sigma_rel_err=scalars,
-        ok=e_icp <= 1e-4 and e_rgb <= 1e-4 and scalars <= 1e-4,
+        counts_sigma_rel_err=scalars, sums_bit_equal_block_order=block_order, loop_done=done,
+        ok=e_icp <= 1e-4 and e_rgb <= 1e-4 and scalars <= 1e-4 and block_order,
         tolerance="each 7x7 system within 1e-4 relative (Frobenius); both counts and "
-                  "sum diff^2 within 0.01%",
+                  "sum diff^2 within 0.01%; sums bit-equal to the block-order float32 sum "
+                  "of the call's partials",
     )
+
+
+# ------------------------------------------------------------ the append scan
+
+SCAN_N = 76_800  # the time-parity checkerboard of 640x480
+SCAN_LAYOUT = dict(bg=1 << 19, bo=1 << 16)  # chip_smoke's multi-model store
+# how each model's appends stand to its segment's room in the "rooms" case
+SCAN_ROOMS = ("full", "clipped", "at", "one_below", "far_below", "far_below")
+# K8's capacity against its appends, by case
+SCAN_K8_ROOM = {"no_new": "at", "all_new": "clipped", "one_model": "one_below",
+                "eight_models": "far_below", "no_owner": "full", "rooms": "at",
+                "ragged": "one_below", "small": "clipped", "one_tile": "far_below"}
+
+
+def _room(rel: str, total: int, seg: int) -> int:
+    """The room a segment of ``seg`` slots leaves for ``total`` appends."""
+    return {"full": 0, "clipped": max(total - 5, 0), "at": total, "one_below": total + 1,
+            "far_below": seg}[rel]
+
+
+def scan_cases(seed: int = 0):
+    """Hand-made inputs of the append scan shared by K8 and K14 (csrc/surfel.cuh
+    ``append_scan``), on the CPU: [(name, flags [n] int32 (bit 1: new, bit 0:
+    merge), own [n] int32, M, counts [M] int32, K8's count and capacity)].
+    Cases: no new flag; every flag new; one model owning every pixel; M = 8
+    with every owner present; pixels with no owner (-1 and M); the models'
+    appends clipped by, at, one below and far below their segment's room
+    (and a full segment); n not a multiple of the 256-pixel tile (76,763,
+    1,000 and 200). K14's counts and K8's count are set from the appends so
+    that each relation holds exactly."""
+    rng = np.random.default_rng(seed)
+    out = []
+
+    def add(name, flags, own, M, rooms=None):
+        flags, own = flags.astype(np.int32), own.astype(np.int32)
+        new = (flags >> 1) & 1
+        seg = np.array([SCAN_LAYOUT["bg"]] + [SCAN_LAYOUT["bo"]] * (M - 1))
+        totals = np.array([int((new * (own == m)).sum()) for m in range(M)])
+        rooms = rooms or ["far_below"] * M
+        counts = np.array([seg[m] - _room(rooms[m], int(totals[m]), int(seg[m]) // 2)
+                           for m in range(M)], np.int32)
+        assert (counts >= 0).all() and (counts <= seg).all()
+        total8 = int(new.sum())
+        cap8 = 1 << 20
+        count8 = cap8 - _room(SCAN_K8_ROOM[name], total8, cap8 // 2)
+        out.append((name, torch.from_numpy(flags), torch.from_numpy(own), M,
+                    torch.from_numpy(counts), count8, cap8))
+
+    def flags_of(n, p_new=0.3, p_merge=0.3):
+        u = rng.random(n)
+        return np.where(u < p_new, 2, np.where(u < p_new + p_merge, 1, 0))
+
+    n = SCAN_N
+    add("no_new", rng.integers(0, 2, n), rng.integers(0, 6, n), 6)
+    add("all_new", np.full(n, 2), rng.integers(0, 6, n), 6)
+    add("one_model", flags_of(n), np.zeros(n), 6)
+    add("eight_models", flags_of(n), rng.integers(0, 8, n), 8)
+    own = rng.integers(0, 6, n)
+    own[rng.random(n) < 0.4] = -1
+    own[rng.random(n) < 0.2] = 6
+    add("no_owner", flags_of(n, 0.5), own, 6)
+    add("rooms", flags_of(n), rng.integers(0, 6, n), 6, list(SCAN_ROOMS))
+    add("ragged", flags_of(n - 37), rng.integers(0, 6, n - 37), 6,
+        ["at", "one_below", "clipped", "full", "far_below", "at"])
+    add("small", flags_of(1000), rng.integers(0, 3, 1000), 3, ["clipped", "at", "one_below"])
+    add("one_tile", flags_of(200), rng.integers(0, 2, 200), 2, ["at", "clipped"])
+    return out
+
+
+def scan_expected(flags: torch.Tensor, own: torch.Tensor, M: int, counts: torch.Tensor,
+                  lens) -> tuple:
+    """The append scan by ``torch.cumsum``: (prefix [n], -1 where the owner is
+    no model; the new counts [M], each count + min(its new flags, the room
+    lens[m] - count, at least 0))."""
+    new = ((flags >> 1) & 1).long()
+    owned = (own >= 0) & (own < M)
+    o = own.clamp(0, M - 1).long()
+    hot = (o[None] == torch.arange(M)[:, None]) & owned[None] & (new[None] > 0)
+    inc = torch.cumsum(hot.long(), 1)
+    excl = (inc - hot.long()).gather(0, o[None])[0]
+    prefix = torch.where(owned, excl, torch.full_like(excl, -1)).to(torch.int32)
+    rooms = (torch.as_tensor(lens, dtype=torch.long) - counts.long()).clamp(min=0)
+    counts_out = (counts.long() + torch.minimum(inc[:, -1], rooms)).to(torch.int32)
+    return prefix, counts_out
+
+
+def check_scan_cases(device) -> dict:
+    """The append scan on the card through K14's test entry
+    (``fuse_flat_scan_cuda``) and K8's (``fuse_scan_cuda``, one model: every
+    pixel its own) on ``scan_cases``: prefix where the flag is new, prefix
+    where the owner is a model, and the counts, all exact against
+    ``scan_expected``."""
+    cases, ok = {}, True
+    for name, flags, own, M, counts, count8, cap8 in scan_cases():
+        layout = R.FlatLayout(bg=SCAN_LAYOUT["bg"], bo=SCAN_LAYOUT["bo"], slots=M - 1)
+        lens = [SCAN_LAYOUT["bg"]] + [SCAN_LAYOUT["bo"]] * (M - 1)
+        new = ((flags >> 1) & 1) > 0
+        r = {}
+        pk, ck = FU.fuse_flat_scan_cuda(flags.to(device), own.to(device), counts.to(device),
+                                        layout)
+        pe, ce = scan_expected(flags, own, M, counts, lens)
+        pk, ck = pk.cpu(), ck.cpu()
+        owned = pe >= 0
+        r["fuse_flat"] = dict(prefix_new_exact=torch.equal(pk[new & owned], pe[new & owned]),
+                              prefix_owned_exact=torch.equal(pk[owned], pe[owned]),
+                              counts_exact=torch.equal(ck, ce), counts=ck.tolist(),
+                              counts_in=counts.tolist())
+        zeros = torch.zeros_like(own)
+        c8 = torch.tensor(count8, dtype=torch.int32)
+        pk, ck = FU.fuse_scan_cuda(flags.to(device), c8.to(device), cap8)
+        pe, ce = scan_expected(flags, zeros, 1, c8[None], [cap8])
+        pk, ck = pk.cpu(), ck.cpu()
+        r["fuse"] = dict(prefix_new_exact=torch.equal(pk[new], pe[new]),
+                         prefix_exact=torch.equal(pk, pe),
+                         count_exact=int(ck) == int(ce[0]), count=int(ck), count_in=count8,
+                         capacity=cap8)
+        r["ok"] = all(v for side in ("fuse_flat", "fuse") for k, v in r[side].items()
+                      if k.endswith("exact"))
+        ok = ok and r["ok"]
+        cases[f"{name}[n={flags.numel()}, M={M}]"] = r
+    return dict(cases=cases, ok=ok, max_abs_err=0.0 if ok else None,
+                tolerance="prefix (where new, and where the owner is a model) and the counts "
+                          "exact against torch.cumsum")
 
 
 # ---------------------------------------------------------------- slice 2

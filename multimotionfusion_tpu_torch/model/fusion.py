@@ -8,7 +8,8 @@
   same surfel are arbitrated deterministically: the lowest source id wins,
   where source ids run row-major over the [H/2, W/2] checkerboard subgrid,
   merges first, then appends; append slots are ``count`` + an exclusive prefix
-  sum over the same order.
+  sum over the same order (``csrc/surfel.cuh`` ``append_scan``: a decoupled
+  look-back scan inside the association kernel, shared with K14).
 - ``clean`` (kernels K7 + K9, ``csrc/clean.cu``): redundancy / see-through /
   unstable-age culls and the periodic order-preserving compaction
   (copy_unstable.vert). A pixel pass reads each index-map winner's attributes
@@ -153,6 +154,15 @@ def fuse_plain(data, count, frame_data, frame_valid, index, data_local, mask, ma
     return out, (count + n_new).to(torch.int32), assoc
 
 
+SCAN_TILE = 256  # pixels a tile of the append scan (csrc/surfel.cuh)
+
+
+def scan_scratch(n: int, models: int) -> int:
+    """Ints of the append scan's scratch for ``n`` pixels and ``models``
+    models: a status word per tile and model, then the ticket."""
+    return (n + SCAN_TILE - 1) // SCAN_TILE * models + 1
+
+
 _FUSE_ARGS = (
     [K.P, K.I, K.I, K.P]  # data, row stride, capacity, count
     + [K.P, K.P, K.P, K.I]  # frame data, frame valid, mask, mask id
@@ -186,7 +196,7 @@ def fuse_cuda(data, count, frame_data, frame_valid, index, data_local, mask, mas
     target = torch.empty((n_cb,), dtype=torch.int32, device=dev)
     flags = torch.empty((n_cb,), dtype=torch.int32, device=dev)
     prefix = torch.empty((n_cb,), dtype=torch.int32, device=dev)
-    inv = torch.empty((cap,), dtype=torch.int32, device=dev)
+    inv = torch.empty((cap + scan_scratch(n_cb, 1),), dtype=torch.int32, device=dev)
     count_out = torch.empty((), dtype=torch.int32, device=dev)
     out = torch.empty((sm.CHANNELS, cap), dtype=torch.float32, device=dev)
     f = K.fn("fuse", "mmf_fuse", _FUSE_ARGS)
@@ -542,9 +552,10 @@ _FUSE_FLAT_ARGS = (
 
 def fuse_flat_cuda(data, counts, layout: FlatLayout, frame_data, frame_valid, index, data_local,
                    mask, win_model, poses, maxd, active, cam: CameraModel, time,
-                   cfg: SurfelConfig):
+                   cfg: SurfelConfig, with_flags: bool = False):
     """K14 (fuse) on the card: ``csrc/fuse_flat.cu`` ``mmf_fuse_flat`` (same
-    contract as ``fuse_flat_plain``)."""
+    contract as ``fuse_flat_plain``; ``with_flags`` also returns the
+    association's flags and owners, [n_cb] each)."""
     M = layout.n_models
     K.check(data, torch.float32, "data", contiguous=False)
     K.check(counts, torch.int32, "counts")
@@ -569,7 +580,8 @@ def fuse_flat_cuda(data, counts, layout: FlatLayout, frame_data, frame_valid, in
     n_cb = (h // 2) * (w // 2)
     dev = data.device
     ints = lambda n: torch.empty((n,), dtype=torch.int32, device=dev)  # noqa: E731
-    target, flags, own, prefix, inv = ints(n_cb), ints(n_cb), ints(n_cb), ints(n_cb), ints(total)
+    target, flags, own, prefix = ints(n_cb), ints(n_cb), ints(n_cb), ints(n_cb)
+    inv = ints(total + scan_scratch(n_cb, M))
     counts_out = ints(M)
     out = torch.empty((sm.CHANNELS, total), dtype=torch.float32, device=dev)
     f = K.fn("fuse_flat", "mmf_fuse_flat", _FUSE_FLAT_ARGS)
@@ -582,6 +594,8 @@ def fuse_flat_cuda(data, counts, layout: FlatLayout, frame_data, frame_valid, in
         K.ptr(target), K.ptr(flags), K.ptr(own), K.ptr(prefix), K.ptr(inv), K.ptr(counts_out),
         K.ptr(out),
     )
+    if with_flags:
+        return out, counts_out, flags, own
     return out, counts_out
 
 
@@ -602,6 +616,47 @@ def fuse_flat(data, counts, layout: FlatLayout, frame: sm.FrameSurfels, index_ma
              time=time, cfg=cfg)
     impl = fuse_flat_cuda if data.is_cuda else fuse_flat_plain
     return impl(*args)
+
+
+def fuse_scan_cuda(flags: torch.Tensor, count: torch.Tensor, cap: int):
+    """Test entry of K8's append scan (``mmf_fuse_scan_cases``): the scan
+    that ``fuse_cuda``'s association kernel runs, on given flags (bit 1:
+    new). Returns (prefix [n], the new count clipped to ``cap``)."""
+    K.check(flags, torch.int32, "flags")
+    K.check(count, torch.int32, "count")
+    n = flags.numel()
+    dev = flags.device
+    scratch = torch.empty((scan_scratch(n, 1),), dtype=torch.int32, device=dev)
+    prefix = torch.empty((n,), dtype=torch.int32, device=dev)
+    count_out = torch.empty((), dtype=torch.int32, device=dev)
+    f = K.fn("fuse", "mmf_fuse_scan_cases", [K.P, K.I, K.P, K.I, K.P, K.P, K.P])
+    K.call("fuse.scan_cases", f, K.ptr(flags), n, K.ptr(count), int(cap), K.ptr(scratch),
+           K.ptr(prefix), K.ptr(count_out))
+    return prefix, count_out
+
+
+def fuse_flat_scan_cuda(flags: torch.Tensor, own: torch.Tensor, counts: torch.Tensor,
+                        layout: FlatLayout):
+    """Test entry of K14's append scan (``mmf_fuse_flat_scan_cases``): the
+    scan that ``fuse_flat_cuda``'s association kernel runs, on given flags
+    (bit 1: new) and owners. Returns (prefix [n], written where the owner is
+    a model; the new counts [M], clipped to each segment's room)."""
+    M = layout.n_models
+    K.check(flags, torch.int32, "flags")
+    K.check(own, torch.int32, "own")
+    K.check(counts, torch.int32, "counts")
+    n = flags.numel()
+    if own.numel() != n or counts.shape != (M,) or M > 8:
+        raise ValueError("own must match flags, counts be [M], M at most 8")
+    dev = flags.device
+    scratch = torch.empty((scan_scratch(n, M),), dtype=torch.int32, device=dev)
+    prefix = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    counts_out = torch.empty((M,), dtype=torch.int32, device=dev)
+    f = K.fn("fuse_flat", "mmf_fuse_flat_scan_cases",
+             [K.P, K.P, K.I, K.I, K.I, K.I, K.P, K.P, K.P, K.P])
+    K.call("fuse_flat.scan_cases", f, K.ptr(flags), K.ptr(own), n, layout.bg, layout.bo,
+           layout.slots, K.ptr(counts), K.ptr(scratch), K.ptr(prefix), K.ptr(counts_out))
+    return prefix, counts_out
 
 
 def clean_flat_plain(data, counts, layout: FlatLayout, index, data_local, win_model, depth,

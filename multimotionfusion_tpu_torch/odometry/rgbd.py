@@ -433,13 +433,26 @@ _GN_ARGS = (
 _GN_THREADS = 256
 _GN_MAX_BLOCKS = 1024
 _GN_STRIDE_SUMS = 64
+GN_PASS_ACCS = (31, 28)  # accumulators of gn_reduce's pass 1 and pass 2
+
+
+def gn_partials_layout(blocks: int):
+    """Offsets and lengths (floats) of gn_reduce's pass-1 and pass-2 partials
+    in its buffer: [blocks, 31], then [blocks, 28] from the next 16-byte
+    boundary (``csrc/gn_reduce.cu`` ``mmf_gn_reduce``)."""
+    n1, n2 = (blocks * a for a in GN_PASS_ACCS)
+    off2 = (n1 + 3) & ~3
+    return (0, n1), (off2, n2)
 
 
 def gn_reduce_cuda(lv: GNLevel, Rt_inv: torch.Tensor, cam_l: CameraModel, scale2: float,
-                   p: GNParams, done=None, level: int = 0) -> torch.Tensor:
+                   p: GNParams, done=None, level: int = 0, with_partials: bool = False):
     """K4 on the card: ``csrc/gn_reduce.cu`` (same contract as ``gn_reduce_plain``;
     launches are counted per pyramid level, ``gn_reduce.L<level>``). ``Rt_inv``
-    ([4, 4]) and ``done`` (0-dim, or None) are read by pointer."""
+    ([4, 4]) and ``done`` (0-dim, or None) are read by pointer. With
+    ``with_partials`` also returns the per-block partials of pass 1 and pass
+    2 ([blocks, 31], [blocks, 28]; pass 2's are unwritten without RGB or once
+    ``done`` is set), from which the kernel's last blocks summed ``sums``."""
     check_pose(Rt_inv, "Rt_inv")
     if done is not None:
         K.check(done, F32, "done")
@@ -454,7 +467,8 @@ def gn_reduce_cuda(lv: GNLevel, Rt_inv: torch.Tensor, cam_l: CameraModel, scale2
     hs, ws = (h + s - 1) // s, (w + s - 1) // s
     blocks = max(1, min((hs * ws + _GN_THREADS - 1) // _GN_THREADS, _GN_MAX_BLOCKS))
     dev = lv.img.device
-    partials = torch.empty((blocks, _GN_STRIDE_SUMS), dtype=F32, device=dev)
+    (_, n1), (off2, n2) = gn_partials_layout(blocks)
+    partials = torch.empty((off2 + n2,), dtype=F32, device=dev)
     sums = torch.empty((_GN_STRIDE_SUMS,), dtype=F32, device=dev)
     f = K.fn("gn_reduce", "mmf_gn_reduce", _GN_ARGS)
     K.call(
@@ -466,6 +480,9 @@ def gn_reduce_cuda(lv: GNLevel, Rt_inv: torch.Tensor, cam_l: CameraModel, scale2
         p.dist_thresh, p.angle_thresh, p.max_depth_delta_rgb, p.max_depth_rgb, p.sobel_scale,
         float(scale2), blocks, K.ptr(partials), K.ptr(sums),
     )
+    if with_partials:
+        return (sums[:N_SUMS], partials[:n1].view(blocks, GN_PASS_ACCS[0]),
+                partials[off2:].view(blocks, GN_PASS_ACCS[1]))
     return sums[:N_SUMS]
 
 

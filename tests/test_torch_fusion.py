@@ -66,9 +66,11 @@ def _scene(case):
     pose = np.eye(4, dtype=np.float32)
     if case == "static":
         time = 2
-    elif case == "moved":  # odd parity, the camera moved 1 cm and turned, the
-        time = 3  # map's left half culled (so the frame appends there)
-        pose = synthetic.pose((0.0, 0.01, 0.0), (0.01, 0.0, 0.0))
+    elif case in ("moved", "full"):  # odd parity, the camera moved 1 cm and turned,
+        time = 3  # the map's left half culled (so the frame appends there); "full":
+        pose = synthetic.pose((0.0, 0.01, 0.0), (0.01, 0.0, 0.0))  # room for FULL_ROOM more
+        if case == "full":
+            smap = jsm.init_from_frame(fs1, int(smap.count) + FULL_ROOM)
         alive = np.array(smap.data[jsm.ALIVE]) * (np.array(smap.data[jsm.PX]) > 0)
         smap = jsm.SurfelMap(smap.data.at[jsm.ALIVE].set(jnp.asarray(alive)), smap.count)
     else:  # "aged": half the map stable, the rest past the unstable grace period
@@ -82,7 +84,10 @@ def _scene(case):
     return smap, im, fs, depth, pose, time
 
 
-@pytest.mark.parametrize("case", ["static", "moved", "aged"])
+FULL_ROOM = 40  # "full": the map's capacity a few dozen surfels above its count
+
+
+@pytest.mark.parametrize("case", ["static", "moved", "aged", "full"])
 def test_fuse_matches_reference(case):
     smap, im, fs, _, pose, time = _scene(case)
     mask = np.zeros((CAM.height, CAM.width), np.int32)
@@ -93,6 +98,8 @@ def test_fuse_matches_reference(case):
     assert int(ft.count) == n
     if case == "moved":
         assert n > int(smap.count) + 100  # appends
+    if case == "full":  # the appends clipped to the capacity
+        assert n == smap.capacity == int(smap.count) + FULL_ROOM
     assert float(jnp.max(fj.data[jsm.LAST_T])) == time  # merges
     _close(ft.data.numpy()[:, :n], np.asarray(fj.data)[:, :n])
 

@@ -43,7 +43,12 @@ ones, labels five cells away, the edge cells; N = 1, 13 and 40 images), and
 K17 on hand-made mask stacks (``checks.check_components_cases``). K5's solve
 runs on hand-made systems through its test entry (``checks.check_solve_cases``:
 bit-equal to the float32 emulation that ``tests/test_torch_gn_solve.py`` holds
-to the reference).
+to the reference). The append scan of K8's and K14's association kernels runs
+on hand-made flags and owners through its test entries
+(``checks.check_scan_cases``: exact against torch.cumsum), and every K4
+evaluation's sums must be bit-equal to the block-order float32 sum of its
+partials (``checks.check_gn``; both references are checked on the CPU by
+``tests/test_torch_append_scan.py``).
 """
 
 import pytest
@@ -371,4 +376,14 @@ def test_solve_cases_bit_equal_to_emulation():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
     r = checks.check_solve_cases("cuda")
+    assert r["ok"], r
+
+
+def test_fuse_scan_cases_exact():
+    """K8's and K14's append scan (``mmf_fuse_scan_cases``,
+    ``mmf_fuse_flat_scan_cases``) on ``checks.scan_cases``: prefix and counts
+    exact against torch.cumsum."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
+    r = checks.check_scan_cases("cuda")
     assert r["ok"], r
