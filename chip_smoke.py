@@ -6,9 +6,10 @@
 Phases (any failure exits non-zero):
 1. build every CUDA kernel of ``multimotionfusion_tpu_torch/csrc`` (nvcc, in
    parallel) and print the build seconds and each kernel's registers, shared
-   memory, stack frame and spills (ptxas -v); require K5's step kernels
-   (``REGISTER_ONLY``) to have no stack frame and no spills, and K4's
-   passes and K8's and K14's association kernels (``NO_SPILLS``) no spills;
+   memory, stack frame and spills (ptxas -v); require K5's step kernels and
+   K3's one-launch SO(3) iteration (``REGISTER_ONLY``) to have no stack
+   frame and no spills, and K4's passes, K8's and K14's association kernels
+   and K21's three kernels (``NO_SPILLS``) no spills;
 2. run ``MultiMotionFusionTorch`` on the card with the static 640x480
    configuration (``odom_init=""``, single model, 2^20 surfel capacity) over
    the synthetic scene (1 init frame + 45 frames), print the median and p75
@@ -42,7 +43,10 @@ Phases (any failure exits non-zero):
    (``_device_profile``: torch.profiler, every device event of 20 calls
    after 10 warm-up calls; by kernel for K4, K5's steps, K8, K11 and K14;
    K4's sums also bit-equal to the block-order float32 sum of the call's
-   partials); run the whole odometry loop on the card and, from the
+   partials; the one-launch SO(3) iteration also bit-equal to its two
+   halves' standalone kernels, ``so3_reduce`` and ``so3_step``, whose lines
+   replay the iteration's inputs and count no launch on the path); run the
+   whole odometry loop on the card and, from the
    same inputs, the plain loop on the CPU; the same for the keypoint
    kernels on the inputs of one steady-state kp frame (``nms_topk`` also on
    a random-weight SuperPoint heat map and on a plateau), the seeded
@@ -84,7 +88,13 @@ Phases (any failure exits non-zero):
    at JOURNEY_ALPHA of the share below 0.08 m and of the drifts); then
    K13, K15 (front end and each level), K16 (one iteration
    and all ten), K17 (also on a 240x160 stack) and K18's three
-   stages against their plain versions on the inputs of the last frame;
+   stages against their plain versions on the inputs of the last frame, and
+   K21's two batches of that frame (the 6 per-model seeds over shared
+   points, the 8 back-dating fits over per-fit points) and the back-dating
+   batch with every active track selected: each row bit-equal to a one-fit
+   launch, the batch within the one-fit line's tolerances of the plain
+   version; phase ``draws``: the engine's per-fit draws (``draw_uniforms``)
+   on a CUDA generator equal to sequential ``torch.rand`` calls;
 5c'. the legacy CoFusion CRF path (multi_legacy_crf): the flow-CRF phase's
    scene and configuration with ``segmentation.mode="crf"`` (the per-slot
    step; the odometry's error images on), 1 + 40 frames with launch counts
@@ -200,7 +210,7 @@ DEVICE = "cuda"
 LEVELS = (0, 1, 2)
 # every wrapper launch key of the frame step (init included)
 MAIN_PATH = (
-    ("frame_maps.filter", "frame_maps.surfels", "odo_init", "so3_reduce", "so3_step", "gn_step",
+    ("frame_maps.filter", "frame_maps.surfels", "odo_init", "so3_iteration", "gn_step",
      "zbuffer", "fuse", "clean", "clean.compact", "compact", "splat_resolve")
     + tuple(f"pyramid.{side}.L{lvl}" for side in ("frame", "pred") for lvl in LEVELS)
     + tuple(f"gn_reduce.L{lvl}" for lvl in LEVELS)
@@ -211,10 +221,10 @@ MULTI_FRAMES = 40
 MULTI_SYNC = (11, 21)  # frames 11..20 = ticks 12..21: spawns at 14 and 18, compaction at 16
 MULTI_TIMED_FROM = 21
 MULTI_PATH = (
-    ("frame_maps.filter", "frame_maps.surfels", "so3_reduce", "so3_step", "compact",
-     "zbuffer.flat", "fuse_flat", "clean_flat", "splat_resolve.composite", "patch_score",
-     "nms_topk", "patch_desc", "mutual_match", "track_update", "ransac_fit", "multi_init",
-     "multi_seed", "multi_arbitrate", "gn_step_multi")
+    ("frame_maps.filter", "frame_maps.surfels", "so3_iteration", "compact", "zbuffer.flat",
+     "fuse_flat", "clean_flat", "splat_resolve.composite", "patch_score", "nms_topk",
+     "patch_desc", "mutual_match", "track_update", "ransac_fit", "multi_init", "multi_seed",
+     "multi_arbitrate", "gn_step_multi")
     + tuple(f"pyramid.{side}.L{lvl}" for side in ("frame", "pred") for lvl in LEVELS)
     + tuple(f"owner_prep.L{lvl}" for lvl in LEVELS)
     + tuple(f"gn_multi.L{lvl}" for lvl in LEVELS)
@@ -261,9 +271,9 @@ FLOW_PATH = MULTI_PATH + (
 # static step's kernels for every model (the odometry with K4's error-image
 # mode), the keypoints, SLIC and the superpixel CRF (K24a-c) and K17
 LEGACY_PATH = (
-    ("frame_maps.filter", "frame_maps.surfels", "so3_reduce", "so3_step", "gn_step",
-     "seed_select", "gn_reduce.error_images", "zbuffer", "fuse", "clean", "clean.compact",
-     "compact", "splat_resolve", "patch_score", "nms_topk", "patch_desc", "mutual_match",
+    ("frame_maps.filter", "frame_maps.surfels", "so3_iteration", "gn_step", "seed_select",
+     "gn_reduce.error_images", "zbuffer", "fuse", "clean", "clean.compact", "compact",
+     "splat_resolve", "patch_score", "nms_topk", "patch_desc", "mutual_match",
      "track_update", "ransac_fit", "slic.centres", "slic.assign", "sp.downsample", "sp.upsample",
      "legacy_crf.plan", "legacy_crf.iterate", "components")
     + tuple(f"pyramid.{side}.L{lvl}" for side in ("frame", "pred") for lvl in LEVELS)
@@ -278,21 +288,26 @@ LEGACY_PATH = (
 # ICP error reaches the new-model class, so the reference spawns nothing.
 REF_LEGACY_ACTIVE = (0,) * (1 + MULTI_FRAMES)
 REF_LEGACY_SPAWN_FRAMES = ()
-# device ms and device launches a frame of every path before K4's last-block
-# sums and the fuse scan folded into the association (PERF.md), printed
-# beside this run's stage phases
-EARLIER_DEVICE = {"stages": (1.24, 268.1), "kp_stages": (1.47, 347.1),
-                  "multi_stages": (4.72, 921.5), "flow_crf_stages": (4.63, 960.4),
-                  "legacy_crf_stages": (7.12, 2125.6)}
+# device ms and device launches a frame of every path before the batched
+# RANSAC and the one-launch SO(3) iteration (PERF.md), printed beside this
+# run's stage phases
+EARLIER_DEVICE = {"stages": (0.943, 210.2), "kp_stages": (1.189, 283.2),
+                  "multi_stages": (4.299, 920.6), "flow_crf_stages": (4.262, 959.4),
+                  "legacy_crf_stages": (5.718, 1741.6)}
 # the odometry's step and reduction kernels and the fusion's, shown apart in
 # the stage phases
-GN_KERNELS = ("gn_step", "so3_step", "pass1", "pass2", "finalize", "Memset")
+GN_KERNELS = ("gn_step", "so3_step", "so3_iteration", "so3_pass", "pass1", "pass2", "finalize",
+              "Memset")
+# K21's kernels, shown apart in the stage phases
+RANSAC_KERNELS = ("valid_positions", "candidates", "choose")
 FUSE_KERNELS = ("assoc", "scan_new", "scan_models", "arbitrate", "apply", "fill_int")
-# kernels of gn_step.cu that must keep their solve in registers (ptxas -v)
-REGISTER_ONLY = ("so3_step", "gn_step", "gn_step_multi")
+# kernels of gn_step.cu that must keep their solve in registers (ptxas -v):
+# K5's steps and K3's one-launch SO(3) iteration, whose last block steps
+REGISTER_ONLY = ("so3_step", "gn_step", "gn_step_multi", "so3_iteration")
 # kernels that must not spill (ptxas -v): K4's passes, K8's and K14's
-# association with the append scan
-NO_SPILLS = {"gn_reduce": ("pass1", "pass2"), "fuse": ("assoc",), "fuse_flat": ("assoc",)}
+# association with the append scan, K21's three kernels
+NO_SPILLS = {"gn_reduce": ("pass1", "pass2"), "fuse": ("assoc",), "fuse_flat": ("assoc",),
+             "ransac": ("valid_positions", "candidates", "choose")}
 
 
 def _gpu_line() -> str:
@@ -570,6 +585,8 @@ def run_stages(K, engine, frames, tag="stages") -> None:
           if any(k in name for k in GN_KERNELS)}
     fuse = {name: {"ms": v[0], "launches_per_frame": v[1] / n} for name, v in kernels.items()
             if any(f"::{k}(" in name for k in FUSE_KERNELS)}
+    rs = {name: {"ms": v[0], "launches_per_frame": v[1] / n} for name, v in kernels.items()
+          if any(f"::{k}(" in name for k in RANSAC_KERNELS)}
     print(json.dumps({
         "phase": tag, "frames": n, "wall_ms_per_frame": wall, "stages_per_frame": stages,
         "device_kernel_ms_per_frame": busy, "device_busy_share": busy / wall,
@@ -578,6 +595,7 @@ def run_stages(K, engine, frames, tag="stages") -> None:
         "top_kernels_ms_per_frame": [
             {"name": name, "ms": v[0], "launches_per_frame": v[1] / n} for name, v in top],
         "odometry_kernels_ms_per_frame": gn, "fusion_kernels_ms_per_frame": fuse,
+        "ransac_kernels_ms_per_frame": rs,
         **({"earlier_device_ms_and_launches_per_frame": EARLIER_DEVICE[tag]}
            if tag in EARLIER_DEVICE else {}),
         "gpu": _gpu_line(),
@@ -816,6 +834,29 @@ def measure_step(a, kind):
     )
 
 
+def measure_so3_iteration(a):
+    from multimotionfusion_tpu_torch.odometry import rgbd
+
+    last, nxt, cam_l, state, verbatim = a
+    rows, found = rgbd.so3_rows(*rgbd.so3_inputs(last, nxt, cam_l, state))
+    npix = nxt.numel()
+    fresh = _states(state)
+    # so3_reduce's bytes and operations, the state in and out, and a 3x3
+    # Jacobi eigensolve (~8 sweeps of 3 rotations of 36 operations) and the
+    # update
+    bound, by = _bound(8 * npix + 4 * rgbd.N_SO3_SUMS + 2 * 4 * rgbd.S_SIZE,
+                       150 * int(found.sum()) + 8 * 3 * 36 + 500)
+    run = lambda: rgbd.so3_iteration_cuda(last, nxt, cam_l, fresh(), verbatim)  # noqa: E731
+    return dict(
+        ms=_time_ms(run), **_device(run, by_kernel=True),
+        plain_ms=_time_ms(lambda: rgbd.so3_iteration_plain(last, nxt, cam_l, state.clone(),
+                                                           verbatim), reps=5),
+        **_library(lambda: rows.T @ rows), bound_ms=bound, bound_by=by,
+        timing_note="each call on a fresh copy of the recorded state, the copies made before "
+                    "the timing; the yardstick is the 4x4 system's product alone",
+    )
+
+
 def measure_clean(a):
     from multimotionfusion_tpu_torch.model import fusion as FU
     from multimotionfusion_tpu_torch.model import surfel_map as sm
@@ -968,6 +1009,35 @@ def measure_ransac(a):
         ms=_time_ms(lambda: RS.ransac_fit_cuda(*a)), **_device(lambda: RS.ransac_fit_cuda(*a)),
         plain_ms=_time_ms(lambda: RS.ransac_fit_plain(*a), reps=3),
         **_library(None), bound_ms=bound, bound_by=by,
+    )
+
+
+def measure_ransac_batch(a):
+    from multimotionfusion_tpu_torch.ops import ransac as RS
+
+    u, p0, p1, valid, cfg = a
+    b, c, n = u.shape[0], u.shape[1], valid.shape[1]
+    live = ~RS.hopeless(valid, cfg)
+    # the fallback fit (two passes over the valid points) runs where no
+    # candidate passed and at least 3 points are valid
+    fallback = ~RS.ransac_fit_batch_cuda(*a).ok & (valid.sum(1) >= 3)
+    reads = int((live | fallback).sum())  # fits that read their points
+    n_live, n_fallback = int(live.sum()), int(fallback.sum())
+    # in: each fit's flags and uniforms, the points of the fits that read
+    # them (shared points once); out: T, inliers, error, count, ok and the
+    # minimal sets. Operations: per candidate of a live fit three passes of
+    # ~25 a point and two 4x4 power iterations, ~20 a candidate of a
+    # hopeless fit (its minimal set), ~40 a point of a fallback fit
+    points = 24 * n * (min(reads, 1) if p0.dim() == 2 else reads)
+    bound, by = _bound(points + b * (n + 12 * c) + b * (64 + n + 9 + 12 * c),
+                       n_live * (c * n * 75 + c * 2 * 40 * 40) + (b - n_live) * c * 20
+                       + n_fallback * n * 40)
+    return dict(
+        ms=_time_ms(lambda: RS.ransac_fit_batch_cuda(*a)),
+        **_device(lambda: RS.ransac_fit_batch_cuda(*a), by_kernel=True),
+        plain_ms=_time_ms(lambda: RS.ransac_fit_batch_plain(*a), reps=1),
+        **_library(None), bound_ms=bound, bound_by=by, live_fits=n_live,
+        fallback_fits=n_fallback,
     )
 
 
@@ -1154,6 +1224,8 @@ def plan():
          "gn_step.cu", "odometry/rgbd.py:583"),
         ("so3_step", "so3_step", "so3_step", C.check_so3_step,
          lambda a: measure_step(a, "so3"), "gn_step.cu", "odometry/rgbd.py:94"),
+        ("so3_iteration", "so3_iteration", "so3_iteration", C.check_so3_iteration,
+         measure_so3_iteration, "gn_step.cu", "odometry/rgbd.py:583"),
     ]
     for lvl in LEVELS:
         p.append((f"gn_reduce[L{lvl}]", f"gn_reduce.L{lvl}", f"gn_reduce.L{lvl}",
@@ -1230,6 +1302,8 @@ def plan_multi():
          lambda a: measure_multi_step(a, "step"), "gn_step.cu", "odometry/multi.py:480"),
         ("so3_step[multi, verbatim]", "so3_step", "so3_step", C.check_so3_step,
          lambda a: measure_step(a, "so3"), "gn_step.cu", "odometry/multi.py:245"),
+        ("so3_iteration[multi, verbatim]", "so3_iteration", "so3_iteration",
+         C.check_so3_iteration, measure_so3_iteration, "gn_step.cu", "odometry/multi.py:245"),
         ("zbuffer_flat", "zbuffer.flat", "zbuffer.flat", C.check_zbuffer_flat,
          measure_zbuffer_flat, "zbuffer.cu", "ops/rasterize.py:181"),
         ("fuse_flat", "fuse_flat", "fuse_flat", C.check_fuse_flat, measure_fuse_flat,
@@ -1915,7 +1989,16 @@ def plan_flow():
           ("segment.fuse", "segment.fuse", "segment.fuse", C.check_seg_fuse, measure_seg_fuse,
            "segment.cu", "segmentation/flow_crf.py:231"),
           ("segment.finish", "segment.finish", "segment.finish", C.check_seg_finish,
-           measure_seg_finish, "segment.cu", "segmentation/flow_crf.py:278")]
+           measure_seg_finish, "segment.cu", "segmentation/flow_crf.py:278"),
+          # K21's batches of a multi-model frame: the per-model seeds (shared
+          # points) and the back-dating fits (per-fit points), as the path ran
+          # them, and the back-dating batch with every active track selected
+          ("ransac_fit[batch, seeds]", "ransac_fit.shared", "ransac_fit", C.check_ransac_batch,
+           measure_ransac_batch, "ransac.cu", "engine_multi.py:293"),
+          ("ransac_fit[batch, back-dating]", "ransac_fit.per_fit", "ransac_fit",
+           C.check_ransac_batch, measure_ransac_batch, "ransac.cu", "tracking/tracker.py:210"),
+          ("ransac_fit[batch, back-dating, every track]", "ransac_fit.every_track", "ransac_fit",
+           C.check_ransac_batch, measure_ransac_batch, "ransac.cu", "tracking/tracker.py:210")]
     return p
 
 
@@ -2696,6 +2779,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
         return 2
     from multimotionfusion_tpu_torch import kernels as K
+    from multimotionfusion_tpu_torch.kernels import checks
 
     # the library yardsticks compare with full float32
     torch.backends.cudnn.allow_tf32 = False
@@ -2711,15 +2795,18 @@ def main() -> int:
     spill_free = all(v is not None and v["spill_stores"] == 0 and v["spill_loads"] == 0
                      for v in no_spills.values())
     print(json.dumps({"phase": "build", "seconds": t_build, "ptxas": ptxas,
-                      "k5_steps": in_registers, "k5_steps_registers_only": registers_only,
-                      "k4_k8_k14": no_spills, "k4_k8_k14_no_spills": spill_free}))
+                      "k5_steps_and_so3_iteration": in_registers,
+                      "registers_only": registers_only, "no_spill_kernels": no_spills,
+                      "no_spills": spill_free}))
     if not registers_only:
-        raise SystemExit(f"K5's step kernels use local memory: {in_registers}")
+        raise SystemExit(f"K5's step kernels or the SO(3) iteration use local memory: "
+                         f"{in_registers}")
     if not spill_free:
-        raise SystemExit(f"K4's passes or the fuse association spill: {no_spills}")
+        raise SystemExit(f"K4's passes, the fuse association or K21 spill: {no_spills}")
 
     cfg, frames, gt_poses = static_frames(N_FRAMES + 2 * STAGE_FRAMES + SYNC_FRAMES)
     engine, launches, captured = run_engine(K, cfg, frames, gt_poses)
+    checks.derive_so3(captured)
     rest = frames[N_FRAMES + 1:]
     run_stages(K, engine, rest[:2 * STAGE_FRAMES])
     syncs = run_sync_check(engine, rest[2 * STAGE_FRAMES:])
@@ -2734,6 +2821,7 @@ def main() -> int:
 
     m_cfg, m_frames = multi_frames(1 + MULTI_FRAMES + 2 * STAGE_FRAMES)
     m_engine, m_launches, m_captured, m_syncs = run_multi(K, m_cfg, m_frames)
+    checks.derive_so3(m_captured)
     syncs += m_syncs
     run_stages(K, m_engine, m_frames[MULTI_FRAMES + 1:], "multi_stages")
     del m_engine
@@ -2741,6 +2829,11 @@ def main() -> int:
     f_cfg, f_frames = multi_frames(1 + MULTI_FRAMES + 2 * STAGE_FRAMES, masks=False)
     f_engine, f_launches, f_captured, f_syncs, f_failed, f_drift = run_multi_flow(
         K, f_cfg, f_frames)
+    checks.derive_backdating(f_captured)
+    draws = checks.check_draws(DEVICE)
+    print(json.dumps({"phase": "draws", **draws}))
+    if not draws["ok"]:
+        f_failed.append(f"the batched draws differ from sequential ones: {draws}")
     syncs += f_syncs
     run_stages(K, f_engine, f_frames[MULTI_FRAMES + 1:], "flow_crf_stages")
     del f_engine

@@ -196,28 +196,32 @@ def _depth_stats(mask, new_label_mask, depth, m: int):
     return mu, torch.sqrt(torch.clamp(var, min=0.0))
 
 
-def _fit_gate(res: ransac.RansacResult, min_inliers: int, max_step: float) -> torch.Tensor:
+def _fit_gate(res: ransac.RansacResult, min_inliers, max_step) -> torch.Tensor:
+    """[B] seed gates of a batch of fits (thresholds per row: tensors or
+    numbers); each row's translation norm on its own, as one fit's."""
     T = res.transform
+    step = torch.stack([torch.linalg.norm(t[:3, 3]) for t in T])
     return (res.ok & (res.num_inliers >= min_inliers) & (res.error < 0.008)
-            & torch.isfinite(T).all() & (torch.linalg.norm(T[:3, 3]) < max_step))
+            & torch.isfinite(T).flatten(1).all(1) & (step < max_step))
 
 
 def _kp_seeds(tracks, pair, time: int, pose0, obj: ObjectSlots, cfg: EngineConfig, gen):
     """Per-model keypoint pose seeds (Model::getLastTrackTransform): RANSAC
-    (K21) over each model's tracks of the last pair; [M, 4, 4] seeds and [M]
+    (K21) over each model's tracks of the last pair, the 1 + S fits in one
+    batch, each with its own draw in model order; [M, 4, 4] seeds and [M]
     gates. Seeds compose as pose @ T_rel for every model."""
     p0, p1, valid = pair
     dev = p0.device
-    eye = torch.eye(4, dtype=F32, device=dev)
+    m = 1 + obj.num_slots
+    u = ransac.draw_uniforms(gen, m, cfg.ransac.iterations, dev)
+    models = torch.arange(m, dtype=I32, device=dev)
+    sel = valid[None] & (tracks.model_id[None] == models[:, None])
+    res = ransac.ransac_fit_batch(u, p0, p1, sel, cfg.ransac)
+    camera = models == 0  # the camera's gate: 24 inliers, 3 cm; the objects': 12, 5 cm
+    good = _fit_gate(res, torch.where(camera, 24, 12), torch.where(camera, 0.03, 0.05))
+    T_rel = torch.where(good[:, None, None], res.transform, torch.eye(4, dtype=F32, device=dev))
     poses = torch.cat([pose0[None], obj.pose], dim=0)
-    seeds, oks = [], []
-    for m in range(1 + obj.num_slots):
-        u = torch.rand((cfg.ransac.iterations, 3), generator=gen, device=dev)
-        res = ransac.ransac_fit(u, p0, p1, valid & (tracks.model_id == m), cfg.ransac)
-        good = _fit_gate(res, 24, 0.03) if m == 0 else _fit_gate(res, 12, 0.05)
-        seeds.append(poses[m] @ torch.where(good, res.transform, eye))
-        oks.append(good)
-    return torch.stack(seeds), torch.stack(oks)
+    return torch.stack([poses[k] @ T_rel[k] for k in range(m)]), good
 
 
 def _redetect(obj: ObjectSlots, kps, kp_p3d, in_seg, cfg: EngineConfig, gen):

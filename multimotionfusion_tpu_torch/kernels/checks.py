@@ -52,6 +52,7 @@ _ARG_NAMES = {
     "odo_init": ("device",),
     "so3_reduce": ("last_img", "next_img", "cam_l", "state"),
     "so3_step": ("state", "sums", "verbatim"),
+    "so3_iteration": ("last_img", "next_img", "cam_l", "state", "verbatim"),
     "gn_step": ("state", "sums", "sp", "last"),
     "track": ("T_prev", "gl", "last_next_img_l2", "cfg", "cam", "T_init", "seed_valid"),
     "clean": ("data", "count", "index", "data_local", "depth", "mask", "mask_id", "cam", "time",
@@ -102,6 +103,36 @@ _ARG_NAMES = {
     "sp.upsample": ("lbl_sp", "labels", "n_labels"),
     "legacy_crf.plan": ("lows", "mean_color", "mean_xy", "active", "allow_new"),
 }
+
+
+def derive_so3(c: dict) -> dict:
+    """Add to a capture with an ``so3_iteration`` record the inputs of its
+    two halves' standalone kernels (``so3_reduce``, ``so3_step``), which the
+    path no longer launches: the same images, camera and state, and the
+    sums ``so3_reduce_cuda`` computes from them. Returns ``c``."""
+    r = c.get("so3_iteration")
+    if r is not None:
+        c.setdefault("so3_reduce", {k: r[k] for k in ("last_img", "next_img", "cam_l", "state")})
+        if "so3_step" not in c:
+            sums = rgbd.so3_reduce_cuda(r["last_img"], r["next_img"], r["cam_l"], r["state"])
+            c["so3_step"] = dict(state=r["state"], sums=sums, verbatim=r["verbatim"])
+    return c
+
+
+def derive_backdating(c: dict, seed: int = 0) -> dict:
+    """Add to a capture with a ``refine_track_subset`` record the back-dating
+    batch with every active track selected (``ransac_fit.every_track``): the
+    same table, ticks and shapes as the path's batch, whose fits select no
+    track on a frame without a spawn; the uniforms from a generator seeded
+    with ``seed``. Returns ``c``."""
+    r = c.get("refine_track_subset")
+    if r is not None and "ransac_fit.every_track" not in c:
+        table, cfg = r["table"], r["ransac_cfg"]
+        pa, pb, valid = TR.backdate_pairs(table, table.active, r["time"], r["length"])
+        gen = torch.Generator(device=pa.device).manual_seed(seed)
+        u = RS.draw_uniforms(gen, r["length"], cfg.iterations, pa.device)
+        c["ransac_fit.every_track"] = dict(u=u, p0=pa, p1=pb, valid=valid, cfg=cfg)
+    return c
 
 
 def args(key: str, c: dict) -> tuple:
@@ -449,6 +480,43 @@ def check_so3_reduce(a: tuple) -> dict:
     return dict(max_abs_err=float((sk - sp).abs().max()), rel_frob=e, count_kernel=float(sk[10]),
                 count_plain=float(sp[10]), ok=e <= 1e-4 and float(sk[10]) == float(sp[10]) > 0,
                 tolerance="4x4 system within 1e-4 relative (Frobenius), count exact")
+
+
+def check_so3_iteration(a: tuple) -> dict:
+    """The one-launch iteration against its two halves' kernels on the card
+    (sums and state bit-equal), against the plain versions (so3_reduce's and
+    so3_step's tolerances; the plain step on the kernel's sums), and on the
+    same state with the loop done (zero sums, the halves' state)."""
+    last, nxt, cam_l, state, verbatim = a
+    sk, sh = state.clone(), state.clone()
+    sums_k = rgbd.so3_iteration_cuda(last, nxt, cam_l, sk, verbatim)
+    sums_h = rgbd.so3_reduce_cuda(last, nxt, cam_l, sh)
+    rgbd.so3_step_cuda(sh, sums_h, verbatim)
+    halves = torch.equal(sums_k, sums_h) and torch.equal(sk, sh)
+    done = state.clone()
+    done[rgbd.S_SO3_DONE] = 1.0
+    dk, dh = done.clone(), done.clone()
+    sums_d = rgbd.so3_iteration_cuda(last, nxt, cam_l, dk, verbatim)
+    rgbd.so3_step_cuda(dh, torch.zeros_like(sums_d), verbatim)
+    done_ok = not bool(sums_d.any()) and torch.equal(dk, dh)
+    r = check_so3_reduce((last, nxt, cam_l, state))
+    sp = state.clone()
+    rgbd.so3_step_plain(sp, sums_k, verbatim)
+    sk, sp = sk.cpu(), sp.cpu()
+    S = rgbd
+    R_err = float((sk[S.S_R:S.S_R + 9] - sp[S.S_R:S.S_R + 9]).abs().max())
+    flags = [S.S_SO3_DONE, S.S_SO3_ITERS]
+    scal = [S.S_SO3_ERR, S.S_SO3_COUNT, S.S_SO3_LAST_ERR, S.S_SO3_LAST_COUNT]
+    serr = _rel(sk[scal], sp[scal])
+    step_ok = R_err <= 1e-5 and serr <= 1e-5 and bool((sk[flags] == sp[flags]).all())
+    return dict(max_abs_err=max(r["max_abs_err"], R_err), sums_rel_frob=r["rel_frob"],
+                rotation_err=R_err, scalars_rel_err=serr, equal_to_halves=halves,
+                done_loop_ok=done_ok, ok=r["ok"] and step_ok and halves and done_ok,
+                tolerance="sums and state bit-equal to so3_reduce_cuda then so3_step_cuda; a "
+                          "done loop's sums zero and its state the halves'; against the plain "
+                          "versions: 4x4 system within 1e-4 relative (Frobenius), count exact, "
+                          "rotation within 1e-5, errors and counts within 1e-5 relative, done "
+                          "flag and iteration count exact")
 
 
 def _pose_err(Tk, Tp):
@@ -859,6 +927,53 @@ def check_ransac(a: tuple) -> dict:
                 tolerance="minimal sets, inliers, num_inliers and ok equal; T within 1e-6 and "
                           "error within 1e-6 relative (the same sums in the same order; the "
                           "bound covers a reciprocal PyTorch may take for a division)")
+
+
+def check_ransac_batch(a: tuple) -> dict:
+    """A batch of fits: every row bit-equal to a one-fit launch (the batch of
+    one) on the same inputs, and the batch against the plain version per row
+    with ``check_ransac``'s tolerances."""
+    u, p0, p1, valid, cfg = a
+    rk, ik = RS.ransac_fit_batch_cuda(u, p0, p1, valid, cfg, want_idx=True)
+    rp, ip = RS.ransac_fit_batch_plain(u, p0, p1, valid, cfg, want_idx=True)
+    rows_equal = True
+    for b in range(u.shape[0]):
+        r1, i1 = RS.ransac_fit_cuda(u[b], RS._row(p0, b), RS._row(p1, b), valid[b], cfg,
+                                    want_idx=True)
+        rows_equal = rows_equal and torch.equal(i1, ik[b]) and all(
+            torch.equal(x, getattr(rk, name)[b]) for name, x in r1._asdict().items())
+    t_err = _maxerr(rk.transform, rp.transform)
+    ek, ep = rk.error.cpu(), rp.error.cpu()
+    fin = torch.isfinite(ep)
+    e_eq = torch.equal(torch.isinf(ek), torch.isinf(ep)) and bool(
+        ((ek[fin] - ep[fin]).abs() <= 1e-6 * ep[fin].abs()).all())
+    exact = torch.equal(ik, ip) and torch.equal(rk.inliers, rp.inliers) and \
+        torch.equal(rk.num_inliers, rp.num_inliers) and torch.equal(rk.ok, rp.ok)
+    return dict(max_abs_err=t_err, fits=int(u.shape[0]),
+                hopeless_fits=int(RS.hopeless(valid, cfg).sum()), ok_fits=int(rp.ok.sum()),
+                num_inliers=rp.num_inliers.tolist(), rows_equal_one_fit=rows_equal,
+                ok=exact and rows_equal and t_err <= 1e-6 and e_eq,
+                tolerance="every row bit-equal to a one-fit launch; against the plain version: "
+                          "minimal sets, inliers, num_inliers and ok equal, T within 1e-6, error "
+                          "within 1e-6 relative")
+
+
+def check_draws(device, seed: int = 5, c: int = 200) -> dict:
+    """The engine's per-fit draws (``draw_uniforms``: a frame's 6 seed fits,
+    then its 8 back-dating fits) against 14 sequential ``torch.rand((C, 3))``
+    calls on a generator with the same seed: the numbers, the generator's
+    state after and its next draw equal."""
+    ga = torch.Generator(device=device).manual_seed(seed)
+    gb = torch.Generator(device=device).manual_seed(seed)
+    batched = torch.cat([RS.draw_uniforms(ga, 6, c, device), RS.draw_uniforms(ga, 8, c, device)])
+    seq = torch.stack([torch.rand((c, 3), generator=gb, device=device) for _ in range(14)])
+    equal = torch.equal(batched, seq)
+    state = torch.equal(ga.get_state(), gb.get_state())
+    nxt = torch.equal(torch.rand(4, generator=ga, device=device),
+                      torch.rand(4, generator=gb, device=device))
+    return dict(draws_equal=equal, state_equal=state, next_draw_equal=nxt,
+                ok=equal and state and nxt,
+                tolerance="equal (torch.equal): numbers, generator state, next draw")
 
 
 def check_seed_select(a: tuple) -> dict:

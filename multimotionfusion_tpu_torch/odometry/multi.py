@@ -21,9 +21,9 @@ Kernels (K11):
   ``gn_step_multi`` (the per-model solve, update, convergence and stop flags;
   a level's loop runs while any model has not stopped).
 
-The SO(3) pre-alignment runs once for the camera (K3 ``so3_reduce`` and K5
-``so3_step`` on the state's last row) with the reference's convergence test
-kept verbatim (``verbatim=True``).
+The SO(3) pre-alignment runs once for the camera (``rgbd.so3_iteration``,
+K3 and K5's SO(3) step in one launch an iteration, on the state's last row)
+with the reference's convergence test kept verbatim (``verbatim=True``).
 
 The loop state is [(M + 1) * S_SIZE] floats on the device: row m < M holds
 model m's increment, stop flag, errors and counts and its active flag
@@ -523,8 +523,7 @@ def multi_track(T_prev: torch.Tensor, levels: List[MultiLevel], last_next_img_l2
         lvl = cfg.num_pyr - 1
         cam_l = cam.level(lvl)
         for _ in range(cfg.so3_iterations):
-            rgbd.so3_step(G, rgbd.so3_reduce(last_next_img_l2, levels[lvl].gl.img, cam_l, G),
-                          verbatim=True)
+            rgbd.so3_iteration(last_next_img_l2, levels[lvl].gl.img, cam_l, G, verbatim=True)
 
     seed_Rt = None
     if T_init is not None:

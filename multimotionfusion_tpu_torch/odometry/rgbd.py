@@ -1,10 +1,12 @@
 """Dense joint ICP + photometric RGB-D odometry (Gauss-Newton, 3-level pyramid).
 
 Port of the reference package's ``odometry/rgbd.py``, with its loops on the card:
-- SO(3) pre-alignment at the coarsest level, <= 10 iterations: ``so3_reduce``
-  (kernel K3, ``csrc/gn_step.cu``) reduces the rotation-only photometric 4x4
-  system (the bf16 rounding of the reference's tap bank reproduced) and
-  ``so3_step`` (K5) solves, clamps and applies it and tests the exits;
+- SO(3) pre-alignment at the coarsest level, <= 10 iterations, each one
+  launch (``so3_iteration``, ``csrc/gn_step.cu``): K3 reduces the
+  rotation-only photometric 4x4 system (the bf16 rounding of the reference's
+  tap bank reproduced) and, in the pass's last block, K5's SO(3) step solves,
+  clamps and applies it and tests the exits (``so3_reduce`` and ``so3_step``
+  are the two halves on their own);
 - coarse-to-fine joint ICP + RGB Gauss-Newton over {10, 5, 4} iterations; each
   iteration evaluates both 7x7 normal systems with ``gn_reduce`` (K4,
   ``csrc/gn_reduce.cu``: warp, bilinear taps, gates, rows and the reduction in
@@ -653,22 +655,31 @@ def so3_reduce_plain(last_img, next_img, cam_l: CameraModel, state) -> torch.Ten
     return torch.cat([S[iu[0], iu[1]], cnt.to(F32)[None]])
 
 
-def so3_reduce_cuda(last_img, next_img, cam_l: CameraModel, state) -> torch.Tensor:
-    """K3 on the card: ``csrc/gn_step.cu`` (same contract as ``so3_reduce_plain``)."""
+def _so3_launch(last_img, next_img, cam_l: CameraModel, state):
+    """The SO(3) kernels' checked leading arguments (the images, their size
+    and the camera with its inverse) and their block count and partials."""
     K.check(last_img, F32, "last_img")
     K.check(next_img, F32, "next_img")
     K.check(state, F32, "state")
     h, w = next_img.shape
     if tuple(last_img.shape) != (h, w) or (h, w) != (cam_l.height, cam_l.width):
         raise ValueError("the SO(3) images must be the coarsest level's [H, W]")
-    dev = next_img.device
     blocks = max(1, min((h * w + _SO3_THREADS - 1) // _SO3_THREADS, _SO3_MAX_BLOCKS))
-    partials = torch.empty((blocks, 16), dtype=F32, device=dev)
-    sums = torch.zeros((16,), dtype=F32, device=dev)
-    f = K.fn("gn_step", "mmf_so3_reduce", [K.P, K.P, K.I, K.I] + [K.F] * 8 + [K.P, K.I, K.P, K.P])
-    K.call("so3_reduce", f, K.ptr(last_img), K.ptr(next_img), h, w, cam_l.fx, cam_l.fy,
-           cam_l.cx, cam_l.cy, 1.0 / cam_l.fx, -cam_l.cx / cam_l.fx, 1.0 / cam_l.fy,
-           -cam_l.cy / cam_l.fy, K.ptr(state), blocks, K.ptr(partials), K.ptr(sums))
+    partials = torch.empty((blocks, 16), dtype=F32, device=next_img.device)
+    args = (K.ptr(last_img), K.ptr(next_img), h, w, cam_l.fx, cam_l.fy, cam_l.cx, cam_l.cy,
+            1.0 / cam_l.fx, -cam_l.cx / cam_l.fx, 1.0 / cam_l.fy, -cam_l.cy / cam_l.fy)
+    return args, blocks, partials
+
+
+_SO3_ARGTYPES = [K.P, K.P, K.I, K.I] + [K.F] * 8
+
+
+def so3_reduce_cuda(last_img, next_img, cam_l: CameraModel, state) -> torch.Tensor:
+    """K3 on the card: ``csrc/gn_step.cu`` (same contract as ``so3_reduce_plain``)."""
+    args, blocks, partials = _so3_launch(last_img, next_img, cam_l, state)
+    sums = torch.zeros((16,), dtype=F32, device=next_img.device)
+    f = K.fn("gn_step", "mmf_so3_reduce", _SO3_ARGTYPES + [K.P, K.I, K.P, K.P])
+    K.call("so3_reduce", f, *args, K.ptr(state), blocks, K.ptr(partials), K.ptr(sums))
     return sums[:N_SO3_SUMS]
 
 
@@ -738,6 +749,42 @@ def so3_step_cuda(state: torch.Tensor, sums: torch.Tensor, verbatim: bool = Fals
 def so3_step(state: torch.Tensor, sums: torch.Tensor, verbatim: bool = False) -> None:
     K.record("so3_step", state=state, sums=sums, verbatim=verbatim)
     (so3_step_cuda if state.is_cuda else so3_step_plain)(state, sums, verbatim)
+
+
+# ---------------------------------------------------------------- K3 + K5: one iteration
+
+def so3_iteration_plain(last_img, next_img, cam_l: CameraModel, state,
+                        verbatim: bool = False) -> torch.Tensor:
+    """One SO(3) iteration: ``so3_step_plain`` on ``so3_reduce_plain``'s
+    sums (the state in place); returns the sums."""
+    sums = so3_reduce_plain(last_img, next_img, cam_l, state)
+    so3_step_plain(state, sums, verbatim)
+    return sums
+
+
+def so3_iteration_cuda(last_img, next_img, cam_l: CameraModel, state,
+                       verbatim: bool = False) -> torch.Tensor:
+    """One SO(3) iteration on the card in one launch (``csrc/gn_step.cu``
+    ``mmf_so3_iteration``): K3's pass, whose last block sums the partials
+    in so3_reduce's order and runs so3_step on them; the same sums and state
+    as ``so3_step_cuda(state, so3_reduce_cuda(...))``, bit for bit."""
+    args, blocks, partials = _so3_launch(last_img, next_img, cam_l, state)
+    sums = torch.empty((N_SO3_SUMS,), dtype=F32, device=next_img.device)
+    f = K.fn("gn_step", "mmf_so3_iteration", _SO3_ARGTYPES + [K.P, K.I, K.P, K.P, K.I])
+    K.call("so3_iteration", f, *args, K.ptr(state), blocks, K.ptr(partials), K.ptr(sums),
+           int(verbatim))
+    return sums
+
+
+def so3_iteration(last_img, next_img, cam_l: CameraModel, state,
+                  verbatim: bool = False) -> torch.Tensor:
+    """One body of the SO(3) loop on ``state`` (in place): the system at the
+    state's rotation (K3) and the step (K5); returns the [11] sums (zeros
+    once the loop is done)."""
+    K.record("so3_iteration", last_img=last_img, next_img=next_img, cam_l=cam_l, state=state,
+             verbatim=verbatim)
+    impl = so3_iteration_cuda if next_img.is_cuda else so3_iteration_plain
+    return impl(last_img, next_img, cam_l, state, verbatim)
 
 
 class StepParams(NamedTuple):
@@ -939,7 +986,7 @@ def track(T_prev: torch.Tensor, gl: List[GNLevel], last_next_img_l2: torch.Tenso
         lvl = cfg.num_pyr - 1
         cam_l = cam.level(lvl)
         for _ in range(cfg.so3_iterations):
-            so3_step(st, so3_reduce(last_next_img_l2, gl[lvl].img, cam_l, st))
+            so3_iteration(last_next_img_l2, gl[lvl].img, cam_l, st)
 
     params = GNParams(use_icp, use_rgb, cfg.rgb_only, cfg.dist_thresh, cfg.angle_thresh,
                       cfg.max_depth_delta_rgb, cfg.max_depth_rgb, cfg.sobel_scale)

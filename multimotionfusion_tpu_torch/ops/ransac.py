@@ -8,17 +8,23 @@ distance after a refit on its inliers (first index on ties); with none
 passing, the least-squares fit over all valid points with error = inf.
 
 The random numbers are an argument: ``u`` [C, 3] uniforms in [0, 1) pick the
-minimal sets (the engine draws them from its own ``torch.Generator``; the
-tests hand in the reference's).
+minimal sets (the engine draws them from its own ``torch.Generator``, one
+``torch.rand((C, 3))`` a fit, ``draw_uniforms``; the tests hand in the
+reference's).
 
-On the card one block per candidate samples its minimal set, fits it (Horn's
-quaternion method, 40 power steps), counts its inliers and refits on them;
-every sum over the N points runs in one fixed order that does not depend on
-the candidate (each of 256 threads sums its strided points in order, then a
-warp tree, then the 8 warp sums in order; ``block_sum``), so candidates that
-share an inlier set get bit-equal refits and the argmin keeps the first. A
-final block picks the winner and computes the fallback. The plain version
-(``ransac_fit_plain``) sums in the same orders.
+``ransac_fit_batch`` runs B fits in one set of three launches (the engine's
+per-model seeds share one pair of points; the back-dating fits each have
+their own); ``ransac_fit`` is its B = 1 case. On the card one block per
+candidate and fit samples its minimal set, fits it (Horn's quaternion
+method, 40 power steps), counts its inliers and refits on them; every sum
+over the N points runs in one fixed order that does not depend on the
+candidate (each of 256 threads sums its strided points in order, then a warp
+tree, then the 8 warp sums in order; ``block_sum``), so candidates that share
+an inlier set get bit-equal refits and the argmin keeps the first. A fit
+whose valid count is at most its gate cannot pass, and its candidates stop
+after drawing their minimal sets. A final block a fit picks the winner and
+computes the fallback. The plain version (``ransac_fit_plain``, per row
+``ransac_fit_batch_plain``) sums in the same orders.
 """
 
 from __future__ import annotations
@@ -184,6 +190,16 @@ def _thresholds(cfg: RansacConfig):
     return float(np.float32(cfg.inlier_threshold)), float(np.float32(cfg.inlier_fraction))
 
 
+def hopeless(valid: torch.Tensor, cfg: RansacConfig) -> torch.Tensor:
+    """[...] fits over ``valid`` [..., N] that no candidate can pass: the
+    valid count is at most the gate max(rint(frac * count), 3), and a
+    candidate's inliers are valid points. The kernel's candidates of such a
+    fit stop after drawing their minimal sets."""
+    _, frac = _thresholds(cfg)
+    total = valid.to(torch.int32).sum(-1)
+    return total <= torch.clamp(torch.round(frac * total.to(F32)).to(torch.int32), min=3)
+
+
 def ransac_fit_plain(u, p0, p1, valid, cfg: RansacConfig, want_idx: bool = False):
     thr, frac = _thresholds(cfg)
     n_valid = valid.to(torch.int32).sum()
@@ -213,33 +229,75 @@ def ransac_fit_plain(u, p0, p1, valid, cfg: RansacConfig, want_idx: bool = False
     return (res, idx) if want_idx else res
 
 
-def ransac_fit_cuda(u, p0, p1, valid, cfg: RansacConfig, want_idx: bool = False):
+def _row(p: torch.Tensor, b: int) -> torch.Tensor:
+    """Fit b's points of shared [N, 3] or per-fit [B, N, 3] points."""
+    return p if p.dim() == 2 else p[b]
+
+
+def ransac_fit_batch_plain(u, p0, p1, valid, cfg: RansacConfig, want_idx: bool = False):
+    """``ransac_fit_plain`` on each row of the batch, stacked."""
+    rows = [ransac_fit_plain(u[b], _row(p0, b), _row(p1, b), valid[b], cfg, want_idx=True)
+            for b in range(u.shape[0])]
+    res = RansacResult(*(torch.stack(f) for f in zip(*(r for r, _ in rows))))
+    return (res, torch.stack([i for _, i in rows])) if want_idx else res
+
+
+def _strides(p: torch.Tensor, b: int, n: int, name: str):
+    """(batch stride, point stride) of shared [N, 3] or per-fit [B, N, 3]
+    points, in floats (batch stride 0 for shared points)."""
+    K.check(p, F32, name, contiguous=False)
+    if tuple(p.shape) == (n, 3):
+        bs, ps = 0, p.stride(0)
+    elif tuple(p.shape) == (b, n, 3):
+        bs, ps = p.stride(0), p.stride(1)
+    else:
+        raise ValueError(f"{name} must be [N, 3] or [B, N, 3], got {tuple(p.shape)}")
+    if p.stride(-1) != 1 or min(bs, ps) < 0 or (b - 1) * bs + (n - 1) * ps + 2 >= 2**31:
+        raise ValueError(f"{name} needs unit stride along xyz and 32-bit offsets")
+    return bs, ps
+
+
+def ransac_fit_batch_cuda(u, p0, p1, valid, cfg: RansacConfig, want_idx: bool = False):
     K.check(u, F32, "u")
-    K.check(p0, F32, "p0")
-    K.check(p1, F32, "p1")
     K.check(valid, torch.bool, "valid")
-    n, c = p0.shape[0], u.shape[0]
-    if tuple(p1.shape) != (n, 3) or tuple(p0.shape) != (n, 3) or tuple(u.shape) != (c, 3):
-        raise ValueError("p0, p1 must be [N, 3] and u [C, 3]")
-    dev = p0.device
+    b, c = u.shape[0], u.shape[1]
+    n = valid.shape[-1]
+    if u.dim() != 3 or u.shape[2] != 3 or tuple(valid.shape) != (b, n):
+        raise ValueError("u must be [B, C, 3] and valid [B, N]")
+    bs0, ps0 = _strides(p0, b, n, "p0")
+    bs1, ps1 = _strides(p1, b, n, "p1")
+    dev = valid.device
     thr, frac = _thresholds(cfg)
-    pos = torch.empty((n + 1,), dtype=torch.int32, device=dev)  # valid positions, then n_valid
-    idx = torch.empty((c, 3), dtype=torch.int32, device=dev)
-    cand = torch.empty((c, 32), dtype=F32, device=dev)  # minimal fit, refit
-    score = torch.empty((c,), dtype=F32, device=dev)
-    n_inl = torch.empty((c,), dtype=torch.int32, device=dev)
-    passed = torch.empty((c,), dtype=torch.bool, device=dev)
-    T = torch.empty((4, 4), dtype=F32, device=dev)
-    error = torch.empty((), dtype=F32, device=dev)
-    inliers = torch.empty((n,), dtype=torch.bool, device=dev)
-    num = torch.empty((), dtype=torch.int32, device=dev)
-    ok = torch.empty((), dtype=torch.bool, device=dev)
-    f = K.fn("ransac", "mmf_ransac_fit", [K.P] * 4 + [K.I, K.I, K.F, K.F] + [K.P] * 11)
-    K.call("ransac_fit", f, K.ptr(u), K.ptr(p0), K.ptr(p1), K.ptr(valid), n, c, thr, frac,
-           K.ptr(pos), K.ptr(idx), K.ptr(cand), K.ptr(score), K.ptr(n_inl), K.ptr(passed),
-           K.ptr(T), K.ptr(error), K.ptr(inliers), K.ptr(num), K.ptr(ok))
+    i32 = dict(dtype=torch.int32, device=dev)
+    pos = torch.empty((b, n + 1), **i32)  # valid positions, then n_valid
+    idx = torch.empty((b, c, 3), **i32)
+    cand = torch.empty((b, c, 32), dtype=F32, device=dev)  # minimal fit, refit
+    score = torch.empty((b, c), dtype=F32, device=dev)
+    n_inl = torch.empty((b, c), **i32)
+    passed = torch.empty((b, c), dtype=torch.bool, device=dev)
+    T = torch.empty((b, 4, 4), dtype=F32, device=dev)
+    error = torch.empty((b,), dtype=F32, device=dev)
+    inliers = torch.empty((b, n), dtype=torch.bool, device=dev)
+    num = torch.empty((b,), **i32)
+    ok = torch.empty((b,), dtype=torch.bool, device=dev)
+    f = K.fn("ransac", "mmf_ransac_fit_batch",
+             [K.P] * 4 + [K.I] * 7 + [K.F, K.F] + [K.P] * 11)
+    K.call("ransac_fit", f, K.ptr(u), K.ptr(p0), K.ptr(p1), K.ptr(valid), bs0, ps0, bs1, ps1,
+           b, n, c, thr, frac, K.ptr(pos), K.ptr(idx), K.ptr(cand), K.ptr(score),
+           K.ptr(n_inl), K.ptr(passed), K.ptr(T), K.ptr(error), K.ptr(inliers), K.ptr(num),
+           K.ptr(ok))
     res = RansacResult(T, error, inliers, num, ok)
     return (res, idx.to(torch.int64)) if want_idx else res
+
+
+def ransac_fit_cuda(u, p0, p1, valid, cfg: RansacConfig, want_idx: bool = False):
+    """One fit on the card: the batch of one."""
+    if tuple(p0.shape) != tuple(p1.shape) or p0.dim() != 2 or u.dim() != 2:
+        raise ValueError("p0, p1 must be [N, 3] and u [C, 3]")
+    out = ransac_fit_batch_cuda(u[None], p0, p1, valid[None], cfg, want_idx)
+    res, idx = out if want_idx else (out, None)
+    res = RansacResult(*(x[0] for x in res))
+    return (res, idx[0]) if want_idx else res
 
 
 def ransac_fit(u, p0, p1, valid, cfg: RansacConfig) -> RansacResult:
@@ -249,3 +307,24 @@ def ransac_fit(u, p0, p1, valid, cfg: RansacConfig) -> RansacResult:
     K.record("ransac_fit", u=u, p0=p0, p1=p1, valid=valid, cfg=cfg)
     impl = ransac_fit_cuda if p0.is_cuda else ransac_fit_plain
     return impl(u, p0, p1, valid, cfg)
+
+
+def ransac_fit_batch(u, p0, p1, valid, cfg: RansacConfig) -> RansacResult:
+    """B independent fits in one launch set: ``u`` [B, C, 3], ``valid``
+    [B, N], points shared ([N, 3]) or per fit ([B, N, 3], any strides with
+    xyz contiguous); every field of the result has a leading B. Row b is
+    ``ransac_fit(u[b], p0[b], p1[b], valid[b], cfg)``, bit for bit."""
+    K.record("ransac_fit.shared" if p0.dim() == 2 else "ransac_fit.per_fit", u=u, p0=p0, p1=p1,
+             valid=valid, cfg=cfg)
+    impl = ransac_fit_batch_cuda if valid.is_cuda else ransac_fit_batch_plain
+    return impl(u, p0, p1, valid, cfg)
+
+
+def draw_uniforms(gen: torch.Generator, b: int, c: int, device) -> torch.Tensor:
+    """[B, C, 3] uniforms for B fits: B draws of ``torch.rand((C, 3))`` from
+    ``gen`` in turn, each written into its row, so every fit keeps the
+    numbers it would draw alone."""
+    u = torch.empty((b, c, 3), dtype=F32, device=device)
+    for row in u:
+        torch.rand((c, 3), generator=gen, out=row)
+    return u

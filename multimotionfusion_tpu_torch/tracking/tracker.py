@@ -212,14 +212,22 @@ def last_pair(table: TrackTable, time: int) -> Tuple[torch.Tensor, torch.Tensor,
     return table.p3d[:, s0].contiguous(), table.p3d[:, s1].contiguous(), valid
 
 
-def pair_between(table: TrackTable, t_a: int, t_b: int):
-    """(p_a, p_b, valid): per-track 3D points at two ticks within the ring."""
+def _ring(table: TrackTable, ticks: torch.Tensor):
+    """Each track's 3D points at ``ticks`` [K] (int32), [K, T, 3], and where
+    they are usable, [K, T]: seen with depth at the tick, and the tick still
+    within the ring of the track's last sighting. One gather of the ring."""
     hist = table.history
-    sa, sb = t_a % hist, t_b % hist
-    fresh = ((table.last_seen - t_a) < hist) & ((table.last_seen - t_b) < hist)
-    valid = (table.active & table.seen[:, sa] & table.seen[:, sb] & table.has_depth[:, sa]
-             & table.has_depth[:, sb] & fresh)
-    return table.p3d[:, sa], table.p3d[:, sb], valid
+    slots = torch.remainder(ticks, hist)
+    usable = (table.seen.T.index_select(0, slots) & table.has_depth.T.index_select(0, slots)
+              & ((table.last_seen[None] - ticks[:, None]) < hist))
+    return table.p3d.transpose(0, 1).index_select(0, slots), usable
+
+
+def pair_between(table: TrackTable, t_a: int, t_b: int):
+    """(p_a, p_b, valid): per-track 3D points at two ticks within the ring,
+    valid where the track is active and usable at both."""
+    pts, usable = _ring(table, torch.tensor([t_a, t_b], dtype=I32, device=table.p3d.device))
+    return pts[0], pts[1], table.active & usable[0] & usable[1]
 
 
 def update_plain(table: TrackTable, kps: Keypoints, depth, time: int, cam: CameraModel,
@@ -288,20 +296,32 @@ def add_keypoints(table: TrackTable, kps: Keypoints, depth, time: int, cam: Came
     return table
 
 
+def backdate_pairs(table: TrackTable, model_sel: torch.Tensor, time: int, length: int):
+    """The back-dating fits' correspondences: for k < ``length`` the pair
+    (tick time - k - 1, tick time - k) of ``pair_between`` with ``model_sel``
+    applied, as (p_a [length, T, 3], p_b [length, T, 3], valid [length, T]).
+    One gather of the ring (ticks time - length .. time, contiguous) holds
+    every point; p_a and p_b are slices of it."""
+    ticks = torch.arange(time, time - length - 1, -1, dtype=I32, device=table.p3d.device)
+    pts, usable = _ring(table, ticks)  # tick time - j at j
+    valid = usable[1:] & usable[:-1] & (table.active & model_sel)[None]
+    return pts[1:], pts[:-1], valid
+
+
 def refine_track_subset(table: TrackTable, model_sel: torch.Tensor, time: int, length: int,
                         gen: torch.Generator, ransac_cfg):
     """Back-date a new model's trajectory (Model::refineTrackSubset): per
     step k < ``length`` a RANSAC fit (kernel K21) of the model's tracks from
-    tick time - k to time - k - 1; [length, 4, 4] transforms T_k with
-    p(time - k - 1) ~ T_k p(time - k), identity where the fit fails. The
-    uniforms come from ``gen``."""
-    eye = torch.eye(4, dtype=F32, device=table.p3d.device)
-    out = []
-    for k in range(length):
-        pa, pb, valid = pair_between(table, time - k - 1, time - k)
-        valid = valid & model_sel
-        u = torch.rand((ransac_cfg.iterations, 3), generator=gen, device=pa.device)
-        res = ransac.ransac_fit(u, pa.contiguous(), pb.contiguous(), valid, ransac_cfg)
-        ok = res.ok & torch.isfinite(res.transform).all() & (valid.to(I32).sum() >= 3)
-        out.append(torch.where(ok, res.transform, eye))
-    return torch.stack(out)
+    tick time - k to time - k - 1, the ``length`` fits in one batch, each
+    with its own draw from ``gen`` in step order; [length, 4, 4] transforms
+    T_k with p(time - k - 1) ~ T_k p(time - k), identity where the fit
+    fails."""
+    K.record("refine_track_subset", table=table, model_sel=model_sel, time=time, length=length,
+             ransac_cfg=ransac_cfg)
+    pa, pb, valid = backdate_pairs(table, model_sel, time, length)
+    u = ransac.draw_uniforms(gen, length, ransac_cfg.iterations, pa.device)
+    res = ransac.ransac_fit_batch(u, pa, pb, valid, ransac_cfg)
+    ok = (res.ok & torch.isfinite(res.transform).flatten(1).all(1)
+          & (valid.to(I32).sum(1) >= 3))
+    eye = torch.eye(4, dtype=F32, device=pa.device)
+    return torch.where(ok[:, None, None], res.transform, eye)

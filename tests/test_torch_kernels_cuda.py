@@ -16,6 +16,11 @@ plain version and holds them to the tolerances of
 expression they round alike). ``nms_topk`` also runs on synthetic heat maps
 (a plateau larger than K, random scores, a random-weight SuperPoint).
 
+One SO(3) iteration (``so3_iteration``, one launch) must also equal its two
+halves' standalone kernels (``so3_reduce``, ``so3_step``: the path no longer
+launches them; their inputs come from the iteration's record) bit for bit,
+and keep their tolerances against the plain versions.
+
 A second 160x120 run, of the multi-model engine with external masks
 (chip_smoke.py's five orbiting spheres, 24 frames: five spawns and a
 compaction frame), records the inputs of the multi-model kernels at its
@@ -26,7 +31,12 @@ runs on the card against the plain loop on the CPU.
 A third run, of the flow-CRF multi-model engine on tests/test_five_movers.py's
 160x120 journey (chip_smoke.five_movers, 17 frames, no masks), records the
 inputs of the segmentation's kernels at its last frame: K13, K15's front end
-and each level, one K16 iteration and all ten, K17 and K18's three stages.
+and each level, one K16 iteration and all ten, K17 and K18's three stages;
+and K21's two batches of the frame (the per-model seeds, the back-dating
+fits) and the back-dating batch with every active track selected: every
+row bit-equal to a one-fit launch, the batch within the one-fit check's
+tolerances of the plain version. The engine's per-fit draws on a CUDA
+generator must equal sequential ``torch.rand`` calls.
 
 A fourth pair of runs records the relocalisation and loop-closure kernels:
 tests/test_reloc.py's journey at 160x120 (K22's ÷4 frame, retrieval and
@@ -73,7 +83,8 @@ CASES = (
     + [(f"pyramid.pred.L{lvl}", lambda a, lvl=lvl: checks.check_pyramid_pred(a, lvl))
        for lvl in LEVELS]
     + [("odo_init", checks.check_odo_init), ("so3_reduce", checks.check_so3_reduce),
-       ("so3_step", checks.check_so3_step), ("gn_step", checks.check_gn_step),
+       ("so3_step", checks.check_so3_step), ("so3_iteration", checks.check_so3_iteration),
+       ("gn_step", checks.check_gn_step),
        ("track", checks.check_track), ("zbuffer", checks.check_zbuffer),
        ("fuse", checks.check_fuse), ("clean", checks.check_clean),
        ("clean.compact", checks.check_clean), ("compact", checks.check_compact),
@@ -84,7 +95,9 @@ CASES = (
        ("track_update", checks.check_track_update), ("ransac_fit", checks.check_ransac),
        ("seed_select", checks.check_seed_select), ("sparse", checks.check_sparse)]
 )
-NOT_KERNELS = ("track", "sparse")  # whole-chain checks, no launch key of their own
+# whole-chain checks, no launch key of their own; the SO(3) iteration's halves,
+# off the path (their inputs derived from the iteration's record)
+NOT_KERNELS = ("track", "sparse", "so3_reduce", "so3_step")
 
 
 def _capture_key(name: str) -> str:
@@ -113,6 +126,7 @@ def captured():
         elif i == FRAMES:
             out.update(K.stop_capture())
     torch.cuda.synchronize()
+    checks.derive_so3(out)
     for name, _ in CASES:
         if name not in NOT_KERNELS:
             assert K.LAUNCHES.get(name, 0) > 0, name
@@ -133,6 +147,7 @@ MULTI_CASES = (
     + [("multi_init", checks.check_multi_init), ("multi_seed", checks.check_multi_seed),
        ("multi_arbitrate", checks.check_multi_arbitrate),
        ("gn_step_multi", checks.check_gn_step_multi), ("multi_so3_step", checks.check_so3_step),
+       ("multi_so3_iteration", checks.check_so3_iteration),
        ("multi_track", checks.check_multi_track), ("zbuffer.flat", checks.check_zbuffer_flat),
        ("fuse_flat", checks.check_fuse_flat), ("clean_flat", checks.check_clean_flat),
        ("splat_resolve.composite", checks.check_splat)]
@@ -142,7 +157,7 @@ MULTI_CASES = (
 def _multi_key(name: str) -> str:
     if name.startswith("owner_prep."):
         return "owner_prep"
-    return "so3_step" if name == "multi_so3_step" else name
+    return name[len("multi_"):] if name.startswith("multi_so3_") else name
 
 
 @pytest.fixture(scope="module")
@@ -159,12 +174,13 @@ def captured_multi():
         if i == MULTI_FRAMES:
             K.start_capture()
         eng.process_frame(f)
-    out = K.stop_capture()
+    out = checks.derive_so3(K.stop_capture())
     torch.cuda.synchronize()
     assert eng.finish()["active_objects"] == 5.0
     for name, _ in MULTI_CASES:
         if name not in ("multi_track", "multi_so3_step"):
-            assert K.LAUNCHES.get(name, 0) > 0, name
+            key = "so3_iteration" if name == "multi_so3_iteration" else name
+            assert K.LAUNCHES.get(key, 0) > 0, name
     return out
 
 
@@ -208,7 +224,10 @@ FLOW_CASES = (
     + [("flow", checks.check_flow), ("crf.iter", checks.check_crf_iteration),
        ("crf", checks.check_crf), ("components", checks.check_components),
        ("segment.unaries", checks.check_seg_unaries), ("segment.fuse", checks.check_seg_fuse),
-       ("segment.finish", checks.check_seg_finish)]
+       ("segment.finish", checks.check_seg_finish),
+       ("ransac_fit.shared", checks.check_ransac_batch),
+       ("ransac_fit.per_fit", checks.check_ransac_batch),
+       ("ransac_fit.every_track", checks.check_ransac_batch)]
 )
 
 
@@ -230,11 +249,11 @@ def captured_flow():
         if i == len(frames) - 1:
             K.start_capture()
         eng.process_frame(f)
-    out = K.stop_capture()
+    out = checks.derive_backdating(K.stop_capture())
     torch.cuda.synchronize()
     assert eng.finish()["active_objects"] >= 1.0
     for key in ("zbuffer.depths", "flow.prep", "flow.L0", "crf.plan", "crf.iter", "components",
-                "segment.unaries", "segment.fuse", "segment.finish"):
+                "segment.unaries", "segment.fuse", "segment.finish", "ransac_fit"):
         assert K.LAUNCHES.get(key, 0) > 0, key
     return out
 
@@ -243,6 +262,15 @@ def captured_flow():
 def test_flow_crf_kernel_matches_plain(captured_flow, name, check):
     key = _flow_key(name)
     r = check(checks.args(key, captured_flow[key]))
+    assert r["ok"], r
+
+
+def test_draws_equal_sequential_on_card():
+    """``ransac.draw_uniforms`` on a CUDA generator (a frame's 6 seed fits,
+    then its 8 back-dating fits) equals 14 sequential ``torch.rand`` calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
+    r = checks.check_draws("cuda")
     assert r["ok"], r
 
 

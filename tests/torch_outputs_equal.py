@@ -9,8 +9,14 @@ bit-equal to the version it replaces.
 ``multimotionfusion_tpu_torch/``; its kernels are built into ``DIR``'s
 ``build/``. Recorded per call, in call order: ``gn_reduce`` (K4) and
 ``gn_multi`` (K11) sums; ``fuse`` (K8) and ``fuse_flat`` (K14) counts and a
-SHA-1 of the bytes of the whole [16, N] output (the outputs are kept on the
-card during a run, so recording adds no host read to the frame step).
+SHA-1 of the bytes of the whole [16, N] output; every RANSAC fit's (K21) T,
+error, inliers, num_inliers, ok and minimal-set indices, a batch split into
+its fits in order (a tree without ``ransac_fit_batch`` fits one at a time in
+the same order); every SO(3) iteration's sums and the loop state after its
+step (``so3_iteration``, or ``so3_reduce`` then ``so3_step``); the per-model
+seeds and gates of ``engine_multi._kp_seeds`` and the back-dating
+transforms of ``tracker.refine_track_subset``. The outputs are kept on the
+card during a run, so recording adds no host read to the frame step.
 ``--compare`` holds every recorded tensor equal with ``torch.equal`` and
 every digest equal, and prints one JSON line. Needs one NVIDIA GPU to
 record.
@@ -32,10 +38,13 @@ def record(tree: str, out: str) -> int:
         print("torch_outputs_equal: needs an NVIDIA GPU", file=sys.stderr)
         return 2
     import chip_smoke as S
+    from multimotionfusion_tpu_torch import engine_multi as EM
     from multimotionfusion_tpu_torch import kernels as K
     from multimotionfusion_tpu_torch.model import fusion as FU
     from multimotionfusion_tpu_torch.odometry import multi as MO
     from multimotionfusion_tpu_torch.odometry import rgbd
+    from multimotionfusion_tpu_torch.ops import ransac as RS
+    from multimotionfusion_tpu_torch.tracking import tracker as TR
 
     if not (S.__file__.startswith(tree) and K.__file__.startswith(tree)):
         raise SystemExit(f"imported {S.__file__} and {K.__file__}, not {tree}'s")
@@ -56,6 +65,49 @@ def record(tree: str, out: str) -> int:
     wrap(MO, "gn_multi_cuda", lambda r: (r,))
     wrap(FU, "fuse_cuda", lambda r: (r[0], r[1]))
     wrap(FU, "fuse_flat_cuda", lambda r: (r[0], r[1]))
+    wrap(EM, "_kp_seeds", lambda r: r)
+    wrap(TR, "refine_track_subset", lambda r: (r,))
+    fields = ("T", "error", "inliers", "num_inliers", "ok", "idx")
+
+    def keep_fit(res, idx):
+        kept["ransac"].append(tuple(t.clone() for t in res) + (idx.clone(),))
+
+    if hasattr(RS, "ransac_fit_batch_cuda"):  # one fit is the batch of one
+        batch = RS.ransac_fit_batch_cuda
+
+        def fits(u, p0, p1, valid, cfg, want_idx=False):
+            res, idx = batch(u, p0, p1, valid, cfg, want_idx=True)
+            for b in range(idx.shape[0]):
+                keep_fit(tuple(x[b] for x in res), idx[b])
+            return (res, idx) if want_idx else res
+
+        RS.ransac_fit_batch_cuda = fits
+    else:
+        one = RS.ransac_fit_cuda
+
+        def fit(u, p0, p1, valid, cfg, want_idx=False):
+            res, idx = one(u, p0, p1, valid, cfg, want_idx=True)
+            keep_fit(res, idx)
+            return (res, idx) if want_idx else res
+
+        RS.ransac_fit_cuda = fit
+    if hasattr(rgbd, "so3_iteration_cuda"):
+        iteration = rgbd.so3_iteration_cuda
+
+        def so3(last, nxt, cam_l, state, verbatim=False):
+            sums = iteration(last, nxt, cam_l, state, verbatim)
+            kept["so3"].append((sums.clone(), state.clone()))
+            return sums
+
+        rgbd.so3_iteration_cuda = so3
+    else:
+        step = rgbd.so3_step_cuda
+
+        def so3_step(state, sums, verbatim=False):
+            step(state, sums, verbatim)
+            kept["so3"].append((sums.clone(), state.clone()))
+
+        rgbd.so3_step_cuda = so3_step
 
     runs = {}
 
@@ -68,6 +120,16 @@ def record(tree: str, out: str) -> int:
                     digests=[hashlib.sha1(c[0].cpu().numpy().tobytes()).hexdigest()
                              for c in calls],
                     counts=[c[1].cpu() for c in calls])
+            elif name == "ransac":
+                rec[name] = {f: [c[i].cpu() for c in calls] for i, f in enumerate(fields)}
+            elif name == "so3":
+                rec[name] = dict(sums=[c[0].cpu() for c in calls],
+                                 state=[c[1].cpu() for c in calls])
+            elif name == "_kp_seeds":
+                rec[name] = dict(seeds=[c[0].cpu() for c in calls],
+                                 ok=[c[1].cpu() for c in calls])
+            elif name == "refine_track_subset":
+                rec[name] = dict(T=[c[0].cpu() for c in calls])
             else:
                 rec[name] = dict(sums=[c[0].cpu() for c in calls])
         runs[tag] = rec
