@@ -86,8 +86,8 @@ Phases (any failure exits non-zero):
    draws): the largest camera drift per seed must not be worse than the
    reference package's own over seeds (``journey_tests``: one-sided tests
    at JOURNEY_ALPHA of the share below 0.08 m and of the drifts); then
-   K13, K15 (front end and each level), K16 (one iteration
-   and all ten), K17 (also on a 240x160 stack) and K18's three
+   K13, K15 (the whole flow, one cluster launch, bit-equal), K16 (one
+   iteration and all ten), K17 (also on a 240x160 stack) and K18's three
    stages against their plain versions on the inputs of the last frame, and
    K21's two batches of that frame (the 6 per-model seeds over shared
    points, the 8 back-dating fits over per-fit points) and the back-dating
@@ -140,7 +140,12 @@ Phases (any failure exits non-zero):
    clipped by, at, one below and far below each segment's room, n not a
    multiple of the 256-pixel tile) through their test entries
    (``mmf_fuse_scan_cases``, ``mmf_fuse_flat_scan_cases``): prefix and
-   counts exact against torch.cumsum;
+   counts exact against torch.cumsum; K15 on hand-made image pairs (phase
+   ``flow_cases``: 640x480 at 1/4, 487x651 whose 121 CRF rows do not divide
+   by the cluster, 640x480 at 1/2 whose bands do not fit a block's shared
+   memory), K20's update on hand-made tables (phase
+   ``track_cases``) and its match on hand-made descriptors (phase
+   ``match_cases``), each bit-equal to the plain version on the CPU;
 5d. five_movers: tests/test_five_movers.py's configuration and 17-frame
    journey at 160x120 (the scene from the port's own io/synthetic.py) on
    the card with the engine seeds FIVE_SEEDS: on every seed five spawns at
@@ -171,7 +176,10 @@ Phases (any failure exits non-zero):
    + argmax + fetch, insert, the photometric check; on the reloc journey's
    inputs) and K23 (the constraint points, the map; on the loop-closure
    journey's matching frame) against their plain versions;
-6. print ``{"kernels": [...]}``, the card's name and power limit, and as the
+6. phase ``device_counts``: K15's device launches a flow-CRF frame (at most
+   2) and a tracker update's device operations (at most 3, no memset), from
+   the kernel lines' profiles;
+7. print ``{"kernels": [...]}``, the card's name and power limit, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the reference package.
@@ -263,7 +271,7 @@ FLOW_SEEDS = tuple(range(1, 12))
 FIVE_SEEDS = tuple(range(48))
 # the flow-CRF segmentation's kernels on top of the multi step's
 FLOW_PATH = MULTI_PATH + (
-    "zbuffer.depths", "flow.prep", "flow.L0", "flow.L1", "flow.L2", "crf.plan", "crf.iter",
+    "zbuffer.depths", "flow", "crf.plan", "crf.iter",
     "components", "segment.unaries", "segment.fuse", "segment.finish")
 
 
@@ -288,12 +296,12 @@ LEGACY_PATH = (
 # ICP error reaches the new-model class, so the reference spawns nothing.
 REF_LEGACY_ACTIVE = (0,) * (1 + MULTI_FRAMES)
 REF_LEGACY_SPAWN_FRAMES = ()
-# device ms and device launches a frame of every path before the batched
-# RANSAC and the one-launch SO(3) iteration (PERF.md), printed beside this
-# run's stage phases
-EARLIER_DEVICE = {"stages": (0.943, 210.2), "kp_stages": (1.189, 283.2),
-                  "multi_stages": (4.299, 920.6), "flow_crf_stages": (4.262, 959.4),
-                  "legacy_crf_stages": (5.718, 1741.6)}
+# device ms and device launches a frame of every path before K15's one
+# cluster launch and K20's three device operations (PERF.md section 5),
+# printed beside this run's stage phases
+EARLIER_DEVICE = {"stages": (0.897, 180.2), "kp_stages": (1.143, 253.2),
+                  "multi_stages": (3.406, 610.7), "flow_crf_stages": (3.118, 649.5),
+                  "legacy_crf_stages": (4.413, 1281.8)}
 # the odometry's step and reduction kernels and the fusion's, shown apart in
 # the stage phases
 GN_KERNELS = ("gn_step", "so3_step", "so3_iteration", "so3_pass", "pass1", "pass2", "finalize",
@@ -953,12 +961,26 @@ def measure_patch_desc(a):
     )
 
 
+def _match_ops(k, n, d):
+    """The dot products and norms of K queries against N tracks, and the
+    distances' comparisons."""
+    return 2 * k * n * d + 2 * (k + n) * d + 4 * k * n
+
+
+def _match_bound(q, t):
+    """Both descriptor sets and flags in, the matches out; ``_match_ops``.
+    With -fmad=false a multiply and an add are two instructions at half the
+    67 TFLOP/s peak's rate, so the kernel can reach only twice this bound
+    (``bound_fmad_false_ms``)."""
+    (k, d), n = q.shape, t.shape[0]
+    return _bound((k + n) * (4 * d + 1) + 4 * k + n, _match_ops(k, n, d))
+
+
 def measure_mutual_match(a):
     from multimotionfusion_tpu_torch.tracking import tracker as TR
 
     q, t = a[0], a[1]
-    (k, d), n = q.shape, t.shape[0]
-    bound, by = _bound((k + n) * (4 * d + 1) + 4 * k + n, 2 * k * n * d + 2 * (k + n) * d + 4 * k * n)
+    bound, by = _match_bound(q, t)
 
     def library():  # one distance matrix, both argmins
         dist = torch.cdist(q, t)
@@ -966,33 +988,70 @@ def measure_mutual_match(a):
 
     return dict(
         ms=_time_ms(lambda: TR.mutual_match_cuda(*a)),
-        **_device(lambda: TR.mutual_match_cuda(*a)),
+        **_device(lambda: TR.mutual_match_cuda(*a), by_kernel=True),
         plain_ms=_time_ms(lambda: TR.mutual_match_plain(*a), reps=3),
-        **_library(library), bound_ms=bound, bound_by=by,
+        **_library(library), bound_ms=bound, bound_by=by, bound_fmad_false_ms=2 * bound,
     )
+
+
+def _update_work(a):
+    """(bytes, operations) of add_keypoints + prune + last_pair given the
+    matches, the matches not counted: K keypoints in (xy, descriptor, flag,
+    depth) and K rows out; per track the flags, the cleared slot, two ring
+    slots' points and the pair."""
+    table, kps = a[0], a[1]
+    cap, d = table.capacity, table.desc.shape[1]
+    k = kps.xy.shape[0]
+    return (k * (8 + 4 * d + 1 + 4) + k * (4 * d + 8 + 12 + 2 + 9)
+            + cap * (9 + 2 + 24 + 2 + 25), 30 * cap + 20 * k)
+
+
+def _update_bound(a):
+    """The update given the matches: ``_update_work`` and the match per
+    keypoint in."""
+    b, ops = _update_work(a)
+    return _bound(b + 4 * a[1].xy.shape[0], ops)
 
 
 def measure_track_update(a):
     from multimotionfusion_tpu_torch.tracking import tracker as TR
 
     table, kps, depth, time_, cam, cfg, pair = a
-    match_idx, _ = TR.mutual_match_cuda(kps.desc, table.desc, kps.valid,
-                                        TR.in_history(table, time_), cfg.match_dist_gate)
+    match_idx, tcol, _ = TR._match_cuda(kps.desc, table.desc, kps.valid, None,
+                                        cfg.match_dist_gate, table, time_, want_matched=False)
     tk = TR.TrackTable(*(x.clone() for x in table))
-    run = lambda: TR.track_update_cuda(tk, kps, match_idx, depth, time_, cam, cfg, pair)  # noqa: E731
-    cap, d = table.capacity, table.desc.shape[1]
-    k = kps.xy.shape[0]
-    # K keypoints in (xy, descriptor, flags, match, depth) and K rows out; per
-    # track the flags, the cleared slot, two ring slots' points and the pair
-    bound, by = _bound(k * (8 + 4 * d + 1 + 4 + 4) + k * (4 * d + 8 + 12 + 2 + 9)
-                       + cap * (9 + 2 + 24 + 2 + 25), 30 * cap + 20 * k)
+    run = lambda: TR.track_update_cuda(tk, kps, match_idx, tcol, depth, time_, cam, cfg,  # noqa: E731
+                                       pair)
+    bound, by = _update_bound(a)
     return dict(
         ms=_time_ms(run), **_device(run),
-        plain_ms=_time_ms(lambda: TR.update_plain(TR.TrackTable(*(x.clone() for x in table)),
+        plain_ms=_time_ms(lambda: TR.update_plain(TR.TrackTable(*(x.clone() for x in a[0])),
                                                   *a[1:]), reps=3),
         **_library(None), bound_ms=bound, bound_by=by,
-        timing_note="the update kernels alone, given the matches; repeated on one copy of the "
+        timing_note="the update launch alone, given the matches; repeated on one copy of the "
                     "recorded table",
+    )
+
+
+def measure_tracker_update(a):
+    """The whole tracker update as the engine runs it: the match (two
+    launches, the tracks' in_history in the first) and the update."""
+    from multimotionfusion_tpu_torch.tracking import tracker as TR
+
+    table, rest = a[0], a[1:]
+    tk = TR.TrackTable(*(x.clone() for x in table))
+    run = lambda: TR.update_cuda(tk, *rest)  # noqa: E731
+    # the whole update's inputs and outputs: ``_update_work`` and the tracks'
+    # descriptors the match reads (the matches are its own intermediates)
+    (k, d), n = rest[0].desc.shape, table.capacity
+    b, ops = _update_work(a)
+    bound, by = _bound(b + 4 * n * d, ops + _match_ops(k, n, d))
+    return dict(
+        ms=_time_ms(run), **_device(run, by_kernel=True),
+        plain_ms=_time_ms(lambda: TR.update_plain(TR.TrackTable(*(x.clone() for x in table)),
+                                                  *rest), reps=3),
+        **_library(None), bound_ms=bound, bound_by=by,
+        timing_note="match + update, repeated on one copy of the recorded table",
     )
 
 
@@ -1269,6 +1328,9 @@ def plan_kp():
          measure_mutual_match, "tracks.cu", "tracking/tracker.py:83"),
         ("add_keypoints+prune+last_pair", "track_update", "track_update", C.check_track_update,
          measure_track_update, "tracks.cu", "tracking/tracker.py:116"),
+        ("tracker.update[match + update]", "track_update", "track_update",
+         C.check_track_update, measure_tracker_update, "tracks.cu",
+         "tracking/tracker.py:83,116,182,239"),
         ("ransac_fit", "ransac_fit", "ransac_fit", C.check_ransac, measure_ransac, "ransac.cu",
          "ops/ransac.py:165"),
         ("seed_select", "seed_select", "seed_select", C.check_seed_select, measure_seed_select,
@@ -1844,31 +1906,30 @@ def measure_render_depths(a):
                     library_note="one scatter_reduce_ (amin) of the plain version's keys")
 
 
-def measure_flow_prep(a):
+def flow_ops(hc: int, wc: int, iters: int) -> int:
+    """The operations K15 needs for a [hc, wc] grid: per CRF pixel and image
+    the two-tap resize (6) and the 7-tap blurs (2 x 14), per coarser pixel and
+    image the 25-tap downsample (~5 a tap); per level pixel the gradients (4),
+    the structure tensor as column sums of 3 products (3 x 9 x 2) then row
+    sums (3 x 9) and its gate (~15), and per iteration the warp (~25), the
+    column sums of 2 products (2 x 9 x 2), their row sums (2 x 9) and the
+    solve (~20)."""
+    sizes = [(hc, wc)]
+    for _ in range(2):
+        sizes.append(((sizes[-1][0] + 1) // 2, (sizes[-1][1] + 1) // 2))
+    n = [h * w for h, w in sizes]
+    prep = 2 * (34 * n[0] + 125 * (n[1] + n[2]))
+    return prep + sum(x * (4 + 54 + 27 + 15 + iters * (25 + 36 + 18 + 20)) for x in n)
+
+
+def measure_flow(a):
     from multimotionfusion_tpu_torch.segmentation import flow as FL
 
     prev, _, hc, wc = a
     n = hc * wc
-    # two full-resolution images in, both pyramids out; per CRF pixel the
-    # resize (6), the blur (2 x 7 x 2) and per coarser pixel 25 x 4 taps
-    return _measure(lambda: FL.flow_prep_cuda(*a), lambda: FL.flow_prep_plain(*a),
-                    2 * 4 * prev.numel() + 2 * 4 * n * (1 + 1 / 4 + 1 / 16),
-                    2 * (34 * n + 100 * n * (1 / 4 + 1 / 16)))
-
-
-def measure_lk_level(a, level):
-    from multimotionfusion_tpu_torch.kernels import checks as C
-    from multimotionfusion_tpu_torch.segmentation import flow as FL
-
-    pair, coarse = C.flow_level_inputs(a, level)
-    n = pair[0].numel()
-    # the pair and the coarser flow in, the flow out; per pixel the
-    # structure tensor (3 x 81 x 2), and per iteration the warp (~25) and
-    # two 81-tap box sums of products (2 x 81 x 2) and the solve (~20)
-    return _measure(lambda: FL.lk_level_cuda(pair, coarse, level),
-                    lambda: FL.lk_level_plain(pair, coarse),
-                    8 * n + (0 if coarse is None else 4 * coarse.numel()) + 8 * n,
-                    n * (486 + 10 + FL.ITERS * (25 + 324 + 20)))
+    # two full-resolution images in, the flow [hc, wc, 2] out
+    return _measure(lambda: FL.dense_flow(*a), lambda: FL.dense_flow_plain(*a),
+                    2 * 4 * prev.numel() + 8 * n, flow_ops(hc, wc, FL.ITERS), cluster=FL.CLUSTER)
 
 
 def _crf_ops(unary, p):
@@ -1968,13 +2029,8 @@ def plan_flow():
 
     p = [("render_depths", "zbuffer.depths", "zbuffer.depths", C.check_render_depths,
           measure_render_depths, "zbuffer.cu", "ops/rasterize.py:255"),
-         ("flow.prep[resize+blur+pyramids]", "flow", "flow.prep", C.check_flow_prep,
-          measure_flow_prep, "flow.cu", "segmentation/flow.py:100")]
-    for lvl in (2, 1, 0):
-        p.append((f"flow.lk[L{lvl}]", "flow", f"flow.L{lvl}",
-                  lambda a, lvl=lvl: C.check_lk_level(a, lvl),
-                  lambda a, lvl=lvl: measure_lk_level(a, lvl), "flow.cu",
-                  "segmentation/flow.py:18"))
+         ("flow[prep + 3 levels]", "flow", "flow", C.check_flow, measure_flow, "flow.cu",
+          "segmentation/flow.py:100,18")]
     p += [("crf[1 iteration]", "crf", "crf.iter", C.check_crf_iteration, measure_crf_iteration,
            "crf.cu", "segmentation/crf.py:246"),
           ("crf[plan + 10 iterations]", "crf", "crf.plan", C.check_crf, measure_crf, "crf.cu",
@@ -2281,6 +2337,47 @@ def run_scan_cases() -> list:
     torch.cuda.synchronize()
     print(json.dumps({"phase": "scan_cases", **r}))
     return [] if r["ok"] else [f"the fuse scan on hand-made flags: {r['cases']}"]
+
+
+def run_k15_k20_cases() -> list:
+    """Phase 5c: K15 on hand-made image pairs (640x480 at 1/4 and 1/2, and
+    487x651, whose 121 CRF rows do not divide by the cluster), K20's update
+    on hand-made tables (a full table, more new keypoints than free
+    slots, all matched, none valid, the ring's wrap either way, no depth, no
+    pair) and its match on hand-made descriptors (duplicates, invalid rows
+    and columns, K and T off the tile): each exact against the plain version
+    on the CPU (``checks.check_flow_cases``, ``check_track_cases``,
+    ``check_match_cases``)."""
+    from multimotionfusion_tpu_torch.kernels import checks as C
+
+    failed = []
+    for name, check in (("flow_cases", C.check_flow_cases), ("track_cases", C.check_track_cases),
+                        ("match_cases", C.check_match_cases)):
+        r = check(DEVICE)
+        torch.cuda.synchronize()
+        print(json.dumps({"phase": name, **r}))
+        if not r["ok"]:
+            failed.append(f"{name}: {r['cases']}")
+    return failed
+
+
+def device_counts(kernels) -> dict:
+    """Phase 6: K15's device launches a frame (its wrapper runs once a
+    flow-CRF frame) and the device operations of one tracker update, from
+    the kernel lines' profiles."""
+    by = {k["name"]: k for k in kernels}
+    flow, tracker = by["flow[prep + 3 levels]"], by["tracker.update[match + update]"]
+    out = dict(flow_launches_per_frame=flow["device_launches_per_call"]
+               * flow["launches_per_frame"],
+               tracker_update_device_ops=tracker["device_launches_per_call"],
+               tracker_update_kernels=sorted(tracker.get("device_ms_by_kernel", {})))
+    out["ok"] = (out["flow_launches_per_frame"] is not None
+                 and out["flow_launches_per_frame"] <= 2
+                 and out["tracker_update_device_ops"] is not None
+                 and out["tracker_update_device_ops"] <= 3
+                 and not any(n.startswith("Mem") for n in out["tracker_update_kernels"]))
+    print(json.dumps({"phase": "device_counts", **out}))
+    return out
 
 
 def run_solve_work(captured, m_captured) -> None:
@@ -2848,7 +2945,7 @@ def main() -> int:
     run_stages(K, g_engine, f_frames[MULTI_FRAMES + 1:], "legacy_crf_stages")
     del g_engine
     f_failed += g_failed + run_slic_cases() + run_components_cases() + run_solve_cases()
-    f_failed += run_scan_cases()
+    f_failed += run_scan_cases() + run_k15_k20_cases()
     five = five_movers_seeds()
 
     r_launches, r_captured, global_failed = run_reloc(K)
@@ -2877,6 +2974,9 @@ def main() -> int:
     kernels += check_kernels(fern_plan, r_captured, r_launches, RELOC_JOURNEY_FRAMES)
     kernels += check_kernels(deform_plan, l_captured, l_launches, 7)
     run_solve_work(captured, m_captured)
+    counts = device_counts(kernels)
+    if not counts["ok"]:
+        f_failed.append(f"K15's launches or a tracker update's device operations: {counts}")
     loops = [check_loop(captured), check_loop(kp_captured, "odometry_loop[kp]"),
              check_sparse(kp_captured), check_multi_loop(m_captured)]
     print(json.dumps({"kernels": kernels}))

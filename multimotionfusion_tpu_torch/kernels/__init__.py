@@ -164,6 +164,11 @@ def _snapshot(v):
     return v
 
 
+def capturing() -> bool:
+    """True while a capture runs (a wrapper may then compute inputs it records)."""
+    return _captured is not None
+
+
 def record(key: str, **inputs) -> None:
     """Called by a wrapper with its inputs; stores clones while capturing."""
     if _captured is None or key in _captured:

@@ -16,10 +16,10 @@ Gaussian, gate 0); from the coarsest level down, the flow is upsampled x2
 - a bilinear warp of ``next`` clamped to ``[0, w - 1.001]``, the temporal
   difference, the 2x2 solve and the +-2 px step clamp.
 
-``flow_prep`` (resize, blur, pyramids) and ``lk_level`` (one level's
-upsample and iterations) launch ``csrc/flow.cu`` for CUDA tensors and take
-their plain PyTorch versions (``*_plain``) only for CPU tensors;
-``dense_flow`` chains them.
+``dense_flow`` launches ``csrc/flow.cu`` once for CUDA tensors (the whole
+flow in one thread-block cluster) and takes the plain PyTorch version
+(``dense_flow_plain``: ``flow_prep_plain``, then ``lk_level_plain`` per
+level) only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -132,77 +132,88 @@ def lk_level_plain(pair: torch.Tensor, coarse: Optional[torch.Tensor]) -> torch.
     return torch.stack(lk_refine(pair[0], pair[1], fx, fy))
 
 
-# ---------------------------------------------------------------- kernels
+# ---------------------------------------------------------------- kernel
 
-def flow_prep_cuda(prev: torch.Tensor, nxt: torch.Tensor, hc: int, wc: int) -> List[torch.Tensor]:
-    """K15 front end on the card: ``csrc/flow.cu`` ``mmf_flow_prep``."""
+CLUSTER = 16  # blocks of the one cluster, csrc/flow.cu's CLUSTER (the non-portable size)
+SMEM_BYTES = 232_448  # a block's shared memory on an H100
+NEAR = 8  # rows of next staged each side of a block's rows for the warp (csrc/flow.cu)
+
+
+def _level_sizes(hc: int, wc: int):
+    sizes = [(hc, wc)]
+    for _ in range(LEVELS - 1):
+        sizes.append(((sizes[-1][0] + 1) // 2, (sizes[-1][1] + 1) // 2))
+    return sizes
+
+
+def flow_scratch_floats(hc: int, wc: int) -> int:
+    """Floats of ``mmf_dense_flow``'s global scratch: the horizontal blur
+    [2, hc, wc], the three pyramid levels [2, h, w] and per level 4 planes
+    (two ``it``, the flow)."""
+    return 2 * hc * wc + sum((2 + 4) * h * w for h, w in _level_sizes(hc, wc))
+
+
+def flow_band(hc: int, wc: int):
+    """(band, halo, stage, near): the most pixels one block of the cluster
+    owns at any level (block r of C = CLUSTER owns the rows
+    [r h / C, (r + 1) h / C)), the
+    most of its rows and RADIUS more each side (those its box sums read), the
+    most floats of both images' rows its vertical blur or a downsample reads,
+    and the most of its rows, NEAR more above and NEAR + 1 below (the next
+    image's rows its warp reads from shared memory)."""
+    sizes = _level_sizes(hc, wc)
+    band = halo = stage = near = 0
+    for lvl, (h, w) in enumerate(sizes):
+        for r in range(CLUSTER):
+            y0, y1 = h * r // CLUSTER, h * (r + 1) // CLUSTER
+            band = max(band, (y1 - y0) * w)
+            halo = max(halo, (min(y1 + RADIUS, h) - max(y0 - RADIUS, 0)) * w)
+            near = max(near, (min(y1 + NEAR + 1, h) - max(y0 - NEAR, 0)) * w)
+            if lvl == 0:  # the vertical blur's rows
+                rows, width = min(y1 + BLUR_RADIUS, h) - max(y0 - BLUR_RADIUS, 0), w
+            else:  # the downsample's rows of the finer level
+                hf, width = sizes[lvl - 1]
+                rows = min(2 * y1 + 1, hf) - max(2 * y0 - 2, 0)
+            stage = max(stage, 2 * max(rows, 0) * width)
+    return band, halo, stage, near
+
+
+def dense_flow_cuda(prev: torch.Tensor, nxt: torch.Tensor, hc: int, wc: int) -> torch.Tensor:
+    """K15 on the card: ``csrc/flow.cu`` ``mmf_dense_flow``, the resize, blur,
+    pyramids and the three levels in one launch of one ``CLUSTER``-block
+    thread-block cluster; [hc, wc, 2]. A block keeps 11 floats a pixel of
+    its rows, 3 a pixel of those rows and RADIUS more each side and the next
+    image's rows near them in shared memory (and stages the rows the blur
+    and the downsamples read there); for a grid that needs more than a block
+    has (320x240 at a cluster of 16), in its own part of a global scratch."""
     K.check(prev, F32, "prev")
     K.check(nxt, F32, "next")
     if prev.shape != nxt.shape or prev.dim() != 2:
         raise ValueError("prev and next must be [H, W] of one shape")
+    if min(hc, wc) < 5:
+        raise ValueError("the CRF grid must be at least 5x5 (a 2x2 coarsest level)")
+    band, halo, stage, near = flow_band(hc, wc)
+    per_block = max(11 * band + 3 * halo + near, stage)
     h, w = prev.shape
-    shapes = [(hc, wc)]
-    for _ in range(LEVELS - 1):
-        shapes.append(((shapes[-1][0] + 1) // 2, (shapes[-1][1] + 1) // 2))
-    pyr = [torch.empty((2, a, b), dtype=F32, device=prev.device) for a, b in shapes]
-    tmp = torch.empty((2, hc, wc), dtype=F32, device=prev.device)
-    f = K.fn("flow", "mmf_flow_prep", [K.P, K.P, K.I, K.I, K.I, K.I]
-             + [K.F] * (2 * BLUR_RADIUS + 1) + [K.P] * 4)
+    dev = prev.device
+    scratch = torch.empty((flow_scratch_floats(hc, wc),), dtype=F32, device=dev)
+    out = torch.empty((hc, wc, 2), dtype=F32, device=dev)
+    spill = (torch.empty((CLUSTER * per_block,), dtype=F32, device=dev)
+             if 4 * per_block > SMEM_BYTES else None)
+    f = K.fn("flow", "mmf_dense_flow", [K.P, K.P, K.I, K.I, K.I, K.I, K.I]
+             + [K.F] * (2 * BLUR_RADIUS + 1) + [K.I] * 5 + [K.P] * 3)
     taps = [float(t) for t in imops.gaussian_weights(BLUR_SIGMA, BLUR_RADIUS)]
-    K.call("flow.prep", f, K.ptr(prev), K.ptr(nxt), h, w, hc, wc, *taps, K.ptr(tmp),
-           *(K.ptr(p) for p in pyr))
-    return pyr
-
-
-def lk_level_cuda(pair: torch.Tensor, coarse: Optional[torch.Tensor], level: int = 0,
-                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K15 level on the card: ``csrc/flow.cu`` ``mmf_lk_level`` (launches
-    counted as ``flow.L<level>``). With ``out`` ([h, w, 2]) the last
-    iteration also writes the flow there, interleaved."""
-    K.check(pair, F32, "pair")
-    if coarse is not None:
-        K.check(coarse, F32, "coarse")
-    _, h, w = pair.shape
-    hp, wp = (0, 0) if coarse is None else coarse.shape[1:]
-    dev = pair.device
-    # gx, gy, ixx, ixy, iyy, inv_det, ok, it, and two flow buffers of two planes
-    scratch = torch.empty((12, h, w), dtype=F32, device=dev)
-    if out is not None:
-        K.check(out, F32, "out")
-        if tuple(out.shape) != (h, w, 2):
-            raise ValueError("out must be [h, w, 2]")
-    f = K.fn("flow", "mmf_lk_level", [K.P, K.P, K.I, K.I, K.I, K.I, K.I, K.F, K.F, K.P, K.P])
-    K.call(f"flow.L{level}", f, K.ptr(pair), None if coarse is None else K.ptr(coarse), h, w,
-           hp, wp, ITERS, float(w - 1.001), float(h - 1.001), K.ptr(scratch),
-           None if out is None else K.ptr(out))
-    # the iterations alternate between the two flow buffers
-    return scratch[8:10] if ITERS % 2 == 0 else scratch[10:12]
-
-
-def flow_prep(prev, nxt, hc: int, wc: int) -> List[torch.Tensor]:
-    impl = flow_prep_cuda if prev.is_cuda else flow_prep_plain
-    return impl(prev, nxt, hc, wc)
-
-
-def lk_level(pair, coarse, level: int, out=None) -> torch.Tensor:
-    if pair.is_cuda:
-        return lk_level_cuda(pair, coarse, level, out)
-    flow = lk_level_plain(pair, coarse)
-    if out is not None:
-        out.copy_(flow.permute(1, 2, 0))
-    return flow
+    K.call("flow", f, K.ptr(prev), K.ptr(nxt), h, w, hc, wc, ITERS, *taps, CLUSTER, band, halo,
+           near, stage, K.ptr(scratch), None if spill is None else K.ptr(spill), K.ptr(out))
+    return out
 
 
 def dense_flow(prev: torch.Tensor, nxt: torch.Tensor, hc: int, wc: int) -> torch.Tensor:
     """[hc, wc, 2] flow in CRF-scale pixels such that next(x + flow) ~ prev(x),
     from the full-resolution intensities ``prev`` and ``nxt`` [H, W]."""
     K.record("flow", prev=prev, nxt=nxt, hc=hc, wc=wc)
-    pyr = flow_prep(prev, nxt, hc, wc)
-    out = torch.empty((hc, wc, 2), dtype=F32, device=prev.device)
-    flow = None
-    for lvl in range(LEVELS - 1, -1, -1):
-        flow = lk_level(pyr[lvl], flow, lvl, out if lvl == 0 else None)
-    return out
+    impl = dense_flow_cuda if prev.is_cuda else dense_flow_plain
+    return impl(prev, nxt, hc, wc)
 
 
 def dense_flow_plain(prev: torch.Tensor, nxt: torch.Tensor, hc: int, wc: int) -> torch.Tensor:

@@ -9,14 +9,17 @@ Unlike the reference, which is functional, the port updates the table IN
 PLACE: ``add_keypoints`` and ``update`` write into the tensors of the table
 they are given and return it (or the pair it forms).
 
-- ``mutual_match``: one tiled launch of both argmins over the [K, T] squared
-  distances (never stored) and one launch of the mutual test and the gate;
+- ``mutual_match``: one tiled launch of the row and column minima over the
+  [K, T] squared distances (never stored; per-block partials, no atomics)
+  and one launch of the mutual test and the gate;
 - ``update`` = ``add_keypoints`` -> ``prune`` -> ``last_pair`` as the engine
-  runs them on every frame: after ``mutual_match``, one single-block launch
-  allocates the new tracks (the r-th unmatched valid keypoint takes the r-th
-  free slot in index order) and writes the matched and new rows, and one
-  launch over the tracks clears the next ring slot, prunes and forms the
-  (p0, p1, valid) pair. The tick is a host int passed by value.
+  runs them on every frame: the match (its tracks' ``in_history`` computed in
+  the tile launch), then one launch over the tracks in pull form: a track
+  takes the row of the query that matched it, or, if free, of the r-th
+  unmatched valid keypoint where r is its rank among the free slots in index
+  order; then it clears the next ring slot, prunes and forms the (p0, p1,
+  valid) pair. Three device operations a frame; the tick is a host int
+  passed by value.
 
 Each wrapper launches the CUDA kernels for CUDA tensors and takes the plain
 PyTorch version (``*_plain``) only for CPU tensors; the plain versions sum in
@@ -125,22 +128,52 @@ def mutual_match_plain(q_desc, t_desc, q_valid, t_valid, max_dist: float):
     return match_idx, matched_t
 
 
-def mutual_match_cuda(q_desc, t_desc, q_valid, t_valid, max_dist: float):
+MATCH_TILE = 128  # queries and tracks a block of csrc/tracks.cu's match_tile (TQ, TT)
+_TICKETS = {}  # device -> the match's last-block ticket, 0 between launches
+
+
+def _match_cuda(q_desc, t_desc, q_valid, t_valid, max_dist: float, table=None, time: int = 0,
+                want_matched: bool = True):
+    """``csrc/tracks.cu`` ``mmf_mutual_match``: (match_idx [K], tcol [T] int32:
+    the query of each track's column minimum, matched_t [T] or None). The
+    tracks' validity is ``t_valid``, or, with ``table``, ``in_history(table,
+    time)`` computed in the kernel."""
     K.check(q_desc, F32, "q_desc")
     K.check(t_desc, F32, "t_desc")
     K.check(q_valid, torch.bool, "q_valid")
-    K.check(t_valid, torch.bool, "t_valid")
+    if table is None:
+        K.check(t_valid, torch.bool, "t_valid")
+    else:
+        K.check(table.active, torch.bool, "active")
+        K.check(table.last_seen, I32, "last_seen")
     (k, d), t = q_desc.shape, t_desc.shape[0]
     if t_desc.shape[1] != d:
         raise ValueError("q_desc and t_desc must have the same descriptor width")
+    if k == 0 or t == 0:
+        raise ValueError("mutual_match needs at least one query and one track")
     dev = q_desc.device
-    rowbest = torch.empty((k,), dtype=torch.int64, device=dev)
-    colbest = torch.empty((t,), dtype=torch.int64, device=dev)
+    rowpart = torch.empty((-(-t // MATCH_TILE) * k,), dtype=torch.int64, device=dev)
+    colpart = torch.empty((-(-k // MATCH_TILE) * t,), dtype=torch.int64, device=dev)
     match_idx = torch.empty((k,), dtype=I32, device=dev)
-    matched_t = torch.empty((t,), dtype=torch.bool, device=dev)
-    f = K.fn("tracks", "mmf_mutual_match", [K.P, K.P, K.P, K.P, K.I, K.I, K.I, K.F] + [K.P] * 4)
-    K.call("mutual_match", f, K.ptr(q_desc), K.ptr(t_desc), K.ptr(q_valid), K.ptr(t_valid), k, t, d,
-           _gate2(max_dist), K.ptr(rowbest), K.ptr(colbest), K.ptr(match_idx), K.ptr(matched_t))
+    tcol = torch.empty((t,), dtype=I32, device=dev)
+    matched_t = torch.empty((t,), dtype=torch.bool, device=dev) if want_matched else None
+    key = torch.device(dev)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros((1,), dtype=I32, device=dev)
+    f = K.fn("tracks", "mmf_mutual_match",
+             [K.P] * 6 + [K.I] * 5 + [K.F] + [K.P] * 6)
+    K.call("mutual_match", f, K.ptr(q_desc), K.ptr(t_desc), K.ptr(q_valid),
+           None if table is not None else K.ptr(t_valid),
+           None if table is None else K.ptr(table.active),
+           None if table is None else K.ptr(table.last_seen), int(time),
+           0 if table is None else table.history, k, t, d, _gate2(max_dist), K.ptr(rowpart),
+           K.ptr(colpart), K.ptr(match_idx), K.ptr(tcol),
+           None if matched_t is None else K.ptr(matched_t), K.ptr(_TICKETS[key]))
+    return match_idx, tcol, matched_t
+
+
+def mutual_match_cuda(q_desc, t_desc, q_valid, t_valid, max_dist: float):
+    match_idx, _, matched_t = _match_cuda(q_desc, t_desc, q_valid, t_valid, max_dist)
     return match_idx, matched_t
 
 
@@ -239,9 +272,27 @@ def update_plain(table: TrackTable, kps: Keypoints, depth, time: int, cam: Camer
     return last_pair(table, time)
 
 
-def track_update_cuda(table: TrackTable, kps: Keypoints, match_idx, depth, time: int,
+_SCAN = {}  # (device, tiles) -> [the update's two sets of scan words, the set to use next]
+
+
+def _scan_words(device, cap: int):
+    """The track update's scan words for this call and for the next: a status
+    word per 256-track tile and the scan's ticket, in two sets that the calls
+    alternate between (a launch sets the other set, which the call before it
+    used, back to 0); both 0 at first."""
+    tiles = -(-cap // 256)
+    key = (torch.device(device), tiles)
+    if key not in _SCAN:
+        _SCAN[key] = [torch.zeros((2, tiles + 1), dtype=I32, device=device), 0]
+    words, cur = _SCAN[key]
+    _SCAN[key][1] = 1 - cur
+    return words[cur], words[1 - cur]
+
+
+def track_update_cuda(table: TrackTable, kps: Keypoints, match_idx, tcol, depth, time: int,
                       cam: CameraModel, cfg: KeypointConfig, pair: bool = True):
-    """The update kernels of ``csrc/tracks.cu`` given the matches."""
+    """``csrc/tracks.cu`` ``mmf_track_update`` given the matches (``match_idx``
+    per keypoint, ``tcol`` per track: ``_match_cuda``'s): one launch."""
     for name in FIELDS:
         K.check(getattr(table, name), {"xy": F32, "p3d": F32, "desc": F32, "last_seen": I32,
                                        "nvalid": I32, "model_id": I32}.get(name, torch.bool), name)
@@ -249,33 +300,41 @@ def track_update_cuda(table: TrackTable, kps: Keypoints, match_idx, depth, time:
     K.check(kps.desc, F32, "kps.desc")
     K.check(kps.valid, torch.bool, "kps.valid")
     K.check(match_idx, I32, "match_idx")
+    K.check(tcol, I32, "tcol")
     K.check(depth, F32, "depth")
     cap, hist, d = table.capacity, table.history, table.desc.shape[1]
     k = kps.xy.shape[0]
     if kps.desc.shape[1] != d:
         raise ValueError("keypoint and track descriptors differ in width")
+    if tcol.shape[0] != cap or match_idx.shape[0] != k or k == 0:
+        raise ValueError("match_idx must be [K] (K > 0) and tcol [capacity]")
     dev = depth.device
     p0 = torch.empty((cap, 3), dtype=F32, device=dev)
     p1 = torch.empty((cap, 3), dtype=F32, device=dev)
     valid = torch.empty((cap,), dtype=torch.bool, device=dev)
     h, w = depth.shape
     f = K.fn("tracks", "mmf_track_update",
-             [K.P] * 13 + [K.I] * 6 + [K.F] * 4 + [K.I] * 4 + [K.P] * 3)
+             [K.P] * 14 + [K.I] * 6 + [K.F] * 4 + [K.I] * 4 + [K.P] * 5)
     K.call("track_update", f,
            K.ptr(table.xy), K.ptr(table.p3d), K.ptr(table.seen), K.ptr(table.has_depth),
            K.ptr(table.desc), K.ptr(table.last_seen), K.ptr(table.nvalid), K.ptr(table.active),
-           K.ptr(kps.xy), K.ptr(kps.desc), K.ptr(kps.valid), K.ptr(match_idx), K.ptr(depth),
-           cap, hist, d, k, h, w, cam.fx, cam.fy, cam.cx, cam.cy, int(time), int(pair),
-           cfg.prune_min_kps, int(np.int32(cfg.prune_max_age_s * FPS)), K.ptr(p0), K.ptr(p1),
-           K.ptr(valid))
+           K.ptr(kps.xy), K.ptr(kps.desc), K.ptr(kps.valid), K.ptr(match_idx), K.ptr(tcol),
+           K.ptr(depth), cap, hist, d, k, h, w, cam.fx, cam.fy, cam.cx, cam.cy, int(time),
+           int(pair), cfg.prune_min_kps, int(np.int32(cfg.prune_max_age_s * FPS)),
+           *(K.ptr(w) for w in _scan_words(dev, cap)), K.ptr(p0), K.ptr(p1), K.ptr(valid))
     return (p0, p1, valid) if pair else None
 
 
 def update_cuda(table: TrackTable, kps: Keypoints, depth, time: int, cam: CameraModel,
                 cfg: KeypointConfig, pair: bool = True):
-    match_idx, _ = mutual_match(kps.desc, table.desc, kps.valid, in_history(table, time),
-                                cfg.match_dist_gate)
-    return track_update_cuda(table, kps, match_idx, depth, time, cam, cfg, pair)
+    """Three launches: the match tiles and the mutual test (the tracks'
+    ``in_history`` computed in the first), then the update."""
+    if K.capturing():
+        K.record("mutual_match", q_desc=kps.desc, t_desc=table.desc, q_valid=kps.valid,
+                 t_valid=in_history(table, time), max_dist=cfg.match_dist_gate)
+    match_idx, tcol, _ = _match_cuda(kps.desc, table.desc, kps.valid, None,
+                                     cfg.match_dist_gate, table, time, want_matched=False)
+    return track_update_cuda(table, kps, match_idx, tcol, depth, time, cam, cfg, pair)
 
 
 def update(table: TrackTable, kps: Keypoints, depth, time: int, cam: CameraModel,

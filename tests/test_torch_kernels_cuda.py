@@ -30,8 +30,9 @@ runs on the card against the plain loop on the CPU.
 
 A third run, of the flow-CRF multi-model engine on tests/test_five_movers.py's
 160x120 journey (chip_smoke.five_movers, 17 frames, no masks), records the
-inputs of the segmentation's kernels at its last frame: K13, K15's front end
-and each level, one K16 iteration and all ten, K17 and K18's three stages;
+inputs of the segmentation's kernels at its last frame: K13, K15 (the whole
+flow, one cluster launch, bit-equal), one K16 iteration and all ten, K17 and
+K18's three stages;
 and K21's two batches of the frame (the per-model seeds, the back-dating
 fits) and the back-dating batch with every active track selected: every
 row bit-equal to a one-fit launch, the batch within the one-fit check's
@@ -219,9 +220,8 @@ def test_components_hand_made_stacks():
 
 
 FLOW_CASES = (
-    [("zbuffer.depths", checks.check_render_depths), ("flow.prep", checks.check_flow_prep)]
-    + [(f"flow.L{lvl}", lambda a, lvl=lvl: checks.check_lk_level(a, lvl)) for lvl in LEVELS]
-    + [("flow", checks.check_flow), ("crf.iter", checks.check_crf_iteration),
+    [("zbuffer.depths", checks.check_render_depths), ("flow", checks.check_flow),
+     ("crf.iter", checks.check_crf_iteration),
        ("crf", checks.check_crf), ("components", checks.check_components),
        ("segment.unaries", checks.check_seg_unaries), ("segment.fuse", checks.check_seg_fuse),
        ("segment.finish", checks.check_seg_finish),
@@ -252,7 +252,7 @@ def captured_flow():
     out = checks.derive_backdating(K.stop_capture())
     torch.cuda.synchronize()
     assert eng.finish()["active_objects"] >= 1.0
-    for key in ("zbuffer.depths", "flow.prep", "flow.L0", "crf.plan", "crf.iter", "components",
+    for key in ("zbuffer.depths", "flow", "crf.plan", "crf.iter", "components",
                 "segment.unaries", "segment.fuse", "segment.finish", "ransac_fit"):
         assert K.LAUNCHES.get(key, 0) > 0, key
     return out
@@ -414,4 +414,19 @@ def test_fuse_scan_cases_exact():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
     r = checks.check_scan_cases("cuda")
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("name", ["flow_cases", "track_cases", "match_cases"])
+def test_k15_k20_hand_made_cases(name):
+    """K15 on hand-made image pairs (640x480 at 1/4 and at 1/2, whose bands do
+    not fit a block's shared memory, and 487x651 whose 121 CRF rows do not
+    divide by the cluster), K20's update on
+    hand-made tables (full, more new keypoints than free slots, all matched,
+    none valid, the ring's wrap either way, no depth, no pair) and its match
+    on hand-made descriptors (duplicates, invalid rows and columns, K and T
+    off the tile): exact against the plain versions on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
+    r = getattr(checks, f"check_{name}")("cuda")
     assert r["ok"], r

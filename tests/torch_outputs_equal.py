@@ -1,6 +1,6 @@
 """Record, then compare, every output of some kernels over chip_smoke.py's
-static, flow-CRF and legacy CRF runs, to show that a redesigned kernel is
-bit-equal to the version it replaces.
+static (``odom_init=""`` and "kp"), flow-CRF and legacy CRF runs, to show
+that a redesigned kernel is bit-equal to the version it replaces.
 
     python3 tests/torch_outputs_equal.py --tree DIR --out A.pt   # record DIR's
     python3 tests/torch_outputs_equal.py --compare A.pt B.pt    # compare two
@@ -15,7 +15,12 @@ its fits in order (a tree without ``ransac_fit_batch`` fits one at a time in
 the same order); every SO(3) iteration's sums and the loop state after its
 step (``so3_iteration``, or ``so3_reduce`` then ``so3_step``); the per-model
 seeds and gates of ``engine_multi._kp_seeds`` and the back-dating
-transforms of ``tracker.refine_track_subset``. The outputs are kept on the
+transforms of ``tracker.refine_track_subset``; K15's whole flow
+(``flow.dense_flow``'s [hc, wc, 2]); K20's ``mutual_match`` calls (match_idx,
+matched_t) and per tracker update (``tracker.update``) the matches of its
+inputs (``mutual_match`` on the table's ``in_history``), the nine fields of
+the table after it and the (p0, p1, valid) pair, each as a SHA-1 of its
+bytes. The outputs are kept on the
 card during a run, so recording adds no host read to the frame step.
 ``--compare`` holds every recorded tensor equal with ``torch.equal`` and
 every digest equal, and prints one JSON line. Needs one NVIDIA GPU to
@@ -44,6 +49,7 @@ def record(tree: str, out: str) -> int:
     from multimotionfusion_tpu_torch.odometry import multi as MO
     from multimotionfusion_tpu_torch.odometry import rgbd
     from multimotionfusion_tpu_torch.ops import ransac as RS
+    from multimotionfusion_tpu_torch.segmentation import flow as FL
     from multimotionfusion_tpu_torch.tracking import tracker as TR
 
     if not (S.__file__.startswith(tree) and K.__file__.startswith(tree)):
@@ -67,6 +73,27 @@ def record(tree: str, out: str) -> int:
     wrap(FU, "fuse_flat_cuda", lambda r: (r[0], r[1]))
     wrap(EM, "_kp_seeds", lambda r: r)
     wrap(TR, "refine_track_subset", lambda r: (r,))
+    wrap(FL, "dense_flow", lambda r: (r,))
+    match, update = TR.mutual_match, TR.update
+    in_update = []  # a tree whose update calls the public mutual_match
+
+    def mutual_match(*args):
+        res = match(*args)
+        if not in_update:
+            kept["mutual_match"].append(tuple(t.clone() for t in res))
+        return res
+
+    def tracker_update(table, kps, depth, time, cam, cfg, pair=True):
+        m = match(kps.desc, table.desc, kps.valid, TR.in_history(table, time),
+                  cfg.match_dist_gate)
+        in_update.append(1)
+        res = update(table, kps, depth, time, cam, cfg, pair)
+        in_update.pop()
+        kept["update"].append(tuple(x.clone() for x in m) + tuple(x.clone() for x in table)
+                              + (() if res is None else tuple(x.clone() for x in res)))
+        return res
+
+    TR.mutual_match, TR.update = mutual_match, tracker_update
     fields = ("T", "error", "inliers", "num_inliers", "ok", "idx")
 
     def keep_fit(res, idx):
@@ -115,7 +142,14 @@ def record(tree: str, out: str) -> int:
         torch.cuda.synchronize()
         rec = {}
         for name, calls in kept.items():
-            if name in ("fuse_cuda", "fuse_flat_cuda"):
+            if name in ("dense_flow", "mutual_match", "update"):
+                names = {"dense_flow": ("flow",), "mutual_match": ("match_idx", "matched_t"),
+                         "update": ("match_idx", "matched_t") + TR.FIELDS
+                         + ("p0", "p1", "valid")}[name]
+                rec[name] = {f"{field}_digests": [
+                    hashlib.sha1(c[j].cpu().numpy().tobytes()).hexdigest() if j < len(c)
+                    else None for c in calls] for j, field in enumerate(names)}
+            elif name in ("fuse_cuda", "fuse_flat_cuda"):
                 rec[name] = dict(
                     digests=[hashlib.sha1(c[0].cpu().numpy().tobytes()).hexdigest()
                              for c in calls],
@@ -135,14 +169,16 @@ def record(tree: str, out: str) -> int:
         runs[tag] = rec
         kept.clear()
 
+    import dataclasses
+
     cfg, frames, gt = S.static_frames(S.N_FRAMES)
     S.run_engine(K, cfg, frames, gt)
     collect("static")
+    S.run_engine(K, dataclasses.replace(cfg, odom_init="kp"), frames, gt, S.KP_PATH, "kp_engine")
+    collect("static_kp")
     f_cfg, f_frames = S.multi_frames(1 + S.MULTI_FRAMES, masks=False)
     S.run_multi_flow(K, f_cfg, f_frames)
     collect("flow_crf")
-    import dataclasses
-
     g_cfg = dataclasses.replace(f_cfg, segmentation=dataclasses.replace(f_cfg.segmentation,
                                                                           mode="crf"))
     S.run_multi_legacy(K, g_cfg, f_frames)
@@ -165,7 +201,7 @@ def compare(a_path: str, b_path: str) -> int:
             line = {}
             for field in sorted(set(fa) | set(fb)):
                 xa, xb = fa.get(field, []), fb.get(field, [])
-                if field == "digests":
+                if field.endswith("digests"):
                     equal = [x == y for x, y in zip(xa, xb)]
                 else:
                     equal = [torch.equal(x, y) for x, y in zip(xa, xb)]
