@@ -145,7 +145,15 @@ Phases (any failure exits non-zero):
    by the cluster, 640x480 at 1/2 whose bands do not fit a block's shared
    memory), K20's update on hand-made tables (phase
    ``track_cases``) and its match on hand-made descriptors (phase
-   ``match_cases``), each bit-equal to the plain version on the CPU;
+   ``match_cases``), each bit-equal to the plain version on the CPU; K18's
+   finish on hand-made segment inputs (phase ``finish_cases``: no new
+   label, a new label hugging each border and one inside, objects at and
+   one cell under the minimum-cells gate, a segment without depth, M = 16,
+   487x651) and K19's top-K on hand-made heat maps (phase ``topk_cases``:
+   fewer peaks than K, a negative conf_thresh, a plateau with more peaks
+   than K, 487x651, K the pixel count, a 1080x1920 plateau), masks, counts and the top-K exact
+   against the plain versions on the CPU, the finish's mean and std
+   bit-equal to ``checks.seg_stats_emulated``;
 5d. five_movers: tests/test_five_movers.py's configuration and 17-frame
    journey at 160x120 (the scene from the port's own io/synthetic.py) on
    the card with the engine seeds FIVE_SEEDS: on every seed five spawns at
@@ -177,8 +185,9 @@ Phases (any failure exits non-zero):
    inputs) and K23 (the constraint points, the map; on the loop-closure
    journey's matching frame) against their plain versions;
 6. phase ``device_counts``: K15's device launches a flow-CRF frame (at most
-   2) and a tracker update's device operations (at most 3, no memset), from
-   the kernel lines' profiles;
+   2), a tracker update's device operations (at most 3, no memset), and the
+   device launches of one K18 finish and one K19 top-K (at most 2 each),
+   from the kernel lines' profiles;
 7. print ``{"kernels": [...]}``, the card's name and power limit, and as the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -296,12 +305,12 @@ LEGACY_PATH = (
 # ICP error reaches the new-model class, so the reference spawns nothing.
 REF_LEGACY_ACTIVE = (0,) * (1 + MULTI_FRAMES)
 REF_LEGACY_SPAWN_FRAMES = ()
-# device ms and device launches a frame of every path before K15's one
-# cluster launch and K20's three device operations (PERF.md section 5),
-# printed beside this run's stage phases
-EARLIER_DEVICE = {"stages": (0.897, 180.2), "kp_stages": (1.143, 253.2),
-                  "multi_stages": (3.406, 610.7), "flow_crf_stages": (3.118, 649.5),
-                  "legacy_crf_stages": (4.413, 1281.8)}
+# device ms and device launches a frame of every path before K18's
+# one-launch finish and K19's two-launch top-K (PERF.md section 5: the first
+# run of that tree), printed beside this run's stage phases
+EARLIER_DEVICE = {"stages": (0.899, 180.2), "kp_stages": (1.084, 246.2),
+                  "multi_stages": (3.427, 603.5), "flow_crf_stages": (3.038, 609.5),
+                  "legacy_crf_stages": (4.376, 1275.0)}
 # the odometry's step and reduction kernels and the fusion's, shown apart in
 # the stage phases
 GN_KERNELS = ("gn_step", "so3_step", "so3_iteration", "so3_pass", "pass1", "pass2", "finalize",
@@ -339,19 +348,28 @@ def _time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+PROFILE_GAP_S = 0.05
+
+
 def _device_profile(fn, reps: int = 20, warm: int = 10, tries: int = 3):
     """Device work one call of ``fn`` enqueues, every event counted: ``warm``
     calls first inside the profile (its first device events go unrecorded),
     then ``reps`` calls in a marked range, and only the device events that
-    start in it. Returns (ms, device launches, {kernel name: ms}), all per
-    call. A profile that recorded no device event is taken again; (None,
-    None, {}) (not measured) after ``tries`` such."""
+    start in it. The device idles ``PROFILE_GAP_S`` between the two, and the
+    range is widened by half that gap: the profiler maps the
+    device's clock onto the host's, and a skew of that map must move no warm
+    call's event into the range (a warm call's three launches once made a
+    tracker update count 3.15) and no timed event out of it. Returns (ms,
+    device launches, {kernel name: ms}), all per call. A profile that
+    recorded no device event is taken again; (None, None, {}) (not
+    measured) after ``tries`` such."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for _ in range(tries):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(warm):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILE_GAP_S)
             with torch.profiler.record_function("mmf_timed_calls"):
                 for _ in range(reps):
                     fn()
@@ -359,9 +377,10 @@ def _device_profile(fn, reps: int = 20, warm: int = 10, tries: int = 3):
         marks = [e for e in prof.events() if e.name == "mmf_timed_calls"]
         if not marks:
             continue
-        t0 = marks[0].time_range.start
+        half = PROFILE_GAP_S * 1e6 / 2  # us
+        t0, t1 = marks[0].time_range.start - half, marks[0].time_range.end + half
         events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.time_range.start >= t0 and e.name != "mmf_timed_calls"]
+                  and t0 <= e.time_range.start <= t1 and e.name != "mmf_timed_calls"]
         if not events:
             continue
         by_name = defaultdict(float)
@@ -933,8 +952,10 @@ def measure_nms(a):
 
     heat, k, thr, r = a
     npix = heat.numel()
-    # the heat map in, K slots of xy, score and valid out; a (2r+1)^2 max window
-    bound, by = _bound(4 * npix + 13 * k, ((2 * r + 1) ** 2 + 2) * npix)
+    # the heat map in, K slots of xy, score and valid out; the (2r+1)^2 max
+    # window as row maxima, then column maxima (2r+1 comparisons each), and
+    # two comparisons a pixel
+    bound, by = _bound(4 * npix + 13 * k, (2 * (2 * r + 1) + 2) * npix)
 
     def library():  # max-pool NMS, then one top-k
         local = F.max_pool2d(heat[None, None], 2 * r + 1, 1, r)[0, 0]
@@ -942,7 +963,8 @@ def measure_nms(a):
         return torch.topk(peaks.reshape(-1), k)
 
     return dict(
-        ms=_time_ms(lambda: SP.nms_topk_cuda(*a)), **_device(lambda: SP.nms_topk_cuda(*a)),
+        ms=_time_ms(lambda: SP.nms_topk_cuda(*a)),
+        **_device(lambda: SP.nms_topk_cuda(*a), by_kernel=True),
         plain_ms=_time_ms(lambda: SP.nms_topk_plain(*a), reps=5),
         **_library(library), bound_ms=bound, bound_by=by,
     )
@@ -2020,7 +2042,8 @@ def measure_seg_finish(a):
     M = largest.shape[0]
     n = lbl.numel()
     return _measure(lambda: FC.finish_cuda(*a), lambda: FC.finish_plain(*a),
-                    (4 + M + 4) * n + 5 * h * w + 12 * (M + 1), 2 * (M + 1) * 8 * n + 4 * h * w)
+                    (4 + M + 4) * n + 5 * h * w + 12 * (M + 1), 2 * (M + 1) * 8 * n + 4 * h * w,
+                    by_kernel=True)
 
 
 def plan_flow():
@@ -2339,21 +2362,29 @@ def run_scan_cases() -> list:
     return [] if r["ok"] else [f"the fuse scan on hand-made flags: {r['cases']}"]
 
 
-def run_k15_k20_cases() -> list:
+def run_hand_made_cases() -> list:
     """Phase 5c: K15 on hand-made image pairs (640x480 at 1/4 and 1/2, and
     487x651, whose 121 CRF rows do not divide by the cluster), K20's update
     on hand-made tables (a full table, more new keypoints than free
     slots, all matched, none valid, the ring's wrap either way, no depth, no
     pair) and its match on hand-made descriptors (duplicates, invalid rows
-    and columns, K and T off the tile): each exact against the plain version
+    and columns, K and T off the tile), each exact against the plain version
     on the CPU (``checks.check_flow_cases``, ``check_track_cases``,
-    ``check_match_cases``)."""
+    ``check_match_cases``); K18's finish on hand-made segment inputs
+    (``finish_cases``: no new label, a new label hugging each border and one
+    inside, objects at and one cell under the minimum-cells gate, a segment
+    without depth, M = 16, 487x651) and K19's top-K on hand-made heat maps
+    (``topk_cases``: fewer peaks than K, a negative conf_thresh, a plateau
+    with more peaks than K, 487x651, K the pixel count, a 1080x1920
+    plateau): masks, counts and
+    the top-K exact against the plain versions on the CPU, the finish's mean
+    and std bit-equal to ``checks.seg_stats_emulated``
+    (``check_finish_cases``, ``check_topk_cases``)."""
     from multimotionfusion_tpu_torch.kernels import checks as C
 
     failed = []
-    for name, check in (("flow_cases", C.check_flow_cases), ("track_cases", C.check_track_cases),
-                        ("match_cases", C.check_match_cases)):
-        r = check(DEVICE)
+    for name in ("flow_cases", "track_cases", "match_cases", "finish_cases", "topk_cases"):
+        r = getattr(C, f"check_{name}")(DEVICE)
         torch.cuda.synchronize()
         print(json.dumps({"phase": name, **r}))
         if not r["ok"]:
@@ -2363,19 +2394,26 @@ def run_k15_k20_cases() -> list:
 
 def device_counts(kernels) -> dict:
     """Phase 6: K15's device launches a frame (its wrapper runs once a
-    flow-CRF frame) and the device operations of one tracker update, from
-    the kernel lines' profiles."""
+    flow-CRF frame), the device operations of one tracker update, and the
+    device launches of one K18 finish and one K19 top-K, from the kernel
+    lines' profiles."""
     by = {k["name"]: k for k in kernels}
     flow, tracker = by["flow[prep + 3 levels]"], by["tracker.update[match + update]"]
     out = dict(flow_launches_per_frame=flow["device_launches_per_call"]
                * flow["launches_per_frame"],
                tracker_update_device_ops=tracker["device_launches_per_call"],
                tracker_update_kernels=sorted(tracker.get("device_ms_by_kernel", {})))
+    for key, line in (("segment_finish", "segment.finish"), ("nms_topk", "nms_topk"),
+                      ("nms_topk_plateau", "nms_topk[plateau]")):
+        out[f"{key}_device_launches"] = by[line]["device_launches_per_call"]
     out["ok"] = (out["flow_launches_per_frame"] is not None
                  and out["flow_launches_per_frame"] <= 2
                  and out["tracker_update_device_ops"] is not None
                  and out["tracker_update_device_ops"] <= 3
-                 and not any(n.startswith("Mem") for n in out["tracker_update_kernels"]))
+                 and not any(n.startswith("Mem") for n in out["tracker_update_kernels"])
+                 and all(out[f"{key}_device_launches"] is not None
+                         and out[f"{key}_device_launches"] <= 2
+                         for key in ("segment_finish", "nms_topk", "nms_topk_plateau")))
     print(json.dumps({"phase": "device_counts", **out}))
     return out
 
@@ -2945,7 +2983,7 @@ def main() -> int:
     run_stages(K, g_engine, f_frames[MULTI_FRAMES + 1:], "legacy_crf_stages")
     del g_engine
     f_failed += g_failed + run_slic_cases() + run_components_cases() + run_solve_cases()
-    f_failed += run_scan_cases() + run_k15_k20_cases()
+    f_failed += run_scan_cases() + run_hand_made_cases()
     five = five_movers_seeds()
 
     r_launches, r_captured, global_failed = run_reloc(K)
@@ -2976,7 +3014,8 @@ def main() -> int:
     run_solve_work(captured, m_captured)
     counts = device_counts(kernels)
     if not counts["ok"]:
-        f_failed.append(f"K15's launches or a tracker update's device operations: {counts}")
+        f_failed.append(f"K15's launches, a tracker update's device operations or K18's "
+                        f"and K19's launches: {counts}")
     loops = [check_loop(captured), check_loop(kp_captured, "odometry_loop[kp]"),
              check_sparse(kp_captured), check_multi_loop(m_captured)]
     print(json.dumps({"kernels": kernels}))

@@ -6,8 +6,9 @@
 //   selection of superpoint_detect).
 // Bound on an H100: bytes, and at 640x480 launch latency. patch_score reads
 //   the intensity once and writes two images (3.7 MB); nms_topk reads the
-//   score image about once per radix round that runs (at most 8, usually 4)
-//   from L2; patch_desc reads 64 samples per keypoint.
+//   heat map once and the peak scores once more from L2 (at most four radix
+//   rounds follow, each behind a cluster barrier); patch_desc reads 64
+//   samples per keypoint.
 // Design:
 //   - patch_score: one 32x8 tile per block with a 3-pixel halo of intensity
 //     in shared memory; the int16-truncated Sobel products at a 2-pixel halo
@@ -18,19 +19,28 @@
 //     reference computes them (numpy float32);
 //   - nms_topk: the exact top-K of the NMS peak scores with ties to the lower
 //     flat index, whatever the number of peaks (a plateau makes every pixel of
-//     it a peak). Each pixel's 64-bit key (order-preserving score bits << 32 |
-//     0xffffffff - index) is unique, so the K largest keys are the answer. A
-//     radix select over the keys, 8 bits a round from the top (the NMS pass
-//     histograms the first round; each later round histograms the pixels that
-//     match the prefix so far and stops once the rest of a bin is all taken),
-//     finds them; one pass gathers the K selected keys and one block sorts
-//     them (bitonic) and writes xy, score and valid;
+//     it a peak), in two launches: nms_kernel (one 32x32 tile a block, the
+//     window max as row maxima of the staged rows, then column maxima of
+//     those) writes the peak scores; select_kernel, one cluster of 16 blocks
+//     (no one-block kernel), selects and ranks. Each pixel's 64-bit key
+//     (order-preserving score bits << 32 | 0xffffffff - index) is unique, so
+//     the K largest keys are the answer: the zero scores counted and the
+//     other keys listed in one pass, then a radix select over the score bits
+//     (8 a round from the top, the blocks' histograms summed through
+//     distributed shared memory, every block picking the same bin; it stops
+//     once the rest of a bin is all taken or at most 1,024 keys are left to
+//     rank), the ties at the last byte's score by index rank; every block then
+//     ranks a sixteenth of the selected keys among all and writes those
+//     ranked below K: xy, score and valid (see select_kernel);
 //   - patch_desc: one warp per keypoint, two samples a lane; the mean and the
 //     norm are a lane sum then a shuffle-down tree, the order of the plain
 //     version (tracking/superpoint.py::_warp_sum).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -131,132 +141,373 @@ patch_score_kernel(const float* __restrict__ img, int H, int W, Taps k15, Taps k
 
 // ---------------------------------------------------------------- nms_topk
 
-enum { C_PREFIX = 0, C_MASK = 1, C_KREM = 2, C_DONE = 3, C_COUNT = 4 };
+// peak scores (0 off the peaks) of an NMS_W x NMS_H tile, four rows a
+// thread: the (2R+1)^2 window max as row maxima of the staged rows, then
+// column maxima of those (max is exact in any order, so v == m decides as a
+// direct window does); one instance a radius, so the taps unroll
+constexpr int NMS_W = 32, NMS_H = 32, NMS_T = 256;
 
-__device__ inline unsigned long long make_key(float s, int i) {
-  return ((unsigned long long)ord32(s) << 32) | (unsigned long long)(0xffffffffu - (unsigned)i);
-}
-
-__global__ void select_init(unsigned long long* ctl, unsigned* hist, int K) {
-  int t = threadIdx.x;
-  hist[t] = 0u;
-  if (t < 8) ctl[t] = t == C_KREM ? (unsigned long long)K : 0ull;
-}
-
-// peak scores (0 off the peaks) and the histogram of the keys' top byte
-__global__ void __launch_bounds__(TX * TY)
-nms_kernel(const float* __restrict__ heat, int H, int W, float thr, int r,
-           float* __restrict__ scores, unsigned* __restrict__ hist) {
-  constexpr int SW = TX + 2 * MAX_R;
-  __shared__ float s[TY + 2 * MAX_R][SW];
-  __shared__ unsigned sh[256];
-  const int tid = threadIdx.y * TX + threadIdx.x;
-  sh[tid] = 0u;
-  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
-  const int lw = TX + 2 * r, lh = TY + 2 * r;
-  for (int q = tid; q < lw * lh; q += TX * TY) {
-    int ly = q / lw, lx = q % lw;
-    int gy = y0 + ly - r, gx = x0 + lx - r;
-    s[ly][lx] = (gy >= 0 && gy < H && gx >= 0 && gx < W) ? heat[gy * W + gx] : neg_inf();
-  }
-  __syncthreads();
-  const int x = x0 + threadIdx.x, y = y0 + threadIdx.y;
-  if (x < W && y < H) {
-    float v = s[threadIdx.y + r][threadIdx.x + r];
-    float m = neg_inf();
-    for (int dy = 0; dy <= 2 * r; ++dy)
-      for (int dx = 0; dx <= 2 * r; ++dx) m = fmaxf(m, s[threadIdx.y + dy][threadIdx.x + dx]);
-    float sc = (v == m && v > thr) ? v : 0.f;
-    int p = y * W + x;
-    scores[p] = sc;
-    atomicAdd(&sh[make_key(sc, p) >> 56], 1u);
-  }
-  __syncthreads();
-  if (sh[tid]) atomicAdd(&hist[tid], sh[tid]);
-}
-
-// the histogram of one radix round over the keys that match the prefix
-__global__ void __launch_bounds__(THREADS)
-hist_kernel(const float* __restrict__ scores, int n, const unsigned long long* __restrict__ ctl,
-            unsigned* __restrict__ hist, int shift) {
-  if (ctl[C_DONE]) return;
-  __shared__ unsigned sh[256];
-  sh[threadIdx.x] = 0u;
-  __syncthreads();
-  const unsigned long long prefix = ctl[C_PREFIX], mask = ctl[C_MASK];
-  for (int i = blockIdx.x * THREADS + threadIdx.x; i < n; i += gridDim.x * THREADS) {
-    unsigned long long key = make_key(scores[i], i);
-    if ((key & mask) == prefix) atomicAdd(&sh[(key >> shift) & 255ull], 1u);
-  }
-  __syncthreads();
-  if (sh[threadIdx.x]) atomicAdd(&hist[threadIdx.x], sh[threadIdx.x]);
-}
-
-// pick the bin that holds the remaining K-th largest key; reset the histogram
-__global__ void pick_kernel(unsigned long long* ctl, unsigned* hist, int shift) {
-  __shared__ unsigned h[256];
-  const int t = threadIdx.x;
-  h[t] = hist[t];
-  __syncthreads();
-  hist[t] = 0u;
-  if (t != 0 || ctl[C_DONE]) return;
-  unsigned long long krem = ctl[C_KREM], cum = 0ull;
-  int b = 255;
-  for (; b > 0; --b) {
-    if (cum + h[b] >= krem) break;
-    cum += h[b];
-  }
-  krem -= cum;
-  ctl[C_PREFIX] |= (unsigned long long)b << shift;
-  ctl[C_MASK] |= 255ull << shift;
-  ctl[C_KREM] = krem;
-  if ((unsigned long long)h[b] == krem) ctl[C_DONE] = 1ull;
-}
-
-// gather the K keys at or above the selected prefix (order does not matter)
-__global__ void __launch_bounds__(THREADS)
-gather_kernel(const float* __restrict__ scores, int n, unsigned long long* ctl,
-              unsigned long long* __restrict__ cand, int K) {
-  const unsigned long long prefix = ctl[C_PREFIX], mask = ctl[C_MASK];
-  for (int i = blockIdx.x * THREADS + threadIdx.x; i < n; i += gridDim.x * THREADS) {
-    unsigned long long key = make_key(scores[i], i);
-    if ((key & mask) >= prefix) {
-      unsigned long long pos = atomicAdd(&ctl[C_COUNT], 1ull);
-      if (pos < (unsigned long long)K) cand[pos] = key;
+template <int R>
+__global__ void __launch_bounds__(NMS_T)
+nms_kernel(const float* __restrict__ heat, int H, int W, float thr, float* __restrict__ scores) {
+  constexpr int LW = NMS_W + 2 * R, LH = NMS_H + 2 * R;
+  __shared__ float s[LH][LW];
+  __shared__ float rm[LH][NMS_W];
+  const int tid = threadIdx.x;
+  const int x0 = blockIdx.x * NMS_W, y0 = blockIdx.y * NMS_H;
+#pragma unroll
+  for (int e = 0; e < (LH * LW + NMS_T - 1) / NMS_T; ++e) {
+    const int q = tid + e * NMS_T;
+    if (q < LH * LW) {
+      const int ly = q / LW, lx = q - ly * LW;
+      const int gy = y0 + ly - R, gx = x0 + lx - R;
+      s[ly][lx] = (gy >= 0 && gy < H && gx >= 0 && gx < W) ? heat[gy * W + gx] : neg_inf();
     }
   }
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < (LH * NMS_W + NMS_T - 1) / NMS_T; ++e) {
+    const int q = tid + e * NMS_T;
+    if (q < LH * NMS_W) {
+      const int ly = q / NMS_W, lx = q % NMS_W;
+      float m = neg_inf();
+#pragma unroll
+      for (int dx = 0; dx <= 2 * R; ++dx) m = fmaxf(m, s[ly][lx + dx]);
+      rm[ly][lx] = m;
+    }
+  }
+  __syncthreads();
+  const int tx = tid % NMS_W, x = x0 + tx;
+  if (x >= W) return;
+#pragma unroll
+  for (int e = 0; e < NMS_H / (NMS_T / NMS_W); ++e) {
+    const int ty = tid / NMS_W + e * (NMS_T / NMS_W), y = y0 + ty;
+    if (y >= H) return;
+    float m = neg_inf();
+#pragma unroll
+    for (int dy = 0; dy <= 2 * R; ++dy) m = fmaxf(m, rm[ty + dy][tx]);
+    const float v = s[ty + R][tx + R];
+    scores[y * W + x] = (v == m && v > thr) ? v : 0.f;
+  }
 }
 
-// bitonic sort of the K keys, descending, then the outputs
-__global__ void __launch_bounds__(1024)
-sort_kernel(const unsigned long long* __restrict__ cand, int K, int P, int W,
-            float* __restrict__ xy, float* __restrict__ score, bool* __restrict__ valid) {
-  __shared__ unsigned long long s[1024];
-  const int t = threadIdx.x;
-  if (t < P) s[t] = t < K ? cand[t] : 0ull;
+template <int R>
+void launch_nms(const float* heat, int H, int W, float thr, float* scores, cudaStream_t stream) {
+  dim3 grid((W + NMS_W - 1) / NMS_W, (H + NMS_H - 1) / NMS_H);
+  nms_kernel<R><<<grid, NMS_T, 0, stream>>>(heat, H, W, thr, scores);
+}
+
+constexpr unsigned ZERO = 0x80000000u;  // ord32(+0.0f): every pixel that is no peak
+constexpr int SEL_C = 16;    // blocks of the selection's cluster
+constexpr int SEL_T = 1024;  // threads a block
+constexpr int MAX_K = 1024;  // tracking/superpoint.py's _MAX_KP
+constexpr int RANK_LANES = 16;  // lanes that rank one key
+constexpr size_t SEL_STAGE_MAX = 180 * 1024;  // a block's staged bits for the ties, bytes
+constexpr int LIST_CAP = 4096;  // the non-zero keys a block lists
+static_assert(SEL_T / RANK_LANES * SEL_C >= MAX_K, "one pass ranks MAX_K keys");
+
+struct SelectArgs {
+  const float* scores;
+  int n, W, K;
+  int chunk;   // pixels a block owns (a multiple of 4)
+  int staged;  // the chunk's order-preserving score bits fit shared memory
+  float* xy;
+  float* score;
+  bool* valid;
+};
+
+// count one key a lane into a shared histogram: the lanes that share the
+// first active lane's bin add once, up to four such bins a warp (a plateau
+// puts a whole warp into one bin), then one atomic a key
+__device__ inline void hist_add(unsigned* h, bool on, unsigned bin) {
+  unsigned act = __ballot_sync(FULL, on);
+  for (int it = 0; it < 4 && act; ++it) {
+    const int lead = __ffs(act) - 1;
+    const unsigned b0 = __shfl_sync(FULL, bin, lead);
+    const unsigned same = __ballot_sync(FULL, on && bin == b0) & act;
+    if ((int)(threadIdx.x & 31) == lead) atomicAdd(&h[b0], (unsigned)__popc(same));
+    act &= ~same;
+  }
+  if ((act >> (threadIdx.x & 31)) & 1u) atomicAdd(&h[bin], 1u);
+}
+
+__device__ inline void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ inline void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// append the keys a warp selects to the block's list
+__device__ inline void append_keys(bool sel, unsigned long long key, unsigned* count,
+                                   unsigned long long* list) {
+  const unsigned m = __ballot_sync(FULL, sel);
+  if (m == 0u) return;
+  const int lane = threadIdx.x & 31, lead = __ffs(m) - 1;
+  unsigned base = 0u;
+  if (lane == lead) base = atomicAdd(count, (unsigned)__popc(m));
+  base = __shfl_sync(FULL, base, lead);
+  if (sel) list[base + (unsigned)__popc(m & ((1u << lane) - 1u))] = key;
+}
+
+// The exact top-K of the peak scores: one cluster of SEL_C blocks; block b
+// owns the pixels [b chunk, (b + 1) chunk). One pass over them counts the
+// zero scores (most pixels: no peak) and lists the block's other keys, the
+// order-preserving bits of their scores and their indices (up to
+// LIST_CAP; past it every pass reads the scores again).
+// A radix select over those 32 bits, 8 a round from the top: every block
+// histograms its listed keys that match the prefix (and adds its zeros'
+// count); after a cluster barrier every block sums the blocks' histograms
+// through distributed shared memory and picks the same bin (the one holding
+// the K-th largest). It stops once the rest of a bin is all taken, or once
+// at most MAX_K keys lie at or above the prefix (most heat maps: two
+// rounds); else, after the last byte, the threshold score T is exact and
+// the krem ties at T to take are those of the lowest flat index (a key's
+// low word is 0xffffffff - index): each block stages its scores' bits in
+// shared memory and ranks its ties in index order after the ties of the
+// blocks before it (their last histograms). Each block appends its
+// selected keys to a list of its own; after a cluster barrier every block
+// copies the n <= MAX_K keys of all lists (in block order) and takes the
+// keys [b ceil(n / 16), ...) of that order: 16 lanes count the keys above
+// one, and a key whose rank is below K is written at its rank (xy, score
+// and valid). No block sorts alone.
+__global__ void __launch_bounds__(SEL_T, 1) select_kernel(SelectArgs a) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned stage[];  // the chunk's bits, for the ties
+  __shared__ unsigned hist[2][256];  // by round parity: other blocks read it after the barrier
+  __shared__ unsigned list_u[LIST_CAP];         // the block's non-zero keys' bits
+  __shared__ unsigned short list_i[LIST_CAP];   // and their indices in the chunk
+  __shared__ unsigned long long cand[MAX_K];  // this block's selected keys
+  __shared__ unsigned long long all[MAX_K];   // every block's, in block order
+  __shared__ unsigned ncand, nlist, nzero, pick[3], wsum[32], offs[SEL_C + 1];
+  const int b = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lo = min(a.n, b * a.chunk), len = min(a.n, lo + a.chunk) - lo;
+  const float* g = a.scores + lo;
+  // the order-preserving bits of the pixels lo + i ... lo + i + 3 (i a
+  // multiple of 4; ZERO past the chunk)
+  auto load4 = [&](int i, unsigned* u) {
+    if (i + 3 < len) {
+      const float4 f = *reinterpret_cast<const float4*>(g + i);
+      u[0] = ord32(f.x), u[1] = ord32(f.y), u[2] = ord32(f.z), u[3] = ord32(f.w);
+    } else {
+      for (int j = 0; j < 4; ++j) u[j] = i + j < len ? ord32(g[i + j]) : ZERO;
+    }
+  };
+  auto key_of = [&](unsigned u, int i) {
+    return ((unsigned long long)u << 32) | (unsigned long long)(0xffffffffu - (unsigned)(lo + i));
+  };
+  if (tid == 0) {
+    ncand = nzero = 0u;
+    nlist = len <= 65536 ? 0u : LIST_CAP + 1u;  // a 16-bit index a listed key
+  }
   __syncthreads();
-  for (int k = 2; k <= P; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      int ixj = t ^ j;
-      if (t < P && ixj > t) {
-        unsigned long long a = s[t], b = s[ixj];
-        bool desc = (t & k) == 0;
-        if (desc ? (a < b) : (a > b)) {
-          s[t] = b;
-          s[ixj] = a;
+  {  // one pass: the zero scores counted, the others listed (while they fit)
+    unsigned zeros = 0u;
+#pragma unroll 2
+    for (int base = 0; base < len; base += 4 * SEL_T) {
+      const int i = base + 4 * tid;
+      unsigned u[4];
+      load4(i, u);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        zeros += u[j] == ZERO && i + j < len;
+        const bool on = u[j] != ZERO && i + j < len;
+        const unsigned m = __ballot_sync(FULL, on);
+        if (m == 0u) continue;
+        const int lead = __ffs(m) - 1;
+        unsigned base_pos = 0u;
+        if (lane == lead) base_pos = atomicAdd(&nlist, (unsigned)__popc(m));
+        base_pos = __shfl_sync(FULL, base_pos, lead) + (unsigned)__popc(m & ((1u << lane) - 1u));
+        if (on && base_pos < (unsigned)LIST_CAP) {
+          list_u[base_pos] = u[j];
+          list_i[base_pos] = (unsigned short)(i + j);
         }
+      }
+    }
+    zeros = __reduce_add_sync(FULL, zeros);
+    if (lane == 0 && zeros) atomicAdd(&nzero, zeros);
+  }
+  __syncthreads();
+  const bool listed = nlist <= LIST_CAP;
+
+  unsigned prefix = 0u, mask = 0u, krem = (unsigned)a.K, bin = 0u;
+  bool done = false;
+  int shift = 24, buf = 0;
+  for (;; shift -= 8, buf ^= 1) {
+    unsigned* h = hist[buf];
+    if (tid < 256) h[tid] = 0u;
+    __syncthreads();
+    // the listed keys (else every non-zero key) and the zeros' count
+    if (listed) {
+      for (int base = 0; base < (int)nlist; base += SEL_T) {
+        const int p = base + tid;
+        const unsigned u = p < (int)nlist ? list_u[p] : ZERO;
+        const bool on = u != ZERO && (u & mask) == prefix;
+        if (__any_sync(FULL, on)) hist_add(h, on, (u >> shift) & 255u);
+      }
+    } else {
+      for (int base = 0; base < len; base += 4 * SEL_T) {
+        unsigned u[4];
+        load4(base + 4 * tid, u);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool on = u[j] != ZERO && (u[j] & mask) == prefix;
+          if (__any_sync(FULL, on)) hist_add(h, on, (u[j] >> shift) & 255u);
+        }
+      }
+    }
+    if (tid == 0 && nzero && (ZERO & mask) == prefix) atomicAdd(&h[(ZERO >> shift) & 255u], nzero);
+    cluster.sync();  // every block's histogram of this round
+    // the cluster's histogram, thread t < 256 the bin 255 - t: the pick is
+    // the highest bin whose count with the bins above reaches krem, else 0
+    unsigned cnt = 0u;
+    if (tid < 256) {
+      const unsigned* hb = h + 255 - tid;
+#pragma unroll
+      for (int j = 0; j < SEL_C; ++j) cnt += *cluster.map_shared_rank(hb, j);
+    }
+    unsigned incl = cnt;  // the count of this bin and the bins above
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned y = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl += y;
+    }
+    if (lane == 31 && warp < 8) wsum[warp] = incl;
+    __syncthreads();
+    if (tid < 256)
+      for (int w = 0; w < warp; ++w) incl += wsum[w];
+    const int first = __syncthreads_count(tid < 255 && incl < krem);  // bins above the pick
+    if (tid == first) {
+      const unsigned cum = incl - cnt;
+      pick[0] = (unsigned)(255 - tid);
+      pick[1] = cum;
+      // the keys at or above the new prefix: the K - krem above it and the
+      // bin's; done where the rest of the bin is all taken, or where few
+      // enough to rank them all
+      pick[2] = cnt == krem - cum || (unsigned)a.K - (krem - cum) + cnt <= (unsigned)MAX_K;
+    }
+    __syncthreads();
+    bin = pick[0];
+    krem -= pick[1];
+    done = pick[2] != 0u;
+    prefix |= bin << shift;
+    mask |= 255u << shift;
+    if (done || shift == 0) break;
+  }
+
+  // the block's selected keys into its list
+  if (done && listed && (ZERO & mask) < prefix) {  // the listed keys suffice
+    for (int base = 0; base < (int)nlist; base += SEL_T) {
+      const int p = base + tid;
+      const unsigned u = p < (int)nlist ? list_u[p] : 0u;
+      const int i = p < (int)nlist ? list_i[p] : 0;
+      append_keys(p < (int)nlist && (u & mask) >= prefix, key_of(u, i), &ncand, cand);
+    }
+  } else if (done) {  // every key at or above the prefix: K of them, or at most MAX_K
+    for (int base = 0; base < len; base += 4 * SEL_T) {
+      const int i = base + 4 * tid;
+      unsigned u[4];
+      load4(i, u);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        append_keys(i + j < len && (u[j] & mask) >= prefix, key_of(u[j], i + j), &ncand, cand);
+    }
+  } else {  // every key above T, and the first krem ties at T in index order
+    const bool staged = a.staged != 0;
+    if (staged) {  // the chunk's bits in shared memory: each thread reads a run
+      for (int i = 4 * tid; i < len; i += 4 * SEL_T) {
+        unsigned u[4];
+        load4(i, u);
+        if (i + 3 < len) *reinterpret_cast<uint4*>(stage + i) = make_uint4(u[0], u[1], u[2], u[3]);
+        else
+          for (int j = 0; i + j < len; ++j) stage[i + j] = u[j];
       }
       __syncthreads();
     }
+    auto bits = [&](int i) { return staged ? stage[i] : ord32(g[i]); };
+    unsigned before = 0u;  // ties in the blocks before this one
+    if (warp == 0) {
+      const unsigned t = lane < b ? cluster.map_shared_rank(hist[buf], lane)[bin] : 0u;
+      before = __reduce_add_sync(FULL, t);
+    }
+    // thread tid owns the run [tid L, tid L + L) of the chunk
+    const int L = (len + SEL_T - 1) / SEL_T, r0 = tid * L, r1 = min(len, r0 + L);
+    unsigned ties = 0u;
+    for (int i = r0; i < r1; ++i) ties += bits(i) == prefix;
+    unsigned incl = ties;
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned y = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl += y;
+    }
+    if (lane == 31) wsum[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {  // the ties before each warp's runs
+      const unsigned w = wsum[lane];
+      unsigned wi = w;
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned y = __shfl_up_sync(FULL, wi, o);
+        if (lane >= o) wi += y;
+      }
+      wsum[lane] = before + wi - w;
+    }
+    __syncthreads();
+    unsigned rank = wsum[warp] + incl - ties;  // the cluster rank of the run's first tie
+    for (int j = 0; j < L; ++j) {
+      const int i = r0 + j;
+      const unsigned u = i < r1 ? bits(i) : 0u;
+      bool sel = false;
+      if (i < r1) {
+        if (u > prefix) {
+          sel = true;
+        } else if (u == prefix) {
+          sel = rank < krem;
+          ++rank;
+        }
+      }
+      append_keys(sel, key_of(u, i), &ncand, cand);
+    }
   }
-  if (t >= K) return;
-  unsigned long long key = s[t];
-  unsigned idx = 0xffffffffu - (unsigned)(key & 0xffffffffull);
-  float sc = unord32((unsigned)(key >> 32));
-  xy[2 * t] = (float)(idx % (unsigned)W);
-  xy[2 * t + 1] = (float)(idx / (unsigned)W);
-  score[t] = sc;
-  valid[t] = sc > 0.f;
+  cluster.sync();  // every block's list
+  if (warp == 0) {  // the lists' offsets in block order
+    const unsigned c = lane < SEL_C ? *cluster.map_shared_rank(&ncand, lane) : 0u;
+    unsigned incl = c;
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned y = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl += y;
+    }
+    if (lane <= SEL_C) offs[lane] = incl - c;
+  }
+  __syncthreads();
+  for (int t = tid; t < (int)offs[SEL_C]; t += SEL_T) {
+    int j = 0;
+    while (offs[j + 1] <= (unsigned)t) ++j;
+    all[t] = cluster.map_shared_rank(cand, j)[t - offs[j]];
+  }
+  cluster_arrive_relaxed();  // the lists are copied; a block waits before it exits
+  __syncthreads();
+
+  // block b: the keys [b per, (b + 1) per) at their rank among all n; the
+  // first K ranks are the answer (the keys are unique)
+  const int n = (int)offs[SEL_C];
+  const int per = (n + SEL_C - 1) / SEL_C;
+  const int q = tid / RANK_LANES, sub = tid % RANK_LANES, i = b * per + q;
+  const bool mine = q < per && i < n;
+  const unsigned long long key = mine ? all[i] : 0ull;
+  unsigned above = 0u;
+  if (mine) {
+#pragma unroll 4
+    for (int j = sub; j < n; j += RANK_LANES) above += all[j] > key;
+  }
+  for (int o = RANK_LANES / 2; o > 0; o >>= 1) above += __shfl_xor_sync(FULL, above, o);
+  if (mine && sub == 0 && above < (unsigned)a.K) {
+    const unsigned idx = 0xffffffffu - (unsigned)(key & 0xffffffffull);
+    const float sc = unord32((unsigned)(key >> 32));
+    a.xy[2 * above] = (float)(idx % (unsigned)a.W);
+    a.xy[2 * above + 1] = (float)(idx / (unsigned)a.W);
+    a.score[above] = sc;
+    a.valid[above] = sc > 0.f;
+  }
+  cluster_wait();
 }
 
 // ---------------------------------------------------------------- patch_desc
@@ -288,11 +539,6 @@ patch_desc_kernel(const float* __restrict__ blurred, int H, int W, const float* 
   desc[k * 64 + lane + 32] = c1 / nrm;
 }
 
-int blocks_for(int n) {
-  int b = (n + THREADS - 1) / THREADS;
-  return b < 1 ? 1 : (b > 1024 ? 1024 : b);
-}
-
 }  // namespace
 
 extern "C" int mmf_patch_score(const float* img, int H, int W, float a0, float a1, float a2,
@@ -304,23 +550,48 @@ extern "C" int mmf_patch_score(const float* img, int H, int W, float a0, float a
   return (int)cudaGetLastError();
 }
 
+// scores: [H * W] scratch for the peak scores
 extern "C" int mmf_nms_topk(const float* heat, int H, int W, int K, float thr, int r,
-                            float* scores, unsigned* hist, unsigned long long* ctl,
-                            unsigned long long* cand, float* xy, float* score, bool* valid,
+                            float* scores, float* xy, float* score, bool* valid,
                             cudaStream_t stream) {
   const int n = H * W;
-  select_init<<<1, 256, 0, stream>>>(ctl, hist, K);
-  dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY);
-  nms_kernel<<<grid, dim3(TX, TY), 0, stream>>>(heat, H, W, thr, r, scores, hist);
-  pick_kernel<<<1, 256, 0, stream>>>(ctl, hist, 56);
-  for (int shift = 48; shift >= 0; shift -= 8) {
-    hist_kernel<<<blocks_for(n), THREADS, 0, stream>>>(scores, n, ctl, hist, shift);
-    pick_kernel<<<1, 256, 0, stream>>>(ctl, hist, shift);
+  if (K < 1 || K > MAX_K || K > n || r < 0 || r > MAX_R) return (int)cudaErrorInvalidValue;
+  switch (r) {
+    case 0: launch_nms<0>(heat, H, W, thr, scores, stream); break;
+    case 1: launch_nms<1>(heat, H, W, thr, scores, stream); break;
+    case 2: launch_nms<2>(heat, H, W, thr, scores, stream); break;
+    case 3: launch_nms<3>(heat, H, W, thr, scores, stream); break;
+    case 4: launch_nms<4>(heat, H, W, thr, scores, stream); break;
+    case 5: launch_nms<5>(heat, H, W, thr, scores, stream); break;
+    case 6: launch_nms<6>(heat, H, W, thr, scores, stream); break;
+    case 7: launch_nms<7>(heat, H, W, thr, scores, stream); break;
+    default: launch_nms<MAX_R>(heat, H, W, thr, scores, stream); break;
   }
-  gather_kernel<<<blocks_for(n), THREADS, 0, stream>>>(scores, n, ctl, cand, K);
-  int P = 1;
-  while (P < K) P <<= 1;
-  sort_kernel<<<1, 1024, 0, stream>>>(cand, K, P, W, xy, score, valid);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int chunk = ((n + SEL_C - 1) / SEL_C + 3) & ~3;
+  const size_t bytes = sizeof(unsigned) * (size_t)chunk;
+  const int staged = bytes <= SEL_STAGE_MAX;
+  SelectArgs a{scores, n, W, K, chunk, staged, xy, score, valid};
+  const size_t smem = staged ? bytes : 0;
+  e = cudaFuncSetAttribute(select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(select_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(SEL_C);
+  cfg.blockDim = dim3(SEL_T);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = SEL_C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, select_kernel, a);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

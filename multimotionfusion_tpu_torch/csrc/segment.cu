@@ -5,10 +5,10 @@
 //   flow_crf_segmentation (:212-216 the unary softmax, :231-276 the
 //   posterior fusion, bias and claim floor, :278-355 the minimum-cells gate,
 //   border test and nearest upsample, :372-396 the sigma-clipped statistics).
-// Bound on an H100: bytes, and at these sizes the launches. Per frame the
-//   [M+1, 120, 160] rows are written and read a few times (~1 MB) and the
-//   640x480 mask and new-label mask are written once (1.5 MB); a few dozen
-//   operations per cell.
+// Bound on an H100: bytes, and at these sizes the launches and the chain of
+//   dependent steps. Per frame the [M+1, 120, 160] rows are written and read
+//   a few times (~1 MB) and the 640x480 mask and new-label mask are written
+//   once (1.5 MB); a few dozen operations per cell.
 // Design: mmf_seg_unaries enqueues (1) one thread per CRF cell: the centre
 //   depth sample, every model's raw fit, the outlier row, the behind flags,
 //   and the sparse-error rows set to +inf; (2) one thread per track: its
@@ -17,17 +17,43 @@
 //   thread per cell: softmax of -errors (the sum in label order) -> -log.
 //   mmf_seg_fuse: one thread per cell, the fusion and the first argmax of
 //   prob - bias (a strict > keeps the first of equal values), the claim
-//   floor, and the label stack K17 reads. mmf_seg_finish: one block writes
-//   each cell's segment id once into shared memory, then sums the global
-//   count, the new label's bounding box and both passes of every segment's
-//   depth statistics in a fixed order (each thread its cells in order, then
-//   a tree); one thread per full-resolution pixel writes the mask and the
-//   new-label mask. With -fmad=false every float expression is
-//   the plain version's, so labels, masks and counts equal it given equal
-//   inputs; the statistics' sums run in another order (a few ulp).
+//   floor, and the label stack K17 reads.
+//   mmf_seg_finish is ONE launch of one cluster of FIN_C = 16 blocks of
+//   1,024 threads (no one-block stage): (1) block b stages the segment ids
+//   (int8, M <= 31) and depths of its band of cell rows [b hc / 16,
+//   (b + 1) hc / 16) in shared memory and reduces the band's global-cell
+//   count and new-label box; (2) through distributed shared memory it
+//   pushes each cell of its band to the block whose statistics partial
+//   sums it, and its count and box to block 0 (after cluster barrier 0,
+//   whose wait follows the band's loads: every block runs before any remote
+//   store); (3) between the arrival at and the wait on cluster barrier 1 it
+//   writes the mask and new-label mask of its band's pixel rows from its
+//   own ids (a warp a row; at 1/4 a cell's four pixels as one 16-byte and
+//   one 4-byte store); (4) block 0 writes has_new and the pixel counts (a
+//   warp without a segment), and warp l sums segment l, both passes.
+//   The statistics' contract order (-fmad=false, the float expressions of
+//   the one-block kernel it replaced, so its outputs are bit-equal):
+//   partial t < 1024 sums its cells t, t + 1024, ... in ascending order
+//   (count, sum, sum of squares: s = s + 1, s + d, s + d * d where the cell
+//   is in the segment, has depth > 1e-6 and, in pass 2, lies in pass 1's
+//   [mu - band, mu + band]); then a halving tree, red[t] + red[t + s] for
+//   s = 512, 256, ..., 1; then n = max(red0, 1), mu = red1 / n, var =
+//   red2 / n - mu * mu, sd = sqrt(max(var, 0)), band = max(1.2 sd, 0.05).
+//   Block b owns the partials t = b + 16 i (i < 64), so the levels s >= 16
+//   pair partials of one block: a lane sums i and i + 32 (s = 512), then
+//   __shfl_down_sync 16 ... 1 (s = 256 ... 16); the levels 8 ... 1 pair the
+//   blocks' results, pushed to every block before cluster barrier 2 (pass
+//   1: each block computes every segment's band) and to block 0 before
+//   barrier 3 (pass 2: block 0 writes mean and std). Four cluster barriers.
+//   checks.seg_stats_emulated repeats that order with torch ops; the plain
+//   version (torch.sum) differs by a few ulp. Labels, masks and counts are
+//   integer logic: exact.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -141,138 +167,299 @@ __global__ void fuse(const float* __restrict__ q, const float* __restrict__ flow
   for (int l = 1; l <= M; ++l) stack[(l - 1) * npix + c] = arg == l;
 }
 
-// the segment id of a cell: 0 global, l on label l's kept component (object
-// labels only where their component passed the minimum-cells gate), else -1
-__device__ inline int segm_of(const int* __restrict__ lbl, const bool* __restrict__ largest,
-                              const int* __restrict__ sizes, int M, int npix, int min_cells,
-                              int c) {
-  int s = lbl[c] == 0 ? 0 : -1;
-  for (int l = 1; l <= M; ++l) {
-    bool gate = l == M || sizes[l - 1] >= min_cells;
-    if (largest[(l - 1) * npix + c] && gate) s = l;
-  }
-  return s;
+// ---------------------------------------------------------------- finish
+
+constexpr int FIN_C = 16;              // blocks of the finish's cluster
+constexpr int FIN_T = 1024;            // threads a block, and the statistics' partials
+constexpr int FIN_VT = FIN_T / FIN_C;  // partials a block owns: t = b + FIN_C * i
+constexpr size_t MAX_SMEM = 232448;    // a block's shared memory on an H100
+constexpr size_t FIN_STATIC = 16 * 1024;  // room left for the kernel's static shared memory
+constexpr unsigned FULL = 0xffffffffu;
+static_assert(FIN_VT == 64, "a lane sums the partials i and i + 32 of its block");
+
+struct FinishArgs {
+  const int* lbl;
+  const bool* largest;
+  const int* sizes;
+  const float* fd;
+  int M, hc, wc, H, W, allow_new, min_cells, border;
+  float min_frac, scale_w, scale;
+  int k;     // pixels a cell where the grid divides the image evenly, else 0
+  int band;  // cell rows of the largest band
+  int nk;    // cells a partial sums at most: ceil(hc * wc / FIN_T)
+  int* mask;
+  bool* new_mask;
+  bool* has_new;
+  int* pix_counts;
+  float* mean;
+  float* std;
+};
+
+__device__ inline void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ inline void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-__global__ void upsample(const int* __restrict__ lbl, const bool* __restrict__ largest,
-                         const int* __restrict__ sizes, int M, int hc, int wc, int H, int W,
-                         int min_cells, float scale, int* __restrict__ mask,
-                         bool* __restrict__ new_mask) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= H * W) return;
-  int y = i / W, x = i - y * W;
-  int cy, cx;
-  if (H == hc * (H / hc) && W == wc * (W / wc) && H / hc == W / wc) {
-    cy = y / (H / hc);
-    cx = x / (W / wc);
-  } else {
-    cy = min(max((int)((float)y * scale), 0), hc - 1);
-    cx = min(max((int)((float)x * scale), 0), wc - 1);
-  }
-  int s = segm_of(lbl, largest, sizes, M, hc * wc, min_cells, cy * wc + cx);
-  new_mask[i] = s == M;
-  mask[i] = (s < 0 || s == M) ? 0 : s;
+// the cell row (column) of pixel row (column) y: k pixels a cell, or (k = 0)
+// the nearest cell at the scale, clamped to the nc cells
+__device__ inline int cell_of(int y, int k, int nc, float scale) {
+  if (k > 0) return y / k;
+  return min(max((int)((float)y * scale), 0), nc - 1);
 }
 
-// one block: the global count, the new label's bounding box, has_new, the
-// pixel counts and both passes of the depth statistics; every cell's
-// segment id is computed once into shared memory (int8: M <= 31)
-__global__ void stats(const int* __restrict__ lbl, const bool* __restrict__ largest,
-                      const int* __restrict__ sizes, const float* __restrict__ fd, int M,
-                      int hc, int wc, int allow_new, int min_cells, int border, float min_frac,
-                      float scale_w, bool* __restrict__ has_new, int* __restrict__ pix_counts,
-                      float* __restrict__ mean, float* __restrict__ std) {
-  constexpr int NT = 1024;
-  constexpr int NS = MAX_M + 1;
-  extern __shared__ signed char seg[];
-  __shared__ float red[3][NT];
-  __shared__ int ired[NT];
-  __shared__ float lo[NS], hi[NS];
-  __shared__ int count0, box[4];
-  const int npix = hc * wc;
-  const int tid = threadIdx.x;
+// the first of n pixel rows whose cell row is >= r, else n (cell_of is
+// monotone)
+__device__ inline int first_row(int r, int n, int k, int nc, float scale) {
+  if (k > 0) return min(r * k, n);
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (cell_of(mid, 0, nc, scale) >= r) hi = mid;
+    else lo = mid + 1;
+  }
+  return lo;
+}
 
-  // the segment ids, the global count and the new label's bounding box
-  int c0 = 0, top = hc, bottom = -1, left = wc, right = -1;
-  for (int c = tid; c < npix; c += NT) {
-    seg[c] = (signed char)segm_of(lbl, largest, sizes, M, npix, min_cells, c);
-    c0 += lbl[c] == 0;
-    if (largest[(M - 1) * npix + c]) {
-      int y = c / wc, x = c - y * wc;
-      top = min(top, y);
-      bottom = max(bottom, y);
-      left = min(left, x);
-      right = max(right, x);
+// a cell of a statistics partial: its depth, and its segment id (-1 where
+// the depth is invalid or no cell)
+struct Cell {
+  float d;
+  int key;
+};
+
+// the statistics' sums of one lane in contract order: its partials i = lane
+// and lane + 32 (t = b + 16 i and t + 512), each over its cells in ascending
+// order, then red[t] + red[t + 512] and the shuffle levels 256 ... 16
+__device__ inline void lane_sums(const Cell* cells, int nk, int l, bool clip, float lo, float hi,
+                                 float& s0, float& s1, float& s2) {
+  const int lane = threadIdx.x & 31;
+  float u0 = 0.f, u1 = 0.f, u2 = 0.f;
+  s0 = s1 = s2 = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < nk; ++k) {
+    const Cell ca = cells[k * FIN_VT + lane], cb = cells[k * FIN_VT + lane + 32];
+    const float da = ca.d, db = cb.d;
+    bool sa = ca.key == l, sb = cb.key == l;
+    if (clip) {
+      sa = sa && da >= lo && da <= hi;
+      sb = sb && db >= lo && db <= hi;
+    }
+    if (sa) {
+      s0 = s0 + 1.f;
+      s1 = s1 + da;
+      s2 = s2 + da * da;
+    }
+    if (sb) {
+      u0 = u0 + 1.f;
+      u1 = u1 + db;
+      u2 = u2 + db * db;
     }
   }
-  const int vals[5] = {c0, top, -bottom, left, -right};
-  for (int k = 0; k < 5; ++k) {
-    ired[tid] = vals[k];
-    __syncthreads();
-    for (int s = NT / 2; s > 0; s >>= 1) {
-      if (tid < s) ired[tid] = k == 0 ? ired[tid] + ired[tid + s] : min(ired[tid], ired[tid + s]);
-      __syncthreads();
-    }
-    if (tid == 0) {
-      if (k == 0) count0 = ired[0];
-      else box[k - 1] = (k == 2 || k == 4) ? -ired[0] : ired[0];
-    }
-    __syncthreads();
+  s0 = s0 + u0;
+  s1 = s1 + u1;
+  s2 = s2 + u2;
+  for (int o = 16; o > 0; o >>= 1) {
+    s0 = s0 + __shfl_down_sync(FULL, s0, o);
+    s1 = s1 + __shfl_down_sync(FULL, s1, o);
+    s2 = s2 + __shfl_down_sync(FULL, s2, o);
   }
-  if (tid == 0) {
-    int t = box[0], b = box[1], l = box[2], r = box[3];
-    bool at_border = (t < border && b < border) || (l < border && r < border) ||
-                     (t > hc - 1 - border && b > hc - 1 - border) ||
-                     (l > wc - 1 - border && r > wc - 1 - border);
-    float frac = (float)sizes[M - 1] / (float)npix;
-    *has_new = allow_new && frac > min_frac && !at_border;
-    pix_counts[0] = (int)((float)count0 * scale_w);
-    for (int m = 1; m < M; ++m) {
-      int cnt = sizes[m - 1] >= min_cells ? sizes[m - 1] : 0;
-      pix_counts[m] = (int)((float)cnt * scale_w);
+}
+
+// the levels 8 ... 1 over the blocks' results (lane j: block j's), then the
+// statistics of lane 0's sums
+__device__ inline void cluster_levels(float& v0, float& v1, float& v2, float& mu, float& sd) {
+  for (int o = FIN_C / 2; o > 0; o >>= 1) {
+    v0 = v0 + __shfl_down_sync(FULL, v0, o);
+    v1 = v1 + __shfl_down_sync(FULL, v1, o);
+    v2 = v2 + __shfl_down_sync(FULL, v2, o);
+  }
+  const float n = fmaxf(v0, 1.0f);
+  mu = v1 / n;
+  const float var = v2 / n - mu * mu;
+  sd = sqrtf(fmaxf(var, 0.0f));
+}
+
+__global__ void __launch_bounds__(FIN_T, 1) finish_kernel(FinishArgs a) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char fsm[];
+  __shared__ int wred[32][5];
+  __shared__ int part[FIN_C][5];        // every block's global-cell count and box (block 0)
+  __shared__ float red1[FIN_C][32][3];  // pass 1: every block's tree result, per segment
+  __shared__ float red2[FIN_C][32][3];  // pass 2: every block's, in block 0
+  const int b = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int M = a.M, hc = a.hc, wc = a.wc, npix = hc * wc;
+  Cell* cells = reinterpret_cast<Cell*>(fsm);                            // [nk][FIN_VT]
+  float* fd_own = reinterpret_cast<float*>(cells + a.nk * FIN_VT);       // [band * wc]
+  signed char* seg_own = reinterpret_cast<signed char*>(fd_own + a.band * wc);  // [band * wc]
+
+  // the block's partials' cells (pushed by the blocks whose bands hold
+  // them): none until pushed
+  for (int e = tid; e < a.nk * FIN_VT; e += FIN_T) cells[e] = Cell{0.f, -1};
+  cluster_arrive();  // barrier 0: every block runs, its cells cleared
+
+  // 1. the block's band of cell rows: segment ids and depth into shared
+  //    memory, the count of global cells and the new label's box
+  const int r0 = b * hc / FIN_C, r1 = (b + 1) * hc / FIN_C;
+  const int c0 = r0 * wc, c1 = r1 * wc;
+  // the labels past the minimum-cells gate (the new label always)
+  const unsigned gates =
+      __ballot_sync(FULL, lane >= 1 && lane < M && a.sizes[lane - 1] >= a.min_cells) | (1u << M);
+  int v[5] = {0, hc, 1, wc, 1};  // count, top, -bottom, left, -right
+  for (int c2 = c0 + 2 * tid; c2 < c1; c2 += 2 * FIN_T) {  // two cells a thread
+    const bool two = c2 + 1 < c1;
+    int lb[2] = {a.lbl[c2], two ? a.lbl[c2 + 1] : 1};
+    const float d0 = a.fd[c2], d1 = two ? a.fd[c2 + 1] : 0.f;
+    unsigned bits[2] = {0u, 0u};  // the labels whose kept component holds the cell
+#pragma unroll 8
+    for (int l = 1; l <= M; ++l) {
+      bits[0] |= (unsigned)a.largest[(l - 1) * npix + c2] << l;
+      if (two) bits[1] |= (unsigned)a.largest[(l - 1) * npix + c2 + 1] << l;
+    }
+    fd_own[c2 - c0] = d0;
+    if (two) fd_own[c2 + 1 - c0] = d1;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      if (q == 1 && !two) break;
+      const int c = c2 + q;
+      // the segment id: the highest gated label whose kept component holds
+      // the cell, else 0 on a global cell, else -1
+      const unsigned kept = bits[q] & gates;
+      seg_own[c - c0] = (signed char)(kept ? 31 - __clz(kept) : (lb[q] == 0 ? 0 : -1));
+      v[0] += lb[q] == 0;
+      if ((bits[q] >> M) & 1u) {
+        const int y = c / wc, x = c - y * wc;
+        v[1] = min(v[1], y);
+        v[2] = min(v[2], -y);
+        v[3] = min(v[3], x);
+        v[4] = min(v[4], -x);
+      }
     }
   }
+  v[0] = __reduce_add_sync(FULL, v[0]);
+  for (int k = 1; k < 5; ++k) v[k] = __reduce_min_sync(FULL, v[k]);
+  if (lane == 0)
+    for (int k = 0; k < 5; ++k) wred[warp][k] = v[k];
   __syncthreads();
+  cluster_wait();
+  if (warp == 0) {  // the band's count and box, to block 0
+    int w[5];
+    for (int k = 0; k < 5; ++k) w[k] = wred[lane][k];
+    w[0] = __reduce_add_sync(FULL, w[0]);
+    for (int k = 1; k < 5; ++k) w[k] = __reduce_min_sync(FULL, w[k]);
+    if (lane < 5) cluster.map_shared_rank(&part[b][0], 0)[lane] = w[lane];
+  }
+  // each cell of the band to its partial t = c mod 1024 in block t mod 16,
+  // entry (c / 1024, t / 16); -1 where the depth is invalid
+  for (int c = c0 + tid; c < c1; c += FIN_T) {
+    const float d = fd_own[c - c0];
+    const int e = (c >> 10) * FIN_VT + ((c & (FIN_T - 1)) >> 4);
+    cluster.map_shared_rank(cells, (unsigned)(c & (FIN_C - 1)))[e] =
+        Cell{d, d > 1e-6f ? (int)seg_own[c - c0] : -1};
+  }
+  cluster_arrive();  // barrier 1: every partial's cells pushed
 
-  // depth statistics of segments 0..M, two passes: sums per segment in cell
-  // order per thread, then one tree over the threads for all three sums
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int l = 0; l <= M; ++l) {
-      float s0 = 0.f, s1 = 0.f, s2 = 0.f;  // count, sum, sum of squares
-      for (int c = tid; c < npix; c += NT) {
-        float d = fd[c];
-        bool sel = seg[c] == l && d > 1e-6f;
-        if (pass == 1) sel = sel && d >= lo[l] && d <= hi[l];
-        if (sel) {
-          s0 = s0 + 1.f;
-          s1 = s1 + d;
-          s2 = s2 + d * d;
+  // 2. the upsample of the band's pixel rows, a warp a row, from the
+  //    band's own segment ids, while the other blocks arrive
+  {
+    const int W = a.W, k = a.k;
+    const int y0 = first_row(r0, a.H, k, hc, a.scale), y1 = first_row(r1, a.H, k, hc, a.scale);
+    for (int y = y0 + warp; y < y1; y += FIN_T / 32) {
+      const signed char* row = seg_own + (cell_of(y, k, hc, a.scale) - r0) * wc;
+      int* mrow = a.mask + (size_t)y * W;
+      bool* nrow = a.new_mask + (size_t)y * W;
+      if (k == 4) {  // a cell's four pixels: one 16-byte and one 4-byte store
+        for (int cx = lane; cx < wc; cx += 32) {
+          const int s = row[cx];
+          const int m = (s < 0 || s == M) ? 0 : s;
+          *reinterpret_cast<int4*>(mrow + 4 * cx) = make_int4(m, m, m, m);
+          *reinterpret_cast<unsigned*>(nrow + 4 * cx) = s == M ? 0x01010101u : 0u;
+        }
+      } else {
+        for (int x = lane; x < W; x += 32) {
+          const int s = row[cell_of(x, k, wc, a.scale)];
+          nrow[x] = s == M;
+          mrow[x] = (s < 0 || s == M) ? 0 : s;
         }
       }
-      red[0][tid] = s0;
-      red[1][tid] = s1;
-      red[2][tid] = s2;
-      __syncthreads();
-      for (int st = NT / 2; st > 0; st >>= 1) {
-        if (tid < st)
-          for (int k = 0; k < 3; ++k) red[k][tid] = red[k][tid] + red[k][tid + st];
-        __syncthreads();
-      }
-      if (tid == 0) {
-        float n = fmaxf(red[0][0], 1.0f);
-        float mu = red[1][0] / n;
-        float var = red[2][0] / n - mu * mu;
-        float sd = sqrtf(fmaxf(var, 0.0f));
-        if (pass == 0) {
-          float band = fmaxf(1.2f * sd, 0.05f);
-          lo[l] = mu - band;
-          hi[l] = mu + band;
-        } else {
-          mean[l] = mu;
-          std[l] = sd;
-        }
-      }
-      __syncthreads();
+    }
+  }
+  cluster_wait();
+
+  // has_new and the pixel counts: block 0, a warp without a segment
+  if (b == 0 && warp == (M < 31 ? 31 : 0)) {
+    int w[5] = {0, hc, 1, wc, 1};
+    if (lane < FIN_C)
+      for (int k = 0; k < 5; ++k) w[k] = part[lane][k];
+    w[0] = __reduce_add_sync(FULL, w[0]);
+    for (int k = 1; k < 5; ++k) w[k] = __reduce_min_sync(FULL, w[k]);
+    const int border = a.border;
+    const int t = w[1], bt = -w[2], l = w[3], r = -w[4];
+    if (lane == 0) {
+      const bool at_border = (t < border && bt < border) || (l < border && r < border) ||
+                             (t > hc - 1 - border && bt > hc - 1 - border) ||
+                             (l > wc - 1 - border && r > wc - 1 - border);
+      const float frac = (float)a.sizes[M - 1] / (float)npix;
+      *a.has_new = a.allow_new && frac > a.min_frac && !at_border;
+      a.pix_counts[0] = (int)((float)w[0] * a.scale_w);
+    }
+    for (int m = 1 + lane; m < M; m += 32) {
+      const int cnt = a.sizes[m - 1] >= a.min_cells ? a.sizes[m - 1] : 0;
+      a.pix_counts[m] = (int)((float)cnt * a.scale_w);
+    }
+  }
+
+  // 3. both passes of the depth statistics, warp l for segment l; each
+  //    block's tree results pushed (pass 1 to every block, pass 2 to block 0)
+  const int l = warp;
+  const bool seg = l <= M;
+  float s0, s1, s2, lo = 0.f, hi = 0.f;
+  if (seg) {
+    lane_sums(cells, a.nk, l, false, 0.f, 0.f, s0, s1, s2);
+    s0 = __shfl_sync(FULL, s0, 0);
+    s1 = __shfl_sync(FULL, s1, 0);
+    s2 = __shfl_sync(FULL, s2, 0);
+    if (lane < FIN_C) {
+      float* p = cluster.map_shared_rank(&red1[b][l][0], lane);
+      p[0] = s0;
+      p[1] = s1;
+      p[2] = s2;
+    }
+  }
+  cluster.sync();  // barrier 2: every block's pass-1 results in every block
+  if (seg) {
+    float v0 = 0.f, v1 = 0.f, v2 = 0.f, mu, sd;
+    if (lane < FIN_C) {
+      v0 = red1[lane][l][0];
+      v1 = red1[lane][l][1];
+      v2 = red1[lane][l][2];
+    }
+    cluster_levels(v0, v1, v2, mu, sd);
+    const float band = fmaxf(1.2f * sd, 0.05f);
+    lo = __shfl_sync(FULL, mu - band, 0);
+    hi = __shfl_sync(FULL, mu + band, 0);
+    lane_sums(cells, a.nk, l, true, lo, hi, s0, s1, s2);
+    if (lane == 0) {
+      float* p = cluster.map_shared_rank(&red2[b][l][0], 0);
+      p[0] = s0;
+      p[1] = s1;
+      p[2] = s2;
+    }
+  }
+  cluster.sync();  // barrier 3: every block's pass-2 results in block 0
+  if (b == 0 && seg) {
+    float v0 = 0.f, v1 = 0.f, v2 = 0.f, mu, sd;
+    if (lane < FIN_C) {
+      v0 = red2[lane][l][0];
+      v1 = red2[lane][l][1];
+      v2 = red2[lane][l][2];
+    }
+    cluster_levels(v0, v1, v2, mu, sd);
+    if (lane == 0) {
+      a.mean[l] = mu;
+      a.std[l] = sd;
     }
   }
 }
@@ -314,13 +501,33 @@ extern "C" int mmf_seg_finish(const int* lbl, const bool* largest, const int* si
                               int min_cells, int border, float min_frac, float scale_w,
                               float scale, int* mask, bool* new_mask, bool* has_new,
                               int* pix_counts, float* mean, float* std, cudaStream_t stream) {
-  if (M > MAX_M) return (int)cudaErrorInvalidValue;
-  int seg_bytes = hc * wc;
-  if (seg_bytes > 48 * 1024)
-    cudaFuncSetAttribute(stats, cudaFuncAttributeMaxDynamicSharedMemorySize, seg_bytes);
-  stats<<<1, 1024, seg_bytes, stream>>>(lbl, largest, sizes, fd, M, hc, wc, allow_new, min_cells,
-                                        border, min_frac, scale_w, has_new, pix_counts, mean, std);
-  upsample<<<blocks(H * W), TB, 0, stream>>>(lbl, largest, sizes, M, hc, wc, H, W, min_cells,
-                                             scale, mask, new_mask);
+  if (M < 1 || M > MAX_M || hc < 1 || wc < 1) return (int)cudaErrorInvalidValue;
+  const int npix = hc * wc;
+  const bool integer = H == hc * (H / hc) && W == wc * (W / wc) && H / hc == W / wc;
+  FinishArgs a{lbl, largest, sizes, fd, M, hc, wc, H, W, allow_new, min_cells, border,
+               min_frac, scale_w, scale, integer ? H / hc : 0, (hc + FIN_C - 1) / FIN_C,
+               (npix + FIN_T - 1) / FIN_T, mask, new_mask, has_new, pix_counts, mean, std};
+  const size_t smem =
+      (size_t)a.nk * FIN_VT * sizeof(Cell) + (size_t)a.band * wc * (sizeof(float) + 1);
+  if (smem > MAX_SMEM - FIN_STATIC) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(finish_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(finish_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(FIN_C);
+  cfg.blockDim = dim3(FIN_T);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = FIN_C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, finish_kernel, a);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

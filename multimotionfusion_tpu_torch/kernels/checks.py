@@ -1249,8 +1249,13 @@ def _spiral(rows: int, cols: int) -> torch.Tensor:
 def nms_inputs(kind: str, h: int, w: int, device, seed: int = 0) -> tuple:
     """``nms_topk`` arguments on synthetic heat maps: ``plateau`` (a constant
     block holding more peaks than K, every pixel of it a peak), ``random``
-    (uniform scores, radius 4) and ``superpoint`` (the heat map of a
-    random-weight SuperPoint on a random image)."""
+    (uniform scores, radius 4), ``superpoint`` (the heat map of a
+    random-weight SuperPoint on a random image), ``few`` (40 bumps: fewer
+    peaks than K, the other slots the lowest-index zeros), ``negative``
+    (conf_thresh -0.5: two negative plateaus, every pixel a peak, and three
+    positive bumps; fewer positive peaks and zeros than K, so negative
+    scores fill the last slots, below the zeros) and ``all_pixels`` (K the
+    pixel count)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     if kind == "plateau":
         heat = torch.zeros((h, w))
@@ -1258,11 +1263,77 @@ def nms_inputs(kind: str, h: int, w: int, device, seed: int = 0) -> tuple:
         return heat.to(device), 512, 1.0, 4
     if kind == "random":
         return torch.rand((h, w), generator=g).to(device), 512, 0.5, 4
+    if kind == "few":
+        heat = torch.zeros((h, w))
+        ys = torch.randint(0, h, (40,), generator=g)
+        xs = torch.randint(0, w, (40,), generator=g)
+        heat[ys, xs] = 1.5 + 3.5 * torch.rand((40,), generator=g)
+        return heat.to(device), 512, 1.0, 4
+    if kind == "negative":
+        heat = torch.full((h, w), -0.3)
+        heat[:, :w // 2] = -0.2
+        for y, x in ((h // 6, w // 8), (h // 2, w // 4), (5 * h // 6, 3 * w // 8)):
+            heat[y, x] = 2.0
+        return heat.to(device), 512, -0.5, 4
+    if kind == "all_pixels":
+        return torch.rand((h, w), generator=g).to(device), h * w, 0.0, 4
     torch.manual_seed(seed)
     net = SP.SuperPointNet().to(device).eval()
     img = torch.rand((h, w), generator=g).to(device)
     heat, _ = SP.superpoint_apply(net, img)
     return heat.contiguous(), 512, 0.0, 4
+
+
+# K19's hand-made top-K cases: (name, nms_inputs kind, height, width);
+# plateau_1080p's blocks own chunks past a 16-bit list index and past the
+# shared memory that stages a chunk's scores for the ties
+TOPK_CASES = (("few_peaks", "few", 480, 640), ("negative_thresh", "negative", 60, 80),
+              ("plateau", "plateau", 480, 640), ("ragged", "random", 487, 651),
+              ("all_pixels", "all_pixels", 24, 32), ("plateau_1080p", "plateau", 1080, 1920))
+# keypoints.cu's select: the cluster's blocks and a chunk's staged bytes at most
+SELECT_BLOCKS, SELECT_STAGE_BYTES = 16, 180 * 1024
+
+
+def topk_case_facts(name: str, a: tuple, plain: tuple) -> dict:
+    """What makes each of ``TOPK_CASES`` the case its name says, read off the
+    plain version's outputs."""
+    heat, k = a[0], a[1]
+    _, score, valid = plain
+    chunk = ((heat.numel() + SELECT_BLOCKS - 1) // SELECT_BLOCKS + 3) & ~3
+    facts = dict(k=k, valid=int(valid.sum()), positive=int((score > 0).sum()),
+                 zero=int((score == 0).sum()), negative=int((score < 0).sum()), chunk=chunk)
+    ok = {"few_peaks": 0 < facts["valid"] < k,
+          "negative_thresh": facts["negative"] > 0 and facts["zero"] > 0
+                             and facts["positive"] > 0,
+          "plateau": facts["valid"] == k,
+          "ragged": heat.shape[0] % 8 != 0 and heat.shape[1] % 32 != 0,
+          "all_pixels": k == heat.numel(),
+          "plateau_1080p": facts["valid"] == k and chunk > 65536
+                           and 4 * chunk > SELECT_STAGE_BYTES
+                           and int((heat == score[-1]).sum()) > k}[name]
+    facts["ok"] = bool(ok)
+    return facts
+
+
+def check_topk_cases(device) -> dict:
+    """K19's ``nms_topk`` on ``TOPK_CASES`` on the card against the plain
+    version on the CPU: xy, score (bit for bit) and valid equal in every
+    slot."""
+    cases, ok = {}, True
+    for name, kind, h, w in TOPK_CASES:
+        a = nms_inputs(kind, h, w, device)
+        xk, sk, vk = (t.cpu() for t in SP.nms_topk_cuda(*a))
+        cpu = (a[0].cpu(),) + tuple(a[1:])
+        xp, spl, vp = SP.nms_topk_plain(*cpu)
+        r = dict(slots_differ=int(((xk != xp).any(-1) | (sk != spl) | (vk != vp)).sum()),
+                 facts=topk_case_facts(name, cpu, (xp, spl, vp)))
+        r["ok"] = (torch.equal(xk, xp) and _same_bits(sk, spl) and torch.equal(vk, vp)
+                   and r["facts"]["ok"])
+        ok = ok and r["ok"]
+        cases[name] = r
+    return dict(cases=cases, ok=ok, max_abs_err=0.0 if ok else None,
+                tolerance="xy, score and valid equal in every slot (exact top-k, ties to the "
+                          "lower flat index) against the plain version on the CPU")
 
 
 # ---------------------------------------------------------------- slice 4
@@ -1648,18 +1719,211 @@ def check_seg_fuse(a: tuple) -> dict:
                 tolerance="labels and label stack exact given equal inputs")
 
 
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """float32 tensors equal bit for bit (-0.0 apart from 0.0)."""
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+def segment_ids(lbl, largest, sizes, cfg) -> torch.Tensor:
+    """[Hc, Wc] K18's segment id of every cell: 0 where the label is global,
+    l on label l's kept component where it passed the minimum-cells gate
+    (the new-label class M always passes), else -1 (the ids
+    ``csrc/segment.cu``'s finish stages)."""
+    m = largest.shape[0]
+    min_cells = max(1, int(round(cfg.min_mask_size_px * cfg.scale * cfg.scale)))
+    segm = torch.where(lbl == 0, 0, -1).to(torch.int32)
+    for l in range(1, m + 1):
+        if l == m or int(sizes[l - 1]) >= min_cells:
+            segm = torch.where(largest[l - 1], l, segm).to(torch.int32)
+    return segm
+
+
+def seg_stats_emulated(lbl, largest, sizes, fd, cfg):
+    """(depth mean [M + 1], depth std [M + 1]) of K18's finish in the
+    kernel's order, with torch float32 ops on the CPU: per segment and pass,
+    1,024 partials, partial t summing (count, sum, sum of squares) over the
+    cells t, t + 1024, ... in ascending order; then the halving tree
+    red[t] + red[t + s], s = 512, ..., 1; then the statistics of
+    ``flow_crf.py``'s ``_stats`` (pass 1 gives each segment's
+    [mu - max(1.2 sd, 0.05), mu + ...] band, pass 2 its mean and std)."""
+    lbl, largest, sizes, fd = (t.cpu() for t in (lbl, largest, sizes, fd))
+    m = largest.shape[0]
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+    n = lbl.numel()
+    nk = -(-n // 1024)
+    pad = nk * 1024 - n
+    seg = torch.nn.functional.pad(segment_ids(lbl, largest, sizes, cfg).reshape(-1), (0, pad),
+                                  value=-1).reshape(nk, 1024)
+    d = torch.nn.functional.pad(fd.reshape(-1), (0, pad)).reshape(nk, 1024)
+    inside = (seg[:, None, :] == torch.arange(m + 1)[None, :, None]) & (d > f32(1e-6))[:, None, :]
+    lo = hi = None
+    for clip in (False, True):
+        s = torch.zeros((3, m + 1, 1024), dtype=torch.float32)
+        for k in range(nk):
+            dk = d[k].expand(m + 1, 1024)
+            sel = inside[k]
+            if clip:
+                sel = sel & (dk >= lo[:, None]) & (dk <= hi[:, None])
+            s = torch.stack([torch.where(sel, s[0] + f32(1.0), s[0]),
+                             torch.where(sel, s[1] + dk, s[1]),
+                             torch.where(sel, s[2] + dk * dk, s[2])])
+        while s.shape[2] > 1:  # red[t] + red[t + half], half = 512, ..., 1
+            half = s.shape[2] // 2
+            s = s[:, :, :half] + s[:, :, half:]
+        r = s[:, :, 0]
+        cnt = torch.maximum(r[0], f32(1.0))
+        mu = r[1] / cnt
+        var = r[2] / cnt - mu * mu
+        sd = torch.sqrt(torch.maximum(var, f32(0.0)))
+        band = torch.maximum(f32(1.2) * sd, f32(0.05))
+        lo, hi = mu - band, mu + band
+    return mu, sd
+
+
+_FINISH_NAMES = ("mask", "new_label_mask", "has_new_label", "pixel_counts")
+
+
 def check_seg_finish(a: tuple) -> dict:
     ok_ = FC.finish_cuda(*a)
     op = FC.finish_plain(*a)
-    names = ("mask", "new_label_mask", "has_new_label", "pixel_counts")
-    exact = {n: bool((x == y).all()) for n, x, y in zip(names, ok_[:4], op[:4])}
+    exact = {n: bool((x == y).all()) for n, x, y in zip(_FINISH_NAMES, ok_[:4], op[:4])}
     err = float((ok_[4] - op[4]).abs().max())
     var_err = float((ok_[5] ** 2 - op[5] ** 2).abs().max())
+    em = seg_stats_emulated(*a[:4], a[6])
+    contract = _same_bits(ok_[4].cpu(), em[0]) and _same_bits(ok_[5].cpu(), em[1])
     return dict(max_abs_err=err, var_err=var_err, exact=exact, has_new_label=bool(op[2]),
-                ok=all(exact.values()) and err <= 1e-5 and var_err <= 2e-5,
-                tolerance="masks, has_new_label and counts exact; depth means within 1e-5 m, "
-                          "variances within 2e-5 m^2 (sums in another order; the one-pass "
-                          "variance cancels)")
+                stats_bit_equal_to_emulation=contract,
+                ok=all(exact.values()) and contract and err <= 1e-5 and var_err <= 2e-5,
+                tolerance="masks, has_new_label and counts exact; depth mean and std bit-equal "
+                          "to seg_stats_emulated (the kernel's summation order) and, against "
+                          "the plain version, means within 1e-5 m and variances within 2e-5 "
+                          "m^2 (torch.sum's order; the one-pass variance cancels)")
+
+
+# K18's hand-made finish cases: no new label; a new label hugging each
+# border (has_new false) and one inside; objects exactly at and one cell
+# under the minimum-cells gate; a segment with no valid depth; M = 16; a
+# 487x651 frame whose CRF grid does not divide it (the upsample's scale)
+FINISH_CASES = ("no_new", "new_top", "new_bottom", "new_left", "new_right", "new_inside",
+                "at_min_cells", "no_depth", "m16", "ragged")
+
+
+def finish_cases(device, seed: int = 0) -> list:
+    """[(name, ``segment.finish`` arguments)] for ``FINISH_CASES``: M - 1
+    objects, each a box (its kept component, depth ~1 + 0.1 l m with 15 %
+    of its cells 1 m behind, which pass 2 clips) and a detached 2x2
+    satellite that K17 dropped; background at ~3 m with 5 % of its cells 2 m
+    behind; 5 % of the cells without depth; the new label M as the case
+    says. The depths lie far from every segment's clipping band edges
+    (``finish_case_facts`` measures the margin), so that the plain
+    version's other summation order cannot move a cell across an edge: a
+    rounding apart, not a different selection. The configuration's
+    new_label_min_frac is 0.01, so that the border test decides the border
+    cases."""
+    from multimotionfusion_tpu_torch.config import SegmentationConfig
+
+    cfg = SegmentationConfig(new_label_min_frac=0.01)
+    min_cells = max(1, int(round(cfg.min_mask_size_px * cfg.scale * cfg.scale)))
+    out = []
+    for i, name in enumerate(FINISH_CASES):
+        rng = np.random.default_rng(seed + i)
+        h, w = (487, 651) if name == "ragged" else (480, 640)
+        m = 16 if name == "m16" else 6
+        hc, wc = int(h * cfg.scale), int(w * cfg.scale)
+        lbl = np.zeros((hc, wc), np.int32)
+        largest = np.zeros((m, hc, wc), bool)
+        fd = rng.normal(3.0, 0.005, (hc, wc))
+        fd[rng.random((hc, wc)) < 0.05] += 2.0
+        for l in range(1, m):
+            j = l - 1
+            y, x = 10 + 35 * (j // 5), 8 + 30 * (j % 5)
+            bh, bw = int(rng.integers(12, 26)), int(rng.integers(10, 23))
+            if name == "at_min_cells" and l <= 2:  # exactly min_cells, and one under
+                bh, bw = 1, min_cells + 1 - l
+            lbl[y:y + bh, x:x + bw] = l
+            largest[l - 1, y:y + bh, x:x + bw] = True
+            lbl[y + bh + 3:y + bh + 5, x:x + 2] = l  # the satellite
+            obj = 1.0 + 0.1 * l + rng.normal(0.0, 0.005, (bh, bw))
+            obj[rng.random((bh, bw)) < 0.15] += 1.0
+            fd[y:y + bh, x:x + bw] = obj
+        box = {"new_top": (0, 4, 10, 151), "new_bottom": (hc - 4, hc, 10, 151),
+               "new_left": (5, 116, 0, 4), "new_right": (5, 116, wc - 4, wc),
+               "m16": (108, 116, 20, 121)}.get(name, (60, 91, 60, 101))
+        if name != "no_new":
+            y0, y1, x0, x1 = box
+            lbl[y0:y1, x0:x1] = m
+            largest[m - 1, y0:y1, x0:x1] = True
+            fd[y0:y1, x0:x1] = rng.normal(2.0, 0.005, (y1 - y0, x1 - x0))
+        fd[rng.random((hc, wc)) < 0.05] = 0.0
+        if name == "no_depth":
+            fd[lbl == 1] = 0.0
+        sizes = largest.reshape(m, -1).sum(1).astype(np.int32)
+        t = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to(device)  # noqa: E731
+        out.append((name, (t(lbl), t(largest), t(sizes), t(fd.astype(np.float32)), h, w, cfg,
+                           True)))
+    return out
+
+
+def finish_case_facts(name: str, a: tuple, plain: tuple) -> dict:
+    """What makes each of ``finish_cases`` the case its name says, read off
+    the plain version's outputs: has_new_label, and per case the gate's,
+    the empty segment's or the upsample branch's effect."""
+    lbl, largest, sizes, fd, h, w, cfg, _ = a
+    _, _, has_new, counts, mean, _ = plain
+    hc, wc = lbl.shape
+    want_new = name in ("new_inside", "m16", "ragged", "at_min_cells", "no_depth")
+    # the least distance of a segment's depth from its pass-1 band's edges
+    segm, d = segment_ids(lbl, largest, sizes, cfg).numpy(), fd.numpy().astype(np.float64)
+    margin = np.inf
+    for l in range(largest.shape[0] + 1):
+        v = d[(segm == l) & (fd.numpy() > np.float32(1e-6))]
+        if v.size:
+            band = max(1.2 * v.std(), 0.05)
+            margin = min(margin, float(np.abs(np.abs(v - v.mean()) - band).min()))
+    facts = dict(has_new_label=bool(has_new), has_new_expected=want_new, band_margin_m=margin)
+    ok = bool(has_new) == want_new and margin > 1e-3
+    if name == "at_min_cells":
+        min_cells = max(1, int(round(cfg.min_mask_size_px * cfg.scale * cfg.scale)))
+        facts.update(sizes=sizes[:2].tolist(), min_cells=min_cells,
+                     pixel_counts=counts[1:3].tolist())
+        ok = ok and sizes[:2].tolist() == [min_cells, min_cells - 1] and int(counts[1]) > 0 \
+            and int(counts[2]) == 0
+    if name == "no_depth":
+        facts.update(mean_of_segment_1=float(mean[1]))
+        ok = ok and float(mean[1]) == 0.0
+    if name == "ragged":
+        facts.update(integer_upsample=h == hc * (h // hc) and w == wc * (w // wc))
+        ok = ok and not facts["integer_upsample"]
+    facts["ok"] = ok
+    return facts
+
+
+def check_finish_cases(device) -> dict:
+    """K18's finish on ``finish_cases`` on the card against the plain
+    version on the CPU: masks, has_new_label and counts exact; depth mean
+    and std bit-equal to ``seg_stats_emulated`` and within 1e-5 m / 2e-5
+    m^2 of the plain version."""
+    cases, ok = {}, True
+    for name, a in finish_cases(device):
+        ak = [x.cpu() for x in FC.finish_cuda(*a)]
+        cpu = tuple(x.cpu() if isinstance(x, torch.Tensor) else x for x in a)
+        ap = FC.finish_plain(*cpu)
+        em = seg_stats_emulated(*cpu[:4], cpu[6])
+        exact = {n: bool(torch.equal(x, y)) for n, x, y in zip(_FINISH_NAMES, ak[:4], ap[:4])}
+        r = dict(exact=exact, mean_bit_equal=_same_bits(ak[4], em[0]),
+                 std_bit_equal=_same_bits(ak[5], em[1]),
+                 mean_err_plain=float((ak[4] - ap[4]).abs().max()),
+                 var_err_plain=float((ak[5] ** 2 - ap[5] ** 2).abs().max()),
+                 facts=finish_case_facts(name, cpu, ap))
+        r["ok"] = (all(exact.values()) and r["mean_bit_equal"] and r["std_bit_equal"]
+                   and r["mean_err_plain"] <= 1e-5 and r["var_err_plain"] <= 2e-5
+                   and r["facts"]["ok"])
+        ok = ok and r["ok"]
+        cases[name] = r
+    return dict(cases=cases, ok=ok, max_abs_err=0.0 if ok else None,
+                tolerance="masks, has_new_label and counts exact against the plain version "
+                          "on the CPU; mean and std bit-equal to seg_stats_emulated")
 
 
 # ---------------------------------------------------------------- K22, K23

@@ -124,17 +124,13 @@ def nms_topk_cuda(heat: torch.Tensor, max_kp: int, conf_thresh: float, nms_radiu
     if not 0 <= nms_radius <= _MAX_NMS_RADIUS:
         raise ValueError(f"nms_radius must be in 0..{_MAX_NMS_RADIUS}")
     dev = heat.device
-    scores = torch.empty((n,), dtype=F32, device=dev)
-    hist = torch.empty((256,), dtype=torch.int32, device=dev)
-    ctl = torch.empty((8,), dtype=torch.int64, device=dev)  # radix-select state
-    cand = torch.empty((max_kp,), dtype=torch.int64, device=dev)
+    scores = torch.empty((n,), dtype=F32, device=dev)  # the peak scores
     xy = torch.empty((max_kp, 2), dtype=F32, device=dev)
     score = torch.empty((max_kp,), dtype=F32, device=dev)
     valid = torch.empty((max_kp,), dtype=torch.bool, device=dev)
-    f = K.fn("keypoints", "mmf_nms_topk", [K.P, K.I, K.I, K.I, K.F, K.I] + [K.P] * 7)
+    f = K.fn("keypoints", "mmf_nms_topk", [K.P, K.I, K.I, K.I, K.F, K.I] + [K.P] * 4)
     K.call("nms_topk", f, K.ptr(heat), h, w, max_kp, float(np.float32(conf_thresh)), nms_radius,
-           K.ptr(scores), K.ptr(hist), K.ptr(ctl), K.ptr(cand), K.ptr(xy), K.ptr(score),
-           K.ptr(valid))
+           K.ptr(scores), K.ptr(xy), K.ptr(score), K.ptr(valid))
     return xy, score, valid
 
 

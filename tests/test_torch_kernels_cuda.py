@@ -59,7 +59,11 @@ on hand-made flags and owners through its test entries
 (``checks.check_scan_cases``: exact against torch.cumsum), and every K4
 evaluation's sums must be bit-equal to the block-order float32 sum of its
 partials (``checks.check_gn``; both references are checked on the CPU by
-``tests/test_torch_append_scan.py``).
+``tests/test_torch_append_scan.py``). K18's finish must also give depth
+statistics bit-equal to ``checks.seg_stats_emulated`` (the kernel's summation
+order, held to the plain version by ``tests/test_torch_finish_topk.py``),
+on the flow-CRF run's inputs and on ``checks.finish_cases``; K19's top-K runs
+on ``checks.TOPK_CASES`` too.
 """
 
 import pytest
@@ -417,7 +421,8 @@ def test_fuse_scan_cases_exact():
     assert r["ok"], r
 
 
-@pytest.mark.parametrize("name", ["flow_cases", "track_cases", "match_cases"])
+@pytest.mark.parametrize("name", ["flow_cases", "track_cases", "match_cases", "finish_cases",
+                                  "topk_cases"])
 def test_k15_k20_hand_made_cases(name):
     """K15 on hand-made image pairs (640x480 at 1/4 and at 1/2, whose bands do
     not fit a block's shared memory, and 487x651 whose 121 CRF rows do not
@@ -425,7 +430,13 @@ def test_k15_k20_hand_made_cases(name):
     hand-made tables (full, more new keypoints than free slots, all matched,
     none valid, the ring's wrap either way, no depth, no pair) and its match
     on hand-made descriptors (duplicates, invalid rows and columns, K and T
-    off the tile): exact against the plain versions on the CPU."""
+    off the tile), K18's finish on hand-made segment inputs (no new label, a
+    new label hugging each border and one inside, objects at and one cell
+    under the minimum-cells gate, a segment without depth, M = 16, 487x651)
+    and K19's top-K on hand-made heat maps (fewer peaks than K, a negative
+    conf_thresh, a plateau with more peaks than K, 487x651, K the pixel
+    count): exact against the plain versions on the CPU; the finish's mean
+    and std bit-equal to ``checks.seg_stats_emulated``."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
     r = getattr(checks, f"check_{name}")("cuda")

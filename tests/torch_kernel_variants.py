@@ -1,0 +1,387 @@
+"""Times hand-written kernels as they are and as edited copies, to show
+where their time goes (needs one NVIDIA GPU; not a test).
+
+    python3 tests/torch_kernel_variants.py [--tree DIR] [--only flow,tracks,finish,select,nms]
+
+``flow``: K15's one-launch flow (``csrc/flow.cu``) on
+``checks.flow_case_inputs(480, 640)`` at the 640x480 CRF grid (120x160),
+with 1, 2 and 4 Lucas-Kanade iterations: as it is (a cluster of 16 blocks);
+with a cluster of 8 (the portable size); with every ``cluster.sync()``
+doubled (the barriers' cost); and with a globaltimer stamp after each
+barrier (block 0, thread 0: the phases' times). ``tracks``: K20's match
+tile (``csrc/tracks.cu``) as it is (128x128 a block, 8x4 registers a
+thread) and at 8x8 and at 64x64 a block with 4x4 and 4x8 registers, through
+the wrappers (the edited library swapped in), on ``checks.track_cases``'
+"more_new_than_free" table at the default shapes: the device time of each
+kernel (torch.profiler, 20 calls after 5), and whether every track and
+match case stays bit-equal to the plain version. ``finish`` and
+``select``: K18's ``finish_kernel`` (``csrc/segment.cu``) and K19's
+``select_kernel`` (``csrc/keypoints.cu``) with a globaltimer stamp (thread
+0 of each block) at named points, on ``checks.finish_cases``
+(``new_inside``: M = 6 at 640x480, the main path's shape; ``m16``) and on
+``checks.nms_inputs`` heat maps (``random``, ``superpoint``, ``plateau``,
+``few``) at 640x480, three calls each after ~50 ms of matrix products (to
+keep the card's clocks up): per stamp the earliest and latest block, in
+microseconds from the kernel's first stamp (a stamp inside the select's
+round loop keeps its last round's value; ``round r`` stamps are per
+round). ``nms``: K19's NMS as it is (one instance a radius) and with the
+radius an argument of one instance, on the same heat maps (the device time
+of each kernel, and the outputs against the plain version). Each copy is
+written and built with the build's flags in ``DIR/build/variants``; an
+edit whose text is no longer in the source stops the script. Prints JSON
+lines.
+"""
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+from collections import defaultdict
+
+
+def patch(text, old, new, count=1):
+    """``text`` with ``old`` replaced by ``new`` (every occurrence for
+    ``count=0``); raises if ``old`` is not there."""
+    if old not in text:
+        raise ValueError(f"the source no longer holds {old!r}")
+    return text.replace(old, new) if count == 0 else text.replace(old, new, count)
+
+
+def build(tree, name, text):
+    """The edited source built in ``build/variants`` (it includes the
+    package's headers through -I)."""
+    here = os.path.join(tree, "build", "variants")
+    os.makedirs(here, exist_ok=True)
+    path, out = os.path.join(here, f"{name}.cu"), os.path.join(here, f"{name}.so")
+    with open(path, "w") as f:
+        f.write(text)
+    proc = subprocess.run(
+        ["/usr/local/cuda/bin/nvcc", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+         "-O3", "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+         "-I", os.path.join(tree, "multimotionfusion_tpu_torch", "csrc"), "-o", out, path],
+        capture_output=True, text=True)
+    if proc.returncode:
+        print(json.dumps({"variant": name, "build_failed": proc.stdout + proc.stderr}))
+        return None
+    return ctypes.CDLL(out)
+
+
+def device_us(torch, fn, reps=20):
+    """{kernel name: device us a call} over ``reps`` calls after 5."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+            by[name] += e.time_range.elapsed_us() / reps
+    return dict(by)
+
+
+STAMPS = """#include <cuda_runtime.h>
+__device__ unsigned long long g_stamp[16][64];
+__device__ __forceinline__ void stamp(int k) {
+  if (threadIdx.x == 0 && blockIdx.x < 16) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    g_stamp[blockIdx.x][k] = t;
+  }
+}
+extern "C" int read_stamps(unsigned long long* host) {
+  return (int)cudaMemcpyFromSymbol(host, g_stamp, sizeof(g_stamp));
+}
+"""
+
+
+def read_stamps(lib):
+    """[block][stamp] globaltimer readings (0 where a block wrote none)."""
+    buf = (ctypes.c_ulonglong * (16 * 64))()
+    assert lib.read_stamps(buf) == 0
+    return [list(buf[64 * b:64 * (b + 1)]) for b in range(16)]
+
+
+def stamped(text, marks):
+    """``text`` with ``STAMPS`` in front and ``stamp(k)`` before or after
+    each anchor of ``marks``: (label, anchor, k (an int or a C expression),
+    after the anchor)."""
+    for label, anchor, k, after in marks:
+        if text.count(anchor) != 1:
+            raise ValueError(f"the anchor of {label!r} no longer matches once")
+        text = text.replace(anchor, (anchor + f"\n  stamp({k});\n") if after
+                            else (f"stamp({k});\n  " + anchor))
+    return STAMPS + text
+
+
+def report(tag, lib, labels):
+    """One JSON line: per labelled stamp [earliest, latest] block in us from
+    the kernel's first stamp (stamps no block reached are left out)."""
+    rows = read_stamps(lib)
+    t0 = min(row[0] for row in rows if row[0])
+    line = {}
+    for k, label in sorted(labels.items()):
+        col = [row[k] for row in rows if row[k]]
+        if not col or min(col) < t0:
+            continue
+        line[label] = [round((min(col) - t0) / 1e3, 2), round((max(col) - t0) / 1e3, 2)]
+    print(json.dumps({"case": tag, "us_earliest_latest_block": line}), flush=True)
+
+
+def flow_variants(tree, torch, K, C, FL, imops):
+    src = open(os.path.join(tree, "multimotionfusion_tpu_torch", "csrc", "flow.cu")).read()
+    text = STAMPS + patch(src, "  const Layout L = layout(a);\n",
+                          "  const Layout L = layout(a);\n  int ns_ = 0;\n  stamp(ns_++);\n")
+    text = patch(text, "cluster.sync();", "cluster.sync(); stamp(ns_++);", count=0)
+    k = text.rindex("}", 0, text.index("template <bool kShared>\nint launch"))
+    text = text[:k] + "  stamp(ns_++);\n" + text[k:]
+    c16 = f"constexpr int CLUSTER = {FL.CLUSTER};"
+    variants = {"as_is": (FL.CLUSTER, src),
+                "cluster_8": (8, patch(src, c16, "constexpr int CLUSTER = 8;")),
+                "barriers_doubled": (FL.CLUSTER, patch(src, "cluster.sync();",
+                                                       "cluster.sync(); cluster.sync();", count=0)),
+                "stamped": (FL.CLUSTER, text)}
+    prev, nxt = (x.cuda() for x in C.flow_case_inputs(480, 640))
+    hc, wc = 120, 160
+    ref = FL.dense_flow_plain(prev, nxt, hc, wc)
+    taps = [float(t) for t in imops.gaussian_weights(FL.BLUR_SIGMA, FL.BLUR_RADIUS)]
+    for name, (cluster, text) in variants.items():
+        lib = build(tree, f"flow_{name}", text)
+        if lib is None:
+            continue
+        f = lib.mmf_dense_flow
+        f.argtypes = [K.P, K.P] + [K.I] * 5 + [K.F] * 7 + [K.I] * 5 + [K.P] * 4
+        f.restype = K.I
+        FL.CLUSTER, kept = cluster, FL.CLUSTER  # the bands of this variant's cluster
+        try:
+            band, halo, stage, near = FL.flow_band(hc, wc)
+        finally:
+            FL.CLUSTER = kept
+        scratch = torch.empty(FL.flow_scratch_floats(hc, wc), device="cuda")
+        out = torch.empty((hc, wc, 2), device="cuda")
+        for iters in (1, 2, FL.ITERS):
+            def run():
+                err = f(prev.data_ptr(), nxt.data_ptr(), 480, 640, hc, wc, iters, *taps,
+                        cluster, band, halo, near, stage, scratch.data_ptr(), None,
+                        out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                assert err == 0, err
+            us = sum(device_us(torch, run).values())
+            line = {"kernel": "flow", "variant": name, "cluster": cluster, "iters": iters,
+                    "device_us": us}
+            if iters == FL.ITERS:
+                line["bit_equal_to_plain"] = bool(torch.equal(out, ref))
+            if name == "stamped" and iters == FL.ITERS:
+                t = [v for v in read_stamps(lib)[0] if v]
+                line["stamps_us_after_start"] = [(v - t[0]) / 1e3 for v in t]
+            print(json.dumps(line), flush=True)
+
+
+def track_variants(tree, torch, K, C, TR):
+    src = open(os.path.join(tree, "multimotionfusion_tpu_torch", "csrc", "tracks.cu")).read()
+    shapes = {"t128_rt8_ct4": (128, 8, 4), "t128_rt8_ct8": (128, 8, 8),
+              "t64_rt4_ct4": (64, 4, 4), "t64_rt4_ct8": (64, 4, 8)}
+    _, table, kps, depth, time, cam, cfg, pair = C.track_cases()[1]
+    for name, (tile, rt, ct) in shapes.items():
+        text = patch(patch(src, "TQ = 128, TT = 128", f"TQ = {tile}, TT = {tile}"),
+                     "RT = 8, CT = 4;", f"RT = {rt}, CT = {ct};")
+        lib = build(tree, f"tracks_{name}", text)
+        if lib is None:
+            continue
+        K._libs["tracks"], TR.MATCH_TILE = lib, tile
+        ok = C.check_track_cases("cuda")["ok"] and C.check_match_cases("cuda")["ok"]
+        tk = TR.TrackTable(*(x.cuda() for x in table))
+        kk = type(kps)(*(x.cuda() for x in kps))
+        dc = depth.cuda()
+        print(json.dumps({"kernel": "tracker.update", "variant": name, "cases_bit_equal": ok,
+                          "device_us": device_us(
+                              torch, lambda: TR.update_cuda(tk, kk, dc, time, cam, cfg, pair))}),
+              flush=True)
+
+
+# (label, anchor, stamp index or expression, after the anchor)
+FINISH = [
+    ("start", "extern __shared__ __align__(16) unsigned char fsm[];", 0, True),
+    ("band staged", "  cluster_wait();\n  if (warp == 0) {  // the band's count and box", 1, False),
+    ("cells pushed", "  cluster_arrive();  // barrier 1: every partial's cells pushed", 2, False),
+    ("upsample done", "  cluster_wait();\n\n  // has_new", 3, False),
+    ("barrier 1 passed", "  // has_new and the pixel counts: block 0", 4, False),
+    ("pass 1 pushed", "  cluster.sync();  // barrier 2", 5, False),
+    ("barrier 2 passed",
+     "  cluster.sync();  // barrier 2: every block's pass-1 results in every block", 6, True),
+    ("pass 2 pushed", "  cluster.sync();  // barrier 3", 7, False),
+    ("barrier 3 passed", "  cluster.sync();  // barrier 3: every block's pass-2 results in block 0",
+     8, True),
+]
+SELECT = [
+    ("start", "extern __shared__ __align__(16) unsigned stage[];", 0, True),
+    ("zeros counted, keys listed", "  const bool listed = nlist <= LIST_CAP;", 1, True),
+    ("round r histogram", "    cluster.sync();  // every block's histogram of this round",
+     "2 + 2 * ((24 - shift) >> 3)", False),
+    ("round r barrier passed", "    cluster.sync();  // every block's histogram of this round",
+     "3 + 2 * ((24 - shift) >> 3)", True),
+    ("last pick", "    if (done || shift == 0) break;", 10, False),
+    ("keys gathered", "  cluster.sync();  // every block's list", 11, False),
+    ("lists' barrier passed", "  cluster.sync();  // every block's list", 12, True),
+    ("keys copied", "  cluster_arrive_relaxed();  // the lists are copied", 13, False),
+    ("ranked and written", "  cluster_wait();\n}", 14, False),
+]
+FINISH_LABELS = {k: label for label, _, k, _ in FINISH}
+SELECT_LABELS = {0: "start", 1: "zeros counted, keys listed", 10: "last pick",
+                 11: "keys gathered", 12: "lists' barrier passed", 13: "keys copied",
+                 14: "ranked and written"}
+SELECT_LABELS.update({2 + 2 * r: f"round {r} histogram" for r in range(4)})
+SELECT_LABELS.update({3 + 2 * r: f"round {r} barrier passed" for r in range(4)})
+
+
+def _busy(torch):
+    """~50 ms of matrix products, to keep the card's clocks up."""
+    big = torch.randn(4096, 4096, device="cuda")
+    for _ in range(20):
+        big @ big
+
+
+def finish_phases(tree, torch, K, C, FC):
+    src = open(os.path.join(tree, "multimotionfusion_tpu_torch", "csrc", "segment.cu")).read()
+    lib = build(tree, "segment_phases", stamped(src, FINISH))
+    if lib is None:
+        return
+    f = lib.mmf_seg_finish
+    f.argtypes = [K.P] * 4 + [K.I] * 8 + [K.F] * 3 + [K.P] * 7  # 6 tensors and the stream
+    f.restype = K.I
+    for name, a in C.finish_cases("cuda"):
+        if name not in ("new_inside", "m16"):
+            continue
+        lbl, largest, sizes, fd, h, w, cfg, allow_new = a
+        outs = FC.finish_cuda(*a)
+        hc, wc = lbl.shape
+        _busy(torch)
+        for _ in range(3):
+            err = f(lbl.data_ptr(), largest.data_ptr(), sizes.data_ptr(), fd.data_ptr(),
+                    largest.shape[0], hc, wc, h, w, int(allow_new),
+                    max(1, int(round(cfg.min_mask_size_px * cfg.scale * cfg.scale))),
+                    max(1, int(round(20 * cfg.scale))), float(cfg.new_label_min_frac),
+                    1.0 / (cfg.scale * cfg.scale), float(cfg.scale),
+                    *[o.data_ptr() for o in outs], torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            assert err == 0, err
+        report(f"segment.finish[{name}]", lib, FINISH_LABELS)
+
+
+def select_phases(tree, torch, K, C, SP):
+    import numpy as np
+
+    src = open(os.path.join(tree, "multimotionfusion_tpu_torch", "csrc", "keypoints.cu")).read()
+    lib = build(tree, "keypoints_phases", stamped(src, SELECT))
+    if lib is None:
+        return
+    g = lib.mmf_nms_topk
+    g.argtypes = [K.P, K.I, K.I, K.I, K.F, K.I] + [K.P] * 5  # 4 tensors and the stream
+    g.restype = K.I
+    for kind in ("random", "superpoint", "plateau", "few"):
+        heat, k, thr, r = C.nms_inputs(kind, 480, 640, "cuda")
+        xy, score, valid = SP.nms_topk_cuda(heat, k, thr, r)
+        scores = torch.empty(heat.numel(), device="cuda")
+        _busy(torch)
+        for _ in range(3):
+            err = g(heat.data_ptr(), heat.shape[0], heat.shape[1], k, float(np.float32(thr)), r,
+                    scores.data_ptr(), xy.data_ptr(), score.data_ptr(), valid.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            assert err == 0, err
+        report(f"nms_topk.select[{kind}]", lib, SELECT_LABELS)
+
+
+def nms_variants(tree, torch, K, C, SP):
+    """K19's NMS as it is (one instance a radius, the taps unrolled) and with
+    the radius an argument of one instance, in the order as it is, run-time
+    radius twice, as it is: the device time of each kernel of ``nms_topk`` on
+    four 640x480 heat maps, and whether the outputs equal the plain
+    version's."""
+    import numpy as np
+
+    src = open(os.path.join(tree, "multimotionfusion_tpu_torch", "csrc", "keypoints.cu")).read()
+    head = ("template <int R>\n__global__ void __launch_bounds__(NMS_T)\nnms_kernel("
+            "const float* __restrict__ heat, int H, int W, float thr, float* __restrict__ "
+            "scores) {\n  constexpr int LW = NMS_W + 2 * R, LH = NMS_H + 2 * R;\n"
+            "  __shared__ float s[LH][LW];\n  __shared__ float rm[LH][NMS_W];\n")
+    one = head
+    for a, b in (("template <int R>", "template <int R_>"), ("scores) {", "scores, int R) {"),
+                 ("constexpr int LW", "const int LW"),
+                 ("s[LH][LW]", "s[NMS_H + 2 * MAX_R][NMS_W + 2 * MAX_R]"),
+                 ("rm[LH][NMS_W]", "rm[NMS_H + 2 * MAX_R][NMS_W]")):
+        one = patch(one, a, b)
+    runtime = patch(src, head, one)
+    runtime = patch(runtime, "nms_kernel<R><<<grid, NMS_T, 0, stream>>>(heat, H, W, thr, scores);",
+                    "nms_kernel<0><<<grid, NMS_T, 0, stream>>>(heat, H, W, thr, scores, R);")
+    libs = {name: build(tree, f"keypoints_{name}", text)
+            for name, text in (("as_is", src), ("runtime_r", runtime))}
+    heats = {kind: C.nms_inputs(kind, 480, 640, "cuda")
+             for kind in ("random", "superpoint", "plateau", "few")}
+    for name in ("as_is", "runtime_r", "runtime_r", "as_is"):
+        if libs[name] is None:
+            continue
+        g = libs[name].mmf_nms_topk
+        g.argtypes = [K.P, K.I, K.I, K.I, K.F, K.I] + [K.P] * 5
+        g.restype = K.I
+        for kind, (heat, k, thr, r) in heats.items():
+            scores = torch.empty(heat.numel(), device="cuda")
+            xy = torch.empty((k, 2), device="cuda")
+            score = torch.empty(k, device="cuda")
+            valid = torch.empty(k, dtype=torch.bool, device="cuda")
+
+            def run():
+                err = g(heat.data_ptr(), heat.shape[0], heat.shape[1], k, float(np.float32(thr)),
+                        r, scores.data_ptr(), xy.data_ptr(), score.data_ptr(), valid.data_ptr(),
+                        torch.cuda.current_stream().cuda_stream)
+                assert err == 0, err
+
+            us = device_us(torch, run)
+            plain = SP.nms_topk_plain(heat.cpu(), k, thr, r)
+            same = all(torch.equal(o.cpu(), e) for o, e in zip((xy, score, valid), plain))
+            print(json.dumps({"kernel": "nms_topk", "variant": name, "heat": kind,
+                              "device_us": us, "equal_to_plain": same}), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--only", default="flow,tracks,finish,select,nms",
+                    help="comma-separated: flow, tracks, finish, select, nms")
+    args = ap.parse_args()
+    tree, only = os.path.abspath(args.tree), set(args.only.split(","))
+    sys.path.insert(0, tree)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_variants: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    from multimotionfusion_tpu_torch import kernels as K
+    from multimotionfusion_tpu_torch.kernels import checks as C
+    from multimotionfusion_tpu_torch.ops import image as imops
+    from multimotionfusion_tpu_torch.segmentation import flow as FL
+    from multimotionfusion_tpu_torch.segmentation import flow_crf as FC
+    from multimotionfusion_tpu_torch.tracking import superpoint as SP
+    from multimotionfusion_tpu_torch.tracking import tracker as TR
+
+    K.build_all()
+    if "flow" in only:
+        flow_variants(tree, torch, K, C, FL, imops)
+    if "tracks" in only:
+        track_variants(tree, torch, K, C, TR)
+    if "finish" in only:
+        finish_phases(tree, torch, K, C, FC)
+    if "select" in only:
+        select_phases(tree, torch, K, C, SP)
+    if "nms" in only:
+        nms_variants(tree, torch, K, C, SP)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,7 @@
 """Record, then compare, every output of some kernels over chip_smoke.py's
-static (``odom_init=""`` and "kp"), flow-CRF and legacy CRF runs, to show
-that a redesigned kernel is bit-equal to the version it replaces.
+static (``odom_init=""`` and "kp"), external-mask, flow-CRF and legacy CRF
+runs, to show that a redesigned kernel is bit-equal to the version it
+replaces.
 
     python3 tests/torch_outputs_equal.py --tree DIR --out A.pt   # record DIR's
     python3 tests/torch_outputs_equal.py --compare A.pt B.pt    # compare two
@@ -20,11 +21,14 @@ transforms of ``tracker.refine_track_subset``; K15's whole flow
 matched_t) and per tracker update (``tracker.update``) the matches of its
 inputs (``mutual_match`` on the table's ``in_history``), the nine fields of
 the table after it and the (p0, p1, valid) pair, each as a SHA-1 of its
-bytes. The outputs are kept on the
+bytes; K18's ``segment.finish`` (``flow_crf.finish_cuda``): mask,
+new_label_mask, has_new_label and pixel_counts as digests, depth_mean and
+depth_std as tensors; K19's ``nms_topk`` (``superpoint.nms_topk_cuda``): xy,
+score and valid as digests. The outputs are kept on the
 card during a run, so recording adds no host read to the frame step.
-``--compare`` holds every recorded tensor equal with ``torch.equal`` and
-every digest equal, and prints one JSON line. Needs one NVIDIA GPU to
-record.
+``--compare`` holds every recorded tensor equal bit for bit (floats by their
+bytes) and every digest equal, and prints one JSON line. Needs one NVIDIA
+GPU to record.
 """
 
 import argparse
@@ -50,6 +54,8 @@ def record(tree: str, out: str) -> int:
     from multimotionfusion_tpu_torch.odometry import rgbd
     from multimotionfusion_tpu_torch.ops import ransac as RS
     from multimotionfusion_tpu_torch.segmentation import flow as FL
+    from multimotionfusion_tpu_torch.segmentation import flow_crf as FC
+    from multimotionfusion_tpu_torch.tracking import superpoint as SP
     from multimotionfusion_tpu_torch.tracking import tracker as TR
 
     if not (S.__file__.startswith(tree) and K.__file__.startswith(tree)):
@@ -74,6 +80,8 @@ def record(tree: str, out: str) -> int:
     wrap(EM, "_kp_seeds", lambda r: r)
     wrap(TR, "refine_track_subset", lambda r: (r,))
     wrap(FL, "dense_flow", lambda r: (r,))
+    wrap(FC, "finish_cuda", lambda r: r)
+    wrap(SP, "nms_topk_cuda", lambda r: r)
     match, update = TR.mutual_match, TR.update
     in_update = []  # a tree whose update calls the public mutual_match
 
@@ -142,10 +150,10 @@ def record(tree: str, out: str) -> int:
         torch.cuda.synchronize()
         rec = {}
         for name, calls in kept.items():
-            if name in ("dense_flow", "mutual_match", "update"):
+            if name in ("dense_flow", "mutual_match", "update", "nms_topk_cuda"):
                 names = {"dense_flow": ("flow",), "mutual_match": ("match_idx", "matched_t"),
                          "update": ("match_idx", "matched_t") + TR.FIELDS
-                         + ("p0", "p1", "valid")}[name]
+                         + ("p0", "p1", "valid"), "nms_topk_cuda": ("xy", "score", "valid")}[name]
                 rec[name] = {f"{field}_digests": [
                     hashlib.sha1(c[j].cpu().numpy().tobytes()).hexdigest() if j < len(c)
                     else None for c in calls] for j, field in enumerate(names)}
@@ -162,6 +170,13 @@ def record(tree: str, out: str) -> int:
             elif name == "_kp_seeds":
                 rec[name] = dict(seeds=[c[0].cpu() for c in calls],
                                  ok=[c[1].cpu() for c in calls])
+            elif name == "finish_cuda":
+                rec[name] = {f"{field}_digests": [
+                    hashlib.sha1(c[j].cpu().numpy().tobytes()).hexdigest() for c in calls]
+                    for j, field in enumerate(("mask", "new_label_mask", "has_new_label",
+                                               "pixel_counts"))}
+                rec[name].update(depth_mean=[c[4].cpu() for c in calls],
+                                 depth_std=[c[5].cpu() for c in calls])
             elif name == "refine_track_subset":
                 rec[name] = dict(T=[c[0].cpu() for c in calls])
             else:
@@ -176,6 +191,9 @@ def record(tree: str, out: str) -> int:
     collect("static")
     S.run_engine(K, dataclasses.replace(cfg, odom_init="kp"), frames, gt, S.KP_PATH, "kp_engine")
     collect("static_kp")
+    m_cfg, m_frames = S.multi_frames(1 + S.MULTI_FRAMES)
+    S.run_multi(K, m_cfg, m_frames)
+    collect("multi")
     f_cfg, f_frames = S.multi_frames(1 + S.MULTI_FRAMES, masks=False)
     S.run_multi_flow(K, f_cfg, f_frames)
     collect("flow_crf")
@@ -187,6 +205,19 @@ def record(tree: str, out: str) -> int:
     print(json.dumps({"tree": tree, "out": out, "calls": {
         tag: {k: len(next(iter(v.values()))) for k, v in rec.items()} for tag, rec in runs.items()}}))
     return 0
+
+
+def same_bits(x, y) -> bool:
+    """Equal dtype, shape and bytes (a float's sign of zero and NaN payload
+    count)."""
+    import torch
+
+    if x.dtype != y.dtype or x.shape != y.shape:
+        return False
+    if x.is_floating_point():
+        return torch.equal(x.contiguous().reshape(-1).view(torch.uint8),
+                           y.contiguous().reshape(-1).view(torch.uint8))
+    return torch.equal(x, y)
 
 
 def compare(a_path: str, b_path: str) -> int:
@@ -204,7 +235,7 @@ def compare(a_path: str, b_path: str) -> int:
                 if field.endswith("digests"):
                     equal = [x == y for x, y in zip(xa, xb)]
                 else:
-                    equal = [torch.equal(x, y) for x, y in zip(xa, xb)]
+                    equal = [same_bits(x, y) for x, y in zip(xa, xb)]
                 line[field] = dict(calls=(len(xa), len(xb)), equal=sum(equal),
                                    first_differing=next((i for i, e in enumerate(equal)
                                                          if not e), None))
