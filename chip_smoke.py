@@ -42,6 +42,9 @@ Phases (any failure exits non-zero):
    counts where the host is slower), plus the kernel's device time alone
    (``_device_profile``: torch.profiler, every device event of 20 calls
    after 10 warm-up calls; by kernel for K4, K5's steps, K8, K11 and K14;
+   for K1's filter and K2's two sides (each side every level in one launch)
+   also cold, ``device_ms_cold``: a 64 MB fill before every call flushes
+   the L2 cache, its kernel left out by name;
    K4's sums also bit-equal to the block-order float32 sum of the call's
    partials; the one-launch SO(3) iteration also bit-equal to its two
    halves' standalone kernels, ``so3_reduce`` and ``so3_step``, whose lines
@@ -185,9 +188,10 @@ Phases (any failure exits non-zero):
    inputs) and K23 (the constraint points, the map; on the loop-closure
    journey's matching frame) against their plain versions;
 6. phase ``device_counts``: K15's device launches a flow-CRF frame (at most
-   2), a tracker update's device operations (at most 3, no memset), and the
-   device launches of one K18 finish and one K19 top-K (at most 2 each),
-   from the kernel lines' profiles;
+   2), a tracker update's device operations (at most 3, no memset), the
+   device launches of one K18 finish and one K19 top-K (at most 2 each), of
+   one K1 filter (1) and of each K2 side (at most 2; both sides at most 4 a
+   static frame), from the kernel lines' profiles;
 7. print ``{"kernels": [...]}``, the card's name and power limit, and as the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -229,7 +233,7 @@ LEVELS = (0, 1, 2)
 MAIN_PATH = (
     ("frame_maps.filter", "frame_maps.surfels", "odo_init", "so3_iteration", "gn_step",
      "zbuffer", "fuse", "clean", "clean.compact", "compact", "splat_resolve")
-    + tuple(f"pyramid.{side}.L{lvl}" for side in ("frame", "pred") for lvl in LEVELS)
+    + ("pyramid.frame", "pyramid.pred")
     + tuple(f"gn_reduce.L{lvl}" for lvl in LEVELS)
 )
 KP_PATH = MAIN_PATH + ("patch_score", "nms_topk", "patch_desc", "mutual_match", "track_update",
@@ -241,8 +245,7 @@ MULTI_PATH = (
     ("frame_maps.filter", "frame_maps.surfels", "so3_iteration", "compact", "zbuffer.flat",
      "fuse_flat", "clean_flat", "splat_resolve.composite", "patch_score", "nms_topk",
      "patch_desc", "mutual_match", "track_update", "ransac_fit", "multi_init", "multi_seed",
-     "multi_arbitrate", "gn_step_multi")
-    + tuple(f"pyramid.{side}.L{lvl}" for side in ("frame", "pred") for lvl in LEVELS)
+     "multi_arbitrate", "gn_step_multi", "pyramid.frame", "pyramid.pred")
     + tuple(f"owner_prep.L{lvl}" for lvl in LEVELS)
     + tuple(f"gn_multi.L{lvl}" for lvl in LEVELS)
 )
@@ -292,8 +295,7 @@ LEGACY_PATH = (
      "gn_reduce.error_images", "zbuffer", "fuse", "clean", "clean.compact", "compact",
      "splat_resolve", "patch_score", "nms_topk", "patch_desc", "mutual_match",
      "track_update", "ransac_fit", "slic.centres", "slic.assign", "sp.downsample", "sp.upsample",
-     "legacy_crf.plan", "legacy_crf.iterate", "components")
-    + tuple(f"pyramid.{side}.L{lvl}" for side in ("frame", "pred") for lvl in LEVELS)
+     "legacy_crf.plan", "legacy_crf.iterate", "components", "pyramid.frame", "pyramid.pred")
     + tuple(f"gn_reduce.L{lvl}" for lvl in LEVELS)
 )
 # The legacy CRF journey's lifecycle as the reference package runs it on the
@@ -351,7 +353,8 @@ def _time_ms(fn, reps: int = 20) -> float:
 PROFILE_GAP_S = 0.05
 
 
-def _device_profile(fn, reps: int = 20, warm: int = 10, tries: int = 3):
+def _device_profile(fn, reps: int = 20, warm: int = 10, tries: int = 3, before=None,
+                    skip: tuple = ()):
     """Device work one call of ``fn`` enqueues, every event counted: ``warm``
     calls first inside the profile (its first device events go unrecorded),
     then ``reps`` calls in a marked range, and only the device events that
@@ -362,16 +365,21 @@ def _device_profile(fn, reps: int = 20, warm: int = 10, tries: int = 3):
     tracker update count 3.15) and no timed event out of it. Returns (ms,
     device launches, {kernel name: ms}), all per call. A profile that
     recorded no device event is taken again; (None, None, {}) (not
-    measured) after ``tries`` such."""
+    measured) after ``tries`` such. ``before`` runs ahead of every call, and
+    device events whose name holds one of ``skip`` are left out."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for _ in range(tries):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(warm):
+                if before is not None:
+                    before()
                 fn()
             torch.cuda.synchronize()
             time.sleep(PROFILE_GAP_S)
             with torch.profiler.record_function("mmf_timed_calls"):
                 for _ in range(reps):
+                    if before is not None:
+                        before()
                     fn()
                 torch.cuda.synchronize()
         marks = [e for e in prof.events() if e.name == "mmf_timed_calls"]
@@ -380,7 +388,8 @@ def _device_profile(fn, reps: int = 20, warm: int = 10, tries: int = 3):
         half = PROFILE_GAP_S * 1e6 / 2  # us
         t0, t1 = marks[0].time_range.start - half, marks[0].time_range.end + half
         events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                  and t0 <= e.time_range.start <= t1 and e.name != "mmf_timed_calls"]
+                  and t0 <= e.time_range.start <= t1 and e.name != "mmf_timed_calls"
+                  and not any(k in e.name for k in skip)]
         if not events:
             continue
         by_name = defaultdict(float)
@@ -412,6 +421,22 @@ def _device(fn, by_kernel: bool = False) -> dict:
             merged[_kernel_name(name)] += v
         out["device_ms_by_kernel"] = dict(merged)
     return out
+
+
+# the cold readings: a fill of FLUSH_BYTES (more than the H100's 50 MB L2)
+# before every call evicts its inputs; the fill's kernel is left out by name
+FLUSH_BYTES = 64 << 20
+FLUSH_KERNEL = "FillFunctor"
+_flush = []
+
+
+def _cold(fn) -> dict:
+    """``device_ms_cold``: ``_device_profile``'s reading with the L2 cache
+    flushed before every call (inputs read from device memory)."""
+    if not _flush:
+        _flush.append(torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=DEVICE))
+    ms, _, _ = _device_profile(fn, before=lambda: _flush[0].fill_(1.0), skip=(FLUSH_KERNEL,))
+    return dict(device_ms_cold=ms)
 
 
 def _bound(bytes_moved: float, flops: float):
@@ -723,7 +748,7 @@ def measure_frame_depth(a):
     bound, by = _bound(a[0].element_size() * npix + 8 * npix, 169 * 12 * npix)
     return dict(
         ms=_time_ms(lambda: FM.frame_depth_cuda(*a)),
-        **_device(lambda: FM.frame_depth_cuda(*a)),
+        **_device(lambda: FM.frame_depth_cuda(*a)), **_cold(lambda: FM.frame_depth_cuda(*a)),
         plain_ms=_time_ms(lambda: FM.frame_depth_plain(*a), reps=3),
         **_library(None), bound_ms=bound, bound_by=by,
     )
@@ -758,56 +783,56 @@ def _conv_yardstick(channels: int, h: int, w: int, down: bool):
     return lambda: F.conv2d(x, k, padding=1)
 
 
-def measure_pyr_frame(a, level):
+def measure_pyr_frame(a):
+    """The frame side, every level in one launch; the yardstick is the sum of
+    each level's convolutions (level 0's Sobel; a coarser level's 5x5 stride-2
+    num and den of the finer depth and intensity, then its Sobel)."""
     from multimotionfusion_tpu_torch.odometry import levels as LV
 
     cam, cfg = a[3], a[4]
-    finer = LV.frame_levels(*a)
-    cam_l = cam.level(level)
-    h, w = cam_l.height, cam_l.width
-    npix = h * w
-    prev = None if level == 0 else finer[level - 1]
-    run = lambda: LV.frame_level_cuda(level, prev, *a)  # noqa: E731
-    # in: level 0 depth + colour + mask (11 B/px), else the finer depth and
-    # intensity (8 B per finer pixel) + mask; out: intensity, Sobel x2,
-    # vertices, normals, validity (+ depth at coarse levels)
-    if level == 0:
-        bytes_in = 11 * npix
-        conv = [_conv_yardstick(1, h, w, False)]
-    else:
-        hp, wp = finer[level - 1].img.shape
-        bytes_in = 8 * hp * wp + 4 * npix
-        conv = [_conv_yardstick(2, hp, wp, True), _conv_yardstick(1, h, w, False)]
-    bytes_out = (4 * 3 + 24 + 1 + (4 if level else 0)) * npix
-    bound, by = _bound(bytes_in + bytes_out, (50 * (level > 0) + 60) * npix)
+    sizes = LV.level_sizes(cam.height, cam.width, cfg.num_pyr)
+    run = lambda: LV.frame_levels_cuda(*a)  # noqa: E731
+    # in: the filtered depth and the colour (7 B a level-0 pixel) and, where a
+    # mask test is on, the model ids (4 B); out at each level: intensity,
+    # Sobel x2, vertices, normals, validity (37 B), depth at coarse levels
+    bytes_in = (7 + (4 if cfg.mask_icp or cfg.mask_rgb else 0)) * sizes[0][0] * sizes[0][1]
+    bytes_out = sum((37 + 4 * (lvl > 0)) * h * w for lvl, (h, w) in enumerate(sizes))
+    flops = sum((50 * (lvl > 0) + 60) * h * w for lvl, (h, w) in enumerate(sizes))
+    conv = [_conv_yardstick(1, *sizes[0], False)]
+    for lvl in range(1, len(sizes)):
+        conv += [_conv_yardstick(2, *sizes[lvl - 1], True), _conv_yardstick(1, *sizes[lvl], False)]
+    bound, by = _bound(bytes_in + bytes_out, flops)
     return dict(
-        ms=_time_ms(run), **_device(run),
+        ms=_time_ms(run), **_device(run), **_cold(run),
         plain_ms=_time_ms(lambda: LV.frame_levels_plain(*a), reps=5),
         **_library(lambda: [c() for c in conv]), bound_ms=bound, bound_by=by,
+        library_note="the levels' F.conv2d calls summed: 5x5 stride-2 num and den, Sobel",
     )
 
 
-def measure_pyr_pred(a, level):
+def measure_pyr_pred(a):
+    """The prediction side, every level's map in one launch; the yardstick is
+    the sum of the coarse levels' 5x5 stride-2 convolutions (num and den of
+    the depth, RGB depth and intensity)."""
     from multimotionfusion_tpu_torch.odometry import levels as LV
 
-    vertex_conf, normal_rad, color, cam, cfg = a
-    # level 2 reads level 1's pyramids
-    finer = None if level < 2 else LV.pred_level_cuda(1, None, *a)[1]
-    run = lambda: LV.pred_level_cuda(level, finer, vertex_conf, normal_rad, color, cam, cfg)  # noqa: E731
-    cam_l = cam.level(level)
-    npix = cam_l.height * cam_l.width
-    hp, wp = cam.level(max(level - 1, 0)).height, cam.level(max(level - 1, 0)).width
-    if level == 0:  # depth, normal, colour in; the bf16 map out
-        bytes_moved, conv = (4 + 12 + 12) * npix + 16 * npix, None
-    elif level == 1:  # finer depth and colour; three pyramids and the f32 map
-        bytes_moved, conv = 16 * hp * wp + (12 + 32) * npix, _conv_yardstick(3, hp, wp, True)
-    else:
-        bytes_moved, conv = 12 * hp * wp + (12 + 32) * npix, _conv_yardstick(3, hp, wp, True)
-    bound, by = _bound(bytes_moved, 200 * npix)
+    cam, cfg = a[3], a[4]
+    sizes = LV.level_sizes(cam.height, cam.width, cfg.num_pyr)
+    compact, _ = LV._use_terms(cfg)
+    run = lambda: LV.pred_levels_cuda(*a)  # noqa: E731
+    n0 = sizes[0][0] * sizes[0][1]
+    # in: the vertex (its depth alone where level 0's map is bf16), normal
+    # and colour; out: level 0's map (16 B bf16 or 32 B f32), 32 B a
+    # coarse pixel
+    bytes_moved = n0 * ((4 if compact else 12) + 12 + 12 + (16 if compact else 32))
+    bytes_moved += sum(32 * h * w for h, w in sizes[1:])
+    conv = [_conv_yardstick(3, *sizes[lvl - 1], True) for lvl in range(1, len(sizes))]
+    bound, by = _bound(bytes_moved, sum(200 * h * w for h, w in sizes))
     return dict(
-        ms=_time_ms(run), **_device(run),
+        ms=_time_ms(run), **_device(run), **_cold(run),
         plain_ms=_time_ms(lambda: LV.pred_levels_plain(*a), reps=5),
-        **_library(conv), bound_ms=bound, bound_by=by,
+        **_library(lambda: [c() for c in conv]), bound_ms=bound, bound_by=by,
+        library_note="the coarse levels' F.conv2d calls summed: 5x5 stride-2 num and den",
     )
 
 
@@ -1288,17 +1313,11 @@ def plan():
          C.check_frame_surfels, measure_frame_surfels, "frame_maps.cu",
          "model/surfel_map.py:123"),
     ]
-    for lvl in LEVELS:
-        p.append((f"pyramid.frame[L{lvl}]", "pyramid.frame", f"pyramid.frame.L{lvl}",
-                  lambda a, lvl=lvl: C.check_pyramid_frame(a, lvl),
-                  lambda a, lvl=lvl: measure_pyr_frame(a, lvl), "pyramid.cu",
-                  "odometry/levels.py:41"))
-    for lvl in LEVELS:
-        p.append((f"pyramid.pred[L{lvl}]", "pyramid.pred", f"pyramid.pred.L{lvl}",
-                  lambda a, lvl=lvl: C.check_pyramid_pred(a, lvl),
-                  lambda a, lvl=lvl: measure_pyr_pred(a, lvl), "pyramid.cu",
-                  "odometry/levels.py:59"))
     p += [
+        ("pyramid.frame[L0-L2]", "pyramid.frame", "pyramid.frame", C.check_pyramid_frame_side,
+         measure_pyr_frame, "pyramid.cu", "odometry/levels.py:41"),
+        ("pyramid.pred[L0-L2]", "pyramid.pred", "pyramid.pred", C.check_pyramid_pred_side,
+         measure_pyr_pred, "pyramid.cu", "odometry/levels.py:59"),
         ("odo_init", "odo_init", "odo_init", C.check_odo_init, measure_odo_init, "gn_step.cu",
          "odometry/rgbd.py:776"),
         ("so3_reduce", "so3_reduce", "so3_reduce", C.check_so3_reduce, measure_so3_reduce,
@@ -2379,11 +2398,19 @@ def run_hand_made_cases() -> list:
     plateau): masks, counts and
     the top-K exact against the plain versions on the CPU, the finish's mean
     and std bit-equal to ``checks.seg_stats_emulated``
-    (``check_finish_cases``, ``check_topk_cases``)."""
+    (``check_finish_cases``, ``check_topk_cases``); K1's filter on
+    ``FILTER_CASES`` (487x651, 80x60, 17x23, 9x11, all-zero depth, depth at
+    and beside min_d and max_d; millimetres and metres) and K2's two sides
+    on ``PYRAMID_CASES`` (the same sizes; model ids with mask_icp and
+    mask_rgb on and off, use_rgb off, bf16 and f32 level-0 maps) against the
+    plain versions on the card, within ``check_frame_depth``'s,
+    ``check_pyramid_frame``'s and ``check_pyramid_pred``'s tolerances
+    (``check_filter_cases``, ``check_pyramid_cases``)."""
     from multimotionfusion_tpu_torch.kernels import checks as C
 
     failed = []
-    for name in ("flow_cases", "track_cases", "match_cases", "finish_cases", "topk_cases"):
+    for name in ("flow_cases", "track_cases", "match_cases", "finish_cases", "topk_cases",
+                 "filter_cases", "pyramid_cases"):
         r = getattr(C, f"check_{name}")(DEVICE)
         torch.cuda.synchronize()
         print(json.dumps({"phase": name, **r}))
@@ -2394,26 +2421,37 @@ def run_hand_made_cases() -> list:
 
 def device_counts(kernels) -> dict:
     """Phase 6: K15's device launches a frame (its wrapper runs once a
-    flow-CRF frame), the device operations of one tracker update, and the
-    device launches of one K18 finish and one K19 top-K, from the kernel
-    lines' profiles."""
+    flow-CRF frame), the device operations of one tracker update, the device
+    launches of one K18 finish and one K19 top-K, of one K1 filter and of
+    each K2 side, and K2's launches a static frame, from the kernel lines'
+    profiles."""
     by = {k["name"]: k for k in kernels}
     flow, tracker = by["flow[prep + 3 levels]"], by["tracker.update[match + update]"]
     out = dict(flow_launches_per_frame=flow["device_launches_per_call"]
                * flow["launches_per_frame"],
                tracker_update_device_ops=tracker["device_launches_per_call"],
                tracker_update_kernels=sorted(tracker.get("device_ms_by_kernel", {})))
+    limits = {"segment_finish": 2, "nms_topk": 2, "nms_topk_plateau": 2, "filter": 1,
+              "pyramid_frame": 2, "pyramid_pred": 2}
     for key, line in (("segment_finish", "segment.finish"), ("nms_topk", "nms_topk"),
-                      ("nms_topk_plateau", "nms_topk[plateau]")):
+                      ("nms_topk_plateau", "nms_topk[plateau]"), ("filter", "frame_maps[filter]"),
+                      ("pyramid_frame", "pyramid.frame[L0-L2]"),
+                      ("pyramid_pred", "pyramid.pred[L0-L2]")):
         out[f"{key}_device_launches"] = by[line]["device_launches_per_call"]
+    sides = [by[f"pyramid.{side}[L0-L2]"] for side in ("frame", "pred")]
+    out["pyramid_launches_per_frame"] = (
+        None if any(k["device_launches_per_call"] is None for k in sides)
+        else sum(k["device_launches_per_call"] * k["launches_per_frame"] for k in sides))
     out["ok"] = (out["flow_launches_per_frame"] is not None
                  and out["flow_launches_per_frame"] <= 2
                  and out["tracker_update_device_ops"] is not None
                  and out["tracker_update_device_ops"] <= 3
                  and not any(n.startswith("Mem") for n in out["tracker_update_kernels"])
                  and all(out[f"{key}_device_launches"] is not None
-                         and out[f"{key}_device_launches"] <= 2
-                         for key in ("segment_finish", "nms_topk", "nms_topk_plateau")))
+                         and out[f"{key}_device_launches"] <= limit
+                         for key, limit in limits.items())
+                 and out["pyramid_launches_per_frame"] is not None
+                 and out["pyramid_launches_per_frame"] <= 4 * (N_FRAMES + 1) / N_FRAMES)
     print(json.dumps({"phase": "device_counts", **out}))
     return out
 
@@ -3014,8 +3052,8 @@ def main() -> int:
     run_solve_work(captured, m_captured)
     counts = device_counts(kernels)
     if not counts["ok"]:
-        f_failed.append(f"K15's launches, a tracker update's device operations or K18's "
-                        f"and K19's launches: {counts}")
+        f_failed.append(f"K15's launches, a tracker update's device operations or K18's, "
+                        f"K19's, K1's filter's or K2's launches: {counts}")
     loops = [check_loop(captured), check_loop(kp_captured, "odometry_loop[kp]"),
              check_sparse(kp_captured), check_multi_loop(m_captured)]
     print(json.dumps({"kernels": kernels}))

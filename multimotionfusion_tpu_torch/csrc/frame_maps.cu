@@ -6,12 +6,22 @@
 // Bound on an H100: operations in launch 1 (169 taps with one expf each per
 //   pixel), bytes in launch 2 (a 16-channel column per pixel, 64 bytes).
 // Design: two launches a frame.
-//   1. filter: one thread per pixel converts the raw depth (uint16 mm carried
-//      as int16 bits, or metres) to metres, writes it, and runs the 13x13
-//      bilateral filter tap by tap in the reference's row-major order, so the
-//      sums round as the plain version's and the reference's. The spatial
-//      term of each tap is rounded from double, as the reference computes
-//      it (a Python float times the constant); expf, not __expf.
+//   1. filter: a 128-thread block stages its 64x8 tile's depth plus the
+//      radius-6 halo once in shared memory, converted to metres (uint16 mm
+//      carried as int16 bits, or metres) and zeroed outside [min_d, max_d]
+//      and outside the image (the plain version's shifted zero fill), so a
+//      tap needs no conversion, range test or bounds test. Each thread
+//      filters four pixels of a row, so a staged value is read once for all
+//      of them; the 13 taps of a row are unrolled. Each output sums its taps
+//      in the reference's row-major order, so the sums round as the plain
+//      version's and the reference's. A tap whose depth is 0 adds exactly +0
+//      to both sums: its weight is zeroed by a gate of +inf added to the
+//      exponent (computed once per staged value; a branch around each tap
+//      cost 40 % more, tests/torch_kernel_variants.py --only levels), and a
+//      thread whose four centres are all invalid writes zeros without a tap:
+//      both leave every bit as it was. The spatial term of each tap is rounded from double, as the
+//      reference computes it (a Python float times the constant); expf, not
+//      __expf. The metric depth is written beside the filtered one.
 //   2. surfels: a 32x8 block stages the filtered depth of its tile plus a
 //      one-pixel halo (right, bottom) in shared memory, rebuilds the filtered
 //      vertices and their cross-product normals from it, the raw vertices
@@ -32,6 +42,11 @@ constexpr int R = 6;  // bilateral radius
 constexpr int TAPS = (2 * R + 1) * (2 * R + 1);
 constexpr int TX = 32, TY = 8;
 
+// the filter's tile: FX pixels a thread along a row, FTX x FTY threads
+constexpr int FX = 4, FTX = 16, FTY = 8;
+constexpr int FW = FX * FTX, FH = FTY;            // a block's output tile, 64 x 8
+constexpr int SW = FW + 2 * R, SH = FH + 2 * R;   // its staged depth, 76 x 20
+
 __device__ inline float raw_depth(const void* raw, int is_mm, int p) {
   if (is_mm) {
     int v = (int)reinterpret_cast<const int16_t*>(raw)[p] & 0xFFFF;
@@ -40,43 +55,111 @@ __device__ inline float raw_depth(const void* raw, int is_mm, int p) {
   return reinterpret_cast<const float*>(raw)[p];
 }
 
-__global__ void bilateral(const void* __restrict__ raw, int is_mm, int H, int W, float min_d,
-                          float max_d, double sigma_space, float sigma_color,
-                          float* __restrict__ depth_m, float* __restrict__ depth_filt) {
+__global__ void __launch_bounds__(FTX * FTY)
+bilateral(const void* __restrict__ raw, int is_mm, int H, int W, float min_d, float max_d,
+          double sigma_space, float sigma_color, int vec, float* __restrict__ depth_m,
+          float* __restrict__ depth_filt) {
   __shared__ float space[TAPS];
-  for (int k = threadIdx.x; k < TAPS; k += blockDim.x) {
+  __shared__ __align__(16) float tile[SH][SW];
+  const int t = threadIdx.y * FTX + threadIdx.x;
+  for (int k = t; k < TAPS; k += FTX * FTY) {
     int oy = k / (2 * R + 1) - R, ox = k % (2 * R + 1) - R;
     space[k] = (float)((double)(ox * ox + oy * oy) * sigma_space);
   }
+  // the tile's depth with its halo, in metres, 0 outside the range and the image
+  // (a thread's loads all issued before its first store)
+  const int x0 = blockIdx.x * FW - R, y0 = blockIdx.y * FH - R;
+  constexpr int PER = (SH * SW + FTX * FTY - 1) / (FTX * FTY);
+  float dq[PER];
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    int k = t + j * FTX * FTY, ty = k / SW, tx = k - ty * SW;
+    int y = y0 + ty, x = x0 + tx;
+    dq[j] = (k < SH * SW && y >= 0 && y < H && x >= 0 && x < W) ? raw_depth(raw, is_mm, y * W + x)
+                                                                  : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    int k = t + j * FTX * FTY;
+    if (k < SH * SW) (&tile[0][0])[k] = (dq[j] >= min_d && dq[j] <= max_d) ? dq[j] : 0.f;
+  }
   __syncthreads();
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= H * W) return;
-  int y = p / W, x = p % W;
-  float d = raw_depth(raw, is_mm, p);
-  depth_m[p] = d;
-  bool valid = d >= min_d && d <= max_d;
-  float base = valid ? d : 0.f;
-  float sum1 = 0.f, sum2 = 0.f;
-  int k = 0;
-  for (int oy = -R; oy <= R; ++oy) {
-    int yy = y + oy;
-    for (int ox = -R; ox <= R; ++ox, ++k) {
-      int xx = x + ox;
-      float s = 0.f;
-      if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
-        float dq = raw_depth(raw, is_mm, yy * W + xx);
-        s = (dq >= min_d && dq <= max_d) ? dq : 0.f;
+  const int y = blockIdx.y * FH + threadIdx.y;
+  const int xs = blockIdx.x * FW + threadIdx.x * FX;
+  if (y >= H || xs >= W) return;
+  // a centre is valid iff its staged depth is > 0 (min_d > 0), and then
+  // that depth is the plain version's `base`
+  float base[FX], sum1[FX], sum2[FX];
+  bool any = false;
+#pragma unroll
+  for (int i = 0; i < FX; ++i) {
+    base[i] = tile[threadIdx.y + R][threadIdx.x * FX + R + i];
+    sum1[i] = 0.f;
+    sum2[i] = 0.f;
+    any = any || base[i] > 0.f;
+  }
+  if (any) {
+#pragma unroll 1
+    for (int oy = 0; oy < 2 * R + 1; ++oy) {
+      // this row's FX + 2R staged values, as float4 (the row pitch and the
+      // thread's first column are multiples of 4 floats)
+      float s[FX + 2 * R];
+      const float4* row =
+          reinterpret_cast<const float4*>(&tile[threadIdx.y + oy][threadIdx.x * FX]);
+#pragma unroll
+      for (int j = 0; j < (FX + 2 * R) / 4; ++j) {
+        float4 q = row[j];
+        s[4 * j] = q.x;
+        s[4 * j + 1] = q.y;
+        s[4 * j + 2] = q.z;
+        s[4 * j + 3] = q.w;
       }
-      float diff = base - s;
-      float c2 = diff * diff;
-      float w = expf(-(space[k] + c2 * sigma_color));
-      w = s > 0.f ? w : 0.f;
-      sum1 = sum1 + s * w;
-      sum2 = sum2 + w;
+      // a zero tap's gate: +inf in the exponent makes its weight expf(-inf) = +0
+      float g[FX + 2 * R];
+#pragma unroll
+      for (int j = 0; j < FX + 2 * R; ++j) g[j] = s[j] > 0.f ? 0.f : __int_as_float(0x7f800000);
+#pragma unroll
+      for (int ox = 0; ox < 2 * R + 1; ++ox) {
+        const float sp = space[oy * (2 * R + 1) + ox];
+#pragma unroll
+        for (int i = 0; i < FX; ++i) {
+          const float sq = s[i + ox];
+          float diff = base[i] - sq;
+          float c2 = diff * diff;
+          // (sp + c2 * sigma_color) >= +0, so adding the gate's +0 leaves it
+          // as the reference rounds it
+          float w = expf(-((sp + c2 * sigma_color) + g[i + ox]));
+          sum1[i] = sum1[i] + sq * w;
+          sum2[i] = sum2[i] + w;
+        }
+      }
     }
   }
-  float out = sum2 > 0.f ? sum1 / fmaxf(sum2, 1e-12f) : 0.f;
-  depth_filt[p] = valid ? out : 0.f;
+  float out[FX], dm[FX];
+#pragma unroll
+  for (int i = 0; i < FX; ++i) {
+    float o = sum2[i] > 0.f ? sum1[i] / fmaxf(sum2[i], 1e-12f) : 0.f;
+    out[i] = base[i] > 0.f ? o : 0.f;
+    dm[i] = xs + i < W ? raw_depth(raw, is_mm, y * W + xs + i) : 0.f;
+  }
+  const int p = y * W + xs;
+  if (vec) {  // W % 4 == 0: the FX pixels lie in the image, 16-byte aligned
+#pragma unroll
+    for (int i = 0; i < FX; i += 4) {
+      *reinterpret_cast<float4*>(depth_m + p + i) = make_float4(dm[i], dm[i + 1], dm[i + 2],
+                                                                dm[i + 3]);
+      *reinterpret_cast<float4*>(depth_filt + p + i) = make_float4(out[i], out[i + 1],
+                                                                   out[i + 2], out[i + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < FX; ++i) {
+      if (xs + i < W) {
+        depth_m[p + i] = dm[i];
+        depth_filt[p + i] = out[i];
+      }
+    }
+  }
 }
 
 struct Cam {
@@ -168,9 +251,11 @@ surfels(const float* __restrict__ depth_m, const float* __restrict__ depth_filt,
 extern "C" int mmf_frame_depth(const void* raw, int is_mm, int H, int W, float min_d,
                                float max_d, double sigma_space, float sigma_color,
                                float* depth_m, float* depth_filt, cudaStream_t stream) {
-  const int threads = 256;
-  bilateral<<<(H * W + threads - 1) / threads, threads, 0, stream>>>(
-      raw, is_mm, H, W, min_d, max_d, sigma_space, sigma_color, depth_m, depth_filt);
+  static_assert(FX % 4 == 0 && (FX + 2 * R) % 4 == 0 && SW % 4 == 0, "float4 rows and stores");
+  int vec = W % 4 == 0 && ((uintptr_t)depth_m | (uintptr_t)depth_filt) % 16 == 0;
+  dim3 block(FTX, FTY), grid((W + FW - 1) / FW, (H + FH - 1) / FH);
+  bilateral<<<grid, block, 0, stream>>>(raw, is_mm, H, W, min_d, max_d, sigma_space,
+                                        sigma_color, vec, depth_m, depth_filt);
   return (int)cudaGetLastError();
 }
 

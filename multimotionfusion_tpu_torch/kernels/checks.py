@@ -430,9 +430,11 @@ def _pyr_frame_pair(a: tuple):
     return kern, plain
 
 
-def check_pyramid_frame(a: tuple, level: int) -> dict:
-    kern, plain = _pyr_frame_pair(a)
-    k, p = kern[level], plain[level]
+def _frame_level_errors(k, p) -> dict:
+    """One level of the frame side against the plain version's."""
+    if k.img.shape != p.img.shape:
+        return dict(max_abs_err=None, shape=list(k.img.shape), plain_shape=list(p.img.shape),
+                    ok=False, tolerance="the plain version's level sizes")
     sob = torch.cat([(k.didx - p.didx).abs().reshape(-1), (k.didy - p.didy).abs().reshape(-1)])
     sob_off = int((sob > 0).sum())
     sob_frac = sob_off / sob.numel()
@@ -445,25 +447,34 @@ def check_pyramid_frame(a: tuple, level: int) -> dict:
     # a Sobel value one off can flip the gradient gate of that pixel only
     ok = (depth_err <= 1e-5 and img_err <= 1e-4 and map_err <= 1e-5 and vmask == 0
           and nmask == 0 and float(sob.max()) <= 1.0 and sob_frac <= 1e-4
-          and sv_diff <= sob_off and int(p.static_valid.sum()) > 0)
+          and sv_diff <= sob_off)
     return dict(
         max_abs_err=max(depth_err, map_err), depth_err=depth_err, intensity_err=img_err,
         vertex_normal_err=map_err, sobel_off_by_one=sob_off, static_valid_differ=sv_diff,
-        vmap_mask_differ=vmask, nmap_mask_differ=nmask, ok=ok,
+        vmap_mask_differ=vmask, nmap_mask_differ=nmask, static_valid=int(p.static_valid.sum()),
+        ok=ok,
         tolerance="depth, vertices, normals within 1e-5, intensity within 1e-4; vertex/normal "
                   "masks exact; Sobel exact but for <= 0.01% of values off by 1; static "
                   "validity exact but where a Sobel value differs",
     )
 
 
-def check_pyramid_pred(a: tuple, level: int) -> dict:
-    mk = LV.pred_levels(*a)[level]
-    mp = LV.pred_levels_plain(*a)[level]
+def check_pyramid_frame(a: tuple, level: int) -> dict:
+    kern, plain = _pyr_frame_pair(a)
+    r = _frame_level_errors(kern[level], plain[level])
+    r["ok"] = r["ok"] and r["static_valid"] > 0
+    return r
+
+
+def _pred_level_errors(mk, mp) -> dict:
+    """One level's sampling map against the plain version's."""
+    if mk.shape != mp.shape or mk.dtype != mp.dtype:
+        return dict(max_abs_err=None, shape=list(mk.shape), plain_shape=list(mp.shape),
+                    ok=False, tolerance="the plain version's level sizes and types")
     if mk.dtype == torch.bfloat16:
         differ = int((mk.view(torch.int16) != mp.view(torch.int16)).sum())
         return dict(max_abs_err=float((mk.float() - mp.float()).abs().max()), bits_differ=differ,
-                    ok=differ == 0 and bool((mp[..., 0] != 0).any()),
-                    tolerance="bf16 sampling map bit-equal")
+                    ok=differ == 0, tolerance="bf16 sampling map bit-equal")
     geo = float((mk[..., :7] - mp[..., :7]).abs().max())
     img = float((mk[..., 7] - mp[..., 7]).abs().max())
     mask = int(((mk[..., 2] > 0) != (mp[..., 2] > 0)).sum())
@@ -471,6 +482,185 @@ def check_pyramid_pred(a: tuple, level: int) -> dict:
                 ok=geo <= 1e-5 and img <= 1e-4 and mask == 0,
                 tolerance="f32 map: vertices, normals, depth within 1e-5, intensity within "
                           "1e-4; vertex mask exact")
+
+
+def check_pyramid_pred(a: tuple, level: int) -> dict:
+    mk = LV.pred_levels(*a)[level]
+    mp = LV.pred_levels_plain(*a)[level]
+    r = _pred_level_errors(mk, mp)
+    if mk.dtype == torch.bfloat16:
+        r["ok"] = r["ok"] and bool((mp[..., 0] != 0).any())
+    return r
+
+
+def _side_result(levels: list) -> dict:
+    errs = [r["max_abs_err"] for r in levels]
+    return dict(levels=levels, ok=all(r["ok"] for r in levels),
+                max_abs_err=None if None in errs else max(errs),
+                tolerance=levels[0]["tolerance"] + ", at every level")
+
+
+def check_pyramid_frame_side(a: tuple) -> dict:
+    """Every level of the frame side (one launch) against the plain version,
+    each held to ``check_pyramid_frame``'s tolerance."""
+    kern, plain = _pyr_frame_pair(a)
+    levels = []
+    for k, p in zip(kern, plain):
+        r = _frame_level_errors(k, p)
+        r["ok"] = r["ok"] and r["static_valid"] > 0
+        levels.append(r)
+    return _side_result(levels)
+
+
+def check_pyramid_pred_side(a: tuple) -> dict:
+    """Every level's sampling map (one launch) against the plain version, each
+    held to ``check_pyramid_pred``'s tolerance."""
+    kern, plain = LV.pred_levels(*a), LV.pred_levels_plain(*a)
+    levels = [_pred_level_errors(k, p) for k, p in zip(kern, plain)]
+    if kern[0].dtype == torch.bfloat16:
+        levels[0]["ok"] = levels[0]["ok"] and bool((plain[0][..., 0] != 0).any())
+    return _side_result(levels)
+
+
+# K1's hand-made filter cases: (name, height, width, depth kind, unit). The
+# filter's tile is 64 x 8 and writes four pixels a thread as float4 where the
+# width is a multiple of 4: 487 x 651 and the small ones divide neither.
+FILTER_CASES = (("ragged_mm", 487, 651, "scene", "mm"), ("ragged_m", 487, 651, "scene", "m"),
+                ("fern_80x60", 60, 80, "scene", "mm"), ("small_17x23", 17, 23, "scene", "m"),
+                ("small_9x11", 9, 11, "scene", "mm"), ("all_zero", 120, 160, "zero", "mm"),
+                ("range_edges_m", 120, 160, "edges", "m"),
+                ("range_edges_mm", 120, 160, "edges", "mm"))
+
+
+def _depth_scene(h: int, w: int, rng) -> np.ndarray:
+    """Metres: a slanted plane, two boxes nearer, speckle, holes and depth
+    beyond the filter's range."""
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    d = 1.2 + 1.5 * xs / max(w - 1, 1) + 0.6 * ys / max(h - 1, 1)
+    d[h // 5:h // 2, w // 6:w // 3] = 0.8
+    d[h // 2:4 * h // 5, w // 2:3 * w // 4] -= 0.35
+    d += rng.normal(0.0, 0.004, d.shape)
+    d[rng.random(d.shape) < 0.03] = 0.0
+    d[rng.random(d.shape) < 0.01] = 25.0
+    d[:, -max(w // 16, 1):] = 0.0
+    return d
+
+
+def filter_inputs(kind: str, unit: str, h: int, w: int, device, seed: int = 0) -> tuple:
+    """The raw depth of one filter case: int16-carried millimetres or metres."""
+    rng = np.random.default_rng(seed)
+    if kind == "zero":
+        d = np.zeros((h, w))
+    elif kind == "scene":
+        d = _depth_scene(h, w, rng)
+    else:  # at, just inside and just outside min_d / max_d, among valid depth
+        d = 1.0 + 0.2 * rng.random((h, w))
+        lo, hi = (0.3, 20.0) if unit == "m" else (300, 20000)
+        near = np.float32(lo), np.nextafter(np.float32(lo), np.float32(1e9))
+        far = np.float32(hi), np.nextafter(np.float32(hi), np.float32(0))
+        if unit == "mm":  # 299, 300, 301 mm and 19999, 20000, 20001 mm
+            near, far = (lo - 1, lo, lo + 1), (hi - 1, hi, hi + 1)
+        else:
+            near += (np.nextafter(np.float32(lo), np.float32(0)),)
+            far += (np.nextafter(np.float32(hi), np.float32(1e9)),)
+        vals = np.array(near + far, dtype=np.float64) / (1000.0 if unit == "mm" else 1.0)
+        pick = rng.random((h, w)) < 0.3
+        d[pick] = rng.choice(vals, size=int(pick.sum()))
+    if unit == "mm":
+        mm = np.clip(np.round(d * 1000.0), 0, 65535).astype(np.uint16)
+        return (torch.from_numpy(mm.view(np.int16).copy()).to(device),)
+    return (torch.from_numpy(d.astype(np.float32)).to(device),)
+
+
+def check_filter_cases(device) -> dict:
+    """K1's filter on ``FILTER_CASES`` against the plain version on the same
+    device, each held to ``check_frame_depth``'s tolerance."""
+    cases, ok = {}, True
+    for name, h, w, kind, unit in FILTER_CASES:
+        a = filter_inputs(kind, unit, h, w, device)
+        r = check_frame_depth(a)
+        r["valid"] = int((FM.frame_depth_plain(*a)[1] > 0).sum())
+        if kind == "edges":  # the range's edges themselves kept, beyond them dropped
+            dm = FM.frame_depth_plain(*a)[0]
+            r["at_range_edges"] = int(((dm == FM._MIN_D) | (dm == FM._MAX_D)).sum())
+        cases[name] = r
+        ok = ok and r["ok"]
+    return dict(cases=cases, ok=ok, max_abs_err=max(r["max_abs_err"] for r in cases.values()),
+                tolerance="each case within check_frame_depth's tolerance (filtered depth "
+                          "within 1e-5 m, its valid mask and the metric depth exact)")
+
+
+# K2's hand-made cases: (name, height, width, OdometryConfig changes, mask_id).
+# Tiles of 8 x 8 at level 2 (32 x 32 at level 0) divide none of the ragged
+# sizes, whose levels halve rounding up; 80 x 60 is the fern scale.
+PYRAMID_CASES = (
+    ("ragged_487x651", 487, 651, {}, 1),
+    ("fern_80x60", 60, 80, dict(num_pyr=2, iterations=(10, 5), mask_icp=False, mask_rgb=False,
+                                min_grad_magnitudes=(5.0, 3.0)), 0),
+    ("small_17x23", 17, 23, {}, 2),
+    ("small_9x11", 9, 11, {}, 1),
+    ("masks_off", 120, 160, dict(mask_icp=False, mask_rgb=False), 2),
+    ("mask_icp_only", 120, 160, dict(mask_rgb=False), 2),
+    ("mask_rgb_only", 120, 160, dict(mask_icp=False), 3),
+    ("use_rgb_off", 120, 160, dict(icp_weight=100.0), 1),
+    ("f32_maps_rgb_only", 120, 160, dict(rgb_only=True), 1),
+    ("f32_maps_icp_weight_0", 480, 640, dict(icp_weight=0.0), 0),
+)
+
+
+def pyramid_inputs(h: int, w: int, changes: dict, mask_id: int, device, seed: int = 0):
+    """(frame side's arguments, prediction side's) of one K2 case: the depth
+    scene (metres, as filtered), a textured colour, model ids 0-3 in blocks,
+    and a prediction rendered from a second depth scene (its vertices,
+    normals and colour, zeros where it has no depth)."""
+    from multimotionfusion_tpu_torch.config import CameraModel, OdometryConfig
+    from multimotionfusion_tpu_torch.ops import maps as mapops
+
+    rng = np.random.default_rng(seed)
+    f = 525.0 * w / 640.0
+    cam = CameraModel(width=w, height=h, fx=f, fy=f, cx=(w - 1) / 2.0, cy=(h - 1) / 2.0)
+    cfg = OdometryConfig(**changes)
+    depth = _depth_scene(h, w, rng)
+    depth[depth > 20.0] = 0.0
+    ys, xs = np.mgrid[0:h, 0:w]
+    rgb = np.stack([(xs * 7 + ys * 3) % 256, (xs * xs + 5 * ys) % 256,
+                    rng.integers(0, 256, (h, w))], -1)
+    rgb[rng.random((h, w)) < 0.05] = 0  # black pixels fail the static window
+    mask = ((xs * 4) // max(w, 1) + 2 * ((ys * 2) // max(h, 1))) % 4
+    frame = (torch.from_numpy(depth.astype(np.float32)).to(device),
+             torch.from_numpy(rgb.astype(np.uint8)).to(device),
+             torch.from_numpy(mask.astype(np.int32)).to(device), cam, cfg, mask_id)
+    pd = torch.from_numpy(_depth_scene(h, w, rng).astype(np.float32))
+    pd[pd > 20.0] = 0.0
+    v = mapops.create_vmap(pd, cam, 1e9)
+    n = mapops.create_nmap(v)
+    conf = torch.from_numpy(rng.random((h, w, 1)).astype(np.float32))
+    color = torch.from_numpy(rng.integers(0, 256, (h, w, 3)).astype(np.float32))
+    pred = (torch.cat([v, conf], -1).contiguous().to(device),
+            torch.cat([n, conf], -1).contiguous().to(device), color.to(device), cam, cfg)
+    return frame, pred
+
+
+def check_pyramid_cases(device) -> dict:
+    """K2's two sides on ``PYRAMID_CASES`` against the plain versions on the
+    same device: every level held to ``check_pyramid_frame``'s and
+    ``check_pyramid_pred``'s tolerances (no level need hold a valid pixel)."""
+    cases, ok = {}, True
+    for name, h, w, changes, mask_id in PYRAMID_CASES:
+        fa, pa = pyramid_inputs(h, w, changes, mask_id, device)
+        kern, plain = _pyr_frame_pair(fa)
+        frame = [_frame_level_errors(k, p) for k, p in zip(kern, plain)]
+        pred = [_pred_level_errors(k, p) for k, p in
+                zip(LV.pred_levels(*pa), LV.pred_levels_plain(*pa))]
+        r = dict(frame=frame, pred=pred, sizes=[list(p.img.shape) for p in plain],
+                 ok=len(frame) == len(pred) == fa[4].num_pyr
+                 and all(x["ok"] for x in frame + pred))
+        cases[name] = r
+        ok = ok and r["ok"]
+    errs = [x["max_abs_err"] for r in cases.values() for x in r["frame"] + r["pred"]]
+    return dict(cases=cases, ok=ok, max_abs_err=None if None in errs else max(errs),
+                tolerance="every level of both sides within check_pyramid_frame's and "
+                          "check_pyramid_pred's tolerances, at the plain version's sizes")
 
 
 def check_so3_reduce(a: tuple) -> dict:

@@ -6,15 +6,17 @@ frame, and its coarse vertex/normal maps are rebuilt from a depth pyramid so
 every level is ray-aligned.
 
 On the card ``frame_levels`` and ``pred_levels`` launch one kernel of
-``csrc/pyramid.cu`` per level and side, each writing every field its level
-needs (the frame's depth, intensity, Sobel gradients, masked vertex and
-normal maps and static photometric validity; the prediction's sampling map);
-on CPU tensors they compose the plain functions below
-(``build_frame_pyramids``, ``build_level_data``, the reference's API).
+``csrc/pyramid.cu`` a side, which writes every field of every level (the
+frame's depth, intensity, Sobel gradients, masked vertex and normal maps and
+static photometric validity; the prediction's sampling map); on CPU tensors
+they compose the plain functions below (``build_frame_pyramids``,
+``build_level_data``, the reference's API). ``regions``, ``tile`` and
+``grid`` state the kernels' tiling.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import List, NamedTuple
 
 import torch
@@ -140,36 +142,100 @@ def frame_levels_plain(depth_filt, rgb_u8, mask, cam: CameraModel, cfg: Odometry
     return out
 
 
-_FRAME_ARGS = [K.I] * 5 + [K.P] * 4 + [K.I] * 5 + [K.F] * 8 + [K.P] * 7
+# csrc/pyramid.cu's plan: one launch a side builds every level (at most
+# MAX_LEVELS), a block per TILE x TILE tile of level 2 and the tiles of levels
+# 1 and 0 above it (each twice the size of the next coarser). A block stages
+# each level's base fields on its tile widened by a halo (before, after):
+# what the level's outputs read around a pixel (OUT_HALO) and what the next
+# coarser level's base cells read of it (the 5x5 Gaussian centred on 2x).
+MAX_LEVELS = 3
+TILE = 8
+# frame: Sobel, normals and the static-validity window read [x - 2, x + 1];
+# prediction: the coarse maps' normals read x + 1, level 0's map x alone
+OUT_HALO = {"frame": ((2, 1),) * MAX_LEVELS, "pred": ((0, 0), (0, 1), (0, 1))}
+GAUSS_REACH = 2  # a coarse cell x reads the finer [2x - 2, 2x + 2]
 
 
-def frame_level_cuda(lvl: int, finer, depth_filt, rgb_u8, mask, cam: CameraModel,
-                     cfg: OdometryConfig, mask_id: int = 0) -> FrameLevel:
-    """Level ``lvl`` of the frame side on the card (``csrc/pyramid.cu``) from
-    the finer level (``finer``, None at level 0: the filtered depth and the
-    colour)."""
+def level_sizes(h: int, w: int, levels: int):
+    """(height, width) of each level: halved rounding up, as the plain
+    version's strided taps give them (the camera's ``level`` rounds down; the
+    two agree wherever a size stays even)."""
+    sizes = [(h, w)]
+    for _ in range(levels - 1):
+        h, w = (h + 1) // 2, (w + 1) // 2
+        sizes.append((h, w))
+    return sizes
+
+
+def regions(side: str):
+    """(before, after) of each level's staged region around its tile: the
+    level's own output halo and what the next coarser level's region reads."""
+    need = [None] * MAX_LEVELS
+    for lvl in reversed(range(MAX_LEVELS)):
+        b, a = OUT_HALO[side][lvl]
+        if lvl + 1 < MAX_LEVELS:
+            # the coarser region [t - cb, t + T + ca) reads [2t - 2cb - 2, 2t + 2T + 2ca + 1)
+            cb, ca = need[lvl + 1]
+            b, a = max(b, 2 * cb + GAUSS_REACH), max(a, 2 * ca + GAUSS_REACH - 1)
+        need[lvl] = (b, a)
+    return tuple(need)
+
+
+def tile(level: int, b: int):
+    """[start, stop) of block ``b``'s tile of ``level`` along one axis."""
+    size = TILE << (MAX_LEVELS - 1 - level)
+    return b * size, (b + 1) * size
+
+
+def grid(h: int, w: int):
+    """(blocks across, blocks down) of a side's launch for an [h, w] level 0."""
+    h2, w2 = level_sizes(h, w, MAX_LEVELS)[-1]
+    return -(-w2 // TILE), -(-h2 // TILE)
+
+
+def _level_params(cam: CameraModel, cfg: OdometryConfig, levels: int):
+    """Each level's (fx, fy, cx, cy, 1/fx, 1/fy, min_scale), a host array."""
+    vals = []
+    for lvl in range(MAX_LEVELS):
+        if lvl < levels:
+            c = cam.level(lvl)
+            vals += [c.fx, c.fy, c.cx, c.cy, 1.0 / c.fx, 1.0 / c.fy, _min_scale(cfg, lvl)]
+        else:
+            vals += [0.0] * 7
+    return (ctypes.c_float * len(vals))(*vals)
+
+
+def _levels(cfg: OdometryConfig) -> int:
+    if not 1 <= cfg.num_pyr <= MAX_LEVELS:
+        raise ValueError(f"the pyramid kernels build 1 to {MAX_LEVELS} levels, not {cfg.num_pyr}")
+    return cfg.num_pyr
+
+
+_FRAME_ARGS = [K.I] * 3 + [K.P] * 3 + [K.I] * 4 + [K.F] + [K.P] * 2
+
+
+def frame_levels_cuda(depth_filt, rgb_u8, mask, cam: CameraModel, cfg: OdometryConfig,
+                      mask_id: int = 0) -> List[FrameLevel]:
+    """Every level of the frame side in one launch of ``csrc/pyramid.cu``."""
+    n = _levels(cfg)
     h0, w0 = depth_filt.shape
-    cam_l = cam.level(lvl)
-    h, w = cam_l.height, cam_l.width
-    hp, wp = (h0, w0) if finer is None else finer.img.shape
     dev = depth_filt.device
     new = lambda *s: torch.empty(s, dtype=F32, device=dev)  # noqa: E731
-    depth = depth_filt if lvl == 0 else new(h, w)
-    img, didx, didy, vmap, nmap = new(h, w), new(h, w), new(h, w), new(h, w, 3), new(h, w, 3)
-    sv = torch.empty((h, w), dtype=torch.bool, device=dev)
+    out, ptrs = [], []
+    for lvl, (h, w) in enumerate(level_sizes(h0, w0, n)):
+        lv = FrameLevel(depth_filt if lvl == 0 else new(h, w), new(h, w), new(h, w), new(h, w),
+                        new(h, w, 3), new(h, w, 3),
+                        torch.empty((h, w), dtype=torch.bool, device=dev))
+        out.append(lv)
+        ptrs += [None if lvl == 0 else K.ptr(lv.depth)] + [K.ptr(t) for t in lv[1:]]
+    ptrs += [None] * (7 * (MAX_LEVELS - n))
     _, use_rgb = _use_terms(cfg)
     f = K.fn("pyramid", "mmf_pyramid_frame", _FRAME_ARGS)
-    K.call(
-        f"pyramid.frame.L{lvl}", f, lvl, h, w, hp, wp,
-        K.ptr(depth_filt if finer is None else finer.depth),
-        None if finer is None else K.ptr(finer.img), K.ptr(rgb_u8), K.ptr(mask), w0,
-        int(mask_id), int(cfg.mask_icp), int(cfg.mask_rgb), int(use_rgb),
-        cam_l.fx, cam_l.fy, cam_l.cx, cam_l.cy, 1.0 / cam_l.fx, 1.0 / cam_l.fy,
-        float(cfg.max_depth_rgb), _min_scale(cfg, lvl),
-        None if lvl == 0 else K.ptr(depth), K.ptr(img), K.ptr(didx), K.ptr(didy), K.ptr(vmap),
-        K.ptr(nmap), K.ptr(sv),
-    )
-    return FrameLevel(depth, img, didx, didy, vmap, nmap, sv)
+    K.call("pyramid.frame", f, h0, w0, n, K.ptr(depth_filt), K.ptr(rgb_u8), K.ptr(mask),
+           int(mask_id), int(cfg.mask_icp), int(cfg.mask_rgb), int(use_rgb),
+           float(cfg.max_depth_rgb), _level_params(cam, cfg, n),
+           (ctypes.c_void_p * len(ptrs))(*ptrs))
+    return out
 
 
 def frame_levels(depth_filt, rgb_u8, mask, cam: CameraModel, cfg: OdometryConfig,
@@ -182,13 +248,11 @@ def frame_levels(depth_filt, rgb_u8, mask, cam: CameraModel, cfg: OdometryConfig
     K.check(depth_filt, F32, "depth_filt")
     K.check(rgb_u8, torch.uint8, "rgb")
     K.check(mask, torch.int32, "mask")
+    if tuple(depth_filt.shape) != (cam.height, cam.width):
+        raise ValueError("the depth must be [H, W] of the camera")
     if tuple(rgb_u8.shape) != tuple(depth_filt.shape) + (3,) or mask.shape != depth_filt.shape:
         raise ValueError("rgb must be [H, W, 3] and mask [H, W] like the depth")
-    out = []
-    for lvl in range(cfg.num_pyr):
-        out.append(frame_level_cuda(lvl, out[-1] if out else None, depth_filt, rgb_u8, mask,
-                                    cam, cfg, mask_id))
-    return out
+    return frame_levels_cuda(depth_filt, rgb_u8, mask, cam, cfg, mask_id)
 
 
 def pred_levels_plain(vertex_conf, normal_rad, color, cam: CameraModel,
@@ -199,33 +263,24 @@ def pred_levels_plain(vertex_conf, normal_rad, color, cam: CameraModel,
     return [rgbd.pred_map(vpyr[lvl], npyr[lvl], depth_last[lvl], img_last[lvl], use_icp and lvl == 0) for lvl in range(cfg.num_pyr)]
 
 
-_PRED_ARGS = [K.I] * 6 + [K.P] * 6 + [K.F] * 7 + [K.P] * 4
+_PRED_ARGS = [K.I] * 4 + [K.P] * 3 + [K.F] + [K.P] * 2
 
 
-def pred_level_cuda(lvl: int, finer, vertex_conf, normal_rad, color, cam: CameraModel,
-                    cfg: OdometryConfig):
-    """Level ``lvl`` of the prediction side on the card (``csrc/pyramid.cu``):
-    (sampling map, (depth, RGB depth, intensity) pyramids of this level for
-    the next one; None at level 0). ``finer`` is the finer level's pyramids
-    (None at levels 0 and 1, which read the filled prediction)."""
+def pred_levels_cuda(vertex_conf, normal_rad, color, cam: CameraModel,
+                     cfg: OdometryConfig) -> List[torch.Tensor]:
+    """Every level's sampling map in one launch of ``csrc/pyramid.cu``."""
+    n = _levels(cfg)
     use_icp, _ = _use_terms(cfg)
-    cam_l = cam.level(lvl)
-    h, w = cam_l.height, cam_l.width
-    hp, wp = (cam.height, cam.width) if finer is None else finer[0].shape
     dev = vertex_conf.device
-    compact = use_icp and lvl == 0
-    pred = torch.empty((h, w, 8), dtype=torch.bfloat16 if compact else F32, device=dev)
-    cur = None if lvl == 0 else tuple(torch.empty((h, w), dtype=F32, device=dev) for _ in range(3))
+    maps = [torch.empty((h, w, 8), dtype=torch.bfloat16 if use_icp and lvl == 0 else F32,
+                        device=dev)
+            for lvl, (h, w) in enumerate(level_sizes(cam.height, cam.width, n))]
+    ptrs = [K.ptr(m) for m in maps] + [None] * (MAX_LEVELS - n)
     f = K.fn("pyramid", "mmf_pyramid_pred", _PRED_ARGS)
-    K.call(
-        f"pyramid.pred.L{lvl}", f, lvl, h, w, hp, wp, int(compact),
-        K.ptr(vertex_conf), K.ptr(normal_rad), K.ptr(color),
-        *((None,) * 3 if finer is None else (K.ptr(t) for t in finer)),
-        cam_l.fx, cam_l.fy, cam_l.cx, cam_l.cy, 1.0 / cam_l.fx, 1.0 / cam_l.fy,
-        float(cfg.max_depth_rgb), *((None,) * 3 if cur is None else (K.ptr(t) for t in cur)),
-        K.ptr(pred),
-    )
-    return pred, cur
+    K.call("pyramid.pred", f, cam.height, cam.width, n, int(use_icp), K.ptr(vertex_conf),
+           K.ptr(normal_rad), K.ptr(color), float(cfg.max_depth_rgb),
+           _level_params(cam, cfg, n), (ctypes.c_void_p * len(ptrs))(*ptrs))
+    return maps
 
 
 def pred_levels(vertex_conf, normal_rad, color, cam: CameraModel,
@@ -242,12 +297,7 @@ def pred_levels(vertex_conf, normal_rad, color, cam: CameraModel,
         K.check(t, F32, name)
         if tuple(t.shape) != (cam.height, cam.width, c):
             raise ValueError(f"{name} must be [H, W, {c}]")
-    maps, finer = [], None
-    for lvl in range(cfg.num_pyr):
-        pred, cur = pred_level_cuda(lvl, finer, vertex_conf, normal_rad, color, cam, cfg)
-        maps.append(pred)
-        finer = cur
-    return maps
+    return pred_levels_cuda(vertex_conf, normal_rad, color, cam, cfg)
 
 
 def gn_levels(frame: List[FrameLevel], preds: List[torch.Tensor], cam: CameraModel,

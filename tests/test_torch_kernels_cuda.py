@@ -63,7 +63,9 @@ partials (``checks.check_gn``; both references are checked on the CPU by
 statistics bit-equal to ``checks.seg_stats_emulated`` (the kernel's summation
 order, held to the plain version by ``tests/test_torch_finish_topk.py``),
 on the flow-CRF run's inputs and on ``checks.finish_cases``; K19's top-K runs
-on ``checks.TOPK_CASES`` too.
+on ``checks.TOPK_CASES`` too. K1's filter and K2's two sides (every level in
+one launch a side) also run on hand-made inputs (``checks.FILTER_CASES``,
+``checks.PYRAMID_CASES``).
 """
 
 import pytest
@@ -106,7 +108,8 @@ NOT_KERNELS = ("track", "sparse", "so3_reduce", "so3_step")
 
 
 def _capture_key(name: str) -> str:
-    """Recorded inputs of a launch key (the pyramids record once per frame)."""
+    """Recorded inputs and launch key of a case (a pyramid side builds every
+    level in one launch; its cases check one level each)."""
     return name.rsplit(".", 1)[0] if name.startswith("pyramid.") else name
 
 
@@ -134,7 +137,7 @@ def captured():
     checks.derive_so3(out)
     for name, _ in CASES:
         if name not in NOT_KERNELS:
-            assert K.LAUNCHES.get(name, 0) > 0, name
+            assert K.LAUNCHES.get(_capture_key(name), 0) > 0, name
     return out
 
 
@@ -437,6 +440,20 @@ def test_k15_k20_hand_made_cases(name):
     conf_thresh, a plateau with more peaks than K, 487x651, K the pixel
     count): exact against the plain versions on the CPU; the finish's mean
     and std bit-equal to ``checks.seg_stats_emulated``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
+    r = getattr(checks, f"check_{name}")("cuda")
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("name", ["filter_cases", "pyramid_cases"])
+def test_k1_k2_hand_made_cases(name):
+    """K1's filter on ``checks.FILTER_CASES`` (487x651, 80x60, 17x23, 9x11,
+    all-zero depth, depth at and beside min_d and max_d, millimetres and
+    metres) and K2's two sides on ``checks.PYRAMID_CASES`` (the same sizes,
+    model ids with mask_icp and mask_rgb on and off, use_rgb off, bf16 and
+    f32 level-0 maps, two levels at 80x60) against the plain versions on the
+    card, within the engine lines' tolerances."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
     r = getattr(checks, f"check_{name}")("cuda")

@@ -1,7 +1,8 @@
 """Times hand-written kernels as they are and as edited copies, to show
 where their time goes (needs one NVIDIA GPU; not a test).
 
-    python3 tests/torch_kernel_variants.py [--tree DIR] [--only flow,tracks,finish,select,nms]
+    python3 tests/torch_kernel_variants.py [--tree DIR] \
+        [--only flow,tracks,finish,select,nms,levels]
 
 ``flow``: K15's one-launch flow (``csrc/flow.cu``) on
 ``checks.flow_case_inputs(480, 640)`` at the 640x480 CRF grid (120x160),
@@ -26,7 +27,18 @@ microseconds from the kernel's first stamp (a stamp inside the select's
 round loop keeps its last round's value; ``round r`` stamps are per
 round). ``nms``: K19's NMS as it is (one instance a radius) and with the
 radius an argument of one instance, on the same heat maps (the device time
-of each kernel, and the outputs against the plain version). Each copy is
+of each kernel, and the outputs against the plain version). ``levels``:
+K1's filter (``csrc/frame_maps.cu``) as it is (a zero tap's
+weight zeroed by an infinite gate in the exponent), with a select of the
+weight instead, with a branch around each tap and with eight pixels a
+thread, and the opcodes of each one's ``bilateral`` (``cuobjdump -sass``);
+K2's two sides (``csrc/pyramid.cu``) as they are, at four blocks an SM
+(``__launch_bounds__(NT, 4)``) and with a globaltimer stamp at the start,
+after each barrier and at the end (thread 0 of the middle row's first 16
+blocks); each reading the median of three profiles after ~50 ms of matrix
+products; on ``checks.filter_inputs`` and ``checks.pyramid_inputs`` at
+640x480, through the wrappers with the edited library swapped in: device us
+a call and whether the outputs equal the source's. Each copy is
 written and built with the build's flags in ``DIR/build/variants``; an
 edit whose text is no longer in the source stops the script. Prints JSON
 lines.
@@ -49,6 +61,9 @@ def patch(text, old, new, count=1):
     return text.replace(old, new) if count == 0 else text.replace(old, new, count)
 
 
+LOGS = {}  # variant name -> the compiler's output (ptxas -v)
+
+
 def build(tree, name, text):
     """The edited source built in ``build/variants`` (it includes the
     package's headers through -I)."""
@@ -62,10 +77,30 @@ def build(tree, name, text):
          "-O3", "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
          "-I", os.path.join(tree, "multimotionfusion_tpu_torch", "csrc"), "-o", out, path],
         capture_output=True, text=True)
+    LOGS[name] = proc.stdout + proc.stderr
     if proc.returncode:
         print(json.dumps({"variant": name, "build_failed": proc.stdout + proc.stderr}))
         return None
     return ctypes.CDLL(out)
+
+
+def ptxas_summary(log: str) -> dict:
+    """{kernel: [registers, stack frame bytes, spill stores]} of a ptxas -v log."""
+    import re
+
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            cur = re.sub(r"^_ZN.*?(\d+)([a-z_]+)E.*$", r"\2", m.group(1))
+            out[cur] = [None, None, None]
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", ln)
+        if m and cur:
+            out[cur][1], out[cur][2] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur:
+            out[cur][0] = int(m.group(1))
+    return out
 
 
 def device_us(torch, fn, reps=20):
@@ -348,11 +383,114 @@ def nms_variants(tree, torch, K, C, SP):
                               "device_us": us, "equal_to_plain": same}), flush=True)
 
 
+def sass_opcodes(path: str, kernel: str) -> dict:
+    """{opcode: count} of ``kernel``'s SASS in the library ``path``
+    (``cuobjdump -sass``; {} where the tool is missing)."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    out = subprocess.run([tool, "-sass", path], capture_output=True, text=True).stdout
+    counts, inside = defaultdict(int), False
+    for ln in out.splitlines():
+        if "Function :" in ln:
+            inside = kernel in ln
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)", ln)
+        if inside and m:
+            counts[m.group(1).split(".")[0]] += 1
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
+def level_variants(tree, torch, K, C, LV, FM):
+    """K1's filter and K2's two sides at 640x480 as they are and as edited
+    copies (see the module's docstring)."""
+    csrc = os.path.join(tree, "multimotionfusion_tpu_torch", "csrc")
+    fsrc = open(os.path.join(csrc, "frame_maps.cu")).read()
+    psrc = open(os.path.join(csrc, "pyramid.cu")).read()
+    gated = ("          float w = expf(-((sp + c2 * sigma_color) + g[i + ox]));\n"
+             "          sum1[i] = sum1[i] + sq * w;\n          sum2[i] = sum2[i] + w;\n")
+    select = patch(fsrc, gated, "          float w = expf(-(sp + c2 * sigma_color));\n"
+                                "          w = sq > 0.f ? w : 0.f;\n"
+                                "          sum1[i] = sum1[i] + sq * w;\n"
+                                "          sum2[i] = sum2[i] + w;\n")
+    branch = patch(fsrc, gated, "          if (sq > 0.f) {\n"
+                                "          float w = expf(-(sp + c2 * sigma_color));\n"
+                                "          sum1[i] = sum1[i] + sq * w;\n"
+                                "          sum2[i] = sum2[i] + w;\n          }\n")
+    tile = "constexpr int FX = 4, FTX = 16, FTY = 8;"
+    filters = {"as_is": fsrc, "select_per_tap": select, "branch_per_tap": branch,
+               "fx8": patch(fsrc, tile, "constexpr int FX = 8, FTX = 8, FTY = 8;")}
+    stamps = patch(STAMPS, "blockIdx.x < 16", "blockIdx.x < 16 && blockIdx.y == gridDim.y / 2")
+    cut = psrc.index("__global__ void __launch_bounds__(NT, 3) pred_levels")
+    parts = []
+    for part, end in ((psrc[:cut], None), (psrc[cut:], "inline Cam cam_of")):
+        part = patch(part, "  const int t = threadIdx.x;\n",
+                     "  const int t = threadIdx.x;\n  int ns_ = 0;\n  stamp(ns_++);\n")
+        part = patch(part, "  __syncthreads();\n", "  __syncthreads();\n  stamp(ns_++);\n", count=0)
+        part = patch(part, "    sync_low_half();\n", "    sync_low_half();\n    stamp(ns_++);\n")
+        k = part.rindex("}", 0, part.index(end or "- prediction side\n"))
+        parts.append(part[:k] + "  stamp(ns_++);\n" + part[k:])
+    pyramids = {"as_is": psrc,
+                "bounds_4": patch(psrc, "__launch_bounds__(NT, 3)", "__launch_bounds__(NT, 4)",
+                                  count=0),
+                "stamped": stamps + parts[0] + parts[1]}
+    raw = C.filter_inputs("scene", "mm", 480, 640, "cuda")
+    fa, pa = C.pyramid_inputs(480, 640, {}, 1, "cuda")
+    lines = {"frame_maps": {"filter": lambda: FM.frame_depth_cuda(*raw)},
+             "pyramid": {"frame": lambda: LV.frame_levels_cuda(*fa),
+                         "pred": lambda: LV.pred_levels_cuda(*pa)}}
+    flat = lambda r: [t for x in r for t in (x if isinstance(x, tuple) else (x,))]  # noqa: E731
+    for lib_name, variants in (("frame_maps", filters), ("pyramid", pyramids)):
+        kept, ref = K._libs[lib_name], {}
+        built = {name: build(tree, f"{lib_name}_{name}", text) for name, text in variants.items()}
+        try:
+            for name in list(variants) + ["as_is"]:
+                if built[name] is None:
+                    continue
+                K._libs[lib_name] = built[name]
+                for what, fn in lines[lib_name].items():
+                    out = [t.clone() for t in flat(fn())]
+                    ref.setdefault(what, out)
+                    same = all(a.shape == b.shape and torch.equal(a.view(torch.uint8),
+                                                                   b.view(torch.uint8))
+                               for a, b in zip(out, ref[what]))
+                    runs = []
+                    for _ in range(3):  # clocks up first; the median of three readings
+                        _busy(torch)
+                        runs.append(sum(device_us(torch, fn).values()))
+                    line = {"kernel": f"{lib_name}.{what}", "variant": name,
+                            "device_us": sorted(runs)[1], "device_us_runs": runs,
+                            "equal_to_as_is": same}
+                    if name == "stamped":
+                        fn()
+                        torch.cuda.synchronize()
+                        rows = [r for r in read_stamps(built[name]) if r[0]]
+                        t0 = min(r[0] for r in rows)
+                        line["stamps_us_earliest_latest"] = [
+                            [round((min(r[k] for r in rows) - t0) / 1e3, 2),
+                             round((max(r[k] for r in rows) - t0) / 1e3, 2)]
+                            for k in range(64) if all(r[k] for r in rows)]
+                    print(json.dumps(line), flush=True)
+                print(json.dumps({"variant": f"{lib_name}_{name}",
+                                  "ptxas": ptxas_summary(LOGS.get(f"{lib_name}_{name}", ""))}))
+                if lib_name == "frame_maps":
+                    ops = sass_opcodes(os.path.join(tree, "build", "variants",
+                                                    f"{lib_name}_{name}.so"), "bilateral")
+                    print(json.dumps({"kernel": "frame_maps.filter", "variant": name,
+                                      "sass_instructions": sum(ops.values()),
+                                      "sass_opcodes": ops}), flush=True)
+        finally:
+            K._libs[lib_name] = kept
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    ap.add_argument("--only", default="flow,tracks,finish,select,nms",
-                    help="comma-separated: flow, tracks, finish, select, nms")
+    ap.add_argument("--only", default="flow,tracks,finish,select,nms,levels",
+                    help="comma-separated: flow, tracks, finish, select, nms, levels")
     args = ap.parse_args()
     tree, only = os.path.abspath(args.tree), set(args.only.split(","))
     sys.path.insert(0, tree)
@@ -363,6 +501,8 @@ def main() -> int:
         return 2
     from multimotionfusion_tpu_torch import kernels as K
     from multimotionfusion_tpu_torch.kernels import checks as C
+    from multimotionfusion_tpu_torch.odometry import levels as LV
+    from multimotionfusion_tpu_torch.ops import frame_maps as FM
     from multimotionfusion_tpu_torch.ops import image as imops
     from multimotionfusion_tpu_torch.segmentation import flow as FL
     from multimotionfusion_tpu_torch.segmentation import flow_crf as FC
@@ -380,6 +520,8 @@ def main() -> int:
         select_phases(tree, torch, K, C, SP)
     if "nms" in only:
         nms_variants(tree, torch, K, C, SP)
+    if "levels" in only:
+        level_variants(tree, torch, K, C, LV, FM)
     return 0
 
 

@@ -1,7 +1,7 @@
 """Record, then compare, every output of some kernels over chip_smoke.py's
-static (``odom_init=""`` and "kp"), external-mask, flow-CRF and legacy CRF
-runs, to show that a redesigned kernel is bit-equal to the version it
-replaces.
+static (``odom_init=""`` and "kp"), external-mask, flow-CRF, legacy CRF and
+relocalisation runs and K1's and K2's hand-made cases, to show that a
+redesigned kernel is bit-equal to the version it replaces.
 
     python3 tests/torch_outputs_equal.py --tree DIR --out A.pt   # record DIR's
     python3 tests/torch_outputs_equal.py --compare A.pt B.pt    # compare two
@@ -24,19 +24,34 @@ the table after it and the (p0, p1, valid) pair, each as a SHA-1 of its
 bytes; K18's ``segment.finish`` (``flow_crf.finish_cuda``): mask,
 new_label_mask, has_new_label and pixel_counts as digests, depth_mean and
 depth_std as tensors; K19's ``nms_topk`` (``superpoint.nms_topk_cuda``): xy,
-score and valid as digests. The outputs are kept on the
-card during a run, so recording adds no host read to the frame step.
+score and valid as digests; K1's filter (``frame_maps.frame_depth_cuda``):
+the metric and the filtered depth, digests; K2 per side call
+(``levels.frame_levels``: every level's depth, intensity, Sobel x and y,
+vertices, normals and static validity; ``levels.pred_levels``: every
+level's sampling map, bf16 or f32, whose f32 channels are the coarse
+levels' depth, RGB depth and intensity pyramids), digests prefixed with the
+tensor's shape. The relocalisation run (chip_smoke.run_reloc) adds the
+fern-scale K2 calls (80x60 and 40x30). The cases (``checks.FILTER_CASES``,
+``checks.PYRAMID_CASES``, taken from this checkout's ``checks.py`` whatever
+the tree) run through the tree's public wrappers, a run each. The outputs
+are kept on the card during a run, so recording adds no host read to the
+frame step.
 ``--compare`` holds every recorded tensor equal bit for bit (floats by their
-bytes) and every digest equal, and prints one JSON line. Needs one NVIDIA
-GPU to record.
+bytes) and every digest equal, and prints one JSON line; digests of
+tensors whose shapes differ between the trees are listed apart
+(``reshaped``, and ``all_equal_but_reshaped``). Needs one NVIDIA GPU to
+record.
 """
 
 import argparse
 import hashlib
+import importlib.util
 import json
 import os
 import sys
 from collections import defaultdict
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def record(tree: str, out: str) -> int:
@@ -50,8 +65,10 @@ def record(tree: str, out: str) -> int:
     from multimotionfusion_tpu_torch import engine_multi as EM
     from multimotionfusion_tpu_torch import kernels as K
     from multimotionfusion_tpu_torch.model import fusion as FU
+    from multimotionfusion_tpu_torch.odometry import levels as LV
     from multimotionfusion_tpu_torch.odometry import multi as MO
     from multimotionfusion_tpu_torch.odometry import rgbd
+    from multimotionfusion_tpu_torch.ops import frame_maps as FM
     from multimotionfusion_tpu_torch.ops import ransac as RS
     from multimotionfusion_tpu_torch.segmentation import flow as FL
     from multimotionfusion_tpu_torch.segmentation import flow_crf as FC
@@ -82,6 +99,22 @@ def record(tree: str, out: str) -> int:
     wrap(FL, "dense_flow", lambda r: (r,))
     wrap(FC, "finish_cuda", lambda r: r)
     wrap(SP, "nms_topk_cuda", lambda r: r)
+    labelled = defaultdict(list)  # kernel -> [[(field, tensor on the card)] a call]
+
+    def wrap_labelled(module, name, fields):
+        fn = getattr(module, name)
+
+        def recorded(*args, **kwargs):
+            res = fn(*args, **kwargs)
+            labelled[name].append([(f, t.clone()) for f, t in fields(res)])
+            return res
+
+        setattr(module, name, recorded)
+
+    wrap_labelled(FM, "frame_depth_cuda", lambda r: zip(("depth_m", "depth_filt"), r))
+    wrap_labelled(LV, "frame_levels", lambda r: [
+        (f"L{lvl}.{f}", t) for lvl, lv in enumerate(r) for f, t in zip(lv._fields, lv)])
+    wrap_labelled(LV, "pred_levels", lambda r: [(f"L{lvl}.map", m) for lvl, m in enumerate(r)])
     match, update = TR.mutual_match, TR.update
     in_update = []  # a tree whose update calls the public mutual_match
 
@@ -181,8 +214,13 @@ def record(tree: str, out: str) -> int:
                 rec[name] = dict(T=[c[0].cpu() for c in calls])
             else:
                 rec[name] = dict(sums=[c[0].cpu() for c in calls])
+        for name, calls in labelled.items():
+            keys = list(dict.fromkeys(k for c in calls for k, _ in c))
+            rec[name] = {f"{k}_digests": [shaped_digest(dict(c).get(k)) for c in calls]
+                         for k in keys}
         runs[tag] = rec
         kept.clear()
+        labelled.clear()
 
     import dataclasses
 
@@ -201,10 +239,41 @@ def record(tree: str, out: str) -> int:
                                                                           mode="crf"))
     S.run_multi_legacy(K, g_cfg, f_frames)
     collect("legacy_crf")
+    S.run_reloc(K)
+    collect("reloc")
+    spec = importlib.util.spec_from_file_location(
+        "mmf_case_checks",
+        os.path.join(HERE, "multimotionfusion_tpu_torch", "kernels", "checks.py"))
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+    for name, h, w, kind, unit in cases.FILTER_CASES:
+        FM.frame_depth_cuda(*cases.filter_inputs(kind, unit, h, w, "cuda"))
+        collect(f"filter_case.{name}")
+    for name, h, w, changes, mask_id in cases.PYRAMID_CASES:
+        fa, pa = cases.pyramid_inputs(h, w, changes, mask_id, "cuda")
+        LV.frame_levels(*fa)
+        LV.pred_levels(*pa)
+        collect(f"pyramid_case.{name}")
     torch.save({"tree": tree, "gpu": S._gpu_line(), "runs": runs}, out)
     print(json.dumps({"tree": tree, "out": out, "calls": {
         tag: {k: len(next(iter(v.values()))) for k, v in rec.items()} for tag, rec in runs.items()}}))
     return 0
+
+
+def shaped_digest(t):
+    """``HxW...:sha1`` of a tensor's bytes (None for no tensor)."""
+    import torch
+
+    if t is None:
+        return None
+    raw = t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes()
+    return "x".join(map(str, t.shape)) + ":" + hashlib.sha1(raw).hexdigest()
+
+
+def reshaped(x, y) -> bool:
+    """Two shaped digests of tensors of different shapes."""
+    return (isinstance(x, str) and isinstance(y, str) and ":" in x and ":" in y
+            and x.split(":")[0] != y.split(":")[0])
 
 
 def same_bits(x, y) -> bool:
@@ -224,7 +293,7 @@ def compare(a_path: str, b_path: str) -> int:
     import torch
 
     a, b = torch.load(a_path), torch.load(b_path)
-    report, ok = {}, True
+    report, ok, ok_but_reshaped, shape_changes = {}, True, True, []
     for tag in sorted(set(a["runs"]) | set(b["runs"])):
         ra, rb = a["runs"].get(tag, {}), b["runs"].get(tag, {})
         for name in sorted(set(ra) | set(rb)):
@@ -240,8 +309,15 @@ def compare(a_path: str, b_path: str) -> int:
                                    first_differing=next((i for i, e in enumerate(equal)
                                                          if not e), None))
                 ok = ok and len(xa) == len(xb) > 0 and all(equal)
+                moved = [i for i, (x, y) in enumerate(zip(xa, xb)) if reshaped(x, y)]
+                if moved:
+                    shape_changes.append(f"{tag}.{name}.{field}: {xa[moved[0]].split(':')[0]} "
+                                         f"-> {xb[moved[0]].split(':')[0]} ({len(moved)} calls)")
+                ok_but_reshaped = ok_but_reshaped and len(xa) == len(xb) > 0 and all(
+                    e or i in moved for i, e in enumerate(equal))
             report[f"{tag}.{name}"] = line
     print(json.dumps({"a": a["tree"], "b": b["tree"], "gpu": a["gpu"], "all_equal": ok,
+                      "all_equal_but_reshaped": ok_but_reshaped, "reshaped": shape_changes,
                       "outputs": report}))
     return 0 if ok else 1
 
