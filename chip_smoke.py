@@ -156,7 +156,15 @@ Phases (any failure exits non-zero):
    fewer peaks than K, a negative conf_thresh, a plateau with more peaks
    than K, 487x651, K the pixel count, a 1080x1920 plateau), masks, counts and the top-K exact
    against the plain versions on the CPU, the finish's mean and std
-   bit-equal to ``checks.seg_stats_emulated``;
+   bit-equal to ``checks.seg_stats_emulated``; K10 on hand-made index maps
+   (phase ``splat_cases``, ``checks.SPLAT_CASES``: sizes off the 32 x 8
+   tile, windows 1, 2, 3, 5 and 7, static, slot-pointer and composite modes,
+   model boundaries inside every tile, exact and near depth ties, a tile
+   without a surfel, fill-in with and without its gate, passthrough) and
+   K14's clean on hand-made flat stores (phase ``clean_flat_cases``,
+   ``checks.CLEAN_FLAT_CASES``: stale ALIVE past the counts, +0 and -0
+   ALIVE, penalties of exactly 1, redundancy and z culls, windows 4 and 5),
+   every output bit-equal to the plain version on the card;
 5d. five_movers: tests/test_five_movers.py's configuration and 17-frame
    journey at 160x120 (the scene from the port's own io/synthetic.py) on
    the card with the engine seeds FIVE_SEEDS: on every seed five spawns at
@@ -191,7 +199,8 @@ Phases (any failure exits non-zero):
    2), a tracker update's device operations (at most 3, no memset), the
    device launches of one K18 finish and one K19 top-K (at most 2 each), of
    one K1 filter (1) and of each K2 side (at most 2; both sides at most 4 a
-   static frame), from the kernel lines' profiles;
+   static frame), of one K10 resolve (1, static and composite) and of one
+   K14 clean (at most 3), from the kernel lines' profiles;
 7. print ``{"kernels": [...]}``, the card's name and power limit, and as the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -405,7 +414,8 @@ def _kernel_name(event: str) -> str:
     (``(anonymous namespace)::assoc(...)`` -> ``assoc``), else the event's."""
     if event.startswith("Mem"):  # Memcpy / Memset
         return event[:60]
-    name = event.replace("(anonymous namespace)::", "").split("(", 1)[0].split("<", 1)[0]
+    name = event.replace("(anonymous namespace)::", "").removeprefix("void ")
+    name = name.split("(", 1)[0].split("<", 1)[0]
     return name.rsplit("::", 1)[-1][:60]
 
 
@@ -694,11 +704,15 @@ def measure_splat(a):
     # filtered depth and the frame's normal and radius (23 bytes) where it fills
     n_fill = int((index < 0).sum())
     bound, by = _bound(4 * npix + 13 * 4 * n_win + 49 * npix + 23 * n_fill, 25 * 40 * npix)
+    data_local, ids = a[1], index.clamp(min=0).long()
     return dict(
         ms=_time_ms(lambda: R.splat_resolve_cuda(*a)),
-        **_device(lambda: R.splat_resolve_cuda(*a)),
+        **_device(lambda: R.splat_resolve_cuda(*a)), **_cold(lambda: R.splat_resolve_cuda(*a)),
         plain_ms=_time_ms(lambda: fillin.splat_fill_plain(*a), reps=5),
-        **_library(None), bound_ms=bound, bound_by=by,
+        **_library(lambda: data_local[:, ids]),
+        library_note="data_local[:, index.clamp(min=0)]: the winners' [16, H, W] gather "
+                     "(gather_attr_images), part of the function",
+        bound_ms=bound, bound_by=by,
     )
 
 
@@ -756,15 +770,23 @@ def measure_frame_depth(a):
 
 def measure_frame_surfels(a):
     from multimotionfusion_tpu_torch.ops import frame_maps as FM
+    from multimotionfusion_tpu_torch.ops import maps as mapops
 
     npix = a[1].numel()
     # two depths and the colour in, 16 channels and the valid byte out
     bound, by = _bound((4 + 4 + 3 + 64 + 1) * npix, 80 * npix)
+    # yardstick: the normals' cross products of the filtered vertex map
+    v = mapops.create_vmap(a[2], a[3], a[5])
+    right = (v[:-1, 1:] - v[:-1, :-1]).contiguous()
+    down = (v[1:, :-1] - v[:-1, :-1]).contiguous()
     return dict(
         ms=_time_ms(lambda: FM.frame_surfels_cuda(*a)),
         **_device(lambda: FM.frame_surfels_cuda(*a)),
         plain_ms=_time_ms(lambda: FM.frame_surfels_plain(*a), reps=5),
-        **_library(None), bound_ms=bound, bound_by=by,
+        **_library(lambda: torch.linalg.cross(right, down, dim=-1)),
+        library_note="torch.linalg.cross of the filtered vertex map's differences (the "
+                     "normals' cross products, part of the function)",
+        bound_ms=bound, bound_by=by,
     )
 
 
@@ -962,11 +984,17 @@ def measure_patch_score(a):
     # (12), three products, four 5-tap passes each way (80) and the
     # eigenvalue (10)
     bound, by = _bound(12 * npix, 105 * npix)
+    sobel = torch.tensor([[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]], device=DEVICE)
+    weights = torch.stack([sobel, sobel.t()])[:, None]  # [2, 1, 3, 3]
+    img = a[0][None, None]
     return dict(
         ms=_time_ms(lambda: SP.patch_score_cuda(*a)),
         **_device(lambda: SP.patch_score_cuda(*a)),
         plain_ms=_time_ms(lambda: SP.patch_score_plain(*a), reps=5),
-        **_library(None), bound_ms=bound, bound_by=by,
+        **_library(lambda: torch.nn.functional.conv2d(img, weights, padding=1)),
+        library_note="one two-filter F.conv2d (the Sobel gradients, part of the function; "
+                     "TF32 off)",
+        bound_ms=bound, bound_by=by,
     )
 
 
@@ -1001,10 +1029,14 @@ def measure_patch_desc(a):
     k = a[1].shape[0]
     # 64 samples and 64 outputs a keypoint, ~6 operations each
     bound, by = _bound(k * (8 + 64 * 4 + 64 * 4), 6 * 64 * k)
+    blurred = a[0]
+    yi, xi = SP._patch_coords(a[1], *blurred.shape)
     return dict(
         ms=_time_ms(lambda: SP.patch_desc_cuda(*a)), **_device(lambda: SP.patch_desc_cuda(*a)),
         plain_ms=_time_ms(lambda: SP.patch_desc_plain(*a), reps=5),
-        **_library(None), bound_ms=bound, bound_by=by,
+        **_library(lambda: blurred[yi, xi]),
+        library_note="blurred[yi, xi]: the [K, 64] patch samples' gather, part of the function",
+        bound_ms=bound, bound_by=by,
     )
 
 
@@ -1190,8 +1222,12 @@ def measure_owner_prep(a, level):
     args = (level, prev_mask, pred_own, fl, M, LV._min_scale(cfg, level))
     # per level pixel: image, gradients, depth, both owner samples in; the
     # owner, the eroded owner and the validity out; 13 + 16 owner taps
+    own_f = pred_own.to(torch.float32)[None, None]
     return _measure(lambda: MO.owner_level_cuda(*args), lambda: MO.owner_level_plain(*args),
-                    33 * npix, 60 * npix)
+                    33 * npix, 60 * npix,
+                    library=lambda: torch.nn.functional.max_pool2d(own_f, 3, 1 << level, 1),
+                    library_note="F.max_pool2d 3x3 of the float owner image at the level's "
+                                 "stride (the erosion's window, part of the function)")
 
 
 def measure_gn_multi(a, level):
@@ -1282,12 +1318,34 @@ def measure_fuse_flat(a):
 
 def measure_clean_flat(a):
     from multimotionfusion_tpu_torch.model import fusion as FU
+    from multimotionfusion_tpu_torch.model import surfel_map as sm
 
-    index, cam = a[3], a[8]
+    data, index, cam = a[0], a[3], a[8]
     n, npix = a[2].total, cam.height * cam.width
     n_win = int(torch.unique(index[index >= 0]).numel())
-    return _measure(lambda: FU.clean_flat_cuda(*a), lambda: FU.clean_flat_plain(*a),
-                    16 * npix + 7 * 4 * n_win + 2 * 64 * n, 16 * 30 * npix + 20 * n)
+    out = FU.clean_flat_plain(*a)
+    changed = [int((out[ch].view(torch.int32) != data[ch].view(torch.int32)).sum())
+               for ch in (sm.CONF, sm.ALIVE)]
+    # in place: the index map, winner-model image and depth; each winner's
+    # 8 channels; ALIVE, LAST_T and CONF of every row; the CONF and ALIVE
+    # values that change (this frame's data). The copy's bound, every channel
+    # of every row read and written, is the parent design's
+    in_place = 12 * npix + 8 * 4 * n_win + 12 * n + 4 * sum(changed)
+    whole = _bound(16 * npix + 7 * 4 * n_win + 2 * 64 * n, 0)[0]
+    fresh, fresh_cold = _states(data), _states(data)
+    ids = torch.where(index >= 0, index, torch.full_like(index, n)).reshape(-1).long()
+    verdict = torch.ones((npix,), dtype=torch.float32, device=DEVICE)
+    per_surfel = torch.ones((n + 1,), dtype=torch.float32, device=DEVICE)
+    return _measure(lambda: FU.clean_flat_cuda(fresh(), *a[1:]), lambda: FU.clean_flat_plain(*a),
+                    in_place, 16 * 30 * npix + 20 * n,
+                    library=lambda: per_surfel.scatter_reduce_(0, ids, verdict, reduce="amin",
+                                                               include_self=True),
+                    library_note="the plain version's scatter_reduce_(amin) of the pixel "
+                                 "verdicts into the rows (part of the function)",
+                    bound_whole_store_ms=whole, changed_conf_alive=changed,
+                    **_cold(lambda: FU.clean_flat_cuda(fresh_cold(), *a[1:])),
+                    timing_note="each kernel call cleans a fresh copy of the recorded store in "
+                                "place, the copies made before the timing")
 
 
 def measure_splat_composite(a):
@@ -2039,9 +2097,13 @@ def measure_seg_unaries(a):
     pred = a[1]
     M, hc, wc = pred.shape
     n, t = hc * wc, a[4].shape[1]
+    errors = FC.unaries_plain(*a).unary
     return _measure(lambda: FC.unaries_cuda(*a), lambda: FC.unaries_plain(*a),
                     4 * n + 4 * M * n + t * (8 + 4 * M + 1) + (4 * 2 * (M + 1) + M + 4) * n,
-                    20 * M * n + 12 * (M + 1) * n + 8 * M * t)
+                    20 * M * n + 12 * (M + 1) * n + 8 * M * t,
+                    library=lambda: torch.log_softmax(errors, 0),
+                    library_note="torch.log_softmax over the [L, hc, wc] unary (its softmax, "
+                                 "part of the function)")
 
 
 def measure_seg_fuse(a):
@@ -2051,7 +2113,10 @@ def measure_seg_fuse(a):
     L, hc, wc = q.shape
     n = hc * wc
     return _measure(lambda: FC.fuse_labels_cuda(*a), lambda: FC.fuse_labels_plain(*a),
-                    (8 * L + 8 + (L - 1) + 4 + (L - 1)) * n, 14 * L * n)
+                    (8 * L + 8 + (L - 1) + 4 + (L - 1)) * n, 14 * L * n,
+                    library=lambda: torch.argmax(q, 0),
+                    library_note="torch.argmax over the [L, hc, wc] marginals (the labels, part "
+                                 "of the function)")
 
 
 def measure_seg_finish(a):
@@ -2405,12 +2470,20 @@ def run_hand_made_cases() -> list:
     mask_rgb on and off, use_rgb off, bf16 and f32 level-0 maps) against the
     plain versions on the card, within ``check_frame_depth``'s,
     ``check_pyramid_frame``'s and ``check_pyramid_pred``'s tolerances
-    (``check_filter_cases``, ``check_pyramid_cases``)."""
+    (``check_filter_cases``, ``check_pyramid_cases``); K10 on
+    ``SPLAT_CASES`` (487x651 and other sizes off the 32 x 8 tile, windows 1,
+    2, 3, 5 and 7, static, slot-pointer and composite modes with model
+    boundaries inside every tile, exact and near depth ties, a tile without a
+    surfel, fill-in with and without its gate, passthrough) and K14's clean
+    on ``CLEAN_FLAT_CASES`` (stale ALIVE past the counts, +0 and -0 ALIVE,
+    penalties of exactly 1, redundancy and z culls, windows 4 and 5),
+    bit-equal to the plain versions on the card (``check_splat_cases``,
+    ``check_clean_flat_cases``)."""
     from multimotionfusion_tpu_torch.kernels import checks as C
 
     failed = []
     for name in ("flow_cases", "track_cases", "match_cases", "finish_cases", "topk_cases",
-                 "filter_cases", "pyramid_cases"):
+                 "filter_cases", "pyramid_cases", "splat_cases", "clean_flat_cases"):
         r = getattr(C, f"check_{name}")(DEVICE)
         torch.cuda.synchronize()
         print(json.dumps({"phase": name, **r}))
@@ -2422,9 +2495,9 @@ def run_hand_made_cases() -> list:
 def device_counts(kernels) -> dict:
     """Phase 6: K15's device launches a frame (its wrapper runs once a
     flow-CRF frame), the device operations of one tracker update, the device
-    launches of one K18 finish and one K19 top-K, of one K1 filter and of
-    each K2 side, and K2's launches a static frame, from the kernel lines'
-    profiles."""
+    launches of one K18 finish and one K19 top-K, of one K1 filter, of each
+    K2 side, of one K10 resolve (static and composite) and of one K14 clean,
+    and K2's launches a static frame, from the kernel lines' profiles."""
     by = {k["name"]: k for k in kernels}
     flow, tracker = by["flow[prep + 3 levels]"], by["tracker.update[match + update]"]
     out = dict(flow_launches_per_frame=flow["device_launches_per_call"]
@@ -2432,11 +2505,15 @@ def device_counts(kernels) -> dict:
                tracker_update_device_ops=tracker["device_launches_per_call"],
                tracker_update_kernels=sorted(tracker.get("device_ms_by_kernel", {})))
     limits = {"segment_finish": 2, "nms_topk": 2, "nms_topk_plateau": 2, "filter": 1,
-              "pyramid_frame": 2, "pyramid_pred": 2}
+              "pyramid_frame": 2, "pyramid_pred": 2, "splat_resolve": 1,
+              "splat_resolve_composite": 1, "clean_flat": 3}
     for key, line in (("segment_finish", "segment.finish"), ("nms_topk", "nms_topk"),
                       ("nms_topk_plateau", "nms_topk[plateau]"), ("filter", "frame_maps[filter]"),
                       ("pyramid_frame", "pyramid.frame[L0-L2]"),
-                      ("pyramid_pred", "pyramid.pred[L0-L2]")):
+                      ("pyramid_pred", "pyramid.pred[L0-L2]"),
+                      ("splat_resolve", "splat_resolve+fill_in"),
+                      ("splat_resolve_composite", "splat_resolve[composite]+fill_in[gated]"),
+                      ("clean_flat", "clean_flat")):
         out[f"{key}_device_launches"] = by[line]["device_launches_per_call"]
     sides = [by[f"pyramid.{side}[L0-L2]"] for side in ("frame", "pred")]
     out["pyramid_launches_per_frame"] = (
@@ -3053,7 +3130,8 @@ def main() -> int:
     counts = device_counts(kernels)
     if not counts["ok"]:
         f_failed.append(f"K15's launches, a tracker update's device operations or K18's, "
-                        f"K19's, K1's filter's or K2's launches: {counts}")
+                        f"K19's, K1's filter's, K2's, K10's or K14's clean's launches: "
+                        f"{counts}")
     loops = [check_loop(captured), check_loop(kp_captured, "odometry_loop[kp]"),
              check_sparse(kp_captured), check_multi_loop(m_captured)]
     print(json.dumps({"kernels": kernels}))

@@ -4,9 +4,11 @@
 // Replaces: multimotionfusion_tpu/model/fusion.py:414 fuse_flat (with :385
 //   _transform_per_owner) and :615 clean_flat.
 // Bound on an H100: bytes, as K8 and K9 (csrc/fuse.cu, csrc/clean.cu): the
-//   [16, N] flat store is copied once in and out (fuse) and read and written
-//   once (clean); the checkerboard's 76,800 pixels each read a frame surfel
-//   and a 4x4 window of the index map and winner-model image.
+//   [16, N] flat store is copied once in and out (fuse); the clean reads the
+//   index map, winner-model image and depth, each winner's channels once and
+//   three channels of every row, and writes the rows it changes; the
+//   checkerboard's 76,800 pixels each read a frame surfel and a 4x4 window of
+//   the index map and winner-model image.
 // The flat store: the global map's bucket [0, bg) (model 0), then slot k's
 //   bucket [bg + k bo, bg + (k + 1) bo) (model k + 1); `counts` [M] are the
 //   segments' high-water marks. Poses, max depths, active flags, counts and
@@ -29,16 +31,28 @@
 //   4. apply: the winning source writes its column, merged or new, in its
 //      OWNER's model frame (camera -> model pose of the owner).
 // clean_flat (three launches, no compaction; the caller repacks each
-//   segment every compact_every frames with K9):
+//   segment every compact_every frames with K9), IN PLACE on the store:
 //   1. fill the verdicts with ford(1);
 //   2. pixel pass: per index-map winner, the redundancy and z counts over
 //      window candidates of the SAME model, each against ITS model's
 //      confidence gate, the 3x3 see-through penalty, and an atomicMin of the
 //      verdict (-1 = cull vote, else the penalty) through surfel.cuh's
-//      order-preserving float -> int map, so the min is thread-order free;
+//      order-preserving float -> int map, so the min is thread-order free.
+//      A 256-thread block owns a CTW x CTH pixel tile and stages it widened
+//      by the window's halo (window / 2 before, the rest after): one thread
+//      gathers each staged winner's position, confidence and times once
+//      (a thread's positions' loads issued together, so their latencies
+//      overlap), folds its model's confidence gate into the staged model,
+//      and every pixel counts from shared memory in window_counts' order
+//      (surfel.cuh's window_counts_staged, three words a tap; 35 x 11
+//      staged positions for 32 x 8 pixels at the engine's 4x4 window, which
+//      is compiled as a fixed window with the loop unrolled);
 //   3. surfel pass: alive (slot below its segment's count, ALIVE set), the
 //      visual cull, the unstable cull against its model's confidence gate,
-//      the inactive keep; the penalty applied, ALIVE cleared where culled.
+//      the inactive keep; it reads ALIVE, LAST_T and CONF of every row and
+//      writes CONF only where the penalty is not 1 and ALIVE (+0) only where
+//      the row is not kept and ALIVE is not already +0: the other channels
+//      and rows are the input's, untouched (x * 1.0f is x).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -220,6 +234,11 @@ __global__ void apply(const float* __restrict__ frame, const float* __restrict__
 
 // ---------------------------------------------------------------- clean_flat
 
+constexpr int CTW = 32, CTH = 8;  // the pixel pass's tile
+constexpr int CLEAN_THREADS = CTW * CTH;
+constexpr int CLEAN_MAX_WINDOW = 7;  // the largest window the staging holds
+constexpr int CLEAN_STAGED = (CTW + CLEAN_MAX_WINDOW - 1) * (CTH + CLEAN_MAX_WINDOW - 1);
+
 struct PixelArgs {
   const int* index;
   const float* dl;
@@ -227,34 +246,73 @@ struct PixelArgs {
   const int* win;
   const float* depth;
   const float* conf_all;
+  int M;
   int H, W, window;
   float time, gate, coeff;
 };
 
-__global__ void pixel_pass(PixelArgs a, int* __restrict__ vk) {
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= a.H * a.W) return;
-  int i = a.index[p];
+// WINDOW > 0: the window fixed at compile time (the engine's 4x4, the
+// count loop unrolled); 0: a.window
+template <int WINDOW>
+__global__ void __launch_bounds__(CLEAN_THREADS) pixel_pass(PixelArgs a, int* __restrict__ vk) {
+  __shared__ CleanStage<CLEAN_STAGED> st;
+  const int window = WINDOW > 0 ? WINDOW : a.window;
+  const int tx = threadIdx.x % CTW, ty = threadIdx.x / CTW;
+  const int x0 = blockIdx.x * CTW, y0 = blockIdx.y * CTH;
+  const int r = window / 2;
+  const int sw = CTW + window - 1, sh = CTH + window - 1;
+  constexpr int ROUNDS = (CLEAN_STAGED + CLEAN_THREADS - 1) / CLEAN_THREADS;
+  int c[ROUNDS], wq[ROUNDS];
+#pragma unroll
+  for (int k = 0; k < ROUNDS; ++k) {
+    const int s = threadIdx.x + k * CLEAN_THREADS;
+    const int yy = y0 - r + s / sw, xx = x0 - r + s % sw;
+    c[k] = -1;
+    if (s < sw * sh && yy >= 0 && yy < a.H && xx >= 0 && xx < a.W) {
+      c[k] = a.index[yy * a.W + xx];
+      wq[k] = a.win[yy * a.W + xx];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < ROUNDS; ++k) {
+    const int s = threadIdx.x + k * CLEAN_THREADS;
+    int m = -1;
+    if (c[k] >= 0) {
+      const float gate = wq[k] >= 0 && wq[k] < a.M ? a.conf_all[wq[k]] : 0.f;
+      st.p[s] = make_float4(a.dl[PX * a.N + c[k]], a.dl[PY * a.N + c[k]], a.dl[PZ * a.N + c[k]],
+                            a.dl[INIT_T * a.N + c[k]]);
+      st.last[s] = a.dl[LAST_T * a.N + c[k]];
+      if (a.dl[CONF * a.N + c[k]] > gate) m = wq[k];
+    }
+    if (s < sw * sh) st.key[s] = make_int2(c[k], m);
+  }
+  __syncthreads();
+  const int x = x0 + tx, y = y0 + ty;
+  if (x >= a.W || y >= a.H) return;
+  const int sc = (ty + r) * sw + tx + r;  // the pixel's own staged position
+  const int i = st.key[sc].x;
   if (i < 0) return;
-  int y = p / a.W, x = p % a.W;
-  int own = a.win[p];  // a winner's model
+  const int own = a.win[y * a.W + x];  // a winner's model
+  const float4 q = st.p[sc];
+  const float qz = q.z;
   int count, z_count;
-  window_counts(a.index, a.dl, a.N, a.win, own, a.H, a.W, a.window, x, y, i, a.conf_all[own],
-                a.time, &count, &z_count);
+  window_counts_staged<CLEAN_STAGED, WINDOW>(st, ty * sw + tx, sw, window, own, i, q.x, q.y,
+                                             qz, q.w, a.dl[RADIUS * a.N + i],
+                                             fabsf(a.dl[NZ * a.N + i]), a.time, &count,
+                                             &z_count);
   bool viol;
-  float pen = see_through(a.depth, a.H, a.W, x, y, a.dl[PZ * a.N + i], a.gate, a.coeff, &viol);
+  float pen = see_through(a.depth, a.H, a.W, x, y, qz, a.gate, a.coeff, &viol);
   bool cull = count > 8 || z_count > 4;
   atomicMin(&vk[i], ford(cull ? -1.f : pen));
 }
 
 struct SurfelArgs {
-  const float* data;
+  float* data;  // cleaned in place
   int rs, N;
   Flat F;
   const int* counts;
   const float* conf_all;
   float time, grace, time_delta;
-  float* out;
 };
 
 __global__ void surfel_pass(SurfelArgs a, const int* __restrict__ vk) {
@@ -262,16 +320,14 @@ __global__ void surfel_pass(SurfelArgs a, const int* __restrict__ vk) {
   if (i >= a.N) return;
   int m = model_of(a.F, i);
   int pos = i - base_of(a.F, m);
-  bool alive = pos < a.counts[m] && a.data[ALIVE * a.rs + i] > 0.f;
+  const float alive_v = a.data[ALIVE * a.rs + i];
+  const float conf = a.data[CONF * a.rs + i];
+  bool alive = pos < a.counts[m] && alive_v > 0.f;
   float pen;
-  bool keep = keep_surfel(alive, vk[i], a.data[LAST_T * a.rs + i], a.data[CONF * a.rs + i],
-                          a.time, a.grace, a.conf_all[m], a.time_delta, &pen);
-  for (int c = 0; c < CH; ++c) {
-    float x = a.data[c * a.rs + i];
-    if (c == CONF) x = x * pen;
-    if (c == ALIVE && !keep) x = 0.f;
-    a.out[c * a.N + i] = x;
-  }
+  bool keep = keep_surfel(alive, vk[i], a.data[LAST_T * a.rs + i], conf, a.time, a.grace,
+                          a.conf_all[m], a.time_delta, &pen);
+  if (pen != 1.0f) a.data[CONF * a.rs + i] = conf * pen;
+  if (!keep && __float_as_int(alive_v) != 0) a.data[ALIVE * a.rs + i] = 0.f;
 }
 
 }  // namespace
@@ -326,18 +382,22 @@ extern "C" int mmf_fuse_flat_scan_cases(const int* flags, const int* own, int n,
   return (int)cudaGetLastError();
 }
 
-extern "C" int mmf_clean_flat(const float* data, int row_stride, int bg, int bo, int slots,
+extern "C" int mmf_clean_flat(float* data, int row_stride, int bg, int bo, int slots,
                               const int* counts, const int* index, const float* data_local,
                               const int* win_model, const float* depth, const float* conf_all,
                               int H, int W, int window, float time, float time_delta, float grace,
-                              float gate, float coeff, int* verdicts, float* out,
-                              cudaStream_t stream) {
+                              float gate, float coeff, int* verdicts, cudaStream_t stream) {
+  if (window < 1 || window > CLEAN_MAX_WINDOW || H < 1 || W < 1)
+    return (int)cudaErrorInvalidValue;
   Flat F{bg, bo, slots};
   int N = bg + slots * bo;
   fill_verdicts<<<(N + THREADS - 1) / THREADS, THREADS, 0, stream>>>(verdicts, N);
-  PixelArgs pa{index, data_local, N, win_model, depth, conf_all, H, W, window, time, gate, coeff};
-  pixel_pass<<<(H * W + THREADS - 1) / THREADS, THREADS, 0, stream>>>(pa, verdicts);
-  SurfelArgs sa{data, row_stride, N, F, counts, conf_all, time, grace, time_delta, out};
+  PixelArgs pa{index, data_local, N, win_model, depth, conf_all, 1 + slots, H, W, window, time,
+               gate, coeff};
+  const dim3 tiles((W + CTW - 1) / CTW, (H + CTH - 1) / CTH);
+  auto pixels = window == 4 ? pixel_pass<4> : pixel_pass<0>;
+  pixels<<<tiles, CLEAN_THREADS, 0, stream>>>(pa, verdicts);
+  SurfelArgs sa{data, row_stride, N, F, counts, conf_all, time, grace, time_delta};
   surfel_pass<<<(N + THREADS - 1) / THREADS, THREADS, 0, stream>>>(sa, verdicts);
   return (int)cudaGetLastError();
 }

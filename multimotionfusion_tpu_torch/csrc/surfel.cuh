@@ -169,6 +169,53 @@ __device__ inline void window_counts(const int* __restrict__ index, const float*
   *z_count = n_z;
 }
 
+// A window staged in shared memory (K14's clean, fuse_flat.cu): per staged
+// position of an image tile widened by the window's halo, the index map's
+// winner (-1: none or off the image) with its model where the winner passes
+// that model's confidence gate (cconf > conf_all[model]; else -1, which no
+// pixel's model equals), and the winner's channels that window_counts
+// reads, packed so that a tap reads three words.
+template <int N>
+struct CleanStage {
+  float4 p[N];     // px, py, pz, init_t
+  int2 key[N];     // winner, gated model
+  float last[N];   // last_t
+};
+
+// window_counts over a staged window whose first position is s0 (rows sw
+// apart): the same candidates in the same order and the same tests, the
+// confidence gate already folded into the staged model and czp > qz, which
+// both counts need, tested first; WINDOW > 0 fixes the window at compile
+// time (the loops unrolled)
+template <int N, int WINDOW>
+__device__ inline void window_counts_staged(const CleanStage<N>& st, int s0, int sw, int window,
+                                            int own, int i, float qx, float qy, float qz,
+                                            float q_init, float q_rad, float q_nz, float time,
+                                            int* count, int* z_count) {
+  int n_red = 0, n_z = 0;
+  if (WINDOW > 0) window = WINDOW;
+#pragma unroll
+  for (int dy = 0; dy < window; ++dy) {
+#pragma unroll
+    for (int dx = 0; dx < window; ++dx) {
+      const int s = s0 + dy * sw + dx;
+      const int2 key = st.key[s];
+      if (key.x < 0 || key.x == i || key.y != own) continue;
+      const float4 c = st.p[s];
+      const float czp = c.z;
+      if (!(czp > qz)) continue;
+      const float ex = c.x - qx, ey = c.y - qy;
+      const float xy_dist = sqrtf(ex * ex + ey * ey);
+      const bool red = c.w < q_init && (czp - qz < 0.01f) && xy_dist < q_rad * 1.4f;
+      const bool zc = st.last[s] == time && (czp - qz > 0.01f) && q_nz > 0.85f;
+      n_red += red;
+      n_z += zc;
+    }
+  }
+  *count = n_red;
+  *z_count = n_z;
+}
+
 // the 3x3 see-through penalty at pixel (x, y) for a winner at depth qz;
 // *viol tells whether any neighbour lies behind it by more than the gate
 __device__ inline float see_through(const float* __restrict__ depth, int H, int W, int x, int y,

@@ -1688,15 +1688,284 @@ def check_fuse_flat(a: tuple) -> dict:
 
 
 def check_clean_flat(a: tuple) -> dict:
-    ok_ = FU.clean_flat_cuda(*a)
-    op = FU.clean_flat_plain(*a)
+    """The kernel cleans a copy of the store in place; the plain version
+    returns a new one."""
     data_in = a[0]
+    ok_ = FU.clean_flat_cuda(data_in.clone(), *a[1:])
+    op = FU.clean_flat_plain(*a)
     alive_diff = int((ok_[sm.ALIVE] != op[sm.ALIVE]).sum())
     err = _rel(ok_, op)
     culled = int(((data_in[sm.ALIVE] > 0) & (op[sm.ALIVE] == 0)).sum())
     return dict(max_abs_err=float((ok_ - op).abs().max()), max_rel_err=err, keep_differ=alive_diff,
                 culled_plain=culled, ok=alive_diff == 0 and err <= 1e-6,
                 tolerance="ALIVE exact; the whole flat store within 1e-6 relative")
+
+
+def _same_bytes(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtype, shape and bytes (a float's sign of zero counts)."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().reshape(-1).view(torch.uint8),
+                            b.contiguous().reshape(-1).view(torch.uint8)))
+
+
+def _case_camera(h: int, w: int):
+    from multimotionfusion_tpu_torch.config import CameraModel
+
+    f = 525.0 * w / 640.0
+    return CameraModel(width=w, height=h, fx=f, fy=f, cx=(w - 1) / 2.0, cy=(h - 1) / 2.0)
+
+
+def _case_index(h: int, w: int, n: int, rng, empty_tile: bool) -> np.ndarray:
+    """[h, w] ids below ``n``: distinct but for 3 % of pixels that repeat
+    their left neighbour's, -1 on 15 % of pixels, on the image's last
+    column and (``empty_tile``) on a 40 x 12 rectangle that holds a whole
+    32 x 8 tile of the staged kernels wherever it lands."""
+    index = rng.permutation(n)[:h * w].reshape(h, w).astype(np.int64)
+    dup = rng.random((h, w)) < 0.03
+    dup[:, 0] = False
+    index[dup] = np.roll(index, 1, axis=1)[dup]
+    index[rng.random((h, w)) < 0.15] = -1
+    index[:, -1] = -1
+    if empty_tile and h >= 24 and w >= 80:
+        index[9:21, 33:73] = -1
+    return index
+
+
+# K10's hand-made cases: (name, height, width, window, mode, options). Modes:
+# "static" (one confidence threshold), "slot" (the legacy step's gate read
+# by pointer), "composite" (winner models in stripes 3 pixels wide and 5
+# high, so model boundaries cross every tile; per-model gates). Options:
+# "fill" (the fill-in epilogue), "gate" (fill only where the mask is 0),
+# "passthrough". Every scene has image-border surfels, repeated ids, empty
+# pixels, a plane facing the camera whose surfels all hit a pixel's ray at
+# one depth (exact ties, which the strict < breaks by tap order) and parallel
+# planes 0 to 64 ulps apart (near ties); the larger ones a whole tile without
+# a surfel.
+SPLAT_CASES = (
+    ("ragged_487x651_w5_static_fill", 487, 651, 5, "static", ("fill",)),
+    ("ragged_487x651_w5_composite_gate", 487, 651, 5, "composite", ("fill", "gate")),
+    ("w1_37x61_static", 37, 61, 1, "static", ("fill",)),
+    ("w3_17x23_composite", 17, 23, 3, "composite", ("fill", "gate")),
+    ("w7_61x37_composite", 61, 37, 7, "composite", ("fill", "gate")),
+    ("w7_120x160_static_passthrough", 120, 160, 7, "static", ("fill", "passthrough")),
+    ("w2_9x11_static_no_fill", 9, 11, 2, "static", ()),
+    ("w5_64x96_slot_pointer", 64, 96, 5, "slot", ("fill",)),
+    ("w5_48x64_composite_no_gate", 48, 64, 5, "composite", ("fill",)),
+    ("w5_480x640_composite_gate", 480, 640, 5, "composite", ("fill", "gate")),
+)
+SPLAT_TIME, SPLAT_MAX_TIME, SPLAT_TIME_DELTA = 50.0, 52.0, 30.0
+
+
+def splat_inputs(h: int, w: int, window: int, mode: str, options: tuple, device,
+                 seed: int = 0) -> tuple:
+    """``splat_resolve_cuda``'s arguments of one case (surfels made on the
+    pixels' rays, so neighbouring taps hit inside or outside each disk)."""
+    rng = np.random.default_rng(seed)
+    cam = _case_camera(h, w)
+    npix = h * w
+    B = npix + npix // 4 + 7
+    index = _case_index(h, w, B, rng, empty_tile=True)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    rx = ((xs - np.float32(cam.cx)) / np.float32(cam.fx)).astype(np.float32)
+    ry = ((ys - np.float32(cam.cy)) / np.float32(cam.fy)).astype(np.float32)
+    z = (1.2 + 0.8 * xs / max(w - 1, 1) + 0.4 * np.sin(ys / 7.0)
+         + rng.normal(0.0, 0.01, (h, w))).astype(np.float32)
+    n = np.stack([rng.normal(0.0, 0.2, (h, w)), rng.normal(0.0, 0.2, (h, w)),
+                  -np.ones((h, w))]).astype(np.float32)
+    plane = (xs < w / 2) & (ys >= h / 2)  # the tie plane: z = 1.5, normal (0, 0, -1)
+    z[plane] = np.float32(1.5)
+    # near ties: parallel planes 0 to 64 ulps apart, around the resolve's
+    # skip margin (a hit more than 2^-20 farther than the best skips)
+    near = (xs >= w / 2) & (ys < h / 2)
+    ulps = rng.choice(np.array([0, 1, 2, 3, 8, 16, 32, 64], np.int32), size=int(near.sum()))
+    z[near] = (np.float32(1.25).view(np.int32) + ulps).view(np.float32)
+    facing = plane | near
+    n[:, facing] = np.array([[0.0], [0.0], [-1.0]], np.float32)
+    n /= np.linalg.norm(n, axis=0, keepdims=True).astype(np.float32)
+    n[:, facing] = np.array([[0.0], [0.0], [-1.0]], np.float32)
+    dl = rng.normal(0.0, 1.0, (16, B)).astype(np.float32)
+    pix = index >= 0
+    cols = index[pix]
+    dl[sm.PX, cols] = (rx * z)[pix]
+    dl[sm.PY, cols] = (ry * z)[pix]
+    dl[sm.PZ, cols] = z[pix]
+    for k, ch in enumerate((sm.NX, sm.NY, sm.NZ)):
+        dl[ch, cols] = n[k][pix]
+    # a disk of 0.3 to 1.6 times the window's reach
+    reach = max(window / 2.0, 0.5) * z / np.float32(cam.fx)
+    dl[sm.RADIUS, cols] = (reach * rng.uniform(0.3, 1.6, (h, w)))[pix]
+    dl[sm.CONF, cols] = rng.uniform(0.0, 20.0, cols.size)
+    dl[sm.LAST_T, cols] = rng.integers(0, 60, cols.size)
+    dl[sm.INIT_T, cols] = rng.integers(0, 50, cols.size)
+    for ch in (sm.CR, sm.CG, sm.CB):
+        dl[ch, cols] = rng.integers(0, 256, cols.size)
+    dev = device
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    conf_threshold = 5.0
+    composite = None
+    if mode == "slot":
+        conf_threshold = torch.tensor(6.5, dtype=torch.float32, device=dev)
+    if mode == "composite":
+        M = 4
+        own = ((xs.astype(np.int64) // 3) + 2 * (ys.astype(np.int64) // 5)) % M
+        own[~pix] = M
+        conf_all = rng.uniform(0.0, 12.0, M).astype(np.float32)
+        composite = R.Composite(t(conf_all), t(own.astype(np.int32)))
+    fill = None
+    if "fill" in options:
+        depth = rng.uniform(0.3, 4.0, (h, w)).astype(np.float32)
+        depth[rng.random((h, w)) < 0.1] = 0.0
+        frame = rng.normal(0.0, 1.0, (16, npix)).astype(np.float32)
+        gate = None
+        if "gate" in options:
+            gate = t(np.where(rng.random((h, w)) < 0.5, 0, 1 + (xs.astype(np.int64) // 7) % 3)
+                     .astype(np.int32))
+        fill = R.FillFrame(t(rng.integers(0, 256, (h, w, 3)).astype(np.uint8)), t(depth),
+                           t(frame), 3.0, "passthrough" in options, gate)
+    return (t(index.astype(np.int32)), t(dl), cam, conf_threshold, SPLAT_TIME, SPLAT_MAX_TIME,
+            SPLAT_TIME_DELTA, window, fill, composite)
+
+
+def splat_plain(a: tuple):
+    """The plain version's maps of a K10 case: with fill-in, the filled
+    colour, vertex and normal maps beside the prediction's time and valid."""
+    if a[8] is None:
+        return R.splat_resolve_plain(*a[:8], composite=a[9])
+    pred, filled = fillin.splat_fill_plain(*a)
+    return R.PredictedMaps(filled.color, filled.vertex_conf, filled.normal_rad, pred.time,
+                           pred.valid)
+
+
+def check_splat_cases(device) -> dict:
+    """K10 on ``SPLAT_CASES`` against the plain version on the same device:
+    colour, vertex+conf, normal+radius, time and valid bit for bit."""
+    cases, ok = {}, True
+    for name, h, w, window, mode, options in SPLAT_CASES:
+        a = splat_inputs(h, w, window, mode, options, device)
+        k, p = R.splat_resolve_cuda(*a), splat_plain(a)
+        equal = {f: _same_bytes(x, y) for f, x, y in zip(k._fields, k, p)}
+        r = dict(equal=equal, valid=int(p.valid.sum()),
+                 max_abs_err=max(_maxerr(x, y) for x, y in zip(k, p)),
+                 ok=all(equal.values()) and int(p.valid.sum()) > 0)
+        cases[name] = r
+        ok = ok and r["ok"]
+    return dict(cases=cases, ok=ok, max_abs_err=max(r["max_abs_err"] for r in cases.values()),
+                tolerance="every output bit-equal to the plain version")
+
+
+# K14 clean's hand-made cases: (name, height, width, window; the engine's is
+# 4, which the kernel compiles as a fixed window). Each is a flat store of
+# four models (a 4096-slot global segment, three 1024-slot object segments)
+# whose index map's winners belong to the winner-model image's model (stripes
+# across every tile), with a stack of near-coplanar winners (redundancy culls),
+# a stack of winners seen this frame behind their neighbours (z culls), depth
+# in front of and behind the winners (see-through penalties; most rows keep a
+# penalty of exactly 1), rows past each segment's count with a stale non-zero
+# ALIVE, rows whose ALIVE is +0 or -0, unstable and inactive rows.
+CLEAN_FLAT_CASES = (("ragged_37x61", 37, 61, 4), ("ragged_47x97", 47, 97, 4),
+                    ("tile_exact_32x64", 32, 64, 4), ("small_9x11", 9, 11, 4),
+                    ("w5_37x61", 37, 61, 5))
+CLEAN_LAYOUT = dict(bg=4096, bo=1024, slots=3)
+CLEAN_TIME = 60.0
+
+
+def clean_flat_inputs(h: int, w: int, device, seed: int = 0, window: int = 4) -> tuple:
+    """``clean_flat_cuda``'s arguments of one case."""
+    from multimotionfusion_tpu_torch.config import SurfelConfig
+
+    rng = np.random.default_rng(seed)
+    cam = _case_camera(h, w)
+    layout = R.FlatLayout(**CLEAN_LAYOUT)
+    M, total = layout.n_models, layout.total
+    bases = layout.bases
+    ys, xs = np.mgrid[0:h, 0:w]
+    win = (xs // 3 + 2 * (ys // 5)) % M
+    # each pixel's winner from its model's segment (distinct but for repeats)
+    index = np.full((h, w), -1, np.int64)
+    for m in range(M):
+        sel = win == m
+        size = bases[m + 1] - bases[m]
+        index[sel] = bases[m] + np.resize(rng.permutation(size), int(sel.sum()))
+    dup = (rng.random((h, w)) < 0.03) & (xs > 0)
+    dup &= np.roll(win, 1, axis=1) == win
+    index[dup] = np.roll(index, 1, axis=1)[dup]
+    empty = rng.random((h, w)) < 0.15
+    if h >= 24 and w >= 48:
+        empty[8:20, 0:40] = True  # a whole 32 x 8 tile without a winner
+    index[empty] = -1
+    win = np.where(index >= 0, win, M)
+    u = rng.random((h, w))
+    z = 1.0 + 0.3 * xs / max(w - 1, 1) + rng.normal(0.0, 0.002, (h, w))
+    init = rng.integers(0, 50, (h, w)).astype(np.float64)
+    last = rng.integers(20, 61, (h, w)).astype(np.float64)
+    red = (ys < h // 2) & (xs < w // 2)  # near-coplanar, older in front
+    z[red] = 1.0 + 0.009 * u[red]
+    init[red] = 100.0 - 90.0 * u[red]
+    zst = (ys >= h // 2) & (xs >= w // 2)  # seen this frame, spread in depth
+    z[zst] = 1.0 + 0.05 * u[zst]
+    last[zst & (u > 0.3)] = CLEAN_TIME
+    dl = rng.normal(0.0, 1.0, (16, total)).astype(np.float32)
+    pix = index >= 0
+    cols = index[pix]
+    f = 525.0 * w / 640.0
+    dl[sm.PX, cols] = ((xs - (w - 1) / 2.0) / f * z)[pix]
+    dl[sm.PY, cols] = ((ys - (h - 1) / 2.0) / f * z)[pix]
+    dl[sm.PZ, cols] = z[pix]
+    dl[sm.INIT_T, cols] = init[pix]
+    dl[sm.LAST_T, cols] = last[pix]
+    dl[sm.CONF, cols] = rng.uniform(0.0, 12.0, cols.size)
+    dl[sm.RADIUS, cols] = rng.uniform(0.001, 0.02, cols.size)
+    dl[sm.NZ, cols] = np.where(rng.random(cols.size) < 0.8, -0.95, -0.5)
+    depth = (z + np.where(rng.random((h, w)) < 0.2, rng.uniform(0.04, 0.5, (h, w)),
+                          rng.uniform(-0.2, 0.02, (h, w)))).astype(np.float32)
+    depth[rng.random((h, w)) < 0.1] = 0.0
+    data = rng.normal(0.0, 1.0, (16, total)).astype(np.float32)
+    data[sm.CONF] = rng.uniform(0.0, 15.0, total)
+    data[sm.LAST_T] = rng.integers(0, 61, total)
+    data[sm.LAST_T, rng.random(total) < 0.05] = 0.0
+    data[sm.ALIVE] = np.where(rng.random(total) < 0.9, 1.0, 0.0)
+    data[sm.ALIVE, rng.random(total) < 0.02] = -0.0
+    counts = np.array([int((bases[m + 1] - bases[m]) * q) for m, q in
+                       enumerate((0.9, 0.75, 0.5, 1.0))], np.int32)
+    conf_all = np.array([5.0, 0.5, 2.0, 8.0], np.float32)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa: E731
+    cfg = SurfelConfig(time_delta=25, assoc_window=window)
+    return (t(data), t(counts), layout, t(index.astype(np.int32)), t(dl),
+            t(win.astype(np.int32)), t(depth), t(conf_all), cam, CLEAN_TIME,
+            float(cfg.time_delta), cfg)
+
+
+def clean_flat_case_facts(a: tuple, out: torch.Tensor) -> dict:
+    """What a case exercises, from the plain version's store ``out``."""
+    data, counts, layout = a[0], a[1], a[2]
+    pos = layout.pos_in_seg(data.device)
+    past = pos >= counts.to(data.device)[layout.seg_model(data.device).long()]
+    pen, voted, keep = FU.clean_flat_verdicts(*a)
+    return dict(
+        rows=layout.total, penalised=int((pen != 1.0).sum()), cull_votes=int(voted.sum()),
+        culled=int(((data[sm.ALIVE] > 0) & ~past & ~keep).sum()),
+        stale_past_count=int((past & (data[sm.ALIVE] != 0)).sum()),
+        stale_cleared=int((past & (data[sm.ALIVE] != 0) & (out[sm.ALIVE] == 0)).sum()),
+        alive_pen_exactly_1=int(((pen == 1.0) & keep).sum()))
+
+
+def check_clean_flat_cases(device) -> dict:
+    """K14's clean on ``CLEAN_FLAT_CASES``: the kernel (in place, on a copy)
+    against the plain version on the same device, the whole store bit for
+    bit."""
+    cases, ok = {}, True
+    for name, h, w, window in CLEAN_FLAT_CASES:
+        a = clean_flat_inputs(h, w, device, window=window)
+        p = FU.clean_flat_plain(*a)
+        k = FU.clean_flat_cuda(a[0].clone(), *a[1:])
+        r = dict(equal=_same_bytes(k, p), max_abs_err=_maxerr(k, p),
+                 **clean_flat_case_facts(a, p))
+        r["ok"] = r["equal"] and r["penalised"] > 0 and r["cull_votes"] > 0 \
+            and r["stale_cleared"] > 0
+        cases[name] = r
+        ok = ok and r["ok"]
+    return dict(cases=cases, ok=ok, max_abs_err=max(r["max_abs_err"] for r in cases.values()),
+                tolerance="the whole cleaned store bit-equal to the plain version")
 
 
 # ---------------------------------------------------------------- flow-CRF

@@ -20,7 +20,9 @@
   same two passes for the multi-model step, ONCE over the flat store of all
   models (``FlatLayout``) with the composite index map: a pixel fuses into
   its mask owner's model, appends rank per model in source order, and the
-  clean's window tests stay within one model with that model's gates.
+  clean's window tests stay within one model with that model's gates. On
+  the card the clean works in place: ``clean_flat_cuda`` consumes the store
+  it is given (the engine's freshly fused one) and returns it cleaned.
 
 The camera pose is a [4, 4] tensor on the map's device that the kernels read
 by pointer.
@@ -39,6 +41,7 @@ from multimotionfusion_tpu_torch.ops.rasterize import (
     FlatLayout,
     IndexMap,
     _pixel_rays,
+    check_stage_window,
     gather_attr_images,
     check_pose,
     scalar_arg,
@@ -659,10 +662,10 @@ def fuse_flat_scan_cuda(flags: torch.Tensor, own: torch.Tensor, counts: torch.Te
     return prefix, counts_out
 
 
-def clean_flat_plain(data, counts, layout: FlatLayout, index, data_local, win_model, depth,
-                     conf_all, cam: CameraModel, time, time_delta, cfg: SurfelConfig):
-    """Plain PyTorch K14 (clean): the composite culls over the flat store;
-    returns the store with penalties applied and ALIVE cleared (no compaction)."""
+def clean_flat_verdicts(data, counts, layout: FlatLayout, index, data_local, win_model, depth,
+                        conf_all, cam: CameraModel, time, time_delta, cfg: SurfelConfig):
+    """Per flat slot, (the confidence penalty [total], 1 where none or culled;
+    the visual cull vote [total] bool; keep [total] bool) of the composite clean."""
     h, w = cam.height, cam.width
     dev = data.device
     M = layout.n_models
@@ -725,8 +728,17 @@ def clean_flat_plain(data, counts, layout: FlatLayout, index, data_local, win_mo
     unstable_dead = ((tf - last_t) > cfg.unstable_grace) & (data[sm.CONF] < conf_all[seg])
     keep = keep & ~unstable_dead
     keep = keep | (alive & (last_t > 0) & (tf - last_t > time_delta))
+    return pen_per_surfel, culled, keep
+
+
+def clean_flat_plain(data, counts, layout: FlatLayout, index, data_local, win_model, depth,
+                     conf_all, cam: CameraModel, time, time_delta, cfg: SurfelConfig):
+    """Plain PyTorch K14 (clean): the composite culls over the flat store;
+    returns a new store with penalties applied and ALIVE cleared (no compaction)."""
+    pen, _, keep = clean_flat_verdicts(data, counts, layout, index, data_local, win_model,
+                                       depth, conf_all, cam, time, time_delta, cfg)
     out = data.clone()
-    out[sm.CONF] = data[sm.CONF] * pen_per_surfel
+    out[sm.CONF] = data[sm.CONF] * pen
     out[sm.ALIVE] = torch.where(keep, data[sm.ALIVE], torch.zeros_like(data[sm.ALIVE]))
     return out
 
@@ -735,14 +747,21 @@ _CLEAN_FLAT_ARGS = (
     [K.P, K.I, K.I, K.I, K.I, K.P]  # data, row stride, bg, bo, slots, counts
     + [K.P, K.P, K.P, K.P, K.P]  # index, data_local, win model, depth, conf_all
     + [K.I, K.I, K.I] + [K.F] * 5  # H, W, window, time, time delta, grace, gate, coeff
-    + [K.P, K.P]  # verdicts, out
+    + [K.P]  # verdicts
 )
 
 
 def clean_flat_cuda(data, counts, layout: FlatLayout, index, data_local, win_model, depth,
                     conf_all, cam: CameraModel, time, time_delta, cfg: SurfelConfig):
-    """K14 (clean) on the card: ``csrc/fuse_flat.cu`` ``mmf_clean_flat``."""
+    """K14 (clean) on the card: ``csrc/fuse_flat.cu`` ``mmf_clean_flat``.
+
+    IN PLACE: consumes ``data`` and returns it cleaned (CONF times each
+    surfel's penalty where it is not 1, ALIVE cleared where a surfel is not
+    kept; every other channel and row untouched), the values
+    ``clean_flat_plain`` returns as a new tensor. ``cfg.assoc_window`` must be
+    at most ``STAGE_MAX_WINDOW``."""
     M = layout.n_models
+    window = check_stage_window(cfg.assoc_window)
     K.check(data, torch.float32, "data", contiguous=False)
     K.check(counts, torch.int32, "counts")
     K.check(index, torch.int32, "index")
@@ -756,18 +775,16 @@ def clean_flat_cuda(data, counts, layout: FlatLayout, index, data_local, win_mod
         raise ValueError("data must be [16, total] (unit column stride) and data_local [16, total]")
     if counts.shape != (M,) or conf_all.shape != (M,) or index.shape != (h, w):
         raise ValueError("counts and conf_all must be [M], index [H, W]")
-    dev = data.device
-    verdicts = torch.empty((total,), dtype=torch.int32, device=dev)
-    out = torch.empty((sm.CHANNELS, total), dtype=torch.float32, device=dev)
+    verdicts = torch.empty((total,), dtype=torch.int32, device=data.device)
     f = K.fn("fuse_flat", "mmf_clean_flat", _CLEAN_FLAT_ARGS)
     K.call(
         "clean_flat", f, K.ptr(data), data.stride(0), layout.bg, layout.bo, layout.slots,
         K.ptr(counts), K.ptr(index), K.ptr(data_local), K.ptr(win_model), K.ptr(depth),
-        K.ptr(conf_all), h, w, int(cfg.assoc_window), float(time), float(time_delta),
+        K.ptr(conf_all), h, w, window, float(time), float(time_delta),
         float(cfg.unstable_grace), float(cfg.clean_see_through_gate), float(cfg.outlier_coeff),
-        K.ptr(verdicts), K.ptr(out),
+        K.ptr(verdicts),
     )
-    return out
+    return data
 
 
 def clean_flat(data, counts, layout: FlatLayout, index_map: IndexMap, win_model, depth, conf_all,
@@ -775,7 +792,8 @@ def clean_flat(data, counts, layout: FlatLayout, index_map: IndexMap, win_model,
     """Composite clean: window candidates of the SAME model as the pixel's
     winner, each gated by its model's confidence; see-through penalty;
     per-surfel verdicts; the unstable cull against the surfel's model gate.
-    No compaction (the caller repacks each segment every compact_every frames)."""
+    No compaction (the caller repacks each segment every compact_every frames).
+    On the card ``data`` is consumed: cleaned in place and returned."""
     K.record("clean_flat", data=data, counts=counts, layout=layout, index=index_map.index,
              data_local=index_map.data_local, win_model=win_model, depth=depth,
              conf_all=conf_all, cam=cam, time=time, time_delta=time_delta, cfg=cfg)

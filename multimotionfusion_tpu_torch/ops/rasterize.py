@@ -11,7 +11,9 @@ Port of the reference package's ``ops/rasterize.py``:
   the predicted colour / vertex / normal / time images; its fill-in epilogue
   (``model/fillin.py``) writes the filled maps directly. In composite mode
   (the multi-model step) a tap must belong to the pixel's winner model and
-  passes that model's confidence gate;
+  passes that model's confidence gate. A block resolves its pixel tile from
+  a window staged in shared memory, so windows up to ``STAGE_MAX_WINDOW``
+  wide; K14's clean stages its window the same way;
 - ``zbuffer_flat`` (kernel K12, ``csrc/zbuffer.cu``): the composite index map
   over ALL models' surfels in one flat store (``FlatLayout``): each surfel is
   transformed by its model's inverse pose, gated by its model's max depth,
@@ -43,6 +45,19 @@ _ID_BITS = 20
 _KEY_INVALID = 2**31 - 1
 # composite z-buffer: object depths move this much nearer before quantisation
 _Z_PRIORITY = 0.02
+# The staged windows of K10 (csrc/splat_resolve.cu) and of K14's clean pixel
+# pass (csrc/fuse_flat.cu): a block stages its pixel tile widened by the
+# window's halo; the shared memory holds windows up to STAGE_MAX_WINDOW
+# (tests/test_torch_splat_clean_plan.py mirrors the geometry).
+STAGE_MAX_WINDOW = 7
+
+
+def check_stage_window(window: int) -> int:
+    """``window`` if the staging holds it, else ValueError (no fallback)."""
+    if not 1 <= int(window) <= STAGE_MAX_WINDOW:
+        raise ValueError(f"window {window}: the staged kernels take windows 1 to "
+                         f"{STAGE_MAX_WINDOW}")
+    return int(window)
 
 
 class IndexMap(NamedTuple):
@@ -580,7 +595,9 @@ def splat_resolve_cuda(index, data_local, cam: CameraModel, conf_threshold, time
     """K10 on the card: ``csrc/splat_resolve.cu``. With ``fill``, the fill-in
     epilogue writes the live frame wherever no surfel won (colour, vertex and
     normal maps are then the filled maps); with ``composite`` the resolve runs
-    in its multi-model mode (launches counted as ``splat_resolve.composite``)."""
+    in its multi-model mode (launches counted as ``splat_resolve.composite``).
+    ``window`` must be at most ``STAGE_MAX_WINDOW``."""
+    window = check_stage_window(window)
     K.check(index, torch.int32, "index")
     K.check(data_local, torch.float32, "data_local")
     h, w = cam.height, cam.width

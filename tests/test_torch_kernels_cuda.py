@@ -65,7 +65,9 @@ order, held to the plain version by ``tests/test_torch_finish_topk.py``),
 on the flow-CRF run's inputs and on ``checks.finish_cases``; K19's top-K runs
 on ``checks.TOPK_CASES`` too. K1's filter and K2's two sides (every level in
 one launch a side) also run on hand-made inputs (``checks.FILTER_CASES``,
-``checks.PYRAMID_CASES``).
+``checks.PYRAMID_CASES``), and K10 and K14's clean on theirs
+(``checks.SPLAT_CASES``, ``checks.CLEAN_FLAT_CASES``, bit-equal to the plain
+versions).
 """
 
 import pytest
@@ -454,6 +456,22 @@ def test_k1_k2_hand_made_cases(name):
     model ids with mask_icp and mask_rgb on and off, use_rgb off, bf16 and
     f32 level-0 maps, two levels at 80x60) against the plain versions on the
     card, within the engine lines' tolerances."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
+    r = getattr(checks, f"check_{name}")("cuda")
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("name", ["splat_cases", "clean_flat_cases"])
+def test_k10_k14_hand_made_cases(name):
+    """K10 on ``checks.SPLAT_CASES`` (sizes off the 32 x 8 tile, windows 1,
+    2, 3, 5 and 7, static, slot-pointer and composite modes, model
+    boundaries inside every tile, exact and near depth ties, a tile without a
+    surfel, fill-in with and without its gate, passthrough) and K14's clean,
+    in place on a copy, on ``checks.CLEAN_FLAT_CASES`` (stale ALIVE past the
+    counts, +0 and -0 ALIVE, penalties of exactly 1, redundancy and z culls,
+    windows 4 and 5): every output bit-equal to the plain version on the
+    card."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
     r = getattr(checks, f"check_{name}")("cuda")

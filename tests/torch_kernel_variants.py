@@ -2,7 +2,7 @@
 where their time goes (needs one NVIDIA GPU; not a test).
 
     python3 tests/torch_kernel_variants.py [--tree DIR] \
-        [--only flow,tracks,finish,select,nms,levels]
+        [--only flow,tracks,finish,select,nms,levels,splat]
 
 ``flow``: K15's one-launch flow (``csrc/flow.cu``) on
 ``checks.flow_case_inputs(480, 640)`` at the 640x480 CRF grid (120x160),
@@ -38,7 +38,17 @@ after each barrier and at the end (thread 0 of the middle row's first 16
 blocks); each reading the median of three profiles after ~50 ms of matrix
 products; on ``checks.filter_inputs`` and ``checks.pyramid_inputs`` at
 640x480, through the wrappers with the edited library swapped in: device us
-a call and whether the outputs equal the source's. Each copy is
+a call and whether the outputs equal the source's. ``splat``: K10
+(``csrc/splat_resolve.cu``, static and composite) and K14's clean
+(``csrc/fuse_flat.cu``) on the inputs ``chip_smoke.py``'s static and
+external-mask runs record (the clean on a fresh copy of the store each
+call: it works in place): as they are; with the engine's window as a
+run-time one (no unrolled instance); with a 32 x 16 tile; and, as
+diagnostics whose outputs differ, without the tap loop, without the
+staging's gathers, without the fill-in (K10) and without the window counts
+(the clean); the median of three readings after ~50 ms of matrix products;
+and the gather locality of both index maps (distinct 32-byte sectors a
+warp's one-channel gather of 32 pixels of a row touches). Each copy is
 written and built with the build's flags in ``DIR/build/variants``; an
 edit whose text is no longer in the source stops the script. Prints JSON
 lines.
@@ -486,11 +496,116 @@ def level_variants(tree, torch, K, C, LV, FM):
             K._libs[lib_name] = kept
 
 
+def _locality(torch, index) -> dict:
+    """Distinct 32-byte sectors of a channel that 32 consecutive pixels of
+    an index-map row gather (winners only), and the winners they hold."""
+    h, w = index.shape
+    runs = index[:, : (w // 32) * 32].reshape(-1, 32)
+    sec = torch.where(runs >= 0, runs // 8, torch.full_like(runs, -1)).sort(dim=1).values
+    distinct = ((sec[:, 1:] != sec[:, :-1]) & (sec[:, 1:] >= 0)).sum(1) + (sec[:, 0] >= 0).long()
+    winners = (runs >= 0).sum(1)
+    keep = winners > 0
+    return dict(sectors_per_32_pixels=float(distinct[keep].float().mean()),
+                winners_per_32_pixels=float(winners[keep].float().mean()),
+                distinct_winners=int(torch.unique(index[index >= 0]).numel()))
+
+
+def splat_sources(csrc):
+    """({variant: K10 source}, {variant: K14 source}) of the ``splat`` part."""
+    ssrc = open(os.path.join(csrc, "splat_resolve.cu")).read()
+    fsrc = open(os.path.join(csrc, "fuse_flat.cu")).read()
+    loop = ssrc[ssrc.index("#pragma unroll\n    for (int dy = 0; dy < window; ++dy) {"):
+                ssrc.index("    const bool ok = best >= 0;")]
+    stage = ssrc[ssrc.index("  float conf[ROUNDS], last[ROUNDS], gate[ROUNDS];"):
+                 ssrc.index("  __syncthreads();\n\n  const int x = x0 + tx")]
+    splats = {
+        "as_is": ssrc,
+        "runtime_window": patch(ssrc, "window == 5 ? resolve<5> : resolve<0>", "resolve<0>"),
+        "tile_32x16": patch(ssrc, "constexpr int TW = 32, TH = 8;", "constexpr int TW = 32, TH = 16;"),
+        "no_taps": patch(ssrc, loop, "    (void)l0; (void)l1; (void)l2; (void)own_p;\n"),
+        "no_gathers": patch(ssrc, stage, """#pragma unroll
+  for (int k = 0; k < ROUNDS; ++k) {
+    const int s = threadIdx.x + k * THREADS;
+    if (s < sw * sh) {
+      st.pp[s] = st.nr[s] = make_float4(0.f, 0.f, 0.f, 0.f);
+      st.conf[s] = 0.f;
+      st.key[s] = make_int2(c[k], oq[k]);
+    }
+  }
+"""),
+        "no_fill": patch(ssrc, "if (f.rgb != nullptr && (!ok || f.passthrough) && "
+                               "(f.gate == nullptr || f.gate[p] == 0)) {", "if (false) {"),
+    }
+    counts = fsrc[fsrc.index("  window_counts_staged<CLEAN_STAGED, WINDOW>("):
+                  fsrc.index("  bool viol;\n  float pen = see_through(")]
+    cleans = {
+        "as_is": fsrc,
+        "runtime_window": patch(fsrc, "window == 4 ? pixel_pass<4> : pixel_pass<0>",
+                                "pixel_pass<0>"),
+        "tile_32x16": patch(fsrc, "constexpr int CTW = 32, CTH = 8;",
+                            "constexpr int CTW = 32, CTH = 16;"),
+        "no_counts": patch(fsrc, counts, "  count = z_count = 0;\n"),
+    }
+    return splats, cleans
+
+
+def splat_variants(tree, torch, K, C, FU, R):
+    """K10 and K14's clean on the engine's recorded inputs, as they are and
+    as edited copies (see the module's docstring)."""
+    import chip_smoke as S
+
+    cfg, frames, gt = S.static_frames(S.N_FRAMES)
+    captured = S.run_engine(K, cfg, frames, gt)[2]
+    m_cfg, m_frames = S.multi_frames(1 + S.MULTI_FRAMES)
+    m_captured = S.run_multi(K, m_cfg, m_frames)[2]
+    static = C.args("splat_resolve", captured["splat_resolve"])
+    composite = C.args("splat_resolve.composite", m_captured["splat_resolve.composite"])
+    clean = C.args("clean_flat", m_captured["clean_flat"])
+    for what, index in (("static", static[0]), ("composite", composite[0])):
+        print(json.dumps({"kernel": f"splat_resolve.{what}", **_locality(torch, index)}))
+    splats, cleans = splat_sources(os.path.join(tree, "multimotionfusion_tpu_torch", "csrc"))
+    stores = iter([])
+
+    def fresh():  # a store for each clean call, copied before the timing
+        return next(stores)
+
+    lines = {"splat_resolve": {"static": lambda: R.splat_resolve_cuda(*static),
+                               "composite": lambda: R.splat_resolve_cuda(*composite)},
+             "fuse_flat": {"clean": lambda: (FU.clean_flat_cuda(fresh(), *clean[1:]),)}}
+    for lib_name, variants in (("splat_resolve", splats), ("fuse_flat", cleans)):
+        kept, ref = K._libs[lib_name], {}
+        built = {name: build(tree, f"{lib_name}_{name}", text) for name, text in variants.items()}
+        try:
+            for name in variants:
+                if built[name] is None:
+                    continue
+                K._libs[lib_name] = built[name]
+                for what, fn in lines[lib_name].items():
+                    if what == "clean":
+                        stores = iter([clean[0].clone() for _ in range(1 + 3 * 25)])
+                    out = [t.clone() for t in fn()]
+                    ref.setdefault(what, out)
+                    same = all(a.shape == b.shape and torch.equal(a.view(torch.uint8),
+                                                                   b.view(torch.uint8))
+                               for a, b in zip(out, ref[what]))
+                    runs = []
+                    for _ in range(3):  # clocks up first; the median of three readings
+                        _busy(torch)
+                        runs.append(sum(device_us(torch, fn).values()))
+                    print(json.dumps({"kernel": f"{lib_name}.{what}", "variant": name,
+                                      "device_us": sorted(runs)[1], "device_us_runs": runs,
+                                      "equal_to_as_is": same}), flush=True)
+                print(json.dumps({"variant": f"{lib_name}_{name}",
+                                  "ptxas": ptxas_summary(LOGS.get(f"{lib_name}_{name}", ""))}))
+        finally:
+            K._libs[lib_name] = kept
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    ap.add_argument("--only", default="flow,tracks,finish,select,nms,levels",
-                    help="comma-separated: flow, tracks, finish, select, nms, levels")
+    ap.add_argument("--only", default="flow,tracks,finish,select,nms,levels,splat",
+                    help="comma-separated: flow, tracks, finish, select, nms, levels, splat")
     args = ap.parse_args()
     tree, only = os.path.abspath(args.tree), set(args.only.split(","))
     sys.path.insert(0, tree)
@@ -501,9 +616,11 @@ def main() -> int:
         return 2
     from multimotionfusion_tpu_torch import kernels as K
     from multimotionfusion_tpu_torch.kernels import checks as C
+    from multimotionfusion_tpu_torch.model import fusion as FU
     from multimotionfusion_tpu_torch.odometry import levels as LV
     from multimotionfusion_tpu_torch.ops import frame_maps as FM
     from multimotionfusion_tpu_torch.ops import image as imops
+    from multimotionfusion_tpu_torch.ops import rasterize as R
     from multimotionfusion_tpu_torch.segmentation import flow as FL
     from multimotionfusion_tpu_torch.segmentation import flow_crf as FC
     from multimotionfusion_tpu_torch.tracking import superpoint as SP
@@ -522,6 +639,8 @@ def main() -> int:
         nms_variants(tree, torch, K, C, SP)
     if "levels" in only:
         level_variants(tree, torch, K, C, LV, FM)
+    if "splat" in only:
+        splat_variants(tree, torch, K, C, FU, R)
     return 0
 
 

@@ -2,7 +2,9 @@
 ``so3_step``, ``gn_step``, ``so3_step[multi, verbatim]``, ``gn_step_multi``;
 K4's ``gn_reduce[L0/L1/L2]``; K11's ``gn_multi[L0/L1/L2]``; one SO(3)
 iteration, static and multi), of the fusion's (K8 ``fuse``, K14
-``fuse_flat``) and of a multi-model frame's 14 RANSAC fits (K21: the 6
+``fuse_flat`` and ``clean_flat``, each clean on a fresh copy of the recorded
+store, made before the profile: the card's clean works in place), of K10's
+resolve (static and composite) and of a multi-model frame's 14 RANSAC fits (K21: the 6
 per-model seeds and the 8 back-dating fits, with no track selected as on a
 frame without a spawn and with every active track) for the package of one
 tree, every device event counted, on the inputs that tree's
@@ -74,6 +76,7 @@ def main() -> int:
     from multimotionfusion_tpu_torch.model import fusion as FU
     from multimotionfusion_tpu_torch.odometry import multi as MO
     from multimotionfusion_tpu_torch.odometry import rgbd
+    from multimotionfusion_tpu_torch.ops import rasterize as R
 
     if not (S.__file__.startswith(tree) and K.__file__.startswith(tree)):
         raise SystemExit(f"imported {S.__file__} and {K.__file__}, not {tree}'s")
@@ -104,6 +107,13 @@ def main() -> int:
     def fusion(cuda, rec, key, **kw):
         a = C.args(key, rec[key])
         return lambda: lambda: cuda(*a, **kw)
+
+    def clean_flat():
+        def fresh_calls():
+            a = C.args("clean_flat", m_captured["clean_flat"])
+            fresh = S._states(a[0], n=3 * (args.warm + args.reps) + 1)  # up to 3 tries
+            return lambda: FU.clean_flat_cuda(fresh(), *a[1:])
+        return fresh_calls
 
     def so3_iteration(rec, verbatim):
         last, nxt, cam_l, state = C.args("so3_reduce", rec["so3_reduce"])
@@ -180,6 +190,10 @@ def main() -> int:
         **{f"gn_multi[L{lvl}]": evaluation(lvl) for lvl in S.LEVELS},
         "fuse": fusion(FU.fuse_cuda, captured, "fuse", want_assoc=False),
         "fuse_flat": fusion(FU.fuse_flat_cuda, m_captured, "fuse_flat"),
+        "clean_flat": clean_flat(),
+        "splat_resolve+fill_in": fusion(R.splat_resolve_cuda, captured, "splat_resolve"),
+        "splat_resolve[composite]+fill_in[gated]": fusion(R.splat_resolve_cuda, m_captured,
+                                                          "splat_resolve.composite"),
         "so3_iteration": so3_iteration(captured, False),
         "so3_iteration[multi, verbatim]": so3_iteration(m_captured, True),
         "ransac[frame: 6 seeds + 8 back-dating, none selected]": frame_fits(False),

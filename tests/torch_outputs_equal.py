@@ -1,7 +1,7 @@
 """Record, then compare, every output of some kernels over chip_smoke.py's
 static (``odom_init=""`` and "kp"), external-mask, flow-CRF, legacy CRF and
-relocalisation runs and K1's and K2's hand-made cases, to show that a
-redesigned kernel is bit-equal to the version it replaces.
+relocalisation runs and K1's, K2's, K10's and K14's clean's hand-made cases,
+to show that a redesigned kernel is bit-equal to the version it replaces.
 
     python3 tests/torch_outputs_equal.py --tree DIR --out A.pt   # record DIR's
     python3 tests/torch_outputs_equal.py --compare A.pt B.pt    # compare two
@@ -29,11 +29,15 @@ the metric and the filtered depth, digests; K2 per side call
 (``levels.frame_levels``: every level's depth, intensity, Sobel x and y,
 vertices, normals and static validity; ``levels.pred_levels``: every
 level's sampling map, bf16 or f32, whose f32 channels are the coarse
-levels' depth, RGB depth and intensity pyramids), digests prefixed with the
-tensor's shape. The relocalisation run (chip_smoke.run_reloc) adds the
+levels' depth, RGB depth and intensity pyramids), K10 per resolve
+(``rasterize.splat_resolve_cuda``, static, slot and composite: colour,
+vertex_conf, normal_rad, time and valid) and K14's clean
+(``fusion.clean_flat_cuda``: the whole cleaned store), digests prefixed with
+the tensor's shape. The relocalisation run (chip_smoke.run_reloc) adds the
 fern-scale K2 calls (80x60 and 40x30). The cases (``checks.FILTER_CASES``,
-``checks.PYRAMID_CASES``, taken from this checkout's ``checks.py`` whatever
-the tree) run through the tree's public wrappers, a run each. The outputs
+``checks.PYRAMID_CASES``, ``checks.SPLAT_CASES``,
+``checks.CLEAN_FLAT_CASES``, taken from this checkout's ``checks.py``
+whatever the tree) run through the tree's public wrappers, a run each. The outputs
 are kept on the card during a run, so recording adds no host read to the
 frame step.
 ``--compare`` holds every recorded tensor equal bit for bit (floats by their
@@ -69,6 +73,7 @@ def record(tree: str, out: str) -> int:
     from multimotionfusion_tpu_torch.odometry import multi as MO
     from multimotionfusion_tpu_torch.odometry import rgbd
     from multimotionfusion_tpu_torch.ops import frame_maps as FM
+    from multimotionfusion_tpu_torch.ops import rasterize as R
     from multimotionfusion_tpu_torch.ops import ransac as RS
     from multimotionfusion_tpu_torch.segmentation import flow as FL
     from multimotionfusion_tpu_torch.segmentation import flow_crf as FC
@@ -115,6 +120,8 @@ def record(tree: str, out: str) -> int:
     wrap_labelled(LV, "frame_levels", lambda r: [
         (f"L{lvl}.{f}", t) for lvl, lv in enumerate(r) for f, t in zip(lv._fields, lv)])
     wrap_labelled(LV, "pred_levels", lambda r: [(f"L{lvl}.map", m) for lvl, m in enumerate(r)])
+    wrap_labelled(R, "splat_resolve_cuda", lambda r: zip(r._fields, r))
+    wrap_labelled(FU, "clean_flat_cuda", lambda r: [("store", r)])
     match, update = TR.mutual_match, TR.update
     in_update = []  # a tree whose update calls the public mutual_match
 
@@ -254,6 +261,12 @@ def record(tree: str, out: str) -> int:
         LV.frame_levels(*fa)
         LV.pred_levels(*pa)
         collect(f"pyramid_case.{name}")
+    for name, h, w, window, mode, options in cases.SPLAT_CASES:
+        R.splat_resolve_cuda(*cases.splat_inputs(h, w, window, mode, options, "cuda"))
+        collect(f"splat_case.{name}")
+    for name, h, w, window in cases.CLEAN_FLAT_CASES:
+        FU.clean_flat_cuda(*cases.clean_flat_inputs(h, w, "cuda", window=window))
+        collect(f"clean_flat_case.{name}")
     torch.save({"tree": tree, "gpu": S._gpu_line(), "runs": runs}, out)
     print(json.dumps({"tree": tree, "out": out, "calls": {
         tag: {k: len(next(iter(v.values()))) for k, v in rec.items()} for tag, rec in runs.items()}}))
