@@ -70,10 +70,10 @@ Phases (any failure exits non-zero):
    (tests/test_five_movers.py's bound), each sphere within 2 cm of its
    centre on every frame, every kernel of the path launched
    and no ``*_plain`` call; then its stage breakdown; then each new kernel
-   (K11 per level and its owner prep, K5's M-wide steps, K12, K14 fuse and
-   clean, K10 composite) against its plain version on the inputs of the
-   last frame, and the composite odometry loop on the card against the
-   plain loop on the CPU;
+   (K11 per level and its owner prep, every level in one launch, K5's
+   M-wide steps, K12, K14 fuse and clean, K10 composite) against its plain
+   version on the inputs of the last frame, and the composite odometry loop
+   on the card against the plain loop on the CPU;
 5c. the flow-CRF path (multi_flow_crf): the same scene and configuration
    with the default ``segmentation.mode="flow_crf"`` and no masks, 1 + 40
    frames with launch counts reset before: frames 11-20 under the sync check
@@ -164,7 +164,15 @@ Phases (any failure exits non-zero):
    K14's clean on hand-made flat stores (phase ``clean_flat_cases``,
    ``checks.CLEAN_FLAT_CASES``: stale ALIVE past the counts, +0 and -0
    ALIVE, penalties of exactly 1, redundancy and z culls, windows 4 and 5),
-   every output bit-equal to the plain version on the card;
+   every output bit-equal to the plain version on the card; K11's owner
+   prep on hand-made owners (phase ``owner_cases``, ``checks.OWNER_CASES``:
+   487x651 and other sizes off the 32 x 8 tile, 1, 2 and 3 levels, owners
+   hugging every border of the mask and the prediction, no-owner ids, one
+   model) exact against the plain version on the card; K18's unaries on
+   hand-made inputs (phase ``unaries_cases``, ``checks.UNARY_CASES``: no
+   track, no new label, a grid of 121 x 163 cells, every track in one
+   cell, 31 models, 9,000 tracks, inf and NaN velocities, inactive models)
+   within ``check_seg_unaries``' tolerance of the plain version on the card;
 5d. five_movers: tests/test_five_movers.py's configuration and 17-frame
    journey at 160x120 (the scene from the port's own io/synthetic.py) on
    the card with the engine seeds FIVE_SEEDS: on every seed five spawns at
@@ -199,8 +207,9 @@ Phases (any failure exits non-zero):
    2), a tracker update's device operations (at most 3, no memset), the
    device launches of one K18 finish and one K19 top-K (at most 2 each), of
    one K1 filter (1) and of each K2 side (at most 2; both sides at most 4 a
-   static frame), of one K10 resolve (1, static and composite) and of one
-   K14 clean (at most 3), from the kernel lines' profiles;
+   static frame), of one K10 resolve (1, static and composite), of one
+   K14 clean (at most 3), of one K11 owner prep (1, every level) and of
+   one K18 unaries call (1), from the kernel lines' profiles;
 7. print ``{"kernels": [...]}``, the card's name and power limit, and as the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -255,7 +264,7 @@ MULTI_PATH = (
      "fuse_flat", "clean_flat", "splat_resolve.composite", "patch_score", "nms_topk",
      "patch_desc", "mutual_match", "track_update", "ransac_fit", "multi_init", "multi_seed",
      "multi_arbitrate", "gn_step_multi", "pyramid.frame", "pyramid.pred")
-    + tuple(f"owner_prep.L{lvl}" for lvl in LEVELS)
+    + ("owner_prep",)
     + tuple(f"gn_multi.L{lvl}" for lvl in LEVELS)
 )
 # The flow-CRF journeys depend on the engine's seed (its RANSAC uniforms), in
@@ -1212,22 +1221,28 @@ def _measure(cuda, plain, bytes_moved, flops, library=None, plain_reps=3, by_ker
                 bound_ms=bound, bound_by=by, **extra)
 
 
-def measure_owner_prep(a, level):
+def measure_owner_prep(a):
     from multimotionfusion_tpu_torch.odometry import levels as LV
     from multimotionfusion_tpu_torch.odometry import multi as MO
 
     prev_mask, pred_own, frame, _, cfg, M = a
-    fl = frame[level]
-    npix = fl.img.numel()
-    args = (level, prev_mask, pred_own, fl, M, LV._min_scale(cfg, level))
-    # per level pixel: image, gradients, depth, both owner samples in; the
-    # owner, the eroded owner and the validity out; 13 + 16 owner taps
+    args = (prev_mask, pred_own, frame, M, [LV._min_scale(cfg, l) for l in range(len(frame))])
+    npix = sum(fl.img.numel() for fl in frame)
+    # in: the mask and the prediction's owners once, each level's image,
+    # gradients and depth; out: each level's eroded owner and validity, and
+    # the owners of levels >= 1 (level 0's are the mask); 13 + 16 owner taps
+    # a level pixel
+    n0 = frame[0].img.numel()
     own_f = pred_own.to(torch.float32)[None, None]
-    return _measure(lambda: MO.owner_level_cuda(*args), lambda: MO.owner_level_plain(*args),
-                    33 * npix, 60 * npix,
-                    library=lambda: torch.nn.functional.max_pool2d(own_f, 3, 1 << level, 1),
-                    library_note="F.max_pool2d 3x3 of the float owner image at the level's "
-                                 "stride (the erosion's window, part of the function)")
+    pool = torch.nn.functional.max_pool2d
+    run = lambda: MO.owner_levels_cuda(*args)  # noqa: E731
+    return _measure(run, lambda: MO.owner_levels_plain(*args),
+                    8 * prev_mask.numel() + 16 * npix + 5 * npix + 4 * (npix - n0), 60 * npix,
+                    library=lambda: [pool(own_f, 3, 1 << l, 1) for l in range(len(frame))],
+                    **_cold(run),
+                    library_note="F.max_pool2d 3x3 of the float owner image at each level's "
+                                 "stride, one call a level, summed (the erosion's window, part "
+                                 "of the function)")
 
 
 def measure_gn_multi(a, level):
@@ -1441,12 +1456,8 @@ def plan_multi():
     """The multi-model path's new kernels, as ``plan``."""
     from multimotionfusion_tpu_torch.kernels import checks as C
 
-    p = []
-    for lvl in LEVELS:
-        p.append((f"owner_prep[L{lvl}]", "owner_prep", f"owner_prep.L{lvl}",
-                  lambda a, lvl=lvl: C.check_owner_prep(a, lvl),
-                  lambda a, lvl=lvl: measure_owner_prep(a, lvl), "gn_multi.cu",
-                  "odometry/multi.py:188"))
+    p = [("owner_prep[L0-L2]", "owner_prep", "owner_prep", C.check_owner_prep,
+          measure_owner_prep, "gn_multi.cu", "odometry/multi.py:188")]
     for lvl in LEVELS:
         p.append((f"gn_multi[L{lvl}]", f"gn_multi.L{lvl}", f"gn_multi.L{lvl}",
                   lambda a, lvl=lvl: C.check_gn_multi(a, lvl),
@@ -2098,10 +2109,11 @@ def measure_seg_unaries(a):
     M, hc, wc = pred.shape
     n, t = hc * wc, a[4].shape[1]
     errors = FC.unaries_plain(*a).unary
-    return _measure(lambda: FC.unaries_cuda(*a), lambda: FC.unaries_plain(*a),
+    run = lambda: FC.unaries_cuda(*a)  # noqa: E731
+    return _measure(run, lambda: FC.unaries_plain(*a),
                     4 * n + 4 * M * n + t * (8 + 4 * M + 1) + (4 * 2 * (M + 1) + M + 4) * n,
                     20 * M * n + 12 * (M + 1) * n + 8 * M * t,
-                    library=lambda: torch.log_softmax(errors, 0),
+                    library=lambda: torch.log_softmax(errors, 0), **_cold(run),
                     library_note="torch.log_softmax over the [L, hc, wc] unary (its softmax, "
                                  "part of the function)")
 
@@ -2478,12 +2490,18 @@ def run_hand_made_cases() -> list:
     on ``CLEAN_FLAT_CASES`` (stale ALIVE past the counts, +0 and -0 ALIVE,
     penalties of exactly 1, redundancy and z culls, windows 4 and 5),
     bit-equal to the plain versions on the card (``check_splat_cases``,
-    ``check_clean_flat_cases``)."""
+    ``check_clean_flat_cases``); K11's owner prep on ``OWNER_CASES``
+    (487x651 and other sizes off the tile, 1-3 levels, owners hugging every
+    border, no-owner ids, one model) exact against the plain version on the
+    card (``check_owner_cases``), and K18's unaries on ``UNARY_CASES`` (no
+    track, no new label, a ragged grid, one cell, 31 models, 9,000 tracks)
+    within ``check_seg_unaries``' tolerance (``check_unaries_cases``)."""
     from multimotionfusion_tpu_torch.kernels import checks as C
 
     failed = []
     for name in ("flow_cases", "track_cases", "match_cases", "finish_cases", "topk_cases",
-                 "filter_cases", "pyramid_cases", "splat_cases", "clean_flat_cases"):
+                 "filter_cases", "pyramid_cases", "splat_cases", "clean_flat_cases",
+                 "owner_cases", "unaries_cases"):
         r = getattr(C, f"check_{name}")(DEVICE)
         torch.cuda.synchronize()
         print(json.dumps({"phase": name, **r}))
@@ -2497,7 +2515,8 @@ def device_counts(kernels) -> dict:
     flow-CRF frame), the device operations of one tracker update, the device
     launches of one K18 finish and one K19 top-K, of one K1 filter, of each
     K2 side, of one K10 resolve (static and composite) and of one K14 clean,
-    and K2's launches a static frame, from the kernel lines' profiles."""
+    of one K11 owner prep (every level) and of one K18 unaries call, and
+    K2's launches a static frame, from the kernel lines' profiles."""
     by = {k["name"]: k for k in kernels}
     flow, tracker = by["flow[prep + 3 levels]"], by["tracker.update[match + update]"]
     out = dict(flow_launches_per_frame=flow["device_launches_per_call"]
@@ -2506,14 +2525,16 @@ def device_counts(kernels) -> dict:
                tracker_update_kernels=sorted(tracker.get("device_ms_by_kernel", {})))
     limits = {"segment_finish": 2, "nms_topk": 2, "nms_topk_plateau": 2, "filter": 1,
               "pyramid_frame": 2, "pyramid_pred": 2, "splat_resolve": 1,
-              "splat_resolve_composite": 1, "clean_flat": 3}
+              "splat_resolve_composite": 1, "clean_flat": 3, "owner_prep": 1,
+              "segment_unaries": 1}
     for key, line in (("segment_finish", "segment.finish"), ("nms_topk", "nms_topk"),
                       ("nms_topk_plateau", "nms_topk[plateau]"), ("filter", "frame_maps[filter]"),
                       ("pyramid_frame", "pyramid.frame[L0-L2]"),
                       ("pyramid_pred", "pyramid.pred[L0-L2]"),
                       ("splat_resolve", "splat_resolve+fill_in"),
                       ("splat_resolve_composite", "splat_resolve[composite]+fill_in[gated]"),
-                      ("clean_flat", "clean_flat")):
+                      ("clean_flat", "clean_flat"), ("owner_prep", "owner_prep[L0-L2]"),
+                      ("segment_unaries", "segment.unaries")):
         out[f"{key}_device_launches"] = by[line]["device_launches_per_call"]
     sides = [by[f"pyramid.{side}[L0-L2]"] for side in ("frame", "pred")]
     out["pyramid_launches_per_frame"] = (
@@ -3130,8 +3151,8 @@ def main() -> int:
     counts = device_counts(kernels)
     if not counts["ok"]:
         f_failed.append(f"K15's launches, a tracker update's device operations or K18's, "
-                        f"K19's, K1's filter's, K2's, K10's or K14's clean's launches: "
-                        f"{counts}")
+                        f"K19's, K1's filter's, K2's, K10's, K14's clean's, K11's owner "
+                        f"prep's or K18's unaries' launches: {counts}")
     loops = [check_loop(captured), check_loop(kp_captured, "odometry_loop[kp]"),
              check_sparse(kp_captured), check_multi_loop(m_captured)]
     print(json.dumps({"kernels": kernels}))

@@ -12,16 +12,34 @@
 //   each reading ~46 bytes of frame fields and owners and four taps), so
 //   microseconds of traffic against the launches of the loop.
 // Design:
-//   - owner_prep, one thread per pixel of a level: the row owner is the
-//     mask's nearest pyramid (pixel (y << l, x << l) of the full-resolution
-//     mask); the tap owner is the prediction's winner model, demoted to "no
-//     owner" (M) at a GLOBAL-owned pixel whose diamond of radius 2 (the
-//     reference's two 4-neighbour max/min sweeps with jnp.roll, i.e. WRAPPING
-//     around the image borders, reproduced as is) holds another owner, then
-//     the same nearest pyramid; the photometric validity requires every
-//     in-bounds tap of the 4x4 window (offsets -2..+1) to be intensity-valid
-//     and owned by the centre's owner, the gradient gate, valid depth and the
-//     right/bottom borders.
+//   - owner_prep, ONE launch for every level (at most 3): the row owner is
+//     the mask's nearest pyramid (pixel (y << l, x << l) of the
+//     full-resolution mask); the tap owner is the prediction's winner model,
+//     demoted to "no owner" (M) at a GLOBAL-owned pixel whose diamond of
+//     radius 2 (the reference's two 4-neighbour max/min sweeps with
+//     jnp.roll, i.e. WRAPPING around the image borders, reproduced as is)
+//     holds another owner, then the same nearest pyramid; the photometric
+//     validity requires every in-bounds tap of the 4x4 window (offsets
+//     -2..+1) to be intensity-valid and owned by the centre's owner, the
+//     gradient gate, valid depth and the right/bottom borders. The grid is
+//     split by level, the coarser first, a block a 32x8 tile, one thread a
+//     pixel. A level-0 block stages in shared memory the prediction
+//     owners its diamonds read (the tile widened by 2, rows and columns
+//     taken modulo the image: the wrap, exact; a division only at a tile
+//     on the border); it writes every level's tap owner and the
+//     coarser levels' row owners at its pixels that are (y << l, x << l),
+//     as the reference erodes at full resolution and samples. Every block
+//     stages its level's mask samples and their keys (the owner where the
+//     tap's intensity is > 0 and the owner < M, else M) on its tile widened
+//     by 2 before and 1 after, and writes its level's validity. Each pixel
+//     reads its taps from shared memory, the diamond only at a global-owned
+//     pixel and the window only where the cheaper tests hold. Gradients and
+//     depth are loaded before the staging, and a thread's staging loads are
+//     all issued before its first shared store. Level sizes are the mask's
+//     halved rounding up, as the plain version's strided samples; level 0's
+//     row owners are the mask itself (the plain version's stride-1 sample
+//     is a view of it): not written. Integer logic and the plain version's
+//     one float expression: the outputs are exact.
 //   - gn_multi, one thread per pixel of the (strided) grid: the pixel is
 //     warped by ITS OWNER's inv(result_Rt), read by pointer from the loop
 //     state (row stride `tstride`; 0 makes every model read one pose, the
@@ -67,45 +85,170 @@ __device__ unsigned g_ticket[2];
 
 // ---------------------------------------------------------------- owner prep
 
-__global__ void owner_prep(int lvl, const int* __restrict__ mask, const int* __restrict__ pred_own,
-                           int H0, int W0, int h, int w, int M, const float* __restrict__ img,
-                           const float* __restrict__ didx, const float* __restrict__ didy,
-                           const float* __restrict__ depth, float min_scale,
-                           int* __restrict__ own_out, int* __restrict__ bank_out,
-                           uint8_t* __restrict__ sv_out) {
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= h * w) return;
-  int y = p / w, x = p % w;
-  int Y = y << lvl, X = x << lvl;
-  int own = mask[Y * W0 + X];
-  own_out[p] = own;
+// One launch builds every level's maps. A block of OT threads owns an
+// OTW x OTH tile of one level's pixels, one thread a pixel; the coarser
+// levels' blocks come first in the grid. Level 0's blocks also write the
+// coarser levels' owners and eroded owners: the reference erodes at full
+// resolution and samples (y << l, x << l), which is a level-0 pixel.
+constexpr int OWN_LEVELS = 3;
+constexpr int OTW = 32, OTH = 8, OT = OTW * OTH;
+constexpr int DIAMOND = 2;  // the erosion's radius at full resolution
+// the prediction owners a level-0 tile's diamonds read: the tile widened by
+// DIAMOND on each side (rows and columns wrap around)
+constexpr int PRED_W = OTW + 2 * DIAMOND, PRED_H = OTH + 2 * DIAMOND;
+constexpr int PRED_STAGED = PRED_W * PRED_H;
+// the validity window's taps: WB before a pixel and WA after it, each way
+constexpr int WB = 2, WA = 1;
+constexpr int WIN_W = OTW + WB + WA, WIN_H = OTH + WB + WA, WIN_STAGED = WIN_W * WIN_H;
 
-  // the 2-px band, wrapping around the borders
-  int o0 = pred_own[Y * W0 + X];
-  bool differs = false;
-  for (int dy = -2; dy <= 2; ++dy)
-    for (int dx = -2; dx <= 2; ++dx) {
-      if (abs(dy) + abs(dx) > 2) continue;
-      int yy = (Y + dy + H0) % H0, xx = (X + dx + W0) % W0;
-      differs = differs || pred_own[yy * W0 + xx] != o0;
-    }
-  bank_out[p] = (o0 == 0 && differs) ? M : o0;
+struct OwnLevel {
+  const float* img;
+  const float* didx;
+  const float* didy;
+  const float* depth;
+  int* own;   // [h, w]; null at level 0, whose owners are the mask
+  int* bank;  // [h, w]
+  uint8_t* sv;
+  int h, w, tiles_x, block0, block_end;  // h = w = 0: no such level
+  float min_scale;
+};
 
-  // owner-aware static photometric validity
-  bool ok = img[p] > 0.f && own < M;
-  bool all = true;
-  for (int oy = -2; oy <= 1; ++oy)
-    for (int ox = -2; ox <= 1; ++ox) {
-      int yy = y + oy, xx = x + ox;
-      if (yy < 0 || yy >= h || xx < 0 || xx >= w) continue;
-      int q = yy * w + xx;
-      int t_own = mask[(yy << lvl) * W0 + (xx << lvl)];
-      bool t_ok = img[q] > 0.f && t_own < M;
-      all = all && t_ok && t_own == own;
+struct OwnArgs {
+  const int* mask;
+  const int* pred_own;
+  int H0, W0, M;
+  OwnLevel L[OWN_LEVELS];
+};
+
+// v modulo n in [0, n), as jnp.roll wraps
+__device__ __forceinline__ int wrap(int v, int n) {
+  if (v < 0 || v >= n) v = (v % n + n) % n;
+  return v;
+}
+
+// the eroded prediction owner of level-0 pixel (y, x) and its owner, also as
+// level l's pixel (y >> l, x >> l) where y and x are multiples of 2^l
+__device__ __forceinline__ void write_owners(const OwnArgs& a, int y, int x, int p, int own,
+                                             int bank) {
+  a.L[0].bank[p] = bank;
+#pragma unroll
+  for (int l = 1; l < OWN_LEVELS; ++l) {
+    const OwnLevel& C = a.L[l];
+    if (C.w > 0 && ((y | x) & ((1 << l) - 1)) == 0) {
+      const int q = (y >> l) * C.w + (x >> l);
+      C.own[q] = own;
+      C.bank[q] = bank;
     }
-  bool valid = all && x < w - 5 && y < h - 1;
-  valid = valid && (didx[p] * didx[p] + didy[p] * didy[p] >= min_scale) && depth[p] > 0.f && ok;
-  sv_out[p] = valid ? 1 : 0;
+  }
+}
+
+template <int LVL>
+__device__ __forceinline__ void owner_tile(const OwnArgs& a, const OwnLevel& L, int tile,
+                                           int* s_pred, int* s_own, int* s_key) {
+  const int tx = threadIdx.x % OTW, ty = threadIdx.x / OTW;
+  const int x0 = (tile % L.tiles_x) * OTW, y0 = (tile / L.tiles_x) * OTH;
+  const int x = x0 + tx, y = y0 + ty;
+  const bool in = x < L.w && y < L.h;
+  const int p = y * L.w + x;
+  float gx = 0.f, gy = 0.f, d = 0.f;  // the pixel's own fields, loaded before the staging
+  if (in) {
+    gx = L.didx[p];
+    gy = L.didy[p];
+    d = L.depth[p];
+  }
+  // 1. (level 0) the prediction owners of the tile's diamonds, wrapped; a
+  //    thread's loads all issued before its first shared store
+  constexpr int NP = (PRED_STAGED + OT - 1) / OT;
+  int po[NP];
+  if constexpr (LVL == 0) {
+    const int Y0 = y0 - DIAMOND, X0 = x0 - DIAMOND;
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      const int i = threadIdx.x + k * OT;
+      const int r = i / PRED_W, c = i - r * PRED_W;
+      if (i < PRED_STAGED) po[k] = a.pred_own[wrap(Y0 + r, a.H0) * a.W0 + wrap(X0 + c, a.W0)];
+    }
+  }
+  // 2. the level's owner samples and their keys (the owner where the tap is
+  //    intensity-valid and owned, else M) on the tile widened by the window
+  constexpr int NW = (WIN_STAGED + OT - 1) / OT;
+  int wo[NW];
+  float wi[NW];
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    const int i = threadIdx.x + k * OT;
+    const int r = i / WIN_W, c = i - r * WIN_W;
+    const int yy = y0 - WB + r, xx = x0 - WB + c;
+    wo[k] = a.M;
+    wi[k] = 0.f;
+    if (i < WIN_STAGED && yy >= 0 && yy < L.h && xx >= 0 && xx < L.w) {
+      wo[k] = a.mask[(yy << LVL) * a.W0 + (xx << LVL)];
+      wi[k] = L.img[yy * L.w + xx];
+    }
+  }
+  if constexpr (LVL == 0) {
+#pragma unroll
+    for (int k = 0; k < NP; ++k)
+      if (threadIdx.x + k * OT < PRED_STAGED) s_pred[threadIdx.x + k * OT] = po[k];
+  }
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    const int i = threadIdx.x + k * OT;
+    if (i < WIN_STAGED) {
+      s_own[i] = wo[k];
+      s_key[i] = wi[k] > 0.f && wo[k] < a.M ? wo[k] : a.M;
+    }
+  }
+  __syncthreads();
+  if (!in) return;
+
+  const int cw = (ty + WB) * WIN_W + tx + WB;
+  const int own = s_own[cw];
+  if constexpr (LVL == 0) {
+    // the 2-px band: the diamond of radius 2 around (y, x), read only at a
+    // global-owned pixel (no other is demoted)
+    const int cp = (ty + DIAMOND) * PRED_W + tx + DIAMOND;
+    const int o0 = s_pred[cp];
+    bool differs = false;
+    if (o0 == 0) {
+#pragma unroll
+      for (int dy = -DIAMOND; dy <= DIAMOND; ++dy)
+#pragma unroll
+        for (int dx = -DIAMOND; dx <= DIAMOND; ++dx)
+          if (abs(dy) + abs(dx) <= DIAMOND)
+            differs = differs || s_pred[cp + dy * PRED_W + dx] != o0;
+    }
+    write_owners(a, y, x, p, own, (o0 == 0 && differs) ? a.M : o0);
+  }
+  // owner-aware static photometric validity: an owner, the right/bottom
+  // borders, the gradient gate and valid depth, then (only where those hold)
+  // every in-bounds window tap's key equal to the centre's owner (below M:
+  // the key of a tap that is not intensity-valid or not owned is M)
+  bool valid = own < a.M && x < L.w - 5 && y < L.h - 1;
+  valid = valid && (gx * gx + gy * gy >= L.min_scale) && d > 0.f;
+  if (valid) {
+#pragma unroll
+    for (int oy = -WB; oy <= WA; ++oy)
+#pragma unroll
+      for (int ox = -WB; ox <= WA; ++ox) {
+        const int yy = y + oy, xx = x + ox;
+        if (yy < 0 || yy >= L.h || xx < 0 || xx >= L.w) continue;
+        valid = valid && s_key[cw + oy * WIN_W + ox] == own;
+      }
+  }
+  L.sv[p] = valid ? 1 : 0;
+}
+
+__global__ void __launch_bounds__(OT) owner_prep(OwnArgs a) {
+  __shared__ int s_pred[PRED_STAGED];
+  __shared__ int s_own[WIN_STAGED], s_key[WIN_STAGED];
+  const int b = blockIdx.x;
+  if (b < a.L[2].block_end)
+    owner_tile<2>(a, a.L[2], b - a.L[2].block0, s_pred, s_own, s_key);
+  else if (b < a.L[1].block_end)
+    owner_tile<1>(a, a.L[1], b - a.L[1].block0, s_pred, s_own, s_key);
+  else
+    owner_tile<0>(a, a.L[0], b - a.L[0].block0, s_pred, s_own, s_key);
 }
 
 // ---------------------------------------------------------------- reduction
@@ -244,12 +387,51 @@ pass2(Params P, Multi A, const void* pred, const float* vmap, const float* nmap,
 
 }  // namespace
 
-extern "C" int mmf_owner_prep(int lvl, const int* mask, const int* pred_own, int H0, int W0,
-                              int h, int w, int M, const float* img, const float* didx,
-                              const float* didy, const float* depth, float min_scale, int* own,
-                              int* bank_own, uint8_t* sv, cudaStream_t stream) {
-  owner_prep<<<(h * w + THREADS - 1) / THREADS, THREADS, 0, stream>>>(
-      lvl, mask, pred_own, H0, W0, h, w, M, img, didx, didy, depth, min_scale, own, bank_own, sv);
+extern "C" int mmf_owner_prep(const int* mask, const int* pred_own, int H0, int W0, int M,
+                              int levels, const float* img0, const float* didx0,
+                              const float* didy0, const float* depth0, float min_scale0,
+                              const float* img1, const float* didx1, const float* didy1,
+                              const float* depth1, float min_scale1, const float* img2,
+                              const float* didx2, const float* didy2, const float* depth2,
+                              float min_scale2, int* own_bank, uint8_t* sv, cudaStream_t stream) {
+  if (levels < 1 || levels > OWN_LEVELS || H0 < 1 || W0 < 1) return (int)cudaErrorInvalidValue;
+  const float* maps[OWN_LEVELS][4] = {{img0, didx0, didy0, depth0},
+                                      {img1, didx1, didy1, depth1},
+                                      {img2, didx2, didy2, depth2}};
+  const float min_scale[OWN_LEVELS] = {min_scale0, min_scale1, min_scale2};
+  // level l is the mask's size halved l times rounding up; the outputs lie
+  // level after level: own_bank = [bank of every level, own of levels >= 1]
+  // (level 0's owners are the mask itself: not written)
+  int h[OWN_LEVELS], w[OWN_LEVELS];
+  size_t off[OWN_LEVELS], n = 0;
+  for (int l = 0; l < levels; ++l) {
+    h[l] = ((H0 - 1) >> l) + 1;
+    w[l] = ((W0 - 1) >> l) + 1;
+    off[l] = n;
+    n += (size_t)h[l] * w[l];
+  }
+  OwnArgs a{mask, pred_own, H0, W0, M, {}};
+  int blocks = 0;
+  for (int l = OWN_LEVELS - 1; l >= 0; --l) {  // the coarsest level's blocks first
+    OwnLevel& L = a.L[l];
+    L = OwnLevel{};
+    L.block0 = L.block_end = blocks;
+    if (l >= levels) continue;
+    L.img = maps[l][0];
+    L.didx = maps[l][1];
+    L.didy = maps[l][2];
+    L.depth = maps[l][3];
+    L.own = l == 0 ? nullptr : own_bank + n + off[l] - off[1];
+    L.bank = own_bank + off[l];
+    L.sv = sv + off[l];
+    L.h = h[l];
+    L.w = w[l];
+    L.tiles_x = (w[l] + OTW - 1) / OTW;
+    L.min_scale = min_scale[l];
+    blocks += L.tiles_x * ((h[l] + OTH - 1) / OTH);
+    L.block_end = blocks;
+  }
+  owner_prep<<<blocks, OT, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -9,12 +9,24 @@
 //   dependent steps. Per frame the [M+1, 120, 160] rows are written and read
 //   a few times (~1 MB) and the 640x480 mask and new-label mask are written
 //   once (1.5 MB); a few dozen operations per cell.
-// Design: mmf_seg_unaries enqueues (1) one thread per CRF cell: the centre
-//   depth sample, every model's raw fit, the outlier row, the behind flags,
-//   and the sparse-error rows set to +inf; (2) one thread per track: its
-//   error per label (0, 1 or +inf) min'd into its cell by an int atomicMin
-//   on the float's bits (exact for non-negative floats, order-free); (3) one
-//   thread per cell: softmax of -errors (the sum in label order) -> -log.
+// Design: mmf_seg_unaries is ONE launch in pull form, no global scratch: a
+//   block of UN_T threads owns UN_C consecutive CRF cells, one thread each,
+//   and keeps their sparse-error rows [M+1][UN_C] in shared memory, set to
+//   +inf. (1) Each thread loads, all in flight together, its warp lane's
+//   model's active flag, its cell's centre depth sample and first UN_MODELS
+//   model depths, and its first UN_TRACKS tracks' flags and positions (a
+//   valid track's cell is the same rounded, clamped expression as the plain
+//   version's). (2) After a barrier, the tracks whose cell is one of the
+//   block's are listed in shared memory and taken by its threads in turn;
+//   a thread loads its entry's velocities, writes its cell's raw fits,
+//   outlier row and behind flags while they fly, then mins the track's
+//   error per label (0 or 1) into the rows by an int atomicMin on the
+//   float's bits (exact for non-negative floats, order-free); the scan goes
+//   on over the other tracks. (3) After another barrier, softmax of -errors
+//   (the sum in label order) -> -log, read from the rows in shared memory.
+//   The same expressions as the three launches it replaces (cells, tracks,
+//   softmax), so every output is bit-equal to theirs; every block reads the
+//   ~4,096 tracks' flags and positions (from the L2).
 //   mmf_seg_fuse: one thread per cell, the fusion and the first argmax of
 //   prob - bias (a strict > keeps the first of equal values), the claim
 //   floor, and the label stack K17 reads.
@@ -62,75 +74,205 @@ constexpr int TB = 256;
 
 __device__ inline int fbits(float f) { return __float_as_int(f); }
 
-__global__ void cells(const float* __restrict__ depth, int H, int W,
-                      const float* __restrict__ pred, int M, int hc, int wc,
-                      const bool* __restrict__ active, float max_err, float* __restrict__ fdc,
-                      float* __restrict__ p_proj, bool* __restrict__ behind,
-                      int* __restrict__ err) {
-  int c = blockIdx.x * blockDim.x + threadIdx.x;
-  int npix = hc * wc;
-  if (c >= npix) return;
-  int y = c / wc, x = c - y * wc;
-  int ky = H / hc, kx = W / wc;
-  float fd = depth[(y * ky + ky / 2) * W + x * kx + kx / 2];
-  fdc[c] = fd;
+// the unaries: one launch, pull form. Block b owns the cells [b UN_C,
+// (b + 1) UN_C), thread i < UN_C cell b UN_C + i; its error rows live in shared
+// memory; all UN_T threads scan the tracks. Few cells a block spread the
+// cells' arithmetic over the card's SMs (120 blocks at 120 x 160); many
+// threads a block keep the scan one round of loads.
+constexpr int UN_T = 512;
+constexpr int UN_C = 160;
+constexpr int UN_TRACKS = 8;  // tracks a thread locates at once (its loads in flight)
+constexpr int UN_MODELS = 8;  // models' values a thread loads at once
+
+struct UnArgs {
+  const float* depth;
+  int H, W;
+  const float* pred;  // [M, hc, wc]
+  int M, hc, wc;
+  const bool* active;
+  const float* xy;   // [T, 2]
+  const float* vel;  // [M, T]
+  const bool* valid;
+  int T;
+  float scale, thr;
+  int allow_new;
+  float max_err;
+  float* fdc;
+  float* p_proj;
+  bool* behind;
+  float* unary;
+};
+
+// cell c's centre depth sample and its first UN_MODELS models' depths
+__device__ inline void load_cell(const UnArgs& a, int c, int npix, float& fd, float* pds) {
+  int y = c / a.wc, x = c - y * a.wc;
+  int ky = a.H / a.hc, kx = a.W / a.wc;
+  fd = a.depth[(y * ky + ky / 2) * a.W + x * kx + kx / 2];
+#pragma unroll
+  for (int k = 0; k < UN_MODELS; ++k) pds[k] = k < a.M ? a.pred[k * npix + c] : 0.f;
+}
+
+// cell c from its loaded values: the centre depth sample, every model's raw
+// fit, the outlier row and the behind flags (the models past the first
+// UN_MODELS loaded UN_MODELS at a time)
+__device__ inline void cell_rows(const UnArgs& a, unsigned act, int c, int npix, float fd,
+                                 float* pds) {
+  a.fdc[c] = fd;
+  // any model without depth where the frame has none (read only there)
   bool invalid = false;
-  for (int m = 0; m < M; ++m) invalid = invalid || (fd < 1e-6f && pred[m * npix + c] < 1e-6f);
+  if (fd < 1e-6f)
+    for (int m = 0; m < a.M; ++m) invalid = invalid || a.pred[m * npix + c] < 1e-6f;
   float best = -INFINITY;
   bool any_behind = false, any_cover = false;
-  for (int m = 0; m < M; ++m) {
-    float pd = pred[m * npix + c];
-    float raw = expf(-fabsf(fd - pd) / max_err);
-    raw = pd > 1e-6f ? raw : 0.f;
-    float prob = invalid ? 0.f : raw * (active[m] ? 1.f : 0.f);
-    p_proj[m * npix + c] = prob;
-    best = fmaxf(best, prob);
-    bool covered = pd > 1e-6f && active[m];
-    bool bh = covered && fd > pd + max_err;
-    behind[m * npix + c] = bh;
-    any_behind = any_behind || bh;
-    any_cover = any_cover || covered;
-  }
-  float outlier = (invalid || any_behind || !any_cover) ? 0.f : 1.0f - best;
-  p_proj[M * npix + c] = fd > 1e-6f ? outlier : 0.f;
-  for (int l = 0; l <= M; ++l) err[l * npix + c] = fbits(INFINITY);
-}
-
-__global__ void tracks(const float* __restrict__ xy, const float* __restrict__ vel,
-                       const bool* __restrict__ valid, const bool* __restrict__ active, int T,
-                       int M, int hc, int wc, float scale, float thr, int allow_new,
-                       int* __restrict__ err) {
-  int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T || !valid[t]) return;
-  int npix = hc * wc;
-  int xi = min(max(__float2int_rn(xy[2 * t] * scale), 0), wc - 1);
-  int yi = min(max(__float2int_rn(xy[2 * t + 1] * scale), 0), hc - 1);
-  int c = yi * wc + xi;
-  bool fits_any = false, known = true;
-  for (int m = 0; m < M; ++m) {
-    float v = vel[m * T + t];
-    if (active[m]) {
-      atomicMin(&err[m * npix + c], fbits(v > thr ? 1.f : 0.f));
-      fits_any = fits_any || v < thr;
-      known = known && isfinite(v);
+  for (int m0 = 0; m0 < a.M; m0 += UN_MODELS) {
+    if (m0 > 0) {
+#pragma unroll
+      for (int k = 0; k < UN_MODELS; ++k)
+        pds[k] = m0 + k < a.M ? a.pred[(m0 + k) * npix + c] : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < UN_MODELS; ++k) {
+      const int m = m0 + k;
+      if (m >= a.M) break;
+      const bool on = act >> m & 1u;
+      const float pd = pds[k];
+      float raw = expf(-fabsf(fd - pd) / a.max_err);
+      raw = pd > 1e-6f ? raw : 0.f;
+      float prob = invalid ? 0.f : raw * (on ? 1.f : 0.f);
+      a.p_proj[m * npix + c] = prob;
+      best = fmaxf(best, prob);
+      bool covered = pd > 1e-6f && on;
+      bool bh = covered && fd > pd + a.max_err;
+      a.behind[m * npix + c] = bh;
+      any_behind = any_behind || bh;
+      any_cover = any_cover || covered;
     }
   }
-  if (allow_new && known) atomicMin(&err[M * npix + c], fbits(fits_any ? 1.f : 0.f));
+  float outlier = (invalid || any_behind || !any_cover) ? 0.f : 1.0f - best;
+  a.p_proj[a.M * npix + c] = fd > 1e-6f ? outlier : 0.f;
 }
 
-__global__ void softmax_unary(const int* __restrict__ err, int L, int npix,
-                              float* __restrict__ unary) {
-  int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= npix) return;
-  float e[MAX_M + 1], esum = 0.f;
-  for (int l = 0; l < L; ++l) {
-    e[l] = expf(-__int_as_float(err[l * npix + c]));
-    esum = esum + e[l];
+// the block's cell of each of a thread's UN_TRACKS tracks from t0 (-1: the
+// track is not valid or its cell is another block's); every flag and
+// position is loaded before any is used (one round of loads)
+__device__ inline void locate_tracks(const UnArgs& a, int t0, int c0, int* local) {
+  bool v[UN_TRACKS];
+  float px[UN_TRACKS], py[UN_TRACKS];
+#pragma unroll
+  for (int k = 0; k < UN_TRACKS; ++k) {
+    const int t = t0 + k * UN_T + threadIdx.x;
+    const bool in = t < a.T;
+    v[k] = in && a.valid[t];
+    px[k] = in ? a.xy[2 * t] : 0.f;
+    py[k] = in ? a.xy[2 * t + 1] : 0.f;
   }
-  float uniform = (float)(1.0 / (double)L);
+#pragma unroll
+  for (int k = 0; k < UN_TRACKS; ++k) {
+    local[k] = -1;
+    if (v[k]) {
+      int xi = min(max(__float2int_rn(px[k] * a.scale), 0), a.wc - 1);
+      int yi = min(max(__float2int_rn(py[k] * a.scale), 0), a.hc - 1);
+      int l = yi * a.wc + xi - c0;
+      if (l >= 0 && l < UN_C) local[k] = l;
+    }
+  }
+}
+
+// track t's velocity errors under the active models m0 .. m0 + UN_MODELS - 1
+__device__ inline void load_velocities(const UnArgs& a, unsigned act, int t, int m0, float* v) {
+#pragma unroll
+  for (int k = 0; k < UN_MODELS; ++k)
+    v[k] = m0 + k < a.M && (act >> (m0 + k) & 1u) ? a.vel[(m0 + k) * a.T + t] : 0.f;
+}
+
+// track t, whose cell is the block's cell `local`: its error per label (0 or
+// 1) min'd into the block's rows (int atomicMin on the float's bits: exact for
+// non-negative floats, order-free). v holds its first UN_MODELS velocities
+// (loaded by the caller); the others are loaded UN_MODELS at a time, each
+// chunk before any atomic
+__device__ inline void track_errors(const UnArgs& a, unsigned act, int t, int local, int* err,
+                                    float* v) {
+  unsigned over = 0u;  // bit m: active model m's velocity error above the threshold
+  bool fits_any = false, known = true;
+  for (int m0 = 0; m0 < a.M; m0 += UN_MODELS) {
+    if (m0 > 0) load_velocities(a, act, t, m0, v);
+#pragma unroll
+    for (int k = 0; k < UN_MODELS; ++k) {
+      const int m = m0 + k;
+      if (m >= a.M || !(act >> m & 1u)) continue;
+      over |= (v[k] > a.thr ? 1u : 0u) << m;
+      fits_any = fits_any || v[k] < a.thr;
+      known = known && isfinite(v[k]);
+    }
+  }
+  for (int m = 0; m < a.M; ++m)
+    if (act >> m & 1u) atomicMin(&err[m * UN_C + local], fbits(over >> m & 1u ? 1.f : 0.f));
+  if (a.allow_new && known) atomicMin(&err[a.M * UN_C + local], fbits(fits_any ? 1.f : 0.f));
+}
+
+__global__ void __launch_bounds__(UN_T) unaries_kernel(UnArgs a) {
+  // [M + 1][UN_C] the block's sparse-error rows, then a round's list of the
+  // tracks whose cell is the block's (track * UN_C + cell, UN_T * UN_TRACKS)
+  extern __shared__ int err[];
+  __shared__ int n_list;
+  const int npix = a.hc * a.wc, L = a.M + 1;
+  const int c0 = blockIdx.x * UN_C, c = c0 + threadIdx.x;
+  const bool cell = threadIdx.x < UN_C && c < npix;  // the thread has a cell
+  // every load of the first round in flight together: lane m of every warp
+  // reads model m's active flag (M < 32), the cell's depths, the first
+  // tracks' flags and positions
+  const int lane = threadIdx.x & 31;
+  const bool my_active = lane < a.M && a.active[lane];
+  float fd = 0.f, pds[UN_MODELS];
+  if (cell) load_cell(a, c, npix, fd, pds);
+  int local[UN_TRACKS];
+  locate_tracks(a, 0, c0, local);
+  const unsigned act = __ballot_sync(0xffffffffu, my_active);  // bit m: model m is active
+  if (threadIdx.x < UN_C)
+    for (int l = 0; l < L; ++l) err[l * UN_C + threadIdx.x] = fbits(INFINITY);
+  if (threadIdx.x == 0) n_list = 0;
+  __syncthreads();
+  // every valid track whose cell is one of the block's: each round lists the
+  // located tracks, then the block's threads take the list's entries in turn
+  // (a thread's located tracks, often clustered, spread over the block)
+  int* list = err + L * UN_C;
+  for (int t0 = 0;;) {
+#pragma unroll
+    for (int k = 0; k < UN_TRACKS; ++k)
+      if (local[k] >= 0)
+        list[atomicAdd(&n_list, 1)] = (t0 + k * UN_T + threadIdx.x) * UN_C + local[k];
+    __syncthreads();
+    const int n = n_list;
+    // the thread's first entry's velocities, then (first round) the cell's
+    // rows while they fly (neither touches the error rows)
+    const int first = threadIdx.x < n ? list[threadIdx.x] : -1;
+    float v[UN_MODELS];
+    if (first >= 0) load_velocities(a, act, first / UN_C, 0, v);
+    if (t0 == 0 && cell) cell_rows(a, act, c, npix, fd, pds);
+    if (first >= 0) track_errors(a, act, first / UN_C, first % UN_C, err, v);
+    for (int i = threadIdx.x + UN_T; i < n; i += UN_T) {
+      load_velocities(a, act, list[i] / UN_C, 0, v);
+      track_errors(a, act, list[i] / UN_C, list[i] % UN_C, err, v);
+    }
+    t0 += UN_T * UN_TRACKS;
+    if (t0 >= a.T) break;
+    __syncthreads();  // every thread has read the list
+    if (threadIdx.x == 0) n_list = 0;
+    locate_tracks(a, t0, c0, local);
+    __syncthreads();
+  }
+  __syncthreads();
+  if (!cell) return;
+  // softmax of -errors (the sum in label order) -> -log; a cell no track
+  // reached (every error +inf: the sum is 0) is uniform
+  const int* e = err + threadIdx.x;
+  float esum = 0.f;
+  for (int l = 0; l < L; ++l) esum = esum + expf(-__int_as_float(e[l * UN_C]));
+  const float uniform = (float)(1.0 / (double)L);
   for (int l = 0; l < L; ++l) {
-    float p = esum > 0.f ? e[l] / fmaxf(esum, 1e-12f) : uniform;
-    unary[l * npix + c] = -logf(fmaxf(p, 1e-12f));
+    const float pl = esum > 0.f ? expf(-__int_as_float(e[l * UN_C])) / fmaxf(esum, 1e-12f)
+                                : uniform;
+    a.unary[l * npix + c] = -logf(fmaxf(pl, 1e-12f));
   }
 }
 
@@ -471,17 +613,15 @@ inline int blocks(int n) { return (n + TB - 1) / TB; }
 extern "C" int mmf_seg_unaries(const float* depth, int H, int W, const float* pred, int M, int hc,
                                int wc, const bool* active, const float* xy, const float* vel,
                                const bool* valid, int T, float scale, float thr, int allow_new,
-                               float max_err, float* fdc, float* p_proj, bool* behind, float* err,
+                               float max_err, float* fdc, float* p_proj, bool* behind,
                                float* unary, cudaStream_t stream) {
-  if (M > MAX_M) return (int)cudaErrorInvalidValue;
-  int npix = hc * wc;
-  int* ierr = reinterpret_cast<int*>(err);
-  cells<<<blocks(npix), TB, 0, stream>>>(depth, H, W, pred, M, hc, wc, active, max_err, fdc,
-                                         p_proj, behind, ierr);
-  if (T > 0)
-    tracks<<<blocks(T), TB, 0, stream>>>(xy, vel, valid, active, T, M, hc, wc, scale, thr,
-                                         allow_new, ierr);
-  softmax_unary<<<blocks(npix), TB, 0, stream>>>(ierr, M + 1, npix, unary);
+  if (M > MAX_M || hc < 1 || wc < 1) return (int)cudaErrorInvalidValue;
+  const int npix = hc * wc;
+  // at most (MAX_M + 1) * UN_C + UN_T * UN_TRACKS ints: 36.9 KB
+  const size_t smem = ((size_t)(M + 1) * UN_C + UN_T * UN_TRACKS) * sizeof(int);
+  UnArgs a{depth, H, W, pred, M, hc, wc, active, xy, vel, valid, T, scale, thr, allow_new,
+           max_err, fdc, p_proj, behind, unary};
+  unaries_kernel<<<(npix + UN_C - 1) / UN_C, UN_T, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -45,6 +45,7 @@ LAUNCHES: Dict[str, int] = {}
 _captured: Optional[Dict[str, dict]] = None
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[tuple, object] = {}  # (library, entry point) -> ctypes function, typed
 BUILD_LOG: Dict[str, str] = {}
 
 P = ctypes.c_void_p
@@ -106,12 +107,17 @@ def build_all() -> float:
 
 
 def fn(lib: str, name: str, argtypes):
-    """ctypes entry point ``name`` of ``csrc/<lib>.cu`` (built on first use)."""
+    """ctypes entry point ``name`` of ``csrc/<lib>.cu`` (built on first use),
+    its argument types set once per loaded library."""
     if lib not in _libs:
         build_all()
-    f = getattr(_libs[lib], name)
-    f.argtypes = list(argtypes) + [P]  # every entry point ends with the stream
-    f.restype = I
+    so = _libs[lib]
+    f = _fns.get((so, name))
+    if f is None:
+        f = getattr(so, name)
+        f.argtypes = list(argtypes) + [P]  # every entry point ends with the stream
+        f.restype = I
+        _fns[(so, name)] = f
     return f
 
 

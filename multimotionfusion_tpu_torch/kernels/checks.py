@@ -1528,16 +1528,89 @@ def check_topk_cases(device) -> dict:
 
 # ---------------------------------------------------------------- slice 4
 
-def check_owner_prep(a: tuple, level: int) -> dict:
+def _owner_result(k: list, p: list, M: int) -> dict:
+    """K11's owner prep (every level) against the plain version: exact."""
+    levels = []
+    for kl, pl in zip(k, p):
+        same_shape = [tuple(x.shape) == tuple(y.shape) for x, y in zip(kl, pl)]
+        differ = [int((x != y).sum()) if ok else x.numel() for x, y, ok in zip(kl, pl, same_shape)]
+        levels.append(dict(size=list(pl[0].shape), differ_own_bank_valid=differ,
+                           band_pixels=int((pl[1] == M).sum()), valid_pixels=int(pl[2].sum())))
+    total = sum(sum(r["differ_own_bank_valid"]) for r in levels)
+    return dict(max_abs_err=float(total), levels=levels, ok=total == 0 and len(k) == len(p),
+                tolerance="owner, eroded owner and static validity exact, at every level")
+
+
+def check_owner_prep(a: tuple) -> dict:
     prev_mask, pred_own, frame, gl, cfg, M = a
-    ms = LV._min_scale(cfg, level)
-    k = MO.owner_level_cuda(level, prev_mask, pred_own, frame[level], M, ms)
-    p = MO.owner_level_plain(level, prev_mask, pred_own, frame[level], M, ms)
-    differ = [int((x != y).sum()) for x, y in zip(k, p)]
-    return dict(max_abs_err=float(sum(differ)), differ_own_bank_valid=differ,
-                band_pixels=int((p[1] == M).sum()), valid_pixels=int(p[2].sum()),
-                ok=sum(differ) == 0 and int(p[2].sum()) > 0,
-                tolerance="owner, eroded owner and static validity exact")
+    scales = [LV._min_scale(cfg, lvl) for lvl in range(len(frame))]
+    r = _owner_result(MO.owner_levels_cuda(prev_mask, pred_own, frame, M, scales),
+                      MO.owner_levels_plain(prev_mask, pred_own, frame, M, scales), M)
+    r["ok"] = r["ok"] and all(x["valid_pixels"] > 0 for x in r["levels"])
+    return r
+
+
+# K11's hand-made owner cases: (name, height, width, levels, models). Owners
+# hug every border of the mask and of the prediction (the erosion's wrap at
+# work), the mask holds "no owner" ids (M and above), and the sizes lie off
+# the kernel's 32 x 8 tile.
+OWNER_CASES = (("ragged_487x651", 487, 651, 3, 6), ("engine_480x640", 480, 640, 3, 6),
+               ("small_61x37", 61, 37, 3, 4), ("tiny_9x11", 9, 11, 3, 3),
+               ("two_levels_120x160", 120, 160, 2, 5), ("one_level_37x61", 37, 61, 1, 2),
+               ("one_model_60x80", 60, 80, 3, 1))
+
+
+def owner_inputs(h: int, w: int, levels: int, M: int, device, seed: int = 0) -> tuple:
+    """(prev_mask, pred_own, frame levels, M, min_scales) of one owner case:
+    owners 1..4 (mod M) on bands along the top, bottom, left and right
+    borders of the mask, a no-owner block (M) and scattered ids M + 2; the
+    prediction's owners the mask's moved by (1, 2) pixels, with its own
+    top-row band; the frame levels at the mask's size halved rounding up
+    (intensity with 10 % zeros, gradients around the gate, depth with 10 %
+    zeros)."""
+    from multimotionfusion_tpu_torch.config import OdometryConfig
+
+    rng = np.random.default_rng(seed)
+    ys, xs = np.mgrid[0:h, 0:w]
+    b = max(1, min(h, w) // 8)
+    mask = np.zeros((h, w), np.int64)
+    mask[ys < b] = 1
+    mask[ys >= h - b] = 2
+    mask[xs < b] = 3
+    mask[xs >= w - b] = 4
+    mask %= M
+    mask[(ys >= h // 3) & (ys < h // 2) & (xs >= w // 3) & (xs < w // 2)] = M
+    mask[rng.random((h, w)) < 0.01] = M + 2
+    pred = np.roll(mask, (1, 2), axis=(0, 1)).clip(0, M)
+    pred[0, : w // 2] = (pred[0, : w // 2] + 1) % (M + 1)
+    cfg = OdometryConfig()
+    frame = []
+    for hh, ww in LV.level_sizes(h, w, levels):
+        img = rng.uniform(0, 255, (hh, ww)).astype(np.float32)
+        img[rng.random((hh, ww)) < 0.1] = 0.0
+        grads = rng.normal(0, 60, (2, hh, ww)).astype(np.float32)
+        depth = rng.uniform(0.3, 4.0, (hh, ww)).astype(np.float32)
+        depth[rng.random((hh, ww)) < 0.1] = 0.0
+        t = [torch.from_numpy(x).to(device) for x in (depth, img, grads[0], grads[1])]
+        frame.append(LV.FrameLevel(*t, None, None, None))
+    i32 = lambda x: torch.from_numpy(x.astype(np.int32)).to(device)  # noqa: E731
+    return (i32(mask), i32(pred), frame, M,
+            [LV._min_scale(cfg, lvl) for lvl in range(levels)])
+
+
+def check_owner_cases(device) -> dict:
+    """K11's owner prep on ``OWNER_CASES`` against the plain version on the
+    same device, exact at every level."""
+    cases, ok = {}, True
+    for name, h, w, levels, M in OWNER_CASES:
+        mask, pred, frame, M, scales = owner_inputs(h, w, levels, M, device)
+        r = _owner_result(MO.owner_levels_cuda(mask, pred, frame, M, scales),
+                          MO.owner_levels_plain(mask, pred, frame, M, scales), M)
+        r["ok"] = r["ok"] and len(r["levels"]) == levels
+        cases[name] = r
+        ok = ok and r["ok"]
+    return dict(cases=cases, ok=ok, max_abs_err=0.0 if ok else None,
+                tolerance="owner, eroded owner and static validity exact, at every level")
 
 
 def check_gn_multi(a: tuple, level: int) -> dict:
@@ -2159,14 +2232,81 @@ def check_components_cases(device) -> dict:
     return dict(cases=cases, ok=ok, tolerance="kept cells and sizes exact")
 
 
-def check_seg_unaries(a: tuple) -> dict:
-    uk, up = FC.unaries_cuda(*a), FC.unaries_plain(*a)
-    errs = {name: float((x.float() - y.float()).abs().max()) for name, x, y in zip(
-        uk._fields, uk, up)}
+def _unaries_result(uk, up) -> dict:
+    errs = {name: float((x.float() - y.float()).abs().max()) if x.numel() else 0.0
+            for name, x, y in zip(uk._fields, uk, up)}
     behind = int((uk.behind != up.behind).sum())
     err = max(errs["p_proj"], errs["unary"], errs["frame_depth_c"])
     return dict(max_abs_err=err, errors=errs, behind_differ=behind, ok=behind == 0 and err <= 1e-6,
                 tolerance="behind exact; rows and unaries within 1e-6 (the same expressions)")
+
+
+def check_seg_unaries(a: tuple) -> dict:
+    return _unaries_result(FC.unaries_cuda(*a), FC.unaries_plain(*a))
+
+
+# K18's hand-made unary cases: (name, CRF rows, CRF columns, pixels a cell,
+# models, tracks, allow_new). The kernel's blocks own 160 cells each: 121 x
+# 163 leaves the last block partial; 31 models, the most it takes, fill the
+# most shared memory; a block locates 4,096 tracks a round, so 9,000 take three;
+# tracks may be none, all in one cell, or clamped from outside the image;
+# velocities hold inf and NaN, models are inactive.
+UNARY_CASES = (("engine_120x160", 120, 160, 4, 6, 4096, True),
+               ("no_tracks", 120, 160, 4, 6, 0, True), ("no_new", 120, 160, 4, 6, 4096, False),
+               ("ragged_121x163", 121, 163, 4, 3, 700, True),
+               ("one_cell", 60, 80, 2, 4, 300, True), ("models_31", 30, 40, 4, 31, 4096, True),
+               ("tracks_9000", 60, 80, 2, 4, 9000, True))
+
+
+def unaries_inputs(hc: int, wc: int, k: int, M: int, T: int, allow_new: bool, one_cell: bool,
+                   device, seed: int = 0) -> tuple:
+    """``unaries``' arguments for one hand-made case: depth (10 % zeros) and
+    each model's cell depth near it, in front or behind (20 % uncovered),
+    every third model inactive, tracks over the image and 5 % outside it
+    (all in cell (3, 5) for ``one_cell``), 70 % valid, velocities around the
+    threshold with inf and NaN."""
+    from multimotionfusion_tpu_torch.config import SegmentationConfig
+
+    rng = np.random.default_rng(seed)
+    cfg = SegmentationConfig(scale=1.0 / k)
+    h, w = hc * k, wc * k
+    depth = rng.uniform(0.5, 4.0, (h, w)).astype(np.float32)
+    depth[rng.random((h, w)) < 0.1] = 0.0
+    fd = depth.reshape(hc, k, wc, k)[:, k // 2, :, k // 2]
+    pred = (fd[None] + rng.normal(0, 2 * cfg.sigma_depth, (M, hc, wc))).astype(np.float32)
+    pred[rng.random((M, hc, wc)) < 0.2] = 0.0
+    active = np.arange(M) % 3 != 2
+    active[0] = True
+    xy = np.stack([rng.uniform(-0.05 * w, 1.05 * w, T), rng.uniform(-0.05 * h, 1.05 * h, T)], -1)
+    if one_cell:
+        xy[:] = (5 * k, 3 * k)
+    vel = rng.uniform(0, 2 * cfg.velocity_threshold, (M, T))
+    vel[rng.random((M, T)) < 0.03] = np.inf
+    vel[rng.random((M, T)) < 0.03] = np.nan
+    valid = rng.random(T) < 0.7
+    def t(x, dt=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device, dt)
+
+    return (t(depth), t(pred), t(active, torch.bool), t(xy.reshape(T, 2)), t(vel.reshape(M, T)),
+            t(valid, torch.bool), cfg, allow_new)
+
+
+def check_unaries_cases(device) -> dict:
+    """K18's unaries on ``UNARY_CASES`` against the plain version on the
+    same device, held to ``check_seg_unaries``' tolerance."""
+    cases, ok = {}, True
+    for name, hc, wc, k, M, T, allow_new in UNARY_CASES:
+        a = unaries_inputs(hc, wc, k, M, T, allow_new, name == "one_cell", device)
+        up = FC.unaries_plain(*a)
+        r = _unaries_result(FC.unaries_cuda(*a), up)
+        r["known_cells"] = int(torch.isfinite(FC.sparse_unary(
+            a[3], a[4], a[5], a[2], hc, wc, a[6].scale, a[6].velocity_threshold,
+            allow_new)).any(0).sum())
+        cases[name] = r
+        ok = ok and r["ok"]
+    errs = [r["max_abs_err"] for r in cases.values()]
+    return dict(cases=cases, ok=ok, max_abs_err=max(errs),
+                tolerance="behind exact; rows and unaries within 1e-6, every case")
 
 
 def check_seg_fuse(a: tuple) -> dict:

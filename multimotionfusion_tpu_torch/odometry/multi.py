@@ -10,10 +10,11 @@ band at global-owned ownership boundaries), and the rows reduce into [M]
 per-model ICP and photometric systems.
 
 Kernels (K11):
-- ``owner_prep`` (``csrc/gn_multi.cu``): per pyramid level the owner map
-  (nearest pyramid of the mask), the eroded prediction owner map (the
-  reference's wrap-around ``jnp.roll`` erosion, reproduced) and the
-  owner-aware photometric validity (``rgb_static_valid_multi``);
+- ``owner_prep`` (``csrc/gn_multi.cu``, one launch for every level): per
+  pyramid level the owner map (nearest pyramid of the mask), the eroded
+  prediction owner map (the reference's wrap-around ``jnp.roll`` erosion,
+  reproduced) and the owner-aware photometric validity
+  (``rgb_static_valid_multi``);
 - ``gn_multi`` (``csrc/gn_multi.cu``): one evaluation of all models' 7x7 ICP
   and RGB systems plus counts, in ``gn_reduce``'s two-pass fixed-order shape;
 - the M-wide steps of K5 (``csrc/gn_step.cu``): ``multi_init``,
@@ -41,7 +42,7 @@ import torch
 from multimotionfusion_tpu_torch import kernels as K
 from multimotionfusion_tpu_torch.config import CameraModel, OdometryConfig
 from multimotionfusion_tpu_torch.odometry import rgbd
-from multimotionfusion_tpu_torch.odometry.levels import FrameLevel, _min_scale
+from multimotionfusion_tpu_torch.odometry.levels import FrameLevel, _min_scale, level_sizes
 from multimotionfusion_tpu_torch.odometry.rgbd import (
     F32, HOST, S_GN_DONE, S_GN_ITERS, S_GN_J, S_ICP_COUNT, S_ICP_ERR, S_LAST_A, S_LAST_B,
     S_RGB_COUNT, S_RGB_ERR, S_RT, S_RT_INV, S_SIZE, GNLevel, GNParams,
@@ -125,29 +126,59 @@ def owner_level_plain(lvl: int, prev_mask, pred_own, fl: FrameLevel, n_models: i
     return own, bank_own, sv
 
 
-_OWN_ARGS = [K.I, K.P, K.P, K.I, K.I, K.I, K.I, K.I] + [K.P] * 4 + [K.F] + [K.P] * 3
+def owner_levels_plain(prev_mask, pred_own, frame: List[FrameLevel], n_models: int,
+                       min_scales: List[float]):
+    """Plain PyTorch K11 owner prep: every level's (own, bank_own, static validity)."""
+    return [owner_level_plain(lvl, prev_mask, pred_own, fl, n_models, ms)
+            for lvl, (fl, ms) in enumerate(zip(frame, min_scales))]
 
 
-def owner_level_cuda(lvl: int, prev_mask, pred_own, fl: FrameLevel, n_models: int,
-                     min_scale: float):
-    """K11's owner prep on the card: ``csrc/gn_multi.cu`` ``mmf_owner_prep``."""
+OWN_LEVELS = 3  # csrc/gn_multi.cu's levels of one launch
+_OWN_ARGS = [K.P, K.P, K.I, K.I, K.I, K.I] + ([K.P] * 4 + [K.F]) * OWN_LEVELS + [K.P, K.P]
+_LEVEL_MAPS = ("img", "didx", "didy", "depth")
+
+
+def owner_levels_cuda(prev_mask, pred_own, frame: List[FrameLevel], n_models: int,
+                      min_scales: List[float]):
+    """K11's owner prep on the card, every level in one launch:
+    ``csrc/gn_multi.cu`` ``mmf_owner_prep``. Level ``l`` must be the mask's
+    size halved ``l`` times rounding up (the plain version's strided samples).
+    The outputs are views of two allocations, but level 0's owners: the mask
+    itself, as the plain version's stride-1 sample."""
     K.check(prev_mask, torch.int32, "prev_mask")
     K.check(pred_own, torch.int32, "pred_own")
-    for name in ("img", "didx", "didy", "depth"):
-        K.check(getattr(fl, name), F32, name)
     H0, W0 = prev_mask.shape
-    h, w = fl.img.shape
-    if pred_own.shape != prev_mask.shape or (H0 >> lvl, W0 >> lvl) != (h, w):
-        raise ValueError("pred_own must match the mask, the level must be the mask's >> lvl")
-    dev = prev_mask.device
-    own = torch.empty((h, w), dtype=torch.int32, device=dev)
-    bank_own = torch.empty((h, w), dtype=torch.int32, device=dev)
-    sv = torch.empty((h, w), dtype=torch.bool, device=dev)
+    if pred_own.shape != prev_mask.shape:
+        raise ValueError("pred_own must match the mask")
+    levels = len(frame)
+    if not 1 <= levels <= OWN_LEVELS:
+        raise ValueError(f"csrc/gn_multi.cu builds 1 to {OWN_LEVELS} levels, not {levels}")
+    sizes, args = [], []
+    for lvl, hw in enumerate(level_sizes(H0, W0, levels)):
+        for name in _LEVEL_MAPS:
+            t = getattr(frame[lvl], name)
+            K.check(t, F32, name)
+            if t.shape != hw:
+                raise ValueError(f"level {lvl}'s {name} is {tuple(t.shape)}, not the mask's "
+                                 f"size halved rounding up, {hw}")
+            args.append(K.ptr(t))
+        args.append(float(min_scales[lvl]))
+        sizes.append(hw)
+    args += [None, None, None, None, 0.0] * (OWN_LEVELS - levels)
+    n = sum(h * w for h, w in sizes)
+    n0 = sizes[0][0] * sizes[0][1]
+    own_bank = torch.empty((2 * n - n0,), dtype=torch.int32, device=prev_mask.device)
+    sv = torch.empty((n,), dtype=torch.bool, device=prev_mask.device)
     f = K.fn("gn_multi", "mmf_owner_prep", _OWN_ARGS)
-    K.call(f"owner_prep.L{lvl}", f, lvl, K.ptr(prev_mask), K.ptr(pred_own), H0, W0, h, w,
-           n_models, K.ptr(fl.img), K.ptr(fl.didx), K.ptr(fl.didy), K.ptr(fl.depth),
-           float(min_scale), K.ptr(own), K.ptr(bank_own), K.ptr(sv))
-    return own, bank_own, sv
+    K.call("owner_prep", f, K.ptr(prev_mask), K.ptr(pred_own), H0, W0, n_models, levels, *args,
+           K.ptr(own_bank), K.ptr(sv))
+    out, off = [], 0
+    for h, w in sizes:  # the kernel's layout: [bank of every level, own of levels >= 1]
+        own = prev_mask if off == 0 else own_bank.as_strided((h, w), (w, 1), n + off - n0)
+        out.append((own, own_bank.as_strided((h, w), (w, 1), off),
+                    sv.as_strided((h, w), (w, 1), off)))
+        off += h * w
+    return out
 
 
 def owner_levels(prev_mask, pred_own, frame: List[FrameLevel], gl: List[GNLevel],
@@ -156,12 +187,11 @@ def owner_levels(prev_mask, pred_own, frame: List[FrameLevel], gl: List[GNLevel]
     without masks), the GN inputs and the two owner images."""
     K.record("owner_prep", prev_mask=prev_mask, pred_own=pred_own, frame=frame, gl=gl, cfg=cfg,
              n_models=n_models)
-    out = []
-    for lvl, (fl, g) in enumerate(zip(frame, gl)):
-        impl = owner_level_cuda if prev_mask.is_cuda else owner_level_plain
-        own, bank_own, sv = impl(lvl, prev_mask, pred_own, fl, n_models, _min_scale(cfg, lvl))
-        out.append(MultiLevel(g._replace(static_valid=sv), own, bank_own))
-    return out
+    scales = [_min_scale(cfg, lvl) for lvl in range(len(frame))]
+    impl = owner_levels_cuda if prev_mask.is_cuda else owner_levels_plain
+    maps = impl(prev_mask, pred_own, frame, n_models, scales)
+    return [MultiLevel(g._replace(static_valid=sv), own, bank_own)
+            for g, (own, bank_own, sv) in zip(gl, maps)]
 
 
 # ---------------------------------------------------------------- K11 reduce

@@ -271,7 +271,8 @@ def _check_all(**tensors):
 
 def unaries_cuda(frame_depth, pred_c, active, track_xy, track_vel, track_valid,
                  cfg: SegmentationConfig, allow_new: bool) -> Unaries:
-    """K18 first stage on the card: ``csrc/segment.cu`` ``mmf_seg_unaries``."""
+    """K18 first stage on the card, one launch: ``csrc/segment.cu``
+    ``mmf_seg_unaries``. The float outputs are views of one allocation."""
     _check_all(frame_depth=(frame_depth, F32), pred_c=(pred_c, F32), active=(active, torch.bool),
                track_xy=(track_xy, F32), track_vel=(track_vel, F32),
                track_valid=(track_valid, torch.bool))
@@ -282,19 +283,17 @@ def unaries_cuda(frame_depth, pred_c, active, track_xy, track_vel, track_valid,
                                   "divide the image")
     t = track_vel.shape[1]
     dev = pred_c.device
-    fd = torch.empty((hc, wc), dtype=F32, device=dev)
-    p_proj = torch.empty((m + 1, hc, wc), dtype=F32, device=dev)
+    rows = torch.empty((2 * m + 3, hc, wc), dtype=F32, device=dev)  # fd, p_proj, unary
     behind = torch.empty((m, hc, wc), dtype=torch.bool, device=dev)
-    err = torch.empty((m + 1, hc, wc), dtype=F32, device=dev)
-    unary = torch.empty((m + 1, hc, wc), dtype=F32, device=dev)
     f = K.fn("segment", "mmf_seg_unaries", [K.P, K.I, K.I, K.P, K.I, K.I, K.I, K.P, K.P, K.P,
-                                            K.P, K.I, K.F, K.F, K.I, K.F] + [K.P] * 5)
+                                            K.P, K.I, K.F, K.F, K.I, K.F] + [K.P] * 4)
+    ptr = K.ptr(rows)
     K.call("segment.unaries", f, K.ptr(frame_depth), h, w, K.ptr(pred_c), m, hc, wc,
            K.ptr(active), K.ptr(track_xy), K.ptr(track_vel), K.ptr(track_valid), t,
            float(cfg.scale), float(cfg.velocity_threshold), int(allow_new),
-           float(cfg.sigma_depth), K.ptr(fd), K.ptr(p_proj), K.ptr(behind), K.ptr(err),
-           K.ptr(unary))
-    return Unaries(fd, p_proj, behind, unary)
+           float(cfg.sigma_depth), ptr, ptr + 4 * hc * wc, K.ptr(behind),
+           ptr + 4 * (m + 2) * hc * wc)
+    return Unaries(rows[0], rows[1:m + 2], behind, rows[m + 2:])
 
 
 def fuse_labels_cuda(q, flow, p_proj, behind, active, cfg: SegmentationConfig, allow_new: bool):

@@ -67,7 +67,8 @@ on ``checks.TOPK_CASES`` too. K1's filter and K2's two sides (every level in
 one launch a side) also run on hand-made inputs (``checks.FILTER_CASES``,
 ``checks.PYRAMID_CASES``), and K10 and K14's clean on theirs
 (``checks.SPLAT_CASES``, ``checks.CLEAN_FLAT_CASES``, bit-equal to the plain
-versions).
+versions), K11's owner prep (every level in one launch) on
+``checks.OWNER_CASES`` (exact) and K18's unaries on ``checks.UNARY_CASES``.
 """
 
 import pytest
@@ -152,7 +153,7 @@ def test_kernel_matches_plain(captured, name, check):
 
 MULTI_FRAMES = 24
 MULTI_CASES = (
-    [(f"owner_prep.L{lvl}", lambda a, lvl=lvl: checks.check_owner_prep(a, lvl)) for lvl in LEVELS]
+    [("owner_prep", checks.check_owner_prep)]
     + [(f"gn_multi.L{lvl}", lambda a, lvl=lvl: checks.check_gn_multi(a, lvl)) for lvl in LEVELS]
     + [("multi_init", checks.check_multi_init), ("multi_seed", checks.check_multi_seed),
        ("multi_arbitrate", checks.check_multi_arbitrate),
@@ -165,8 +166,6 @@ MULTI_CASES = (
 
 
 def _multi_key(name: str) -> str:
-    if name.startswith("owner_prep."):
-        return "owner_prep"
     return name[len("multi_"):] if name.startswith("multi_so3_") else name
 
 
@@ -472,6 +471,20 @@ def test_k10_k14_hand_made_cases(name):
     counts, +0 and -0 ALIVE, penalties of exactly 1, redundancy and z culls,
     windows 4 and 5): every output bit-equal to the plain version on the
     card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
+    r = getattr(checks, f"check_{name}")("cuda")
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("name", ["owner_cases", "unaries_cases"])
+def test_k11_k18_hand_made_cases(name):
+    """K11's owner prep on ``checks.OWNER_CASES`` (487x651 and other sizes off
+    the 32 x 8 tile, 1, 2 and 3 levels, owners hugging every border, no-owner
+    ids, one model): every level's maps exact against the plain version on
+    the card; K18's unaries on ``checks.UNARY_CASES`` (no track, no new
+    label, a ragged grid, every track in one cell, 31 models): within
+    ``check_seg_unaries``' tolerance (and 9,000 tracks, three rounds)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
     r = getattr(checks, f"check_{name}")("cuda")

@@ -2,7 +2,8 @@
 where their time goes (needs one NVIDIA GPU; not a test).
 
     python3 tests/torch_kernel_variants.py [--tree DIR] \
-        [--only flow,tracks,finish,select,nms,levels,splat]
+        [--only flow,tracks,finish,select,nms,levels,splat,owner] \
+        [--variants as_is,wrap_once,three_values]
 
 ``flow``: K15's one-launch flow (``csrc/flow.cu``) on
 ``checks.flow_case_inputs(480, 640)`` at the 640x480 CRF grid (120x160),
@@ -48,7 +49,12 @@ diagnostics whose outputs differ, without the tap loop, without the
 staging's gathers, without the fill-in (K10) and without the window counts
 (the clean); the median of three readings after ~50 ms of matrix products;
 and the gather locality of both index maps (distinct 32-byte sectors a
-warp's one-channel gather of 32 pixels of a row touches). Each copy is
+warp's one-channel gather of 32 pixels of a row touches). ``owner``: K11's
+owner prep (``csrc/gn_multi.cu``) and K18's unaries (``csrc/segment.cu``)
+on the inputs the external-mask and flow-CRF runs record, as they are, with
+other tiles, with parts dropped and with globaltimer stamps
+(``owner_variants``; ``--variants`` names the ones to build and run, all
+by default). Each copy is
 written and built with the build's flags in ``DIR/build/variants``; an
 edit whose text is no longer in the source stops the script. Prints JSON
 lines.
@@ -520,6 +526,7 @@ def splat_sources(csrc):
                  ssrc.index("  __syncthreads();\n\n  const int x = x0 + tx")]
     splats = {
         "as_is": ssrc,
+        "three_values": patches(ssrc, THREE_VALUES),
         "runtime_window": patch(ssrc, "window == 5 ? resolve<5> : resolve<0>", "resolve<0>"),
         "tile_32x16": patch(ssrc, "constexpr int TW = 32, TH = 8;", "constexpr int TW = 32, TH = 16;"),
         "no_taps": patch(ssrc, loop, "    (void)l0; (void)l1; (void)l2; (void)own_p;\n"),
@@ -601,11 +608,192 @@ def splat_variants(tree, torch, K, C, FU, R):
             K._libs[lib_name] = kept
 
 
+# K11's owner prep: thread 0 of every 100th block (blocks 0-74 are level
+# 2's, 75-374 level 1's, the rest level 0's at 640x480), rows 0-15
+OWNER_STAMP_BLOCKS = "blockIdx.x % 100 == 0 && blockIdx.x < 1600"
+OWNER_MARKS = [
+    ("start", "  const int b = blockIdx.x;\n", 0, True),
+    ("own fields loaded, staging starts", "  // 1. (level 0) the prediction owners", 1, False),
+    ("staged (stores issued)", "  __syncthreads();\n  if (!in) return;", 2, False),
+    ("barrier passed", "  if (!in) return;\n", 3, False),
+    ("end", "  L.sv[p] = valid ? 1 : 0;\n", 4, True),
+]
+UNARY_MARKS = [
+    ("start", "  // every load of the first round in flight together", 0, False),
+    ("first round loaded, tracks located", "  locate_tracks(a, 0, c0, local);\n", 1, True),
+    ("barrier 1 passed", "n_list = 0;\n  __syncthreads();\n", 2, True),
+    ("tracks listed", "    const int n = n_list;\n", 3, False),
+    ("cell rows done", "    if (t0 == 0 && cell) cell_rows(a, act, c, npix, fd, pds);\n", 4, True),
+    ("track errors done", "  __syncthreads();\n  if (!cell) return;\n  // softmax", 5, False),
+    ("barrier 2 passed", "  if (!cell) return;\n  // softmax", 6, False),
+    ("end", "    a.unary[l * npix + c] = -logf(fmaxf(pl, 1e-12f));\n  }\n", 7, True),
+]
+# K18's softmax as the three error values' exps and -logs, each taken once
+# (arguments, which the compiler cannot fold), selected per label
+THREE_VALUES = [
+    ("  float max_err;\n", "  float max_err;\n  float e0, e1, einf;\n"),
+    ("           max_err, fdc,", "           max_err, 0.f, 1.f, INFINITY, fdc,"),
+    ("  float esum = 0.f;\n  for (int l = 0; l < L; ++l) esum = esum + expf(-__int_as_float(e[l * UN_C]));\n"
+     "  const float uniform = (float)(1.0 / (double)L);\n"
+     "  for (int l = 0; l < L; ++l) {\n"
+     "    const float pl = esum > 0.f ? expf(-__int_as_float(e[l * UN_C])) / fmaxf(esum, 1e-12f)\n"
+     "                                : uniform;\n"
+     "    a.unary[l * npix + c] = -logf(fmaxf(pl, 1e-12f));\n  }\n",
+     "  const float x0 = expf(-a.e0), x1 = expf(-a.e1), xinf = expf(-a.einf);\n"
+     "  float esum = 0.f;\n  for (int l = 0; l < L; ++l) {\n"
+     "    const float el = __int_as_float(e[l * UN_C]);\n"
+     "    esum = esum + (el == 0.f ? x0 : el == 1.f ? x1 : xinf);\n  }\n"
+     "  if (!(esum > 0.f)) {\n"
+     "    const float u = -logf(fmaxf((float)(1.0 / (double)L), 1e-12f));\n"
+     "    for (int l = 0; l < L; ++l) a.unary[l * npix + c] = u;\n    return;\n  }\n"
+     "  const float u0 = -logf(fmaxf(x0 / fmaxf(esum, 1e-12f), 1e-12f));\n"
+     "  const float u1 = -logf(fmaxf(x1 / fmaxf(esum, 1e-12f), 1e-12f));\n"
+     "  const float uinf = -logf(fmaxf(xinf / fmaxf(esum, 1e-12f), 1e-12f));\n"
+     "  for (int l = 0; l < L; ++l) {\n"
+     "    const float el = __int_as_float(e[l * UN_C]);\n"
+     "    a.unary[l * npix + c] = el == 0.f ? u0 : el == 1.f ? u1 : uinf;\n  }\n"),
+]
+# K11's level-0 staging wrapped by one add or subtract (valid where the
+# image is at least the staged region, as at 640x480)
+WRAP_ONCE = [
+    ("// the eroded prediction owner of level-0 pixel",
+     "__device__ __forceinline__ int wrap_once(int v, int n) {\n"
+     "  v += v < 0 ? n : 0;\n  v -= v >= n ? n : 0;\n  return v;\n}\n\n"
+     "// the eroded prediction owner of level-0 pixel"),
+    ("po[k] = a.pred_own[wrap(Y0 + r, a.H0) * a.W0 + wrap(X0 + c, a.W0)];",
+     "po[k] = a.pred_own[wrap_once(Y0 + r, a.H0) * a.W0 + wrap_once(X0 + c, a.W0)];"),
+]
+
+
+def patches(text, edits):
+    """``text`` with every (old, new) of ``edits`` applied by ``patch``."""
+    for old, new in edits:
+        text = patch(text, old, new)
+    return text
+
+
+def owner_unaries_sources(csrc):
+    """({variant: K11 source}, {variant: K18 source}) of the ``owner`` part."""
+    gsrc = open(os.path.join(csrc, "gn_multi.cu")).read()
+    ssrc = open(os.path.join(csrc, "segment.cu")).read()
+    dispatch = "  const int b = blockIdx.x;\n"
+    owners = {
+        "as_is": gsrc,
+        "wrap_once": patches(gsrc, WRAP_ONCE),
+        "bounds_6": patch(gsrc, "__global__ void __launch_bounds__(OT) owner_prep(",
+                          "__global__ void __launch_bounds__(OT, 6) owner_prep("),
+        "tile_64x4": patch(gsrc, "constexpr int OTW = 32, OTH = 8, OT = OTW * OTH;",
+                           "constexpr int OTW = 64, OTH = 4, OT = OTW * OTH;"),
+        "level_0_only": patch(gsrc, dispatch, dispatch + "  if (b < a.L[1].block_end) return;\n"),
+        "levels_1_2_only": patch(gsrc, dispatch,
+                                 dispatch + "  if (b >= a.L[1].block_end) return;\n"),
+        "every_block_returns": patch(gsrc, dispatch, dispatch + "  if (b >= 0) return;\n"),
+        "stamped": stamped(gsrc, OWNER_MARKS).replace(
+            "if (threadIdx.x == 0 && blockIdx.x < 16) {",
+            f"if (threadIdx.x == 0 && {OWNER_STAMP_BLOCKS}) {{").replace(
+            "g_stamp[blockIdx.x][k] = t;", "g_stamp[blockIdx.x / 100][k] = t;"),
+    }
+    scan = "  locate_tracks(a, 0, c0, local);\n"
+    unaries = {
+        "as_is": ssrc,
+        "three_values": patches(ssrc, THREE_VALUES),
+        "cells_320": patch(ssrc, "constexpr int UN_C = 160;", "constexpr int UN_C = 320;"),
+        "cells_512": patch(ssrc, "constexpr int UN_C = 160;", "constexpr int UN_C = 512;"),
+        "cells_96": patch(ssrc, "constexpr int UN_C = 160;", "constexpr int UN_C = 96;"),
+        "threads_256": patch(ssrc, "constexpr int UN_T = 512;", "constexpr int UN_T = 256;"),
+        "no_tracks": patch(ssrc, scan, scan + "  if (true) {\n    for (int k = 0; k < UN_TRACKS; "
+                                            "++k) local[k] = -1;\n    a.T = 0;\n  }\n"),
+        "no_cell_rows": patch(ssrc, "    if (t0 == 0 && cell) cell_rows(a, act, c, npix, fd, pds);\n",
+                              ""),
+        "no_softmax": patch(ssrc, "  if (!cell) return;\n  // softmax",
+                            "  if (true) return;\n  // softmax"),
+        "returns_at_once": patch(ssrc, "  const int npix = a.hc * a.wc, L = a.M + 1;\n",
+                                 "  const int npix = a.hc * a.wc, L = a.M + 1;\n"
+                                 "  if (npix > 0) return;\n"),
+        "stamped": stamped(ssrc, UNARY_MARKS),
+    }
+    return owners, unaries
+
+
+def owner_variants(tree, torch, K, C, MO, FC, names=None):
+    """K11's owner prep and K18's unaries on the inputs ``chip_smoke.py``'s
+    external-mask and flow-CRF runs record, as they are and as edited
+    copies: the owner prep at six blocks an SM (``__launch_bounds__``),
+    with a 64 x 4 tile and with its staging wrapped by one add or subtract
+    (``WRAP_ONCE``) and, as diagnostics whose outputs differ, with only
+    level 0's blocks, only levels 1 and 2's, and every block returning at
+    once (the grid's own cost); the unaries with 320, 512 and 96 cells a
+    block, 256 threads a block and the softmax's exps taken once per error
+    value (``THREE_VALUES``) and, as diagnostics, without the tracks,
+    without the cell rows, without the softmax and returning at once; the
+    median of three readings after ~50 ms of matrix products, and whether
+    the outputs equal the source's. The ``stamped`` copies print per block
+    the globaltimer (us from the kernel's first stamp) at ``OWNER_MARKS`` /
+    ``UNARY_MARKS`` (thread 0 of every 100th owner block, of the first 16
+    unaries blocks)."""
+    import chip_smoke as S
+
+    m_cfg, m_frames = S.multi_frames(1 + S.MULTI_FRAMES)
+    m_captured = S.run_multi(K, m_cfg, m_frames)[2]
+    f_cfg, f_frames = S.multi_frames(1 + S.MULTI_FRAMES, masks=False)
+    f_captured = S.run_multi_flow(K, f_cfg, f_frames)[2]
+    own = C.args("owner_prep", m_captured["owner_prep"])
+    un = C.args("segment.unaries", f_captured["segment.unaries"])
+    owners, unaries = owner_unaries_sources(os.path.join(tree, "multimotionfusion_tpu_torch",
+                                                         "csrc"))
+    if names:
+        owners = {k: v for k, v in owners.items() if k in names}
+        unaries = {k: v for k, v in unaries.items() if k in names}
+
+    lines = {"gn_multi": ("owner_prep", lambda: [
+                 t for ml in MO.owner_levels(*own) for t in (ml.own, ml.bank_own,
+                                                             ml.gl.static_valid)]),
+             "segment": ("segment.unaries", lambda: list(FC.unaries_cuda(*un)))}
+    for lib_name, variants in (("gn_multi", owners), ("segment", unaries)):
+        kept, ref = K._libs[lib_name], None
+        built = {name: build(tree, f"{lib_name}_{name}", text) for name, text in variants.items()}
+        what, fn = lines[lib_name]
+        try:
+            for name in variants:
+                if built[name] is None:
+                    continue
+                K._libs[lib_name] = built[name]
+                if name == "stamped":  # per block, us from the kernel's first stamp
+                    _busy(torch)
+                    for _ in range(3):
+                        fn()
+                    torch.cuda.synchronize()
+                    rows = read_stamps(built[name])
+                    t0 = min(row[0] for row in rows if row[0])
+                    marks = OWNER_MARKS if lib_name == "gn_multi" else UNARY_MARKS
+                    print(json.dumps({"kernel": what, "variant": name, "stamps": {
+                        "labels": [m[0] for m in marks],
+                        "blocks": [[round((v - t0) / 1e3, 2) if v else None
+                                    for v in row[:len(marks)]] for row in rows]}}), flush=True)
+                    continue
+                out = [t.clone() for t in fn()]
+                ref = out if ref is None else ref
+                same = all(a.shape == b.shape and torch.equal(a, b) for a, b in zip(out, ref))
+                runs = []
+                for _ in range(3):  # clocks up first; the median of three readings
+                    _busy(torch)
+                    runs.append(sum(device_us(torch, fn).values()))
+                print(json.dumps({"kernel": what, "variant": name, "device_us": sorted(runs)[1],
+                                  "device_us_runs": runs, "equal_to_as_is": same,
+                                  "ptxas": ptxas_summary(LOGS.get(f"{lib_name}_{name}", ""))}),
+                      flush=True)
+        finally:
+            K._libs[lib_name] = kept
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    ap.add_argument("--only", default="flow,tracks,finish,select,nms,levels,splat",
-                    help="comma-separated: flow, tracks, finish, select, nms, levels, splat")
+    ap.add_argument("--only", default="flow,tracks,finish,select,nms,levels,splat,owner",
+                    help="comma-separated: flow, tracks, finish, select, nms, levels, splat, "
+                         "owner")
+    ap.add_argument("--variants", default="",
+                    help="comma-separated: the owner part's variants to run (default all)")
     args = ap.parse_args()
     tree, only = os.path.abspath(args.tree), set(args.only.split(","))
     sys.path.insert(0, tree)
@@ -618,6 +806,7 @@ def main() -> int:
     from multimotionfusion_tpu_torch.kernels import checks as C
     from multimotionfusion_tpu_torch.model import fusion as FU
     from multimotionfusion_tpu_torch.odometry import levels as LV
+    from multimotionfusion_tpu_torch.odometry import multi as MO
     from multimotionfusion_tpu_torch.ops import frame_maps as FM
     from multimotionfusion_tpu_torch.ops import image as imops
     from multimotionfusion_tpu_torch.ops import rasterize as R
@@ -641,6 +830,8 @@ def main() -> int:
         level_variants(tree, torch, K, C, LV, FM)
     if "splat" in only:
         splat_variants(tree, torch, K, C, FU, R)
+    if "owner" in only:
+        owner_variants(tree, torch, K, C, MO, FC, set(filter(None, args.variants.split(","))))
     return 0
 
 

@@ -4,7 +4,10 @@ K4's ``gn_reduce[L0/L1/L2]``; K11's ``gn_multi[L0/L1/L2]``; one SO(3)
 iteration, static and multi), of the fusion's (K8 ``fuse``, K14
 ``fuse_flat`` and ``clean_flat``, each clean on a fresh copy of the recorded
 store, made before the profile: the card's clean works in place), of K10's
-resolve (static and composite) and of a multi-model frame's 14 RANSAC fits (K21: the 6
+resolve (static and composite), of K11's owner prep (``multi.owner_levels``,
+every level: three launches in a tree before the one-launch design, one
+after), of K18's unaries (``flow_crf.unaries_cuda`` on a flow-CRF frame's
+inputs) and of a multi-model frame's 14 RANSAC fits (K21: the 6
 per-model seeds and the 8 back-dating fits, with no track selected as on a
 frame without a spawn and with every active track) for the package of one
 tree, every device event counted, on the inputs that tree's
@@ -77,6 +80,7 @@ def main() -> int:
     from multimotionfusion_tpu_torch.odometry import multi as MO
     from multimotionfusion_tpu_torch.odometry import rgbd
     from multimotionfusion_tpu_torch.ops import rasterize as R
+    from multimotionfusion_tpu_torch.segmentation import flow_crf as FC
 
     if not (S.__file__.startswith(tree) and K.__file__.startswith(tree)):
         raise SystemExit(f"imported {S.__file__} and {K.__file__}, not {tree}'s")
@@ -85,6 +89,8 @@ def main() -> int:
     captured = S.run_engine(K, cfg, frames, gt)[2]
     m_cfg, m_frames = S.multi_frames(1 + S.MULTI_FRAMES + 2 * S.STAGE_FRAMES)
     m_captured = S.run_multi(K, m_cfg, m_frames)[2]
+    f_cfg, f_frames = S.multi_frames(1 + S.MULTI_FRAMES, masks=False)
+    f_captured = S.run_multi_flow(K, f_cfg, f_frames)[2]
     if hasattr(C, "derive_so3"):  # the halves' inputs, off the path since the one-launch iteration
         C.derive_so3(captured)
         C.derive_so3(m_captured)
@@ -191,6 +197,8 @@ def main() -> int:
         "fuse": fusion(FU.fuse_cuda, captured, "fuse", want_assoc=False),
         "fuse_flat": fusion(FU.fuse_flat_cuda, m_captured, "fuse_flat"),
         "clean_flat": clean_flat(),
+        "owner_prep[L0-L2]": fusion(MO.owner_levels, m_captured, "owner_prep"),
+        "segment.unaries": fusion(FC.unaries_cuda, f_captured, "segment.unaries"),
         "splat_resolve+fill_in": fusion(R.splat_resolve_cuda, captured, "splat_resolve"),
         "splat_resolve[composite]+fill_in[gated]": fusion(R.splat_resolve_cuda, m_captured,
                                                           "splat_resolve.composite"),

@@ -31,9 +31,12 @@ vertices, normals and static validity; ``levels.pred_levels``: every
 level's sampling map, bf16 or f32, whose f32 channels are the coarse
 levels' depth, RGB depth and intensity pyramids), K10 per resolve
 (``rasterize.splat_resolve_cuda``, static, slot and composite: colour,
-vertex_conf, normal_rad, time and valid) and K14's clean
-(``fusion.clean_flat_cuda``: the whole cleaned store), digests prefixed with
-the tensor's shape. The relocalisation run (chip_smoke.run_reloc) adds the
+vertex_conf, normal_rad, time and valid), K14's clean
+(``fusion.clean_flat_cuda``: the whole cleaned store), K11's owner prep per
+frame (``multi.owner_levels``: every level's own, bank_own and static
+validity) and K18's unaries per flow-CRF frame (``flow_crf.unaries``:
+frame_depth_c, p_proj, behind and unary), digests prefixed with the
+tensor's shape. The relocalisation run (chip_smoke.run_reloc) adds the
 fern-scale K2 calls (80x60 and 40x30). The cases (``checks.FILTER_CASES``,
 ``checks.PYRAMID_CASES``, ``checks.SPLAT_CASES``,
 ``checks.CLEAN_FLAT_CASES``, taken from this checkout's ``checks.py``
@@ -122,6 +125,11 @@ def record(tree: str, out: str) -> int:
     wrap_labelled(LV, "pred_levels", lambda r: [(f"L{lvl}.map", m) for lvl, m in enumerate(r)])
     wrap_labelled(R, "splat_resolve_cuda", lambda r: zip(r._fields, r))
     wrap_labelled(FU, "clean_flat_cuda", lambda r: [("store", r)])
+    wrap_labelled(MO, "owner_levels", lambda r: [
+        (f"L{lvl}.{f}", t) for lvl, ml in enumerate(r)
+        for f, t in (("own", ml.own), ("bank_own", ml.bank_own),
+                     ("static_valid", ml.gl.static_valid))])
+    wrap_labelled(FC, "unaries", lambda r: zip(r._fields, r))
     match, update = TR.mutual_match, TR.update
     in_update = []  # a tree whose update calls the public mutual_match
 
