@@ -42,8 +42,8 @@ Phases (any failure exits non-zero):
    counts where the host is slower), plus the kernel's device time alone
    (``_device_profile``: torch.profiler, every device event of 20 calls
    after 10 warm-up calls; by kernel for K4, K5's steps, K8, K11 and K14;
-   for K1's filter and K2's two sides (each side every level in one launch)
-   also cold, ``device_ms_cold``: a 64 MB fill before every call flushes
+   for K1's filter, K2's two sides (each side every level in one launch),
+   K13 and K19's patch_score also cold, ``device_ms_cold``: a 64 MB fill before every call flushes
    the L2 cache, its kernel left out by name;
    K4's sums also bit-equal to the block-order float32 sum of the call's
    partials; the one-launch SO(3) iteration also bit-equal to its two
@@ -173,6 +173,17 @@ Phases (any failure exits non-zero):
    track, no new label, a grid of 121 x 163 cells, every track in one
    cell, 31 models, 9,000 tracks, inf and NaN velocities, inactive models)
    within ``check_seg_unaries``' tolerance of the plain version on the card;
+   K13 on hand-made stores (phase ``depth_cases``, ``checks.DEPTH_CASES``:
+   every count 0, full buckets, one model, 31 slots, strides of 1 and 2
+   (an odd object bucket), every surfel in one cell, z at the max depth,
+   behind the camera and on the projection's rounding edge, time - last_t
+   at the window, a confidence gate some surfels miss, a 122 x 163 grid),
+   coverage exact and depth within one log-depth bin of the plain version
+   on the card, the keys' scratch all KEY_INVALID after every call; K19's
+   patch_score on hand-made images (phase ``score_cases``,
+   ``checks.SCORE_CASES``: 487x651, 9x11, 16x16 (all border), a constant
+   image, step edges whose Sobel truncation flips sign, sizes one off the
+   32 x 20 tile each way) bit-equal to the plain version on the card;
 5d. five_movers: tests/test_five_movers.py's configuration and 17-frame
    journey at 160x120 (the scene from the port's own io/synthetic.py) on
    the card with the engine seeds FIVE_SEEDS: on every seed five spawns at
@@ -208,8 +219,10 @@ Phases (any failure exits non-zero):
    device launches of one K18 finish and one K19 top-K (at most 2 each), of
    one K1 filter (1) and of each K2 side (at most 2; both sides at most 4 a
    static frame), of one K10 resolve (1, static and composite), of one
-   K14 clean (at most 3), of one K11 owner prep (1, every level) and of
-   one K18 unaries call (1), from the kernel lines' profiles;
+   K14 clean (at most 3), of one K11 owner prep (1, every level), of one
+   K18 unaries call (1), of one K13 render (at most 2, no ``fill_int``
+   among its kernels) and of one K19 patch_score (1), from the kernel
+   lines' profiles;
 7. print ``{"kernels": [...]}``, the card's name and power limit, and as the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -996,9 +1009,9 @@ def measure_patch_score(a):
     sobel = torch.tensor([[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]], device=DEVICE)
     weights = torch.stack([sobel, sobel.t()])[:, None]  # [2, 1, 3, 3]
     img = a[0][None, None]
+    run = lambda: SP.patch_score_cuda(*a)  # noqa: E731
     return dict(
-        ms=_time_ms(lambda: SP.patch_score_cuda(*a)),
-        **_device(lambda: SP.patch_score_cuda(*a)),
+        ms=_time_ms(run), **_device(run), **_cold(run),
         plain_ms=_time_ms(lambda: SP.patch_score_plain(*a), reps=5),
         **_library(lambda: torch.nn.functional.conv2d(img, weights, padding=1)),
         library_note="one two-filter F.conv2d (the Sobel gradients, part of the function; "
@@ -2010,9 +2023,10 @@ def measure_render_depths(a):
         (min(c, st.bo) + st.os - 1) // st.os for c in counts[1:])
     pix, key = R.depth_keys(*a)
     buf = torch.full((M * npix + 1,), 2**31 - 1, dtype=torch.int32, device=DEVICE)
-    return _measure(lambda: R.render_depths_cuda(*a), lambda: R.render_depths_plain(*a),
-                    24 * n + 4 * M * npix, 45 * n,
+    run = lambda: R.render_depths_cuda(*a)  # noqa: E731
+    return _measure(run, lambda: R.render_depths_plain(*a), 24 * n + 4 * M * npix, 45 * n,
                     library=lambda: buf.scatter_reduce_(0, pix, key, reduce="amin"),
+                    by_kernel=True, **_cold(run),
                     library_note="one scatter_reduce_ (amin) of the plain version's keys")
 
 
@@ -2495,13 +2509,20 @@ def run_hand_made_cases() -> list:
     border, no-owner ids, one model) exact against the plain version on the
     card (``check_owner_cases``), and K18's unaries on ``UNARY_CASES`` (no
     track, no new label, a ragged grid, one cell, 31 models, 9,000 tracks)
-    within ``check_seg_unaries``' tolerance (``check_unaries_cases``)."""
+    within ``check_seg_unaries``' tolerance (``check_unaries_cases``); K13
+    on ``DEPTH_CASES`` (every count 0, full buckets, one model, 31 slots,
+    strides 1 and 2, one cell, the gates' and the projection's edges, a
+    missed confidence gate, 122 x 163 cells) within
+    ``check_render_depths``' tolerance, its scratch clean after each call
+    (``check_depth_cases``), and K19's patch_score on ``SCORE_CASES``
+    (487x651, 9x11, all border, constant, sign-flipping steps, sizes one
+    off the tile) bit-equal (``check_score_cases``)."""
     from multimotionfusion_tpu_torch.kernels import checks as C
 
     failed = []
     for name in ("flow_cases", "track_cases", "match_cases", "finish_cases", "topk_cases",
                  "filter_cases", "pyramid_cases", "splat_cases", "clean_flat_cases",
-                 "owner_cases", "unaries_cases"):
+                 "owner_cases", "unaries_cases", "depth_cases", "score_cases"):
         r = getattr(C, f"check_{name}")(DEVICE)
         torch.cuda.synchronize()
         print(json.dumps({"phase": name, **r}))
@@ -2515,8 +2536,9 @@ def device_counts(kernels) -> dict:
     flow-CRF frame), the device operations of one tracker update, the device
     launches of one K18 finish and one K19 top-K, of one K1 filter, of each
     K2 side, of one K10 resolve (static and composite) and of one K14 clean,
-    of one K11 owner prep (every level) and of one K18 unaries call, and
-    K2's launches a static frame, from the kernel lines' profiles."""
+    of one K11 owner prep (every level), of one K18 unaries call, of one K13
+    render and of one K19 patch_score, and K2's launches a static frame,
+    from the kernel lines' profiles."""
     by = {k["name"]: k for k in kernels}
     flow, tracker = by["flow[prep + 3 levels]"], by["tracker.update[match + update]"]
     out = dict(flow_launches_per_frame=flow["device_launches_per_call"]
@@ -2526,7 +2548,7 @@ def device_counts(kernels) -> dict:
     limits = {"segment_finish": 2, "nms_topk": 2, "nms_topk_plateau": 2, "filter": 1,
               "pyramid_frame": 2, "pyramid_pred": 2, "splat_resolve": 1,
               "splat_resolve_composite": 1, "clean_flat": 3, "owner_prep": 1,
-              "segment_unaries": 1}
+              "segment_unaries": 1, "render_depths": 2, "patch_score": 1}
     for key, line in (("segment_finish", "segment.finish"), ("nms_topk", "nms_topk"),
                       ("nms_topk_plateau", "nms_topk[plateau]"), ("filter", "frame_maps[filter]"),
                       ("pyramid_frame", "pyramid.frame[L0-L2]"),
@@ -2534,8 +2556,10 @@ def device_counts(kernels) -> dict:
                       ("splat_resolve", "splat_resolve+fill_in"),
                       ("splat_resolve_composite", "splat_resolve[composite]+fill_in[gated]"),
                       ("clean_flat", "clean_flat"), ("owner_prep", "owner_prep[L0-L2]"),
-                      ("segment_unaries", "segment.unaries")):
+                      ("segment_unaries", "segment.unaries"),
+                      ("render_depths", "render_depths"), ("patch_score", "patch_score")):
         out[f"{key}_device_launches"] = by[line]["device_launches_per_call"]
+    out["render_depths_kernels"] = sorted(by["render_depths"].get("device_ms_by_kernel", {}))
     sides = [by[f"pyramid.{side}[L0-L2]"] for side in ("frame", "pred")]
     out["pyramid_launches_per_frame"] = (
         None if any(k["device_launches_per_call"] is None for k in sides)
@@ -2545,6 +2569,7 @@ def device_counts(kernels) -> dict:
                  and out["tracker_update_device_ops"] is not None
                  and out["tracker_update_device_ops"] <= 3
                  and not any(n.startswith("Mem") for n in out["tracker_update_kernels"])
+                 and "fill_int" not in out["render_depths_kernels"]
                  and all(out[f"{key}_device_launches"] is not None
                          and out[f"{key}_device_launches"] <= limit
                          for key, limit in limits.items())
@@ -3152,7 +3177,8 @@ def main() -> int:
     if not counts["ok"]:
         f_failed.append(f"K15's launches, a tracker update's device operations or K18's, "
                         f"K19's, K1's filter's, K2's, K10's, K14's clean's, K11's owner "
-                        f"prep's or K18's unaries' launches: {counts}")
+                        f"prep's, K18's unaries', K13's (or a fill) or K19's patch_score's "
+                        f"launches: {counts}")
     loops = [check_loop(captured), check_loop(kp_captured, "odometry_loop[kp]"),
              check_sparse(kp_captured), check_multi_loop(m_captured)]
     print(json.dumps({"kernels": kernels}))

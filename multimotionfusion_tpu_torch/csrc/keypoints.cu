@@ -10,13 +10,18 @@
 //   rounds follow, each behind a cluster barrier); patch_desc reads 64
 //   samples per keypoint.
 // Design:
-//   - patch_score: one 32x8 tile per block with a 3-pixel halo of intensity
-//     in shared memory; the int16-truncated Sobel products at a 2-pixel halo
-//     (zero outside the image, the blur's padding), the horizontal 5-tap
-//     passes of the three products and of the intensity, then the vertical
-//     passes, the minimum eigenvalue and the 8-pixel border, taps in the
-//     reference's order from a zero sum, weights computed on the host as the
-//     reference computes them (numpy float32);
+//   - patch_score: one 32x20 output tile a block of 256 threads, so 480
+//     blocks at 640x480 fit the card in one wave; the tile's intensities
+//     with a 3-pixel halo in shared memory (every load of a thread in
+//     flight together); the int16-truncated Sobel products at a 2-pixel
+//     halo (zero outside the image, the blur's padding), six along a row a
+//     thread from its 3 x 8 intensities (float2 reads); the horizontal
+//     5-tap passes of the three products and of the intensity, four along a
+//     row a thread (float4 reads); then each thread's vertical passes down
+//     four rows of a column from a window of its eight horizontal sums in
+//     registers, the minimum eigenvalue and the 8-pixel border; taps in the
+//     reference's order from a zero sum, weights computed on the host as
+//     the reference computes them (numpy float32);
 //   - nms_topk: the exact top-K of the NMS peak scores with ties to the lower
 //     flat index, whatever the number of peaks (a plateau makes every pixel of
 //     it a peak), in two launches: nms_kernel (one 32x32 tile a block, the
@@ -46,12 +51,28 @@ namespace {
 
 #include "common.cuh"
 
-constexpr int TX = 32, TY = 8;
 constexpr int BR = 2;    // blur radius
 constexpr int HALO = 3;  // Sobel (1) + blur (2)
 constexpr int MAX_R = 8; // largest NMS radius
 constexpr int THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
+// patch_score: a PS_TX x PS_TY output tile a block of PS_T threads. Each
+// thread computes PS_PSEG Sobel products along a row (its intensities read
+// as float2 pairs, shared between neighbouring taps), then PS_HSEG
+// horizontal sums along a row (float4 reads), then PS_RPT vertical sums down
+// a column (PS_ROWS thread rows)
+constexpr int PS_TX = 32, PS_TY = 20, PS_ROWS = 5, PS_T = 256;
+constexpr int PS_RPT = PS_TY / PS_ROWS;  // output rows a thread
+constexpr int PS_IW = PS_TX + 2 * HALO, PS_IH = PS_TY + 2 * HALO;  // staged intensities
+constexpr int PS_IWP = 40;                                         // their row stride
+constexpr int PS_PW = PS_TX + 2 * BR, PS_PH = PS_TY + 2 * BR;      // Sobel products
+constexpr int PS_PSEG = 6, PS_HSEG = 4;
+static_assert(PS_TY % PS_ROWS == 0 && PS_ROWS * PS_TX <= PS_T, "the vertical pass");
+static_assert(PS_PW % PS_PSEG == 0 && PS_PSEG % 2 == 0 && PS_PH * (PS_PW / PS_PSEG) <= PS_T,
+              "the products in one pass, float2 reads");
+static_assert(PS_TX % PS_HSEG == 0 && PS_HSEG == 4 && PS_PH * (PS_TX / PS_HSEG) <= PS_T,
+              "the horizontal sums in one pass, float4 reads");
+static_assert(PS_IWP >= PS_TX + 8 && PS_IWP % 4 == 0 && PS_PW % 4 == 0, "16-byte rows");
 
 struct Taps {
   float a[5];
@@ -59,84 +80,141 @@ struct Taps {
 
 __device__ inline float neg_inf() { return __uint_as_float(0xff800000u); }
 
-__global__ void __launch_bounds__(TX * TY)
+__global__ void __launch_bounds__(PS_T)
 patch_score_kernel(const float* __restrict__ img, int H, int W, Taps k15, Taps k10,
                    float* __restrict__ score, float* __restrict__ blurred) {
-  constexpr int IW = TX + 2 * HALO, IH = TY + 2 * HALO;
-  constexpr int PW = TX + 2 * BR, PH = TY + 2 * BR;
-  __shared__ float s_i[IH][IW];
-  __shared__ float s_p[3][PH][PW];
-  __shared__ float s_h[4][PH][TX];
-  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
-  const int tid = threadIdx.y * TX + threadIdx.x;
-  for (int q = tid; q < IH * IW; q += TX * TY) {
-    int ly = q / IW, lx = q % IW;
-    int gy = y0 + ly - HALO, gx = x0 + lx - HALO;
-    s_i[ly][lx] = (gy >= 0 && gy < H && gx >= 0 && gx < W) ? img[gy * W + gx] : 0.f;
+  __shared__ __align__(16) float s_i[PS_IH][PS_IWP];
+  __shared__ __align__(16) float s_p[3][PS_PH][PS_PW];
+  __shared__ __align__(16) float s_h[4][PS_PH][PS_TX];  // horizontal sums, rows -2..PS_TY+1
+  const int x0 = blockIdx.x * PS_TX, y0 = blockIdx.y * PS_TY;
+  const int tid = threadIdx.x;
+  // 1. the intensities with the halo, zero outside the image
+  constexpr int NI = (PS_IH * PS_IW + PS_T - 1) / PS_T;
+  float v[NI];
+#pragma unroll
+  for (int e = 0; e < NI; ++e) {
+    const int q = tid + e * PS_T;
+    const int ly = q / PS_IW, lx = q - ly * PS_IW;
+    const int gy = y0 + ly - HALO, gx = x0 + lx - HALO;
+    v[e] = (q < PS_IH * PS_IW && gy >= 0 && gy < H && gx >= 0 && gx < W) ? img[gy * W + gx]
+                                                                          : 0.f;
+  }
+#pragma unroll
+  for (int e = 0; e < NI; ++e) {
+    const int q = tid + e * PS_T;
+    if (q < PS_IH * PS_IW) s_i[q / PS_IW][q % PS_IW] = v[e];
   }
   __syncthreads();
-  // Sobel products (taps of ops/image.py's _conv2d, zero taps skipped)
-  const float k1 = 0.52201f, k2 = 0.79451f;
-  for (int q = tid; q < PH * PW; q += TX * TY) {
-    int ly = q / PW, lx = q % PW;
-    int gy = y0 + ly - BR, gx = x0 + lx - BR;
-    float pxx = 0.f, pyy = 0.f, pxy = 0.f;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      int cy = ly + 1, cx = lx + 1;
-      float gxv = -k1 * s_i[cy - 1][cx - 1];
-      gxv = gxv + k1 * s_i[cy - 1][cx + 1];
-      gxv = gxv + -k2 * s_i[cy][cx - 1];
-      gxv = gxv + k2 * s_i[cy][cx + 1];
-      gxv = gxv + -k1 * s_i[cy + 1][cx - 1];
-      gxv = gxv + k1 * s_i[cy + 1][cx + 1];
-      float gyv = -k1 * s_i[cy - 1][cx - 1];
-      gyv = gyv + -k2 * s_i[cy - 1][cx];
-      gyv = gyv + -k1 * s_i[cy - 1][cx + 1];
-      gyv = gyv + k1 * s_i[cy + 1][cx - 1];
-      gyv = gyv + k2 * s_i[cy + 1][cx];
-      gyv = gyv + k1 * s_i[cy + 1][cx + 1];
-      gxv = truncf(gxv);
-      gyv = truncf(gyv);
-      pxx = gxv * gxv;
-      pyy = gyv * gyv;
-      pxy = gxv * gyv;
+  // 2. Sobel products (taps of ops/image.py's _conv2d, zero taps skipped) at
+  // PS_PSEG positions of a row, from the 3 x (PS_PSEG + 2) intensities around them
+  if (tid < PS_PH * (PS_PW / PS_PSEG)) {
+    const float k1 = 0.52201f, k2 = 0.79451f;
+    const int ly = tid / (PS_PW / PS_PSEG), lx0 = (tid - ly * (PS_PW / PS_PSEG)) * PS_PSEG;
+    float w[3][PS_PSEG + 2];
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+      for (int j = 0; j < (PS_PSEG + 2) / 2; ++j) {
+        const float2 f = reinterpret_cast<const float2*>(&s_i[ly + r][lx0])[j];
+        w[r][2 * j] = f.x;
+        w[r][2 * j + 1] = f.y;
+      }
+    const int gy = y0 + ly - BR;
+    float p[3][PS_PSEG];
+#pragma unroll
+    for (int k = 0; k < PS_PSEG; ++k) {
+      const int gx = x0 + lx0 + k - BR;
+      p[0][k] = p[1][k] = p[2][k] = 0.f;
+      if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+        float gxv = -k1 * w[0][k];
+        gxv = gxv + k1 * w[0][k + 2];
+        gxv = gxv + -k2 * w[1][k];
+        gxv = gxv + k2 * w[1][k + 2];
+        gxv = gxv + -k1 * w[2][k];
+        gxv = gxv + k1 * w[2][k + 2];
+        float gyv = -k1 * w[0][k];
+        gyv = gyv + -k2 * w[0][k + 1];
+        gyv = gyv + -k1 * w[0][k + 2];
+        gyv = gyv + k1 * w[2][k];
+        gyv = gyv + k2 * w[2][k + 1];
+        gyv = gyv + k1 * w[2][k + 2];
+        gxv = truncf(gxv);
+        gyv = truncf(gyv);
+        p[0][k] = gxv * gxv;
+        p[1][k] = gyv * gyv;
+        p[2][k] = gxv * gyv;
+      }
     }
-    s_p[0][ly][lx] = pxx;
-    s_p[1][ly][lx] = pyy;
-    s_p[2][ly][lx] = pxy;
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int j = 0; j < PS_PSEG / 2; ++j)
+        reinterpret_cast<float2*>(&s_p[c][ly][lx0])[j] = make_float2(p[c][2 * j], p[c][2 * j + 1]);
   }
   __syncthreads();
-  // horizontal passes over the tile's columns, rows -2..TY+1
-  for (int q = tid; q < PH * TX; q += TX * TY) {
-    int ly = q / TX, lx = q % TX;
-    for (int c = 0; c < 3; ++c) {
-      float acc = 0.f;
-      for (int i = 0; i < 2 * BR + 1; ++i) acc = acc + k15.a[i] * s_p[c][ly][lx + i];
-      s_h[c][ly][lx] = acc;
+  // 3. horizontal passes at PS_HSEG columns of a row, rows -2..PS_TY+1: the
+  // products' taps, and the intensity's from the staged row
+  if (tid < PS_PH * (PS_TX / PS_HSEG)) {
+    const int ly = tid / (PS_TX / PS_HSEG), c0 = (tid - ly * (PS_TX / PS_HSEG)) * PS_HSEG;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const Taps& k = c < 3 ? k15 : k10;
+      float u[12];  // products c0..c0+7, or intensities at staged columns c0..c0+11
+      const float4* src = c < 3 ? reinterpret_cast<const float4*>(&s_p[c][ly][c0])
+                                : reinterpret_cast<const float4*>(&s_i[ly + 1][c0]);
+#pragma unroll
+      for (int j = 0; j < (c < 3 ? 2 : 3); ++j) {
+        const float4 f = src[j];
+        u[4 * j] = f.x;
+        u[4 * j + 1] = f.y;
+        u[4 * j + 2] = f.z;
+        u[4 * j + 3] = f.w;
+      }
+      const int off = c < 3 ? 0 : 1;  // the intensity's taps start one column on
+      float h[PS_HSEG];
+#pragma unroll
+      for (int o = 0; o < PS_HSEG; ++o) {
+        float acc = 0.f;
+#pragma unroll
+        for (int i = 0; i < 2 * BR + 1; ++i) acc = acc + k.a[i] * u[off + o + i];
+        h[o] = acc;
+      }
+      *reinterpret_cast<float4*>(&s_h[c][ly][c0]) = make_float4(h[0], h[1], h[2], h[3]);
     }
-    float acc = 0.f;
-    for (int i = 0; i < 2 * BR + 1; ++i) acc = acc + k10.a[i] * s_i[ly + 1][lx + 1 + i];
-    s_h[3][ly][lx] = acc;
   }
   __syncthreads();
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int x = x0 + tx, y = y0 + ty;
-  if (x >= W || y >= H) return;
-  float v[4];
+  // 4. vertical passes: the thread's PS_RPT rows from its column's window
+  const int tx = tid % PS_TX, ty = tid / PS_TX;
+  const int x = x0 + tx, r0 = ty * PS_RPT;
+  if (ty >= PS_ROWS || x >= W) return;
+  float o[4][PS_RPT];
+#pragma unroll
   for (int c = 0; c < 4; ++c) {
     const Taps& k = c < 3 ? k15 : k10;
-    float acc = 0.f;
-    for (int i = 0; i < 2 * BR + 1; ++i) acc = acc + k.a[i] * s_h[c][ty + i][tx];
-    v[c] = acc;
+    float w[PS_RPT + 2 * BR];
+#pragma unroll
+    for (int j = 0; j < PS_RPT + 2 * BR; ++j) w[j] = s_h[c][r0 + j][tx];
+#pragma unroll
+    for (int r = 0; r < PS_RPT; ++r) {
+      float acc = 0.f;
+#pragma unroll
+      for (int i = 0; i < 2 * BR + 1; ++i) acc = acc + k.a[i] * w[r + i];
+      o[c][r] = acc;
+    }
   }
-  float ixx = v[0], iyy = v[1], ixy = v[2];
-  float tr = ixx + iyy;
-  float det = ixx * iyy - ixy * ixy;
-  float disc = sqrtf(fmaxf(tr * tr / 4.f - det, 0.f));
-  float min_eig = tr / 2.f - disc;
-  bool inside = y >= 8 && y < H - 8 && x >= 8 && x < W - 8;
-  score[y * W + x] = inside ? min_eig : 0.f;
-  blurred[y * W + x] = v[3];
+#pragma unroll
+  for (int r = 0; r < PS_RPT; ++r) {
+    const int y = y0 + r0 + r;
+    if (y >= H) break;
+    const float ixx = o[0][r], iyy = o[1][r], ixy = o[2][r];
+    const float tr = ixx + iyy;
+    const float det = ixx * iyy - ixy * ixy;
+    const float disc = sqrtf(fmaxf(tr * tr / 4.f - det, 0.f));
+    const float min_eig = tr / 2.f - disc;
+    const bool inside = y >= 8 && y < H - 8 && x >= 8 && x < W - 8;
+    score[y * W + x] = inside ? min_eig : 0.f;
+    blurred[y * W + x] = o[3][r];
+  }
 }
 
 // ---------------------------------------------------------------- nms_topk
@@ -545,8 +623,8 @@ extern "C" int mmf_patch_score(const float* img, int H, int W, float a0, float a
                                float a3, float a4, float b0, float b1, float b2, float b3,
                                float b4, float* score, float* blurred, cudaStream_t stream) {
   Taps k15{{a0, a1, a2, a3, a4}}, k10{{b0, b1, b2, b3, b4}};
-  dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY);
-  patch_score_kernel<<<grid, dim3(TX, TY), 0, stream>>>(img, H, W, k15, k10, score, blurred);
+  dim3 grid((W + PS_TX - 1) / PS_TX, (H + PS_TY - 1) / PS_TY);
+  patch_score_kernel<<<grid, PS_T, 0, stream>>>(img, H, W, k15, k10, score, blurred);
   return (int)cudaGetLastError();
 }
 

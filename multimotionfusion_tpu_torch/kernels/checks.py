@@ -1056,6 +1056,56 @@ def check_patch_score(a: tuple) -> dict:
                           "-fmad=false)")
 
 
+# K19's patch_score cases: (name, height, width, image). The kernel's
+# blocks own 32 x 20 tiles: sizes one off them both ways, 487 x 651, an
+# image all border (16 x 16) and one smaller than the blur's reach (9 x 11).
+# Images: "scene" (smooth shading, edges and noise, 0-255), "constant" (every
+# gradient 0), "steps" (step edges of heights around the Sobel taps' whole
+# numbers, both signs: truncations toward zero that flip with the sign).
+SCORE_CASES = (("ragged_487x651", 487, 651, "scene"), ("engine_480x640", 480, 640, "scene"),
+               ("tiny_9x11", 9, 11, "scene"), ("border_16x16", 16, 16, "scene"),
+               ("constant_120x160", 120, 160, "constant"), ("steps_120x160", 120, 160, "steps"),
+               ("off_19x32", 19, 32, "scene"), ("off_21x32", 21, 32, "steps"),
+               ("off_20x31", 20, 31, "scene"), ("off_20x33", 20, 33, "steps"))
+
+
+def score_inputs(h: int, w: int, kind: str, device, seed: int = 0) -> tuple:
+    """``patch_score``'s argument: an [h, w] float32 intensity (0-255)."""
+    rng = np.random.default_rng(seed)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    if kind == "constant":
+        img = np.full((h, w), 117.0)
+    elif kind == "steps":  # columns and rows of steps 0.3-3.9 high, up and down
+        heights = rng.choice([0.3, 0.6, 0.95, 1.0, 1.05, 1.3, 1.9, 2.0, 2.1, 3.9], 64)
+        signs = rng.choice([-1.0, 1.0], 64)
+        col = np.cumsum((heights * signs)[(xs // 3).astype(int) % 64] * (xs % 3 == 0), axis=1)
+        row = np.cumsum((heights[::-1] * signs)[(ys // 4).astype(int) % 64] * (ys % 4 == 0),
+                        axis=0)
+        img = 128.0 + col + row
+    else:
+        img = 100.0 + 60.0 * np.sin(xs / 17.0) * np.cos(ys / 13.0) + rng.normal(0, 4.0, (h, w))
+        img[(xs // 23 + ys // 19) % 3 == 0] += 50.0
+    img = np.clip(img, 0.0, 255.0).astype(np.float32)
+    return (torch.from_numpy(img).to(device),)
+
+
+def check_score_cases(device) -> dict:
+    """K19's patch_score on ``SCORE_CASES`` against the plain version on the
+    same device: score and blurred intensity bit-equal."""
+    cases, ok = {}, True
+    for name, h, w, kind in SCORE_CASES:
+        a = score_inputs(h, w, kind, device)
+        (sk, bk), (sp, bp) = SP.patch_score_cuda(*a), SP.patch_score_plain(*a)
+        r = dict(score_differ=int((sk != sp).sum()), blurred_differ=int((bk != bp).sum()),
+                 positive_scores=int((sp > 0).sum()),
+                 max_abs_err=max(_maxerr(sk, sp), _maxerr(bk, bp)))
+        r["ok"] = _same_bytes(sk, sp) and _same_bytes(bk, bp)
+        cases[name] = r
+        ok = ok and r["ok"]
+    return dict(cases=cases, ok=ok, max_abs_err=max(r["max_abs_err"] for r in cases.values()),
+                tolerance="score and blurred intensity bit-equal, every case")
+
+
 def check_nms_topk(a: tuple) -> dict:
     xk, sk, vk = SP.nms_topk_cuda(*a)
     xp, spl, vp = SP.nms_topk_plain(*a)
@@ -2043,16 +2093,180 @@ def check_clean_flat_cases(device) -> dict:
 
 # ---------------------------------------------------------------- flow-CRF
 
+def _depths_result(dk, dp, scratch_clean: bool) -> dict:
+    """K13's depth against the plain version's: coverage exact, depth within
+    one log-depth bin (the kernel's log2f and the plain version's log2 may
+    round a bin edge apart), and the kernel's scratch all KEY_INVALID after
+    the call."""
+    cover_diff = int(((dk > 0) != (dp > 0)).sum())
+    rel = float(((dk - dp).abs() / dp.clamp(min=1e-6)).max()) if dp.numel() else 0.0
+    return dict(max_abs_err=float((dk - dp).abs().max()) if dp.numel() else 0.0,
+                max_rel_err=rel, coverage_differ=cover_diff, covered=int((dp > 0).sum()),
+                bins_differ=int((dk != dp).sum()), scratch_clean=scratch_clean,
+                ok=cover_diff == 0 and rel <= 6e-6 and scratch_clean,
+                tolerance="coverage exact; depth within one log-depth bin (6e-6 relative); "
+                          "the keys' scratch all KEY_INVALID after the call")
+
+
+def depth_scratch_clean(a: tuple) -> bool:
+    """Whether K13's scratch for these arguments holds only KEY_INVALID."""
+    st, cam_c = a[0], a[4]
+    keys = R.depth_scratch(st.gdata.device, (1 + st.odata.shape[0]) * cam_c.height * cam_c.width)
+    return bool((keys == 2**31 - 1).all())
+
+
 def check_render_depths(a: tuple) -> dict:
     """K13: coverage exact; depth equal (both quantise the same expression;
-    one log-depth bin, 5.3e-6 relative, tolerated)."""
-    dk, dp = R.render_depths_cuda(*a), R.render_depths_plain(*a)
-    cover_diff = int(((dk > 0) != (dp > 0)).sum())
-    rel = float(((dk - dp).abs() / dp.clamp(min=1e-6)).max())
-    return dict(max_abs_err=float((dk - dp).abs().max()), max_rel_err=rel,
-                coverage_differ=cover_diff, covered=int((dp > 0).sum()),
-                ok=cover_diff == 0 and rel <= 6e-6,
-                tolerance="coverage exact; depth within one log-depth bin (6e-6 relative)")
+    one log-depth bin, 5.3e-6 relative, tolerated); its scratch clean."""
+    dk = R.render_depths_cuda(*a)
+    r = _depths_result(dk, R.render_depths_plain(*a), depth_scratch_clean(a))
+    r["ok"] = r["ok"] and r["covered"] > 0
+    return r
+
+
+# K13's hand-made cases: (name, CRF rows, CRF columns, global bucket, object
+# bucket, slots, global stride, object stride, counts, extras). Counts:
+# "zero" (every model empty), "full" (every bucket full), "part" (partly,
+# the global map's count odd). Extras: "one_cell" (every surfel projects to
+# one cell), "edges" (surfels with z exactly at the model's max depth and an
+# ulp past it, z = 0 and behind the camera, u and v exactly halfway between
+# two cells, time - last_t exactly the window and past it), "conf" (gates
+# some surfels miss: the miss bit set). 122 x 163 with 3 models leaves the
+# decode a partial vector of 4 cells; an object stride of 2 over an odd
+# bucket starts slot 1 at its position 1.
+DEPTH_CASES = (
+    ("engine_120x160", 120, 160, 1 << 19, 1 << 16, 5, 2, 1, "part", ()),
+    ("zero_counts", 120, 160, 4096, 1024, 5, 2, 1, "zero", ()),
+    ("full_buckets", 120, 160, 4096, 1024, 5, 2, 1, "full", ()),
+    ("one_model", 120, 160, 8192, 0, 0, 2, 1, "part", ()),
+    ("slots_31", 60, 80, 2048, 512, 31, 2, 1, "part", ("conf",)),
+    ("strides_1_1", 60, 80, 3000, 777, 3, 1, 1, "part", ()),
+    ("strides_1_2_odd_bucket", 60, 80, 3000, 1001, 3, 1, 2, "part", ()),
+    ("strides_2_2", 60, 80, 3001, 1001, 2, 2, 2, "full", ()),
+    ("one_cell", 60, 80, 4096, 1024, 3, 2, 1, "full", ("one_cell",)),
+    ("edges", 60, 80, 512, 256, 2, 1, 1, "full", ("edges",)),
+    ("conf_miss", 120, 160, 8192, 2048, 4, 2, 1, "part", ("conf",)),
+    ("ragged_122x163", 122, 163, 8192, 2048, 2, 2, 1, "part", ()),
+)
+DEPTH_TIME, DEPTH_TIME_DELTA = 10.0, 1.0
+
+
+def _depth_camera(hc: int, wc: int):
+    """A CRF camera whose projection of the edge surfels is exact in float32
+    (focal length 32, centre on whole pixels)."""
+    from multimotionfusion_tpu_torch.config import CameraModel
+
+    return CameraModel(width=wc, height=hc, fx=32.0, fy=32.0, cx=float(wc // 2),
+                       cy=float(hc // 2))
+
+
+def depth_inputs(hc: int, wc: int, bg: int, bo: int, slots: int, gs: int, os: int, counts: str,
+                 extras: tuple, device, seed: int = 0) -> tuple:
+    """``render_depths``' arguments for one hand-made case: every column a
+    surfel in front of its model's camera over the CRF grid (95 % alive,
+    10 % outside the time window, 5 % behind the camera, 5 % past the max
+    depth), the global map at the identity, each slot at a small rotation
+    and translation (its surfels stored in the model's frame)."""
+    rng = np.random.default_rng(seed)
+    M = 1 + slots
+    cam = _depth_camera(hc, wc)
+
+    def store(n, m):
+        u = rng.uniform(-0.5, wc - 0.5, n)
+        v = rng.uniform(-0.5, hc - 0.5, n)
+        if "one_cell" in extras:
+            u = rng.uniform(wc // 3 - 0.4, wc // 3 + 0.4, n)
+            v = rng.uniform(hc // 3 - 0.4, hc // 3 + 0.4, n)
+        z = rng.uniform(0.5, 4.0, n)
+        z[rng.random(n) < 0.05] *= -1.0
+        z[rng.random(n) < 0.05] = 6.0
+        d = np.zeros((16, n), np.float64)
+        d[sm.PX] = (u - cam.cx) * z / cam.fx
+        d[sm.PY] = (v - cam.cy) * z / cam.fy
+        d[sm.PZ] = z
+        d[sm.CONF] = rng.uniform(0.0, 4.0, n)
+        d[sm.LAST_T] = DEPTH_TIME - rng.choice([0.0, 0.5, 1.0, 1.5], n, p=[0.6, 0.2, 0.1, 0.1])
+        d[sm.ALIVE] = (rng.random(n) < 0.95).astype(np.float64)
+        d[sm.RADIUS] = 0.01
+        return d
+
+    def pose(m):  # model -> camera: the identity for the global map
+        if m == 0:
+            return np.eye(4)
+        a = rng.normal(0, 0.05, 3)
+        c, s_ = np.cos(a), np.sin(a)
+        Rz = np.array([[c[2], -s_[2], 0], [s_[2], c[2], 0], [0, 0, 1]])
+        Ry = np.array([[c[1], 0, s_[1]], [0, 1, 0], [-s_[1], 0, c[1]]])
+        T = np.eye(4)
+        T[:3, :3] = Rz @ Ry
+        T[:3, 3] = rng.normal(0, 0.05, 3)
+        return T
+
+    T_inv = np.stack([pose(m) for m in range(M)])  # world (model) -> camera
+
+    def to_model(d, Ti):  # camera-frame columns into the model's frame
+        out = d.copy()
+        Tw = np.linalg.inv(Ti)
+        out[:3] = Tw[:3, :3] @ d[:3] + Tw[:3, 3:4]
+        return out
+
+    gdata = to_model(store(bg, 0), T_inv[0])
+    odata = np.stack([to_model(store(bo, m + 1), T_inv[m + 1]) for m in range(slots)]) \
+        if slots else np.zeros((0, 16, bo))
+    maxd = np.array([5.0] + [4.5 - 0.25 * (m % 4) for m in range(slots)], np.float32)
+    conf = np.zeros(M, np.float32)
+    if "conf" in extras:
+        conf = np.array([1.0 + 0.5 * (m % 3) for m in range(M)], np.float32)
+    if "edges" in extras:  # the global map at the identity: camera-frame values exact
+        z32 = np.float32(maxd[0])
+        k = 0
+        edge = []
+        for z in (z32, np.nextafter(z32, np.float32(9.0)), np.float32(0.0), np.float32(-1.0)):
+            edge.append((5.0, 7.0, z, DEPTH_TIME))
+        for u, v in ((-0.5, 3.0), (wc - 0.5, 3.0), (10.5, 3.0), (11.5, 4.0), (6.0, -0.5),
+                     (6.0, hc - 0.5), (7.0, 12.5), (8.0, 13.5)):
+            edge.append((u, v, np.float32(2.0), DEPTH_TIME))
+        edge.append((20.0, 20.0, np.float32(2.0), DEPTH_TIME - DEPTH_TIME_DELTA))
+        edge.append((21.0, 20.0, np.float32(2.0), DEPTH_TIME - DEPTH_TIME_DELTA - 0.5))
+        for u, v, z, last in edge:
+            zz = np.float64(z)
+            gdata[:, k] = 0.0
+            gdata[sm.PX, k] = (u - cam.cx) * (zz if zz > 0 else 1.0) / cam.fx
+            gdata[sm.PY, k] = (v - cam.cy) * (zz if zz > 0 else 1.0) / cam.fy
+            gdata[sm.PZ, k] = zz
+            gdata[sm.LAST_T, k] = last
+            gdata[sm.ALIVE, k] = 1.0
+            k += gs
+    caps = [bg] + [bo] * slots
+    if counts == "zero":
+        cnt = [0] * M
+    elif counts == "full":
+        cnt = caps
+    else:
+        cnt = [max(0, (c * (3 + m % 4)) // 7) | 1 if c else 0 for m, c in enumerate(caps)]
+    def f32(x):  # a fresh tensor: numpy's strides of an empty store are 0
+        return torch.zeros(x.shape, dtype=torch.float32, device=device).copy_(
+            torch.from_numpy(np.asarray(x, np.float32)))
+
+    st = R.DepthStores(f32(gdata), f32(odata.reshape(slots, 16, bo)),
+                       torch.tensor(cnt, dtype=torch.int32, device=device), bg, bo, gs, os)
+    return (st, f32(T_inv), f32(maxd), f32(conf), cam, DEPTH_TIME, DEPTH_TIME_DELTA)
+
+
+def check_depth_cases(device) -> dict:
+    """K13 on ``DEPTH_CASES`` against the plain version on the same device,
+    held to ``check_render_depths``' tolerance, its scratch clean after each
+    call."""
+    cases, ok = {}, True
+    for name, *spec in DEPTH_CASES:
+        a = depth_inputs(*spec, device)
+        r = _depths_result(R.render_depths_cuda(*a), R.render_depths_plain(*a),
+                           depth_scratch_clean(a))
+        cases[name] = r
+        ok = ok and r["ok"]
+    return dict(cases=cases, ok=ok, max_abs_err=max(r["max_abs_err"] for r in cases.values()),
+                tolerance="coverage exact; depth within one log-depth bin (6e-6 relative); "
+                          "the keys' scratch all KEY_INVALID after every call, every case")
 
 
 def check_flow(a: tuple) -> dict:

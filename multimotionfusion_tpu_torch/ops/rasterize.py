@@ -451,10 +451,25 @@ def render_depths_plain(st: DepthStores, T_inv, maxd, conf, cam_c: CameraModel, 
     return depth.reshape(M, hc, wc)
 
 
+_DEPTH_SCRATCH = {}  # (device, cells) -> K13's int32 keys, KEY_INVALID between calls
+RENDER_DEPTHS_MAX_MODELS = 32  # csrc/zbuffer.cu RD_MAX_M
+
+
+def depth_scratch(device, cells: int) -> torch.Tensor:
+    """K13's keys on ``device``: [cells] int32, all ``_KEY_INVALID`` between
+    calls (set once here; each launch leaves every key it read so), so no
+    call fills them. One stream at a time, as the kernel's header says."""
+    key = (torch.device(device), int(cells))
+    if key not in _DEPTH_SCRATCH:
+        _DEPTH_SCRATCH[key] = torch.full((cells,), _KEY_INVALID, dtype=torch.int32, device=device)
+    return _DEPTH_SCRATCH[key]
+
+
 def render_depths_cuda(st: DepthStores, T_inv, maxd, conf, cam_c: CameraModel, time,
                        time_delta) -> torch.Tensor:
-    """K13 on the card: ``csrc/zbuffer.cu`` ``mmf_render_depths`` (the stores
-    read in place; poses, counts, max depths and gates by pointer)."""
+    """K13 on the card: ``csrc/zbuffer.cu`` ``mmf_render_depths``, the
+    scatter then the decode, no fill (the stores read in place; poses,
+    counts, max depths and gates by pointer; the keys in ``depth_scratch``)."""
     K.check(st.gdata, torch.float32, "gdata", contiguous=False)
     K.check(st.odata, torch.float32, "odata", contiguous=False)
     K.check(st.counts, torch.int32, "counts")
@@ -462,6 +477,8 @@ def render_depths_cuda(st: DepthStores, T_inv, maxd, conf, cam_c: CameraModel, t
         K.check(t, torch.float32, name)
     S = st.odata.shape[0]
     M = 1 + S
+    if M > RENDER_DEPTHS_MAX_MODELS:
+        raise ValueError(f"K13 takes at most {RENDER_DEPTHS_MAX_MODELS} models, got {M}")
     if st.gdata.stride(1) != 1 or st.odata.stride(2) != 1:
         raise ValueError("surfel columns must have unit stride")
     if tuple(T_inv.shape) != (M, 4, 4) or maxd.shape != (M,) or conf.shape != (M,) \
@@ -469,10 +486,12 @@ def render_depths_cuda(st: DepthStores, T_inv, maxd, conf, cam_c: CameraModel, t
         raise ValueError("T_inv must be [M, 4, 4], counts, maxd and conf [M]")
     if st.bg > st.gdata.shape[1] or st.bo > st.odata.shape[2]:
         raise ValueError("bucket beyond the store")
+    if st.gs < 1 or st.os < 1:
+        raise ValueError("column strides must be positive")
     hc, wc = cam_c.height, cam_c.width
     dev = st.gdata.device
-    keys = torch.empty((M * hc * wc,), dtype=torch.int32, device=dev)
     depth = torch.empty((M, hc, wc), dtype=torch.float32, device=dev)
+    keys = depth_scratch(dev, M * hc * wc)
     f = K.fn("zbuffer", "mmf_render_depths",
              [K.P, K.I, K.I, K.I, K.P, K.I, K.L, K.I, K.I, K.I, K.P, K.P, K.P, K.P]
              + [K.F] * 4 + [K.I, K.I, K.F, K.F, K.P, K.P])

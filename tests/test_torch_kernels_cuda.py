@@ -489,3 +489,18 @@ def test_k11_k18_hand_made_cases(name):
         pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
     r = getattr(checks, f"check_{name}")("cuda")
     assert r["ok"], r
+
+
+@pytest.mark.parametrize("name", ["depth_cases", "score_cases"])
+def test_k13_k19_hand_made_cases(name):
+    """K13 on ``checks.DEPTH_CASES`` (every count 0, full buckets, one
+    model, 31 slots, strides 1 and 2, one cell, the gates' and the
+    projection's edges, a missed confidence gate, 122 x 163 cells): coverage
+    exact, depth within one log-depth bin of the plain version on the card,
+    the keys' scratch all KEY_INVALID after every call; K19's patch_score on
+    ``checks.SCORE_CASES`` (487x651, 9x11, all border, constant, sign-flipping
+    steps, sizes one off the 32 x 20 tile): bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
+    r = getattr(checks, f"check_{name}")("cuda")
+    assert r["ok"], r

@@ -15,7 +15,8 @@ with per-model seeds of which one is invalid, and one inactive model.
   ICP and RGB counts equal, and the iteration at which every loop exits
   equal. The reference runs its loops inside ``lax.while_loop`` and does not
   report where they stopped, so its function body runs unjitted here with a
-  ``while_loop`` that counts its iterations.
+  ``while_loop`` that counts its iterations, each loop's condition and step
+  jitted (compiled once a loop, not dispatched operation by operation).
 """
 
 import dataclasses
@@ -93,11 +94,13 @@ CASES = {
 
 def _reference(levels, last, T_prev, M, pred_own, cam, T_init=None, seed_valid=None,
                active=None):
-    """The reference's function body, unjitted, with a counting while_loop:
-    (result, [so3, L2, L1, L0] iterations)."""
+    """The reference's function body, unjitted, with a counting while_loop
+    whose condition and step are jitted: (result, [so3, L2, L1, L0]
+    iterations)."""
     calls = []
 
     def counting(cond, body, carry):
+        cond, body = jax.jit(cond), jax.jit(body)
         n = 0
         while bool(cond(carry)):
             carry = body(carry)

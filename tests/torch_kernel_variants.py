@@ -2,8 +2,8 @@
 where their time goes (needs one NVIDIA GPU; not a test).
 
     python3 tests/torch_kernel_variants.py [--tree DIR] \
-        [--only flow,tracks,finish,select,nms,levels,splat,owner] \
-        [--variants as_is,wrap_once,three_values]
+        [--only flow,tracks,finish,select,nms,levels,splat,owner,depths,score] \
+        [--variants as_is,wrap_once,three_values,one_launch] [--baseline DIR]
 
 ``flow``: K15's one-launch flow (``csrc/flow.cu``) on
 ``checks.flow_case_inputs(480, 640)`` at the 640x480 CRF grid (120x160),
@@ -54,7 +54,13 @@ owner prep (``csrc/gn_multi.cu``) and K18's unaries (``csrc/segment.cu``)
 on the inputs the external-mask and flow-CRF runs record, as they are, with
 other tiles, with parts dropped and with globaltimer stamps
 (``owner_variants``; ``--variants`` names the ones to build and run, all
-by default). Each copy is
+by default). ``depths`` and ``score``: K13 (``csrc/zbuffer.cu``) and
+K19's patch_score (``csrc/keypoints.cu``) on the inputs the flow-CRF run
+records, as they are and as edited copies (``depths_score_variants``: K13
+in one launch, without the warp's runs, with other columns a thread and
+blocks; patch_score with other tiles and cut after each phase), warm and
+cold, with their launches a call; ``--baseline DIR`` adds another tree's
+two sources. Each copy is
 written and built with the build's flags in ``DIR/build/variants``; an
 edit whose text is no longer in the source stops the script. Prints JSON
 lines.
@@ -786,14 +792,182 @@ def owner_variants(tree, torch, K, C, MO, FC, names=None):
             K._libs[lib_name] = kept
 
 
+# K13 in one cooperative launch: the scatter, a grid barrier, the decode by
+# grid stride (the grid is the scatter's, which fits the card)
+DEPTHS_ONE_LAUNCH = [
+    ("#include <cuda_runtime.h>\n", "#include <cooperative_groups.h>\n#include <cuda_runtime.h>\n"),
+    ("__global__ void __launch_bounds__(RD_T) scatter_depths(DepthArgs a) {\n",
+     "__device__ __forceinline__ float decode_depth(int k);\n"
+     "__global__ void __launch_bounds__(RD_T) scatter_depths(DepthArgs a) {\n"),
+    ("    if (ok && ((heads >> lane) & 1u)) atomicMin(&a.keys[cell], kmin);\n  }\n}\n",
+     "    if (ok && ((heads >> lane) & 1u)) atomicMin(&a.keys[cell], kmin);\n  }\n"
+     "  cooperative_groups::this_grid().sync();\n"
+     "  const int n = (a.slots + 1) * a.W * a.H;\n"
+     "  for (int i = blockIdx.x * RD_T + threadIdx.x; i < n; i += gridDim.x * RD_T) {\n"
+     "    const int k = __ldcg(a.keys + i);\n    a.depth[i] = decode_depth(k);\n"
+     "    if (k != KEY_INVALID) a.keys[i] = KEY_INVALID;\n  }\n}\n"),
+    ("  scatter_depths<<<grid, RD_T, 0, stream>>>(a);\n"
+     "  decode_depths<<<decode_grid, RD_T, 0, stream>>>(a);\n",
+     "  (void)decode_grid;\n  void* args[] = {&a};\n"
+     "  e = cudaLaunchCooperativeKernel((const void*)scatter_depths, dim3(grid), dim3(RD_T), args, "
+     "0, stream);\n  if (e != cudaSuccess) return (int)e;\n"),
+]
+# K13 without the warp's runs: one atomicMin a landed column
+DEPTHS_PLAIN_ATOMICS = [
+    ("    if (ok && ((heads >> lane) & 1u)) atomicMin(&a.keys[cell], kmin);\n",
+     "    if (ok) atomicMin(&a.keys[cell], key);\n"),
+]
+# K13 grouping a warp's lanes by cell with __match_any_sync (any lanes, not
+# runs) and __reduce_min_sync
+DEPTHS_MATCH_ANY = [
+    ("    if (ok && ((heads >> lane) & 1u)) atomicMin(&a.keys[cell], kmin);\n",
+     "    const unsigned group = __match_any_sync(RD_FULL, id);\n"
+     "    const int gmin = __reduce_min_sync(group, key);\n"
+     "    if (ok && lane == __ffs(group) - 1) atomicMin(&a.keys[cell], gmin);\n"
+     "    (void)kmin;\n"),
+]
+
+
+def depths_score_sources(csrc):
+    """({variant: K13 source}, {variant: K19 source}) of the ``depths`` and
+    ``score`` parts."""
+    zsrc = open(os.path.join(csrc, "zbuffer.cu")).read()
+    ksrc = open(os.path.join(csrc, "keypoints.cu")).read()
+    launch = "  scatter_depths<<<grid, RD_T, 0, stream>>>(a);\n"
+    decode = "  decode_depths<<<decode_grid, RD_T, 0, stream>>>(a);\n"
+    depths = {
+        "as_is": zsrc,
+        "one_launch": patches(zsrc, DEPTHS_ONE_LAUNCH),
+        "plain_atomics": patches(zsrc, DEPTHS_PLAIN_ATOMICS),
+        "match_any": patches(zsrc, DEPTHS_MATCH_ANY),
+        "two_blocks_an_sm": patch(zsrc, "resident[dev] = per_sm * sms;",
+                                  "resident[dev] = (per_sm < 2 ? per_sm : 2) * sms;"),
+        "scatter_only": patch(zsrc, decode, ""),
+        "decode_only": patch(zsrc, launch, ""),
+        "returns_at_once": patch(zsrc, "  __shared__ DepthShared S;\n",
+                                 "  __shared__ DepthShared S;\n  if (a.W > 0) return;\n"),
+    }
+    tile = "constexpr int PS_TX = 32, PS_TY = 20, PS_ROWS = 5, PS_T = 256;"
+    origin = "  const int x0 = blockIdx.x * PS_TX, y0 = blockIdx.y * PS_TY;\n"
+    scores = {
+        "as_is": ksrc,
+        "tile_32x28": patch(ksrc, tile,
+                            "constexpr int PS_TX = 32, PS_TY = 28, PS_ROWS = 7, PS_T = 256;"),
+        "tile_32x12": patch(ksrc, tile,
+                            "constexpr int PS_TX = 32, PS_TY = 12, PS_ROWS = 3, PS_T = 128;"),
+        "tile_32x20_t192": patch(ksrc, tile,
+                                 "constexpr int PS_TX = 32, PS_TY = 20, PS_ROWS = 5, PS_T = 192;"),
+        "tile_32x20_t320": patch(ksrc, tile,
+                                 "constexpr int PS_TX = 32, PS_TY = 20, PS_ROWS = 10, PS_T = 320;"),
+        "t512": patch(ksrc, tile,
+                      "constexpr int PS_TX = 32, PS_TY = 28, PS_ROWS = 14, PS_T = 512;"),
+        "returns_at_once": patch(ksrc, origin, "  if (H > 0) return;\n" + origin),
+        # the phases, cumulatively: each returns after the barrier that ends it
+        "staged_only": patch(ksrc, "  __syncthreads();\n  // 2. Sobel products",
+                             "  __syncthreads();\n  if (H > 0) return;\n  // 2. Sobel products"),
+        "products_only": patch(ksrc, "  __syncthreads();\n  // 3. horizontal passes",
+                               "  __syncthreads();\n  if (H > 0) return;\n"
+                               "  // 3. horizontal passes"),
+        "horizontal_only": patch(ksrc, "  __syncthreads();\n  // 4. vertical passes",
+                                 "  __syncthreads();\n  if (H > 0) return;\n"
+                                 "  // 4. vertical passes"),
+    }
+    return depths, scores
+
+
+def depths_score_variants(tree, torch, K, C, R, SP, only, names=None, baseline=None):
+    """K13 (``depths``) and K19's patch_score (``score``) on the inputs the
+    flow-CRF run records, as they are and as edited copies: K13 in one
+    cooperative launch (a grid barrier before the decode), without the
+    warp's runs (an atomic a column), grouping lanes by __match_any_sync
+    and with two blocks an SM; as diagnostics
+    whose outputs differ, the scatter alone, the decode alone and the
+    scatter returning at once (the launches' own cost); patch_score with
+    32 x 20 tiles at 192 and 320 threads a block, 32 x 28 tiles (256; 512,
+    two output rows a thread) and 32 x 12 tiles (128) and, as
+    diagnostics, returning at once and after each phase's barrier (staged,
+    products, horizontal sums). Each reading is chip_smoke's
+    (``_device_profile``: every device event of 20 calls after 10 and 50 ms
+    idle), the median of three, and one cold (a 64 MB fill before every
+    call); with the launches a call and whether the outputs equal the
+    source's. K13's scratch is set back to KEY_INVALID after each variant.
+    With ``baseline`` (another tree), its ``zbuffer.cu`` and ``keypoints.cu``
+    run too, as the variant ``baseline`` (the same entry points)."""
+    import chip_smoke as S
+
+    f_cfg, f_frames = S.multi_frames(1 + S.MULTI_FRAMES, masks=False)
+    f_captured = S.run_multi_flow(K, f_cfg, f_frames)[2]
+    da = C.args("zbuffer.depths", f_captured["zbuffer.depths"])
+    sa = C.args("patch_score", f_captured["patch_score"])
+    counts = da[0].counts.tolist()
+    print(json.dumps({"kernel": "zbuffer.depths", "counts": counts,
+                      "cells": (1 + da[0].odata.shape[0]) * da[4].height * da[4].width}))
+    depths, scores = depths_score_sources(os.path.join(tree, "multimotionfusion_tpu_torch",
+                                                       "csrc"))
+    if baseline:
+        other = os.path.join(baseline, "multimotionfusion_tpu_torch", "csrc")
+        depths["baseline"] = open(os.path.join(other, "zbuffer.cu")).read()
+        scores["baseline"] = open(os.path.join(other, "keypoints.cu")).read()
+    parts = {"zbuffer": ("zbuffer.depths", depths, lambda: [R.render_depths_cuda(*da)]),
+             "keypoints": ("patch_score", scores, lambda: list(SP.patch_score_cuda(*sa)))}
+    flush = torch.empty(64 << 18, dtype=torch.float32, device="cuda")
+    scratch = R.depth_scratch(da[0].gdata.device,
+                              (1 + da[0].odata.shape[0]) * da[4].height * da[4].width)
+    for lib_name, part in (("zbuffer", "depths"), ("keypoints", "score")):
+        if part not in only:
+            continue
+        what, variants, fn = parts[lib_name]
+        if names:
+            variants = {k: v for k, v in variants.items() if k in names}
+        kept, ref = K._libs[lib_name], None
+        built = {name: build(tree, f"{lib_name}_{name}", text) for name, text in variants.items()}
+        try:
+            for name in variants:
+                if built[name] is None:
+                    continue
+                K._libs[lib_name] = built[name]
+                out = [t.clone() for t in fn()]
+                torch.cuda.synchronize()
+                clean = bool((scratch == 2**31 - 1).all())
+                ref = out if ref is None else ref
+                same = all(a.shape == b.shape and torch.equal(a.view(torch.uint8),
+                                                               b.view(torch.uint8))
+                           for a, b in zip(out, ref))
+                # chip_smoke's reader (every device event of 20 calls in a
+                # marked range after 10 warm-up calls and 50 ms idle), three
+                # times, and once cold (a 64 MB fill before every call)
+                reads = [S._device_profile(fn) for _ in range(3)]
+                runs = [r[0] * 1e3 if r[0] is not None else None for r in reads]
+                launches = reads[0][1]
+                cold = S._device_profile(fn, before=lambda: flush.fill_(1.0),
+                                         skip=("FillFunctor",))[0]
+                cold_us = None if cold is None else cold * 1e3
+                scratch.fill_(2**31 - 1)
+                valid = sorted(r for r in runs if r is not None)
+                print(json.dumps({"kernel": what, "variant": name,
+                                  "device_us": valid[len(valid) // 2] if valid else None,
+                                  "device_us_runs": runs, "cold_us": cold_us,
+                                  "launches_per_call": launches, "equal_to_as_is": same,
+                                  "scratch_clean_after": clean,
+                                  "ptxas": ptxas_summary(LOGS.get(f"{lib_name}_{name}", ""))}),
+                      flush=True)
+        finally:
+            K._libs[lib_name] = kept
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    ap.add_argument("--only", default="flow,tracks,finish,select,nms,levels,splat,owner",
+    ap.add_argument("--only",
+                    default="flow,tracks,finish,select,nms,levels,splat,owner,depths,score",
                     help="comma-separated: flow, tracks, finish, select, nms, levels, splat, "
-                         "owner")
+                         "owner, depths, score")
+    ap.add_argument("--baseline", default="",
+                    help="another tree whose K13 and K19 sources the depths and score parts "
+                         "also run (variant 'baseline')")
     ap.add_argument("--variants", default="",
-                    help="comma-separated: the owner part's variants to run (default all)")
+                    help="comma-separated: the owner, depths and score parts' variants to run "
+                         "(default all)")
     args = ap.parse_args()
     tree, only = os.path.abspath(args.tree), set(args.only.split(","))
     sys.path.insert(0, tree)
@@ -830,8 +1004,12 @@ def main() -> int:
         level_variants(tree, torch, K, C, LV, FM)
     if "splat" in only:
         splat_variants(tree, torch, K, C, FU, R)
+    names = set(filter(None, args.variants.split(",")))
     if "owner" in only:
-        owner_variants(tree, torch, K, C, MO, FC, set(filter(None, args.variants.split(","))))
+        owner_variants(tree, torch, K, C, MO, FC, names)
+    if "depths" in only or "score" in only:
+        depths_score_variants(tree, torch, K, C, R, SP, only, names,
+                              os.path.abspath(args.baseline) if args.baseline else None)
     return 0
 
 

@@ -7,12 +7,14 @@ store, made before the profile: the card's clean works in place), of K10's
 resolve (static and composite), of K11's owner prep (``multi.owner_levels``,
 every level: three launches in a tree before the one-launch design, one
 after), of K18's unaries (``flow_crf.unaries_cuda`` on a flow-CRF frame's
-inputs) and of a multi-model frame's 14 RANSAC fits (K21: the 6
-per-model seeds and the 8 back-dating fits, with no track selected as on a
-frame without a spawn and with every active track) for the package of one
-tree, every device event counted, on the inputs that tree's
-``chip_smoke.py`` records. An SO(3) iteration is ``so3_iteration`` where the
-tree has it, else ``so3_reduce`` then ``so3_step``; the fits are two batches
+inputs), of K13 (``rasterize.render_depths_cuda``) and K19's patch_score
+(``superpoint.patch_score_cuda``) on the flow-CRF run's inputs, and of a
+multi-model frame's 14 RANSAC fits (K21: the 6 per-model seeds and the 8
+back-dating fits, with no track selected as on a frame without a spawn and
+with every active track) for the package of one tree, every device event
+counted, on the inputs that tree's ``chip_smoke.py`` records. An SO(3)
+iteration is ``so3_iteration`` where the tree has it, else ``so3_reduce``
+then ``so3_step``; the fits are two batches
 where the tree has ``ransac_fit_batch``, else 14 one-fit calls (the
 back-dating points copied contiguous first, as such a tree's engine does),
 on the same inputs and uniforms. On a tree with the batched back-dating, the
@@ -81,6 +83,7 @@ def main() -> int:
     from multimotionfusion_tpu_torch.odometry import rgbd
     from multimotionfusion_tpu_torch.ops import rasterize as R
     from multimotionfusion_tpu_torch.segmentation import flow_crf as FC
+    from multimotionfusion_tpu_torch.tracking import superpoint as SP
 
     if not (S.__file__.startswith(tree) and K.__file__.startswith(tree)):
         raise SystemExit(f"imported {S.__file__} and {K.__file__}, not {tree}'s")
@@ -199,6 +202,8 @@ def main() -> int:
         "clean_flat": clean_flat(),
         "owner_prep[L0-L2]": fusion(MO.owner_levels, m_captured, "owner_prep"),
         "segment.unaries": fusion(FC.unaries_cuda, f_captured, "segment.unaries"),
+        "render_depths": fusion(R.render_depths_cuda, f_captured, "zbuffer.depths"),
+        "patch_score": fusion(SP.patch_score_cuda, f_captured, "patch_score"),
         "splat_resolve+fill_in": fusion(R.splat_resolve_cuda, captured, "splat_resolve"),
         "splat_resolve[composite]+fill_in[gated]": fusion(R.splat_resolve_cuda, m_captured,
                                                           "splat_resolve.composite"),

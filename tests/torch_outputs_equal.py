@@ -35,19 +35,26 @@ vertex_conf, normal_rad, time and valid), K14's clean
 (``fusion.clean_flat_cuda``: the whole cleaned store), K11's owner prep per
 frame (``multi.owner_levels``: every level's own, bank_own and static
 validity) and K18's unaries per flow-CRF frame (``flow_crf.unaries``:
-frame_depth_c, p_proj, behind and unary), digests prefixed with the
-tensor's shape. The relocalisation run (chip_smoke.run_reloc) adds the
+frame_depth_c, p_proj, behind and unary), K13 per call
+(``rasterize.render_depths_cuda``: the depth, and in a tree whose K13 keeps
+its keys in a persistent scratch, ``rasterize.depth_scratch``, whether that
+scratch holds only KEY_INVALID after the call) and K19's patch_score per
+call (``superpoint.patch_score_cuda``: score and blurred intensity), digests
+prefixed with the tensor's shape. The relocalisation run (chip_smoke.run_reloc) adds the
 fern-scale K2 calls (80x60 and 40x30). The cases (``checks.FILTER_CASES``,
 ``checks.PYRAMID_CASES``, ``checks.SPLAT_CASES``,
-``checks.CLEAN_FLAT_CASES``, taken from this checkout's ``checks.py``
+``checks.CLEAN_FLAT_CASES``, ``checks.DEPTH_CASES``, ``checks.SCORE_CASES``,
+taken from this checkout's ``checks.py``
 whatever the tree) run through the tree's public wrappers, a run each. The outputs
 are kept on the card during a run, so recording adds no host read to the
 frame step.
 ``--compare`` holds every recorded tensor equal bit for bit (floats by their
 bytes) and every digest equal, and prints one JSON line; digests of
 tensors whose shapes differ between the trees are listed apart
-(``reshaped``, and ``all_equal_but_reshaped``). Needs one NVIDIA GPU to
-record.
+(``reshaped``, and ``all_equal_but_reshaped``). The scratch's state is a
+field one tree may lack: it is reported apart (``scratch``: calls recorded
+and calls clean, per tree) and every recorded call must be clean. Needs one
+NVIDIA GPU to record.
 """
 
 import argparse
@@ -130,6 +137,17 @@ def record(tree: str, out: str) -> int:
         for f, t in (("own", ml.own), ("bank_own", ml.bank_own),
                      ("static_valid", ml.gl.static_valid))])
     wrap_labelled(FC, "unaries", lambda r: zip(r._fields, r))
+    wrap_labelled(SP, "patch_score_cuda", lambda r: zip(("score", "blurred"), r))
+
+    def depth_fields(r):
+        out = [("depth", r)]
+        if hasattr(R, "depth_scratch"):  # a tree whose keys persist between calls
+            cells = r.numel()
+            clean = (R.depth_scratch(r.device, cells) == 2**31 - 1).all()
+            out.append(("scratch_clean", clean.reshape(1)))
+        return out
+
+    wrap_labelled(R, "render_depths_cuda", depth_fields)
     match, update = TR.mutual_match, TR.update
     in_update = []  # a tree whose update calls the public mutual_match
 
@@ -275,10 +293,20 @@ def record(tree: str, out: str) -> int:
     for name, h, w, window in cases.CLEAN_FLAT_CASES:
         FU.clean_flat_cuda(*cases.clean_flat_inputs(h, w, "cuda", window=window))
         collect(f"clean_flat_case.{name}")
+    for name, *spec in cases.DEPTH_CASES:
+        R.render_depths_cuda(*cases.depth_inputs(*spec, "cuda"))
+        collect(f"depth_case.{name}")
+    for name, h, w, kind in cases.SCORE_CASES:
+        SP.patch_score_cuda(*cases.score_inputs(h, w, kind, "cuda"))
+        collect(f"score_case.{name}")
     torch.save({"tree": tree, "gpu": S._gpu_line(), "runs": runs}, out)
     print(json.dumps({"tree": tree, "out": out, "calls": {
         tag: {k: len(next(iter(v.values()))) for k, v in rec.items()} for tag, rec in runs.items()}}))
     return 0
+
+
+# the digest of a clean scratch's record: one True
+CLEAN_SCRATCH = "1:" + hashlib.sha1(b"\x01").hexdigest()
 
 
 def shaped_digest(t):
@@ -315,12 +343,18 @@ def compare(a_path: str, b_path: str) -> int:
 
     a, b = torch.load(a_path), torch.load(b_path)
     report, ok, ok_but_reshaped, shape_changes = {}, True, True, []
+    scratch = {}  # tree -> [calls recorded, calls clean]
     for tag in sorted(set(a["runs"]) | set(b["runs"])):
         ra, rb = a["runs"].get(tag, {}), b["runs"].get(tag, {})
         for name in sorted(set(ra) | set(rb)):
             fa, fb = ra.get(name, {}), rb.get(name, {})
             line = {}
-            for field in sorted(set(fa) | set(fb)):
+            for tree_name, fields in (("a", fa), ("b", fb)):
+                digests = fields.get("scratch_clean_digests", [])
+                n = scratch.setdefault(tree_name, [0, 0])
+                n[0] += len(digests)
+                n[1] += sum(d == CLEAN_SCRATCH for d in digests)
+            for field in sorted((set(fa) | set(fb)) - {"scratch_clean_digests"}):
                 xa, xb = fa.get(field, []), fb.get(field, [])
                 if field.endswith("digests"):
                     equal = [x == y for x, y in zip(xa, xb)]
@@ -337,9 +371,10 @@ def compare(a_path: str, b_path: str) -> int:
                 ok_but_reshaped = ok_but_reshaped and len(xa) == len(xb) > 0 and all(
                     e or i in moved for i, e in enumerate(equal))
             report[f"{tag}.{name}"] = line
+    ok = ok and all(n[0] == n[1] for n in scratch.values())
     print(json.dumps({"a": a["tree"], "b": b["tree"], "gpu": a["gpu"], "all_equal": ok,
                       "all_equal_but_reshaped": ok_but_reshaped, "reshaped": shape_changes,
-                      "outputs": report}))
+                      "scratch": scratch, "outputs": report}))
     return 0 if ok else 1
 
 
