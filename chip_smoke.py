@@ -109,7 +109,8 @@ Phases (any failure exits non-zero):
    count per frame and the spawn frames equal to the reference package's
    (REF_LEGACY_*); then its stage breakdown; then K4's error-image mode,
    K24a (centres and assignment, every pass from the plain chain), K24b,
-   K24c (plan, one and ten mean-field steps) and K17 at 640x480 with 7
+   K24c (plan; one and ten mean-field steps in one launch, each step's Q
+   also bit-equal to the one-step kernel's chain) and K17 at 640x480 with 7
    labels against their plain versions on the inputs
    of the last frame; the same kernels' lines also give each library
    yardstick's device time (``library_device_ms``);
@@ -183,7 +184,27 @@ Phases (any failure exits non-zero):
    patch_score on hand-made images (phase ``score_cases``,
    ``checks.SCORE_CASES``: 487x651, 9x11, 16x16 (all border), a constant
    image, step edges whose Sobel truncation flips sign, sizes one off the
-   32 x 20 tile each way) bit-equal to the plain version on the card;
+   32 x 20 tile each way) bit-equal to the plain version on the card; K7/K9
+   on hand-made maps (phase ``clean_cases``, ``checks.CLEAN_CASES``,
+   ``COMPACT_CASES`` and ``SEGMENT_CASES``: 487x651, slots not a multiple of
+   the 256-slot tile, windows 4 and 5, a scalar gate and a slot's gate by
+   pointer, the skip flag set and unset, stale ALIVE past the count, +0 and
+   -0 ALIVE, penalties of exactly 1, every slot kept, none kept, a count of
+   0, kept columns reaching the capacity, the capacity above the columns,
+   the multi-model repack with an empty and a full segment and without
+   slots): the flag frame into a map and in place, the compaction frame,
+   ``compact`` and the repack, the map, the count and the packed map
+   bit-equal to the plain versions on the card, the verdicts' scratch back
+   to its fill after every launch, and each compaction launch after a call
+   the wrapper refuses over as many tiles left the scan words as they
+   were; K24c on hand-made superpixels (phase ``lcrf_cases``,
+   ``checks.LCRF_CASES``: one superpixel, whose row sum hits the 1e-12
+   clamp, 1,203 (rows not a multiple of a block's 8), 2 and 16 labels, the
+   new-model class off, an inactive model, NaN and +-inf ICP errors, equal
+   features whose argmax ties, 3,600 and 8,040 superpixels (1280x720 and
+   1920x1080 at 16 px: the mean field's variants with the kernel rows, and
+   then Q too, read from L2)) within ``check_lcrf_plan``'s and
+   ``check_lcrf_iterate``'s tolerances;
 5d. five_movers: tests/test_five_movers.py's configuration and 17-frame
    journey at 160x120 (the scene from the port's own io/synthetic.py) on
    the card with the engine seeds FIVE_SEEDS: on every seed five spawns at
@@ -221,8 +242,10 @@ Phases (any failure exits non-zero):
    static frame), of one K10 resolve (1, static and composite), of one
    K14 clean (at most 3), of one K11 owner prep (1, every level), of one
    K18 unaries call (1), of one K13 render (at most 2, no ``fill_int``
-   among its kernels) and of one K19 patch_score (1), from the kernel
-   lines' profiles;
+   among its kernels), of one K19 patch_score (1), of one K7/K9 clean (a
+   flag frame at most 2, a compaction frame at most 3), of one ``compact``
+   (1) and one multi-model repack (1), and K24c's launches a legacy frame
+   (plan and mean field, at most 3), from the kernel lines' profiles;
 7. print ``{"kernels": [...]}``, the card's name and power limit, and as the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -273,7 +296,8 @@ MULTI_FRAMES = 40
 MULTI_SYNC = (11, 21)  # frames 11..20 = ticks 12..21: spawns at 14 and 18, compaction at 16
 MULTI_TIMED_FROM = 21
 MULTI_PATH = (
-    ("frame_maps.filter", "frame_maps.surfels", "so3_iteration", "compact", "zbuffer.flat",
+    ("frame_maps.filter", "frame_maps.surfels", "so3_iteration", "compact", "compact.segments",
+     "zbuffer.flat",
      "fuse_flat", "clean_flat", "splat_resolve.composite", "patch_score", "nms_topk",
      "patch_desc", "mutual_match", "track_update", "ransac_fit", "multi_init", "multi_seed",
      "multi_arbitrate", "gn_step_multi", "pyramid.frame", "pyramid.pred")
@@ -326,7 +350,7 @@ LEGACY_PATH = (
      "gn_reduce.error_images", "zbuffer", "fuse", "clean", "clean.compact", "compact",
      "splat_resolve", "patch_score", "nms_topk", "patch_desc", "mutual_match",
      "track_update", "ransac_fit", "slic.centres", "slic.assign", "sp.downsample", "sp.upsample",
-     "legacy_crf.plan", "legacy_crf.iterate", "components", "pyramid.frame", "pyramid.pred")
+     "legacy_crf.plan", "legacy_crf.mean_field", "components", "pyramid.frame", "pyramid.pred")
     + tuple(f"gn_reduce.L{lvl}" for lvl in LEVELS)
 )
 # The legacy CRF journey's lifecycle as the reference package runs it on the
@@ -953,7 +977,10 @@ def measure_so3_iteration(a):
     )
 
 
-def measure_clean(a):
+def measure_clean(a, in_place=False):
+    """A clean's line: into the map's bucket (a copy, the static and global
+    maps' call) or, ``in_place``, consuming a fresh copy of the recorded map
+    each call (a legacy slot's call; the copies made before the timing)."""
     from multimotionfusion_tpu_torch.model import fusion as FU
     from multimotionfusion_tpu_torch.model import surfel_map as sm
     from multimotionfusion_tpu_torch.ops import rasterize as R
@@ -962,26 +989,47 @@ def measure_clean(a):
      compact) = a
     smap, im = sm.SurfelMap(data, count), R.IndexMap(index, data_local)
     args = (smap, im, depth, mask, mask_id, cam, time_, time_delta, conf, cfg, compact)
+    rest = args[1:]
     out = torch.empty_like(data)
     B, npix = data.shape[1], index.numel()
     n_win = int(torch.unique(index[index >= 0]).numel())
-    keep, _ = FU.clean_verdicts(*args[:10])
+    keep, pen = FU.clean_verdicts(*args[:10])
     n_keep = int(keep.sum())
-    # pixel pass: index map, 4x4 window winners (7 channels each, once per
-    # winner), depth and mask; surfel pass: the [16, B] map in, and out (flag
-    # frame) or the kept columns plus the zeroed tail (compaction)
-    moved = 12 * npix + 7 * 4 * n_win + 64 * B + (64 * B if not compact else 64 * B)
+    changed = int((pen != 1.0).sum()) + int(((data[sm.ALIVE] != 0) & ~keep).sum())
+    # pixel pass: index map, each winner's 8 channels once, depth and mask;
+    # surfel pass: ALIVE, LAST_T and CONF of every slot, and the map written
+    # (a copy: every channel read and written; in place: the values that
+    # change); compaction: three channels of every slot, the kept columns
+    # read and the packed map written
+    pixels = 12 * npix + 8 * 4 * n_win
+    if compact:
+        moved = pixels + 12 * B + 64 * n_keep + 64 * B
+    elif in_place:
+        moved = pixels + 12 * B + 4 * changed
+    else:
+        moved = pixels + 2 * 64 * B
     bound, by = _bound(moved, 16 * 30 * npix + 20 * B)
     if compact:
         library = lambda: data[:, keep]  # noqa: E731
     else:
         flat = index.clamp(min=0).reshape(-1).long()
         library = lambda: data_local.index_select(1, flat)  # noqa: E731
+    if in_place:
+        fresh = _states(data)  # MEASURE_CALLS: the timing's and the profile's calls
+
+        def run():
+            d = fresh()
+            return FU.clean_cuda(sm.SurfelMap(d, count), *rest, out=d)
+        timed = dict(ms=_time_ms(run), **_device(run),
+                     timing_note="each call cleans a fresh copy of the recorded map in place, "
+                                 "the copies made before the timing")
+    else:
+        timed = dict(ms=_time_ms(lambda: FU.clean_cuda(*args, out=out)),
+                     **_device(lambda: FU.clean_cuda(*args, out=out), by_kernel=True))
     return dict(
-        ms=_time_ms(lambda: FU.clean_cuda(*args, out=out)),
-        **_device(lambda: FU.clean_cuda(*args, out=out)),
-        plain_ms=_time_ms(lambda: FU.clean_plain(*args), reps=5),
+        **timed, plain_ms=_time_ms(lambda: FU.clean_plain(*args), reps=5),
         **_library(library), bound_ms=bound, bound_by=by, kept=n_keep,
+        values_changed=changed,
     )
 
 
@@ -996,6 +1044,37 @@ def measure_compact(a):
         plain_ms=_time_ms(lambda: sm.compact_plain(*a), reps=5),
         **_library(lambda: data[:, keep]), bound_ms=bound, bound_by=by,
     )
+
+
+def measure_compact_segments(a):
+    """The multi-model repack into copies of the recorded destinations (it
+    writes every column of them whatever they held); the yardstick:
+    ``data[:, keep]`` of every segment, summed (the parent design's
+    per-segment glue excluded)."""
+    from multimotionfusion_tpu_torch.model import surfel_map as sm
+
+    gsrc, osrc, counts, gdst, odst = a
+    segs = [gsrc] + [osrc[:, k] for k in range(osrc.shape[1])]
+    keeps = [(torch.arange(x.shape[1], device=x.device) < counts[m]) & (x[sm.ALIVE] > 0)
+             for m, x in enumerate(segs)]
+    kept = sum(int(k.sum()) for k in keeps)
+    cols = sum(x.shape[1] for x in segs)
+    # ALIVE is read only below each segment's count (the keep's first test
+    # decides the rest); every slot of every destination is written
+    below = sum(min(max(int(c), 0), x.shape[1]) for c, x in zip(counts.tolist(), segs))
+    gk, ok_ = gdst.clone(), odst.clone()
+    run = lambda: sm.compact_segments_cuda(gsrc, osrc, counts, gk, ok_)  # noqa: E731
+    lib = [_library(lambda x=x, k=k: x[:, k]) for x, k in zip(segs, keeps)]
+    return dict(
+        ms=_time_ms(run), **_device(run),
+        plain_ms=_time_ms(lambda: sm.compact_segments_plain(gsrc, osrc, counts, gdst.clone(),
+                                                            odst.clone()), reps=5),
+        library_ms=sum(x["library_ms"] for x in lib),
+        library_device_ms=None if any(x["library_device_ms"] is None for x in lib)
+        else sum(x["library_device_ms"] for x in lib),
+        library_call="data[:, keep] of each segment, summed", kept=kept, segments=len(segs),
+        slots_below_counts=below,
+        **dict(zip(("bound_ms", "bound_by"), _bound(4 * below + 64 * kept + 64 * cols, 4 * cols))))
 
 
 def measure_patch_score(a):
@@ -1425,6 +1504,9 @@ def plan():
         ("fuse", "fuse", "fuse", C.check_fuse, measure_fuse, "fuse.cu", "model/fusion.py:54"),
         ("clean[flag frame]", "clean", "clean", C.check_clean, measure_clean, "clean.cu",
          "model/fusion.py:239"),
+        ("clean[flag frame, in place]", "clean", "clean",
+         lambda a: C.check_clean(a, in_place=True),
+         lambda a: measure_clean(a, in_place=True), "clean.cu", "model/fusion.py:239"),
         ("clean[compaction frame]", "clean.compact", "clean.compact", C.check_clean,
          measure_clean, "clean.cu", "model/surfel_map.py:178"),
         ("compact[first frame]", "compact", "compact", C.check_compact, measure_compact,
@@ -1804,7 +1886,9 @@ def run_multi_flow(K, cfg, frames):
                              device=DEVICE)]
         ms, syncs, sync_ticks, frame_ms, seg_px = [], [], [], {}, []
         for i in range(1, MULTI_FRAMES + 1):
-            if i == MULTI_FRAMES:
+            if i == MULTI_FRAMES - 1:  # tick 40 repacks the stores: its inputs alone
+                K.start_capture(["compact.segments"])
+            elif i == MULTI_FRAMES:
                 K.start_capture()
             if MULTI_SYNC[0] <= i < MULTI_SYNC[1]:
                 sync_ticks.append(engine.tick)
@@ -1824,8 +1908,12 @@ def run_multi_flow(K, cfg, frames):
                     ms.append(frame_ms[i])
             masks.append(engine.last_mask.clone())
             seg_px.append(engine._last_stats.multi[9:])
-            if i == MULTI_FRAMES:
+            if i == MULTI_FRAMES - 1:
+                repack = K.stop_capture().get("compact.segments")
+            elif i == MULTI_FRAMES:
                 captured = K.stop_capture()
+                if repack is not None:
+                    captured["compact.segments"] = repack
         stats = engine.finish()
     launches = dict(K.LAUNCHES)
     print(json.dumps({"phase": "plain_calls_on_flow_crf_path", "calls": plain_calls}))
@@ -2160,7 +2248,10 @@ def plan_flow():
     """The flow-CRF segmentation's kernels, as ``plan``."""
     from multimotionfusion_tpu_torch.kernels import checks as C
 
-    p = [("render_depths", "zbuffer.depths", "zbuffer.depths", C.check_render_depths,
+    p = [("compact.segments[compaction frame]", "compact.segments", "compact.segments",
+          C.check_compact_segments, measure_compact_segments, "clean.cu",
+          "model/surfel_map.py:178"),
+         ("render_depths", "zbuffer.depths", "zbuffer.depths", C.check_render_depths,
           measure_render_depths, "zbuffer.cu", "ops/rasterize.py:255"),
          ("flow[prep + 3 levels]", "flow", "flow", C.check_flow, measure_flow, "flow.cu",
           "segmentation/flow.py:100,18")]
@@ -2368,6 +2459,9 @@ def measure_lcrf_plan(a):
 
 
 def measure_lcrf_iterate(a, iters):
+    """``iters`` mean-field steps: the one-launch kernel, the plain chain and
+    two torch.matmul and a softmax a step; ``one_step_launches_*``: the same
+    steps as one-step launches (the per-step entry the checks keep)."""
     from multimotionfusion_tpu_torch.segmentation import legacy_crf as LC
 
     plan = LC.crf_plan_cuda(*a)
@@ -2383,12 +2477,16 @@ def measure_lcrf_iterate(a, iters):
         msg = 40.0 * torch.matmul(plan.k_smooth, q) + 40.0 * torch.matmul(plan.k_app, q)
         return torch.softmax(-plan.unary - (msg.sum(-1, keepdim=True) - msg), -1)
 
+    steps = lambda: chain(lambda q, last: LC.crf_iterate_cuda(q, plan, last)[0])  # noqa: E731
+    one_step = _device(steps)
     # per step both kernels and Q in, Q out; 2 x 2 S^2 L operations
-    return _measure(lambda: chain(lambda q, last: LC.crf_iterate_cuda(q, plan, last)[0]),
+    return _measure(lambda: LC.crf_mean_field_cuda(plan, iters),
                     lambda: chain(lambda q, last: LC.crf_iterate_plain(q, plan)),
                     iters * (8 * s * s + 12 * s * nl), iters * 4 * s * s * nl,
                     library=lambda: chain(library),
-                    library_call="two torch.matmul and torch.softmax per step")
+                    library_call="two torch.matmul and torch.softmax per step",
+                    one_step_launches_device_ms=one_step["device_ms"],
+                    one_step_launches_per_call=one_step["device_launches_per_call"])
 
 
 def plan_legacy():
@@ -2409,10 +2507,10 @@ def plan_legacy():
          "slic.cu", "segmentation/slic.py:95"),
         ("legacy_crf.plan", "legacy_crf.plan", "legacy_crf.plan", C.check_lcrf_plan,
          measure_lcrf_plan, "legacy_crf.cu", "segmentation/legacy_crf.py:104"),
-        ("legacy_crf.iterate[1]", "legacy_crf.plan", "legacy_crf.iterate",
+        ("legacy_crf.mean_field[1]", "legacy_crf.plan", "legacy_crf.mean_field",
          lambda a: C.check_lcrf_iterate(a, 1), lambda a: measure_lcrf_iterate(a, 1),
          "legacy_crf.cu", "segmentation/legacy_crf.py:53"),
-        ("legacy_crf.iterate[10]", "legacy_crf.plan", "legacy_crf.iterate",
+        ("legacy_crf.mean_field[10]", "legacy_crf.plan", "legacy_crf.mean_field",
          lambda a: C.check_lcrf_iterate(a, 10), lambda a: measure_lcrf_iterate(a, 10),
          "legacy_crf.cu", "segmentation/legacy_crf.py:53"),
         ("components[640x480, L=7]", "components", "components",
@@ -2516,13 +2614,18 @@ def run_hand_made_cases() -> list:
     ``check_render_depths``' tolerance, its scratch clean after each call
     (``check_depth_cases``), and K19's patch_score on ``SCORE_CASES``
     (487x651, 9x11, all border, constant, sign-flipping steps, sizes one
-    off the tile) bit-equal (``check_score_cases``)."""
+    off the tile) bit-equal (``check_score_cases``); K7/K9 on
+    ``CLEAN_CASES``, ``COMPACT_CASES`` and ``SEGMENT_CASES`` bit-equal to the
+    plain versions on the card (``check_clean_cases``) and K24c on
+    ``LCRF_CASES`` within ``check_lcrf_plan``'s and ``check_lcrf_iterate``'s
+    tolerances (``check_lcrf_cases``)."""
     from multimotionfusion_tpu_torch.kernels import checks as C
 
     failed = []
     for name in ("flow_cases", "track_cases", "match_cases", "finish_cases", "topk_cases",
                  "filter_cases", "pyramid_cases", "splat_cases", "clean_flat_cases",
-                 "owner_cases", "unaries_cases", "depth_cases", "score_cases"):
+                 "owner_cases", "unaries_cases", "depth_cases", "score_cases", "clean_cases",
+                 "lcrf_cases"):
         r = getattr(C, f"check_{name}")(DEVICE)
         torch.cuda.synchronize()
         print(json.dumps({"phase": name, **r}))
@@ -2537,8 +2640,10 @@ def device_counts(kernels) -> dict:
     launches of one K18 finish and one K19 top-K, of one K1 filter, of each
     K2 side, of one K10 resolve (static and composite) and of one K14 clean,
     of one K11 owner prep (every level), of one K18 unaries call, of one K13
-    render and of one K19 patch_score, and K2's launches a static frame,
-    from the kernel lines' profiles."""
+    render, of one K19 patch_score, of one K7/K9 clean (flag frame, in place,
+    compaction frame), of one ``compact`` and one multi-model repack, and
+    K2's launches a static frame and K24c's a legacy frame (the plan and the
+    ten-step mean field), from the kernel lines' profiles."""
     by = {k["name"]: k for k in kernels}
     flow, tracker = by["flow[prep + 3 levels]"], by["tracker.update[match + update]"]
     out = dict(flow_launches_per_frame=flow["device_launches_per_call"]
@@ -2548,7 +2653,9 @@ def device_counts(kernels) -> dict:
     limits = {"segment_finish": 2, "nms_topk": 2, "nms_topk_plateau": 2, "filter": 1,
               "pyramid_frame": 2, "pyramid_pred": 2, "splat_resolve": 1,
               "splat_resolve_composite": 1, "clean_flat": 3, "owner_prep": 1,
-              "segment_unaries": 1, "render_depths": 2, "patch_score": 1}
+              "segment_unaries": 1, "render_depths": 2, "patch_score": 1, "clean_flag": 2,
+              "clean_flag_in_place": 2, "clean_compaction": 3, "compact": 1,
+              "compact_segments": 1, "legacy_crf_plan": 2, "legacy_crf_mean_field": 1}
     for key, line in (("segment_finish", "segment.finish"), ("nms_topk", "nms_topk"),
                       ("nms_topk_plateau", "nms_topk[plateau]"), ("filter", "frame_maps[filter]"),
                       ("pyramid_frame", "pyramid.frame[L0-L2]"),
@@ -2557,9 +2664,18 @@ def device_counts(kernels) -> dict:
                       ("splat_resolve_composite", "splat_resolve[composite]+fill_in[gated]"),
                       ("clean_flat", "clean_flat"), ("owner_prep", "owner_prep[L0-L2]"),
                       ("segment_unaries", "segment.unaries"),
-                      ("render_depths", "render_depths"), ("patch_score", "patch_score")):
+                      ("render_depths", "render_depths"), ("patch_score", "patch_score"),
+                      ("clean_flag", "clean[flag frame]"),
+                      ("clean_flag_in_place", "clean[flag frame, in place]"),
+                      ("clean_compaction", "clean[compaction frame]"),
+                      ("compact", "compact[first frame]"),
+                      ("compact_segments", "compact.segments[compaction frame]"),
+                      ("legacy_crf_plan", "legacy_crf.plan"),
+                      ("legacy_crf_mean_field", "legacy_crf.mean_field[10]")):
         out[f"{key}_device_launches"] = by[line]["device_launches_per_call"]
     out["render_depths_kernels"] = sorted(by["render_depths"].get("device_ms_by_kernel", {}))
+    crf = [out["legacy_crf_plan_device_launches"], out["legacy_crf_mean_field_device_launches"]]
+    out["legacy_crf_launches_per_frame"] = None if None in crf else sum(crf)
     sides = [by[f"pyramid.{side}[L0-L2]"] for side in ("frame", "pred")]
     out["pyramid_launches_per_frame"] = (
         None if any(k["device_launches_per_call"] is None for k in sides)
@@ -2574,7 +2690,9 @@ def device_counts(kernels) -> dict:
                          and out[f"{key}_device_launches"] <= limit
                          for key, limit in limits.items())
                  and out["pyramid_launches_per_frame"] is not None
-                 and out["pyramid_launches_per_frame"] <= 4 * (N_FRAMES + 1) / N_FRAMES)
+                 and out["pyramid_launches_per_frame"] <= 4 * (N_FRAMES + 1) / N_FRAMES
+                 and out["legacy_crf_launches_per_frame"] is not None
+                 and out["legacy_crf_launches_per_frame"] <= 3)
     print(json.dumps({"phase": "device_counts", **out}))
     return out
 
@@ -3177,8 +3295,8 @@ def main() -> int:
     if not counts["ok"]:
         f_failed.append(f"K15's launches, a tracker update's device operations or K18's, "
                         f"K19's, K1's filter's, K2's, K10's, K14's clean's, K11's owner "
-                        f"prep's, K18's unaries', K13's (or a fill) or K19's patch_score's "
-                        f"launches: {counts}")
+                        f"prep's, K18's unaries', K13's (or a fill), K19's patch_score's, "
+                        f"K7/K9's or K24c's launches: {counts}")
     loops = [check_loop(captured), check_loop(kp_captured, "odometry_loop[kp]"),
              check_sparse(kp_captured), check_multi_loop(m_captured)]
     print(json.dumps({"kernels": kernels}))

@@ -604,7 +604,7 @@ def multi_frame_step(state: MultiState, rgb_u8, depth_raw, ext_mask, time: int,
         fused, counts_new = fusion.fuse_flat(store, counts_all, layout, lc.fs_w, im, lc.mask, win,
                                              poses_all.contiguous(), maxd_all, active_all2, cam,
                                              time, scfg)
-    with _span("clean"):  # K14, then K9 per segment on compaction frames
+    with _span("clean"):  # K14, then K9 over every segment on compaction frames
         cleaned = fusion.clean_flat(fused, counts_new, layout, im, win, depth_filt, conf_all, cam,
                                     time, scfg.time_delta, scfg)
         gdata, odata = cleaned[:, :Bg], cleaned[:, Bg:].reshape(sm.CHANNELS, S, Bo)
@@ -612,21 +612,14 @@ def multi_frame_step(state: MultiState, rgb_u8, depth_raw, ext_mask, time: int,
             gdata = torch.where(lost, state.smap.data[:, :Bg], gdata)
             counts_new = torch.cat([torch.where(lost, state.smap.count, counts_new[0])[None],
                                     counts_new[1:]])
+        # back into the stores, in place (objs.data is this frame's own tensor):
+        # on compaction frames every segment repacked into them (one launch)
         if _compact_pred(time, scfg):
-            packed, cnts = [], []
-            for m, seg_data in enumerate([gdata] + [odata[:, k] for k in range(S)]):
-                size = seg_data.shape[1]
-                keep = (torch.arange(size, dtype=I32, device=dev) < counts_new[m]) \
-                    & (seg_data[sm.ALIVE] > 0)
-                d, c = sm.compact(seg_data, keep, size)
-                packed.append(d)
-                cnts.append(c)
-            gdata = packed[0]
-            odata = torch.stack(packed[1:], dim=1)
-            counts_new = torch.stack(cnts)
-        # back into the stores, in place (objs.data is this frame's own tensor)
-        state.smap.data[:, :Bg] = gdata
-        objs.data[:, :, :Bo] = odata.permute(1, 0, 2)
+            counts_new = sm.compact_segments(gdata, odata, counts_new, state.smap.data[:, :Bg],
+                                             objs.data[:, :, :Bo])
+        else:
+            state.smap.data[:, :Bg] = gdata
+            objs.data[:, :, :Bo] = odata.permute(1, 0, 2)
         smap = sm.SurfelMap(data=state.smap.data, count=counts_new[0])
         objs = objs._replace(count=counts_new[1:].contiguous())
 
@@ -794,9 +787,10 @@ def _multi_frame_step_legacy(state: MultiState, rgb_u8, depth_raw, time: int, we
             omap = sm.SurfelMap(objs.data[k], objs.count[k])
             fs_k = sm.FrameSurfels(lc.fs_w.data, lc.fs_w.valid & (pz <= objs.max_depth[k]))
             fused = fusion.fuse(omap, fs_k, oim[k], lc.mask, k + 1, objs.pose[k], cam, time, scfg)
+            compact = _compact_pred(time, scfg)  # a flag frame cleans K8's fresh map in place
             cleaned = fusion.clean(fused, oim[k], depth_filt, lc.mask, k + 1, cam, time,
-                                   scfg.time_delta, objs.conf_t[k], scfg,
-                                   compact=_compact_pred(time, scfg))
+                                   scfg.time_delta, objs.conf_t[k], scfg, compact=compact,
+                                   out=None if compact else fused.data)
             odata.append(torch.where(objs.active[k], cleaned.data, omap.data))
             ocount.append(torch.where(objs.active[k], cleaned.count, omap.count))
         objs = objs._replace(data=torch.stack(odata), count=torch.stack(ocount))

@@ -43,6 +43,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "mmf_torch
 LAUNCHES: Dict[str, int] = {}
 # kernel key -> recorded inputs, or None while no capture is running
 _captured: Optional[Dict[str, dict]] = None
+_capture_keys: Optional[frozenset] = None  # the keys a capture records (None: every key)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[tuple, object] = {}  # (library, entry point) -> ctypes function, typed
@@ -143,15 +144,31 @@ def check(t: torch.Tensor, dtype, name: str, contiguous: bool = True) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+_SCRATCH: Dict[tuple, torch.Tensor] = {}
+
+
+def scratch(name: str, n: int, dtype, device, fill=0) -> torch.Tensor:
+    """The first ``n`` elements of a persistent buffer of ``device`` named
+    ``name``: made with ``fill``, and made anew with ``fill`` when a call
+    needs more. The kernel that uses it states what it holds between calls."""
+    key = (name, torch.device(device))
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < n or buf.dtype != dtype:
+        buf = torch.full((max(n, 1),), fill, dtype=dtype, device=device)
+        _SCRATCH[key] = buf
+    return buf[:n]
+
+
 def reset_launches() -> None:
     for k in list(LAUNCHES):
         LAUNCHES[k] = 0
 
 
-def start_capture() -> None:
-    """Record the first inputs each wrapper sees until ``stop_capture``."""
-    global _captured
-    _captured = {}
+def start_capture(keys=None) -> None:
+    """Record the first inputs each wrapper sees until ``stop_capture``;
+    with ``keys``, only those wrappers' inputs."""
+    global _captured, _capture_keys
+    _captured, _capture_keys = {}, None if keys is None else frozenset(keys)
 
 
 def stop_capture() -> Dict[str, dict]:
@@ -170,13 +187,15 @@ def _snapshot(v):
     return v
 
 
-def capturing() -> bool:
-    """True while a capture runs (a wrapper may then compute inputs it records)."""
-    return _captured is not None
+def capturing(key: str) -> bool:
+    """True while a capture runs that records ``key``'s first inputs (a
+    wrapper may then compute inputs it records)."""
+    return _captured is not None and key not in _captured and (
+        _capture_keys is None or key in _capture_keys)
 
 
 def record(key: str, **inputs) -> None:
     """Called by a wrapper with its inputs; stores clones while capturing."""
-    if _captured is None or key in _captured:
+    if not capturing(key):
         return
     _captured[key] = {k: _snapshot(v) for k, v in inputs.items()}

@@ -58,6 +58,7 @@ _ARG_NAMES = {
     "clean": ("data", "count", "index", "data_local", "depth", "mask", "mask_id", "cam", "time",
               "time_delta", "conf_threshold", "cfg", "compact"),
     "compact": ("data", "keep", "capacity"),
+    "compact.segments": ("gsrc", "osrc", "counts", "gdst", "odst"),
     "patch_score": ("intensity",),
     "nms_topk": ("heat", "max_kp", "conf_thresh", "nms_radius"),
     "patch_desc": ("blurred", "xy"),
@@ -102,6 +103,7 @@ _ARG_NAMES = {
     "sp.downsample": ("images", "labels", "count", "grid_hw", "bounds"),
     "sp.upsample": ("lbl_sp", "labels", "n_labels"),
     "legacy_crf.plan": ("lows", "mean_color", "mean_xy", "active", "allow_new"),
+    "legacy_crf.mean_field": ("plan", "iterations"),
 }
 
 
@@ -1005,17 +1007,20 @@ def _host(t):
     return t.cpu() if isinstance(t, torch.Tensor) else t
 
 
-def _clean_pair(a: tuple):
+def _clean_pair(a: tuple, in_place: bool = False):
     (data, count, index, data_local, depth, mask, mask_id, cam, time, time_delta, conf, cfg,
      compact) = a
-    smap = sm.SurfelMap(data, count)
     im = R.IndexMap(index, data_local)
-    args = (smap, im, depth, mask, mask_id, cam, time, time_delta, conf, cfg, compact)
-    return FU.clean_cuda(*args), FU.clean_plain(*args), data
+    rest = (im, depth, mask, mask_id, cam, time, time_delta, conf, cfg, compact)
+    src = data.clone() if in_place else data
+    ck = FU.clean_cuda(sm.SurfelMap(src, count), *rest, out=src if in_place else None)
+    return ck, FU.clean_plain(sm.SurfelMap(data, count), *rest), data
 
 
-def check_clean(a: tuple) -> dict:
-    ck, cp, data_in = _clean_pair(a)
+def check_clean(a: tuple, in_place: bool = False) -> dict:
+    """K7/K9 against the plain version; ``in_place``: the kernel cleans a
+    copy of the recorded map in place (a legacy slot's call)."""
+    ck, cp, data_in = _clean_pair(a, in_place)
     nk, np_ = int(ck.count), int(cp.count)
     alive_diff = int((ck.data[sm.ALIVE] != cp.data[sm.ALIVE]).sum())
     err = _rel(ck.data, cp.data)
@@ -1038,6 +1043,20 @@ def check_compact(a: tuple) -> dict:
                 count_plain=int(cp), columns_differ=differ,
                 ok=int(ck) == int(cp) > 0 and differ == 0,
                 tolerance="count exact, packed map (order, zeroed tail) exact")
+
+
+def check_compact_segments(a: tuple) -> dict:
+    """The one-launch repack of every segment against the plain loop, each
+    into a fresh copy of the recorded destinations: the packed stores and
+    the counts bit for bit."""
+    gsrc, osrc, counts, gdst, odst = a
+    gk, ok_, gp, op = gdst.clone(), odst.clone(), gdst.clone(), odst.clone()
+    ck = sm.compact_segments_cuda(gsrc, osrc, counts, gk, ok_)
+    cp = sm.compact_segments_plain(gsrc, osrc, counts, gp, op)
+    equal = _same_bytes(gk, gp) and _same_bytes(ok_, op) and _same_bytes(ck, cp)
+    return dict(max_abs_err=max(_maxerr(gk, gp), _maxerr(ok_, op)), counts_kernel=ck.tolist(),
+                counts_plain=cp.tolist(), counts_in=counts.tolist(), equal=equal, ok=equal,
+                tolerance="every packed segment (order, zeroed tail) and the counts bit-equal")
 
 
 # ---------------------------------------------------------------- keypoint path
@@ -2091,6 +2110,244 @@ def check_clean_flat_cases(device) -> dict:
                 tolerance="the whole cleaned store bit-equal to the plain version")
 
 
+# K7/K9's hand-made cases: (name, height, width, slots B, window, gate, skip,
+# kind). Gates: "scalar" (the static map's threshold), "pointer" (a slot's,
+# read on the card). skip: None (no flag), False or True (the flag on the
+# card: nothing written). Kinds: "scene" (repeated and missing winners, a
+# whole tile without one, redundancy, z and see-through culls, mask
+# penalties, penalties of exactly 1, stale ALIVE past the count, +0 and -0
+# ALIVE), "all_kept" (no winner; every slot alive, confident and seen this
+# frame), "none_kept" (no slot alive), "count_0" (the count 0).
+CLEAN_CASES = (("ragged_487x651", 487, 651, 400_003, 4, "scalar", None, "scene"),
+               ("w5_37x61", 37, 61, 3_001, 5, "pointer", None, "scene"),
+               ("skip_set", 37, 61, 3_001, 4, "scalar", True, "scene"),
+               ("skip_unset", 47, 97, 6_000, 4, "pointer", False, "scene"),
+               ("all_kept", 37, 61, 2_560, 4, "scalar", None, "all_kept"),
+               ("none_kept", 37, 61, 2_563, 4, "pointer", None, "none_kept"),
+               ("count_0", 37, 61, 2_560, 4, "scalar", None, "count_0"))
+# compact's: (name, columns n, capacity, keep kind); "exactly_cap" keeps as
+# many columns as the capacity holds
+COMPACT_CASES = (("ragged_70001", 70_001, 70_001, "random"), ("cap_above_n", 1_000, 5_003, "random"),
+                 ("kept_reach_cap", 4_096, 2_000, "exactly_cap"), ("all_kept", 2_051, 2_051, "all"),
+                 ("none_kept", 2_051, 2_051, "none"), ("one_column", 1, 8, "all"))
+# the multi-model repack's: (name, Bg, Bo, slots); slot 0 empty (count 0),
+# slot 1 full (count Bo, every slot alive), the others part-used with stale
+# ALIVE past their counts
+SEGMENT_CASES = (("engine_like", 1 << 14, 1 << 12, 5), ("ragged", 3_001, 1_027, 7),
+                 ("no_slots", 2_048, 256, 0))
+
+
+def clean_inputs(h: int, w: int, B: int, window: int, gate: str, kind: str, device,
+                 seed: int = 0) -> tuple:
+    """``clean``'s arguments but ``compact`` (``_ARG_NAMES["clean"]``'s
+    order) of one case."""
+    from multimotionfusion_tpu_torch.config import SurfelConfig
+
+    rng = np.random.default_rng(seed)
+    cam = _case_camera(h, w)
+    ys, xs = np.mgrid[0:h, 0:w]
+    index = _case_index(h, w, B, rng, empty_tile=True)
+    if kind == "all_kept":
+        index[:] = -1
+    u = rng.random((h, w))
+    z = 1.0 + 0.3 * xs / max(w - 1, 1) + rng.normal(0.0, 0.002, (h, w))
+    init = rng.integers(0, 50, (h, w)).astype(np.float64)
+    last = rng.integers(20, 61, (h, w)).astype(np.float64)
+    red = (ys < h // 2) & (xs < w // 2)  # near-coplanar, older in front
+    z[red] = 1.0 + 0.009 * u[red]
+    init[red] = 100.0 - 90.0 * u[red]
+    zst = (ys >= h // 2) & (xs >= w // 2)  # seen this frame, spread in depth
+    z[zst] = 1.0 + 0.05 * u[zst]
+    last[zst & (u > 0.3)] = CLEAN_TIME
+    dl = rng.normal(0.0, 1.0, (16, B)).astype(np.float32)
+    pix = index >= 0
+    cols = index[pix]
+    f = 525.0 * w / 640.0
+    dl[sm.PX, cols] = ((xs - (w - 1) / 2.0) / f * z)[pix]
+    dl[sm.PY, cols] = ((ys - (h - 1) / 2.0) / f * z)[pix]
+    dl[sm.PZ, cols] = z[pix]
+    dl[sm.INIT_T, cols] = init[pix]
+    dl[sm.LAST_T, cols] = last[pix]
+    dl[sm.CONF, cols] = rng.uniform(0.0, 12.0, cols.size)
+    dl[sm.RADIUS, cols] = rng.uniform(0.001, 0.02, cols.size)
+    dl[sm.NZ, cols] = np.where(rng.random(cols.size) < 0.8, -0.95, -0.5)
+    # behind by 4-50 cm (see-through), or in front within the 5 cm band of
+    # the mask penalty
+    depth = (z + np.where(rng.random((h, w)) < 0.2, rng.uniform(0.04, 0.5, (h, w)),
+                          rng.uniform(-0.2, 0.02, (h, w)))).astype(np.float32)
+    depth[rng.random((h, w)) < 0.1] = 0.0
+    mask = ((xs // 7 + ys // 5) % 3).astype(np.int32)
+    data = rng.normal(0.0, 1.0, (16, B)).astype(np.float32)
+    data[sm.CONF] = rng.uniform(0.0, 15.0, B)
+    data[sm.LAST_T] = rng.integers(0, 61, B)
+    data[sm.LAST_T, rng.random(B) < 0.05] = 0.0
+    data[sm.ALIVE] = np.where(rng.random(B) < 0.9, 1.0, 0.0)
+    data[sm.ALIVE, rng.random(B) < 0.02] = -0.0
+    count = int(B * 0.9)
+    if kind == "all_kept":
+        data[sm.ALIVE], data[sm.CONF], data[sm.LAST_T], count = 1.0, 20.0, CLEAN_TIME, B
+    elif kind == "none_kept":
+        data[sm.ALIVE] = np.where(rng.random(B) < 0.5, 0.0, -0.0)
+    elif kind == "count_0":
+        count = 0
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa: E731
+    conf = 5.0 if gate == "scalar" else torch.tensor(5.0, dtype=torch.float32, device=device)
+    cfg = SurfelConfig(time_delta=25, assoc_window=window)
+    return (t(data), torch.tensor(count, dtype=torch.int32, device=device),
+            t(index.astype(np.int32)), t(dl), t(depth), t(mask), 1, cam, CLEAN_TIME,
+            float(cfg.time_delta), conf, cfg)
+
+
+def _clean_case(a: tuple, skip, out0: torch.Tensor) -> dict:
+    """One clean case's flag frame into a map, in place (without a skip
+    flag) and compaction frame, kernel against the plain version on the
+    same device, and the verdicts' scratch after each launch."""
+    data, count, index, data_local, depth, mask, mask_id, cam, time, td, conf, cfg = a
+    im = R.IndexMap(index, data_local)
+    B = data.shape[1]
+    rest = (im, depth, mask, mask_id, cam, time, td, conf, cfg)
+    runs, scratch_clean = {}, True
+    modes = [("flag", False, True), ("compaction", True, True)]
+    if skip is None:
+        modes.insert(1, ("flag_in_place", False, False))
+    for name, compact, into in modes:
+        ok_, op = (out0.clone(), out0.clone()) if into else (None, None)
+        src = data.clone()
+        rk = FU.clean_cuda(sm.SurfelMap(src, count), *rest, compact, ok_ if into else src, skip)
+        scratch_clean = scratch_clean and bool(
+            (FU.verdict_scratch(data.device, B) == FU.VERDICT_NONE).all())
+        rp = FU.clean_plain(sm.SurfelMap(data, count), *rest, compact, op, skip)
+        runs[name] = dict(map_equal=_same_bytes(rk.data, rp.data),
+                          count=(int(rk.count), int(rp.count)),
+                          in_place=rk.data.data_ptr() == src.data_ptr(),
+                          max_abs_err=_maxerr(rk.data, rp.data))
+    keep, pen = FU.clean_verdicts(sm.SurfelMap(data, count), *rest)
+    past = torch.arange(B, device=data.device) >= count
+    facts = dict(slots=B, kept=int(keep.sum()), penalised=int((pen != 1.0).sum()),
+                 pen_exactly_1_kept=int(((pen == 1.0) & keep).sum()),
+                 stale_past_count=int((past & (data[sm.ALIVE] != 0)).sum()),
+                 minus_zero_alive=int((data[sm.ALIVE].view(torch.int32) == -2**31).sum()))
+    ok = scratch_clean and all(r["map_equal"] and r["count"][0] == r["count"][1]
+                               for r in runs.values())
+    ok = ok and (skip is not None or runs["flag_in_place"]["in_place"])
+    return dict(runs=runs, scratch_clean=scratch_clean, ok=ok,
+                max_abs_err=max(r["max_abs_err"] for r in runs.values()), **facts)
+
+
+def compact_case_inputs(n: int, cap: int, kind: str, device, seed: int = 0) -> tuple:
+    rng = np.random.default_rng(seed)
+    data = rng.normal(0.0, 1.0, (16, n)).astype(np.float32)
+    keep = {"random": rng.random(n) < 0.6, "all": np.ones(n, bool),
+            "none": np.zeros(n, bool)}.get(kind)
+    if kind == "exactly_cap":
+        keep = np.zeros(n, bool)
+        keep[rng.permutation(n)[:cap]] = True
+    return torch.from_numpy(data).to(device), torch.from_numpy(keep).to(device), cap
+
+
+def segment_case_inputs(bg: int, bo: int, slots: int, device, seed: int = 0) -> tuple:
+    """``compact_segments``' arguments: a flat source [16, Bg + slots Bo]
+    (the segments as views), counts, destinations of random values."""
+    rng = np.random.default_rng(seed)
+    total = bg + slots * bo
+    src = rng.normal(0.0, 1.0, (16, total)).astype(np.float32)
+    alive = rng.random(total)
+    src[sm.ALIVE] = np.where(alive < 0.7, 1.0, np.where(alive < 0.85, 0.0, -0.0))
+    counts = [int(bg * 0.8)] + [int(bo * q) for q in rng.uniform(0.2, 1.0, slots)]
+    if slots > 0:
+        counts[1] = 0
+    if slots > 1:
+        counts[2] = bo
+        src[sm.ALIVE, bg + bo:bg + 2 * bo] = 1.0
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa: E731
+    flat = t(src)
+    gdst = t(rng.normal(0.0, 1.0, (16, bg)).astype(np.float32))
+    odst = t(rng.normal(0.0, 1.0, (slots, 16, bo)).astype(np.float32))
+    return (flat[:, :bg], flat[:, bg:].reshape(16, slots, bo), t(np.array(counts, np.int32)),
+            gdst, odst)
+
+
+def _refused(call, device, tiles: int) -> bool:
+    """Whether ``call`` raises ValueError and leaves the compaction's scan
+    words over ``tiles`` tiles to the next call as they were."""
+    before = sm.compaction_words(device, tiles)[1]
+    try:
+        call()
+    except ValueError:
+        return sm.compaction_words(device, tiles)[1] == before
+    return False
+
+
+def _segment_refusals(device, bg: int, bo: int, slots: int) -> tuple:
+    """Calls the repack refuses over as many tiles as ``(bg, bo, slots)``:
+    eight slot segments, and slot segments of no columns; and the tiles."""
+    tiles = sm.scan_tiles(bg) + slots * sm.scan_tiles(bo)
+    g = tiles - 8 * ((tiles - 1) // 8)  # the global segment's tiles beside 8 slots'
+    o = (tiles - g) // 8 * sm._TILE
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    def counts(n):
+        return torch.zeros((n,), dtype=torch.int32, device=device)
+
+    calls = {"eight_slots": lambda: sm.compact_segments_cuda(
+                 z(16, g * sm._TILE), z(16, 8, o), counts(9), z(16, g * sm._TILE), z(8, 16, o)),
+             "slots_of_no_columns": lambda: sm.compact_segments_cuda(
+                 z(16, tiles * sm._TILE), z(16, 2, 0), counts(3), z(16, tiles * sm._TILE),
+                 z(2, 16, 0))}
+    return calls, tiles
+
+
+def check_clean_cases(device) -> dict:
+    """K7/K9 on ``CLEAN_CASES`` (flag frame into a map and in place, and the
+    compaction frame), ``compact`` on ``COMPACT_CASES`` and the multi-model
+    repack on ``SEGMENT_CASES``: the kernels against the plain versions on
+    the same device, the map, the count and the packed map bit for bit, and
+    the verdicts' scratch back to ``VERDICT_NONE`` after each launch. Each
+    clean case's compaction and the first repack case's launches each come
+    after a call the wrapper refuses over as many tiles (a compaction frame
+    into its own map; eight slot segments, or slots of no columns), which
+    must leave the scan words as they were."""
+    cases, ok = {}, True
+    for name, h, w, B, window, gate, skip, kind in CLEAN_CASES:
+        a = clean_inputs(h, w, B, window, gate, kind, device)
+        flag = None if skip is None else torch.tensor(skip, device=device)
+        out0 = torch.from_numpy(np.random.default_rng(1).normal(
+            0.0, 1.0, (16, B)).astype(np.float32)).to(device)
+        refused = _refused(lambda: FU.clean_cuda(sm.SurfelMap(a[0], a[1]), R.IndexMap(a[2], a[3]),
+                                                 *a[4:], True, a[0]), device, sm.scan_tiles(B))
+        r = _clean_case(a, flag, out0)
+        expect = {"scene": r["penalised"] > 0 and 0 < r["kept"] < B and r["stale_past_count"] > 0
+                  and r["minus_zero_alive"] > 0,
+                  "all_kept": r["kept"] == B, "none_kept": r["kept"] == 0,
+                  "count_0": r["kept"] == 0}[kind]
+        r["refused_first"] = refused
+        r["ok"] = r["ok"] and expect and refused
+        cases[name] = r
+    for name, n, cap, kind in COMPACT_CASES:
+        a = compact_case_inputs(n, cap, kind, device)
+        dk, ck = sm.compact_cuda(*a)
+        dp, cp = sm.compact_plain(*a)
+        eq = _same_bytes(dk, dp) and int(ck) == int(cp)
+        cases[f"compact.{name}"] = dict(map_equal=_same_bytes(dk, dp), count=(int(ck), int(cp)),
+                                        max_abs_err=_maxerr(dk, dp), ok=eq)
+    for i, (name, bg, bo, slots) in enumerate(SEGMENT_CASES):
+        inputs = segment_case_inputs(bg, bo, slots, device)
+        refusals, tiles = _segment_refusals(device, bg, bo, slots) if i == 0 else ({}, 0)
+        for k, call in refusals.items():  # each refused call, then a valid one
+            refused = _refused(call, device, tiles)
+            r = check_compact_segments(inputs)
+            cases[f"segments.{name}.after_{k}"] = dict(r, refused_first=refused,
+                                                       ok=r["ok"] and refused)
+        cases[f"segments.{name}"] = check_compact_segments(inputs)
+    for r in cases.values():
+        ok = ok and r["ok"]
+    return dict(cases=cases, ok=ok, max_abs_err=max(r["max_abs_err"] for r in cases.values()),
+                tolerance="the map, the count and the packed map bit-equal to the plain "
+                          "versions; the verdicts' scratch clean after every launch")
+
+
 # ---------------------------------------------------------------- flow-CRF
 
 def _depths_result(dk, dp, scratch_clean: bool) -> dict:
@@ -3024,26 +3281,100 @@ LCRF_TIE_EPS = 1e-5
 
 
 def check_lcrf_iterate(a: tuple, iters: int = 1, eps: float = LCRF_TIE_EPS) -> dict:
-    """``iters`` K24c mean-field steps from the plain plan, kernel against the
-    plain steps (torch.matmul, TF32 off): each step from the plain chain's Q
-    within 1e-5; free-running, a superpixel's label differs only where the
-    plain chain's top-two margin fell below ``eps``."""
+    """``iters`` K24c mean-field steps from the plain plan, the kernels against
+    the plain steps (torch.matmul, TF32 off): each one-step launch from the
+    plain chain's Q within 1e-5; free-running, the one-launch mean field's Q
+    after every step bit-equal to the one-step kernel's chain, and a
+    superpixel's label differs from the plain chain's only where the plain
+    chain's top-two margin fell below ``eps``."""
     plan = LC.crf_plan_plain(*a)
-    qp = qk = plan.q0
-    step_err, lk = 0.0, None
+    qp = qc = plan.q0
+    hist, lk = LC.crf_mean_field_cuda(plan, iters)
+    step_err, chain_equal = 0.0, True
     margin = torch.full((qp.shape[0],), float("inf"), device=qp.device)
     for it in range(iters):
         last = it == iters - 1
         forced, _ = LC.crf_iterate_cuda(qp, plan)
-        qk, lk = LC.crf_iterate_cuda(qk, plan, want_labels=last)
+        qc, lc = LC.crf_iterate_cuda(qc, plan, want_labels=last)
+        chain_equal = chain_equal and _same_bytes(hist[it], qc)
         qp = LC.crf_iterate_plain(qp, plan)
         step_err = max(step_err, float((forced - qp).abs().max()))
         top2 = torch.topk(qp, 2, dim=-1).values
         margin = torch.minimum(margin, top2[:, 0] - top2[:, 1])
+    chain_equal = chain_equal and _same_bytes(lk, lc)
     flipped = lk.long() != qp.argmax(-1)
     off_ties = flipped & (margin >= eps)
-    return dict(max_abs_err=float((qk - qp).abs().max()), step_err=step_err,
+    return dict(max_abs_err=float((hist[-1] - qp).abs().max()), step_err=step_err,
+                one_launch_equal_to_steps=chain_equal,
                 argmax_differ=int(flipped.sum()), argmax_differ_off_ties=int(off_ties.sum()),
-                ok=step_err <= 1e-5 and not bool(off_ties.any()),
-                tolerance=f"each step from the plain chain's Q within 1e-5; labels differ only "
-                          f"where the plain top-two margin fell below {eps}")
+                ok=step_err <= 1e-5 and chain_equal and not bool(off_ties.any()),
+                tolerance=f"each step from the plain chain's Q within 1e-5; the one-launch Q "
+                          f"after every step and labels bit-equal to the one-step kernel's "
+                          f"chain; labels differ from the plain chain's only where its top-two "
+                          f"margin fell below {eps}")
+
+
+# K24c's hand-made cases: (name, superpixels S, models M, allow_new, kind).
+# Kinds: "scene" (random means, some gates failing), "inactive" (model 2
+# off), "nan_inf" (NaN, +inf and -inf ICP errors behind passing gates; the
+# new-model class off, so the fixed-order min the kernel takes over the
+# finite errors and torch.min's NaN meet in the same clamped unary), "ties"
+# (every superpixel the same: uniform Q, the first-index argmax). S = 3,600
+# (1280 x 720 at 16 px superpixels) and S = 8,040 (1920 x 1080) reach the mean
+# field's other variants: Q staged with the kernel rows read from L2, and
+# everything from L2, each with grid-stride passes of rows.
+LCRF_CASES = (("one_superpixel", 1, 3, True, "scene"), ("s1203", 1203, 6, True, "scene"),
+              ("two_labels", 300, 1, True, "scene"), ("sixteen_labels", 500, 15, True, "scene"),
+              ("no_new_label", 640, 6, False, "scene"), ("inactive_model", 640, 6, True,
+                                                         "inactive"),
+              ("nan_inf", 640, 6, False, "nan_inf"), ("ties", 257, 4, True, "ties"),
+              ("s3600_720p", 3600, 6, True, "scene"), ("s8040_1080p", 8040, 6, True, "scene"))
+LCRF_CASE_STEPS = 10
+
+
+def lcrf_inputs(S: int, M: int, allow_new: bool, kind: str, device, seed: int = 0) -> tuple:
+    """``crf_plan``'s arguments (lows, mean_color, mean_xy, active, allow_new)
+    of one case, from a seed with numpy."""
+    rng = np.random.default_rng(seed)
+    side = max(int(np.ceil(np.sqrt(S))), 1)
+    ij = np.stack(np.divmod(np.arange(S), side), axis=-1)[:, ::-1]
+    mean_xy = (ij * 16.0 + 8.0 + rng.normal(0.0, 2.0, (S, 2))).astype(np.float32)
+    mean_color = rng.uniform(0.0, 255.0, (S, 3)).astype(np.float32)
+    lows = np.empty((1 + 2 * M, S), np.float32)
+    lows[0] = rng.uniform(0.5, 3.0, S)
+    lows[1:1 + M] = rng.uniform(0.0, 0.05, (M, S))
+    lows[1 + M:] = rng.uniform(0.0, 1.0, (M, S))
+    active = np.ones(M, bool)
+    if kind == "inactive":
+        active[min(2, M - 1)] = False
+    if kind == "nan_inf":
+        lows[1 + M:] = 1.0  # every gate passes: the errors reach the clamp
+        lows[1:1 + M, ::7] = np.nan
+        lows[1:1 + M, 3::11] = np.inf
+        lows[1:1 + M, 5::13] = -np.inf
+    if kind == "ties":
+        mean_xy[:] = mean_xy[0]
+        mean_color[:] = mean_color[0]
+        lows[:] = lows[:, :1]
+        lows[1:1 + M] = 0.0
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa: E731
+    return t(lows), t(mean_color), t(mean_xy), t(active), allow_new
+
+
+def check_lcrf_cases(device) -> dict:
+    """K24c on ``LCRF_CASES``: the plan within ``check_lcrf_plan``'s
+    tolerance and ``LCRF_CASE_STEPS`` steps within ``check_lcrf_iterate``'s."""
+    cases, ok = {}, True
+    for name, S, M, allow_new, kind in LCRF_CASES:
+        a = lcrf_inputs(S, M, allow_new, kind, device)
+        rp, ri = check_lcrf_plan(a), check_lcrf_iterate(a, LCRF_CASE_STEPS)
+        r = dict(S=S, labels=M + 1, plan_ok=rp["ok"], plan_errors=rp["errors"],
+                 steps_ok=ri["ok"], step_err=ri["step_err"],
+                 one_launch_equal_to_steps=ri["one_launch_equal_to_steps"],
+                 argmax_differ=ri["argmax_differ"],
+                 max_abs_err=max(rp["max_abs_err"], ri["max_abs_err"]))
+        r["ok"] = rp["ok"] and ri["ok"]
+        cases[name] = r
+        ok = ok and r["ok"]
+    return dict(cases=cases, ok=ok, max_abs_err=max(r["max_abs_err"] for r in cases.values()),
+                tolerance="check_lcrf_plan's and check_lcrf_iterate's")

@@ -12,10 +12,12 @@
   look-back scan inside the association kernel, shared with K14).
 - ``clean`` (kernels K7 + K9, ``csrc/clean.cu``): redundancy / see-through /
   unstable-age culls and the periodic order-preserving compaction
-  (copy_unstable.vert). A pixel pass reads each index-map winner's attributes
-  from data_local (K7, no attribute image) and scatter-mins its verdict per
-  surfel; a surfel pass applies them; every ``compact_every`` frames a
-  multi-block compaction repacks the kept surfels with the count on the card.
+  (copy_unstable.vert). A pixel pass stages each tile's window of index-map
+  winners from data_local in shared memory (K7, no attribute image, K14's
+  design) and scatter-mins its verdict per surfel into a persistent
+  scratch; a surfel pass applies them (in place where the caller passes
+  the map as its own output); every ``compact_every`` frames a one-launch
+  compaction repacks the kept surfels with the count on the card.
 - ``fuse_flat`` / ``clean_flat`` (kernel K14, ``csrc/fuse_flat.cu``): the
   same two passes for the multi-model step, ONCE over the flat store of all
   models (``FlatLayout``) with the composite index map: a pixel fuses into
@@ -339,17 +341,28 @@ def clean_verdicts(smap: sm.SurfelMap, index_map: IndexMap, depth_input, mask, m
 
 
 _CLEAN_ARGS = (
-    [K.P, K.I, K.I, K.P, K.P, K.P, K.P, K.P, K.I, K.I, K.I, K.I]  # map, index, depth, mask
+    [K.P, K.L, K.I, K.P, K.P, K.P, K.P, K.P, K.I, K.I, K.I, K.I]  # map, index, depth, mask
     + [K.F] * 7 + [K.I]  # time .. mask factor, compact
-    + [K.P] * 5 + [K.I, K.P, K.P]  # scratch, out, out row stride, count out, skip
+    + [K.P, K.P, K.I, K.P, K.L, K.P, K.P]  # verdicts, scan words, out, count out, skip
     + [K.P]  # the confidence gate by pointer (or null)
 )
+VERDICT_NONE = 0x3F800000  # a verdict word with no vote: csrc/surfel.cuh's ford(1.0f)
+
+
+def verdict_scratch(device, n: int) -> torch.Tensor:
+    """K9's verdicts on ``device``: [n] int32, ``VERDICT_NONE`` between calls
+    (set once here; a launch sets back every word its pixel pass voted
+    into), so no call fills them. One stream at a time, as the kernel's
+    header says."""
+    return K.scratch("clean.verdicts", n, torch.int32, device, VERDICT_NONE)
 
 
 def clean_cuda(smap: sm.SurfelMap, index_map: IndexMap, depth_input, mask, mask_id,
                cam: CameraModel, time, time_delta, conf_threshold, cfg: SurfelConfig,
                compact: bool = False, out=None, skip=None) -> sm.SurfelMap:
-    """K7 + K9 on the card: ``csrc/clean.cu`` (same contract as ``clean``)."""
+    """K7 + K9 on the card: ``csrc/clean.cu`` (same contract as ``clean``):
+    the pixel pass, then the surfel pass (a flag frame: into ``out``, in
+    place where ``out`` is ``smap.data``) or the one-launch compaction."""
     data = smap.data
     K.check(data, torch.float32, "data", contiguous=False)
     K.check(smap.count, torch.int32, "count")
@@ -359,9 +372,10 @@ def clean_cuda(smap: sm.SurfelMap, index_map: IndexMap, depth_input, mask, mask_
     K.check(mask, torch.int32, "mask")
     if skip is not None:
         K.check(skip, torch.bool, "skip")
+    window = check_stage_window(cfg.assoc_window)
     h, w = cam.height, cam.width
     cap = data.shape[1]
-    if data.shape[0] != sm.CHANNELS or data.stride(1) != 1:
+    if data.shape[0] != sm.CHANNELS or data.stride(1) != 1 or cap < 1:
         raise ValueError("data must be [16, B] with unit column stride")
     if index_map.data_local.shape != (sm.CHANNELS, cap) or index_map.index.shape != (h, w):
         raise ValueError("index must be [H, W] and data_local [16, B]")
@@ -370,9 +384,11 @@ def clean_cuda(smap: sm.SurfelMap, index_map: IndexMap, depth_input, mask, mask_
         out = torch.empty((sm.CHANNELS, cap), dtype=torch.float32, device=dev)
     elif tuple(out.shape) != (sm.CHANNELS, cap) or out.stride(1) != 1:
         raise ValueError("out must be [16, B] with unit column stride")
-    verdicts = torch.empty((cap,), dtype=torch.int32, device=dev)
-    keep = torch.empty((cap,), dtype=torch.uint8, device=dev)
-    counts, offsets = sm.compaction_scratch(cap, dev)
+    elif out.data_ptr() == data.data_ptr() and (compact or out.stride(0) != data.stride(0)):
+        raise ValueError("out may be the input only on a flag frame")
+    if compact:
+        sm.check_columns(cap, "data")
+    words, parity = sm.compaction_words(dev, sm.scan_tiles(cap)) if compact else (None, 0)
     count_out = torch.empty((), dtype=torch.int32, device=dev) if compact else smap.count
     factor = 0.5 + 0.5 * (1.0 - cfg.outlier_coeff / 10.0)
     conf_threshold, conf_p = scalar_arg(conf_threshold, "conf_threshold")
@@ -381,12 +397,14 @@ def clean_cuda(smap: sm.SurfelMap, index_map: IndexMap, depth_input, mask, mask_
         "clean.compact" if compact else "clean", f, K.ptr(data), data.stride(0), cap,
         K.ptr(smap.count), K.ptr(index_map.index),
         K.ptr(index_map.data_local), K.ptr(depth_input), K.ptr(mask), int(mask_id), h, w,
-        int(cfg.assoc_window), float(time), float(time_delta), conf_threshold,
+        window, float(time), float(time_delta), conf_threshold,
         float(cfg.unstable_grace), float(cfg.clean_see_through_gate), float(cfg.outlier_coeff),
-        factor, int(compact), K.ptr(verdicts), K.ptr(keep), K.ptr(counts), K.ptr(offsets),
-        K.ptr(out), out.stride(0), K.ptr(count_out), None if skip is None else K.ptr(skip),
-        conf_p,
+        factor, int(compact), K.ptr(verdict_scratch(dev, cap)),
+        None if words is None else K.ptr(words), parity, K.ptr(out), out.stride(0),
+        K.ptr(count_out), None if skip is None else K.ptr(skip), conf_p,
     )
+    if compact:
+        sm.compaction_launched(dev, sm.scan_tiles(cap))
     return sm.SurfelMap(data=out, count=count_out)
 
 
@@ -410,17 +428,21 @@ def clean(
 
     The visual tests run in image space for each pixel's index-map winner and
     scatter their verdicts back to the winning surfel ids. The cleaned
-    [16, B] map is written into ``out`` when given (it must not alias
-    ``smap.data``), unless the 0-dim bool ``skip`` (read on the device) is
-    set: then ``out`` keeps what it held (the returned count is the cleaned
-    one all the same)."""
+    [16, B] map is written into ``out`` when given, unless the 0-dim bool
+    ``skip`` (read on the device) is set: then ``out`` keeps what it held
+    (the returned count is the cleaned one all the same). On a flag frame
+    ``out`` may be ``smap.data`` itself, which the clean then updates in
+    place (on the card only the values that change are written); a
+    compaction frame's ``out`` must not alias it."""
     K.record("clean.compact" if compact else "clean", data=smap.data, count=smap.count,
              index=index_map.index, data_local=index_map.data_local, depth=depth_input,
              mask=mask, mask_id=mask_id, cam=cam, time=time, time_delta=time_delta,
              conf_threshold=conf_threshold, cfg=cfg, compact=compact)
-    impl = clean_cuda if smap.data.is_cuda else clean_plain
-    return impl(smap, index_map, depth_input, mask, mask_id, cam, time, time_delta,
-                conf_threshold, cfg, compact, out, skip)
+    if smap.data.is_cuda:
+        return clean_cuda(smap, index_map, depth_input, mask, mask_id, cam, time, time_delta,
+                          conf_threshold, cfg, compact, out, skip)
+    return clean_plain(smap, index_map, depth_input, mask, mask_id, cam, time, time_delta,
+                       conf_threshold, cfg, compact, out, skip)
 
 
 # ---------------------------------------------------------------- K14

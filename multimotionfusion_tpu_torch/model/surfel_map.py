@@ -4,8 +4,9 @@ Port of the reference package's ``model/surfel_map.py``, same channel layout.
 ``count`` is the high-water mark (a 0-dim int32 tensor on the map's device):
 slots [0, count) have ever been used; a slot is live iff its ALIVE channel is
 set. Culls clear the flag; ``compact`` repacks live surfels to the front
-(on the card with the order-preserving compaction of ``csrc/clean.cu``,
-kernel K9, whose new count stays on the card).
+and ``compact_segments`` every segment of the multi-model flat store (on the
+card with the one-launch order-preserving compaction of ``csrc/clean.cu``,
+kernel K9, whose new counts stay on the card).
 """
 
 from __future__ import annotations
@@ -130,29 +131,59 @@ def compact_plain(data: torch.Tensor, keep: torch.Tensor, capacity: int,
     return out, torch.sum(keep.to(torch.int32)).to(torch.int32)
 
 
-_BLOCK = 256  # compaction block size of csrc/clean.cu
+_TILE = 1024  # the compaction's tile of csrc/clean.cu (CTILE: 4 sub-tiles of 256)
+_WORDS = {}  # (device, tiles) -> the set of scan words the next call uses
+_SCAN_VALUE = 0x3FFFFFFF  # csrc/scan.cuh's SCAN_VALUE: a segment has fewer columns
+_MAX_SLOTS = 7  # csrc/clean.cu's MAXSEG: the global segment and 7 slots
 
 
-def compaction_scratch(n: int, device):
-    """(block counts, block offsets) int32 scratch of the compaction kernel."""
-    nb = max(1, (n + _BLOCK - 1) // _BLOCK)
-    return (torch.empty((nb,), dtype=torch.int32, device=device),
-            torch.empty((nb,), dtype=torch.int32, device=device))
+def scan_tiles(n: int) -> int:
+    return (n + _TILE - 1) // _TILE
+
+
+def compaction_words(device, tiles: int) -> Tuple[torch.Tensor, int]:
+    """The compaction's look-back scan words for ``tiles`` tiles on
+    ``device``: two sets of ``tiles + 1`` int32 words that calls alternate
+    between (a launch zeroes the other set, which the call before it used),
+    and the set this call uses. The caller hands the sets over with
+    ``compaction_launched`` once its launch was taken, so a refused call
+    leaves them as they were. One stream at a time."""
+    words = K.scratch(f"compaction.scan.{tiles}", 2 * (tiles + 1), torch.int32, device, 0)
+    return words, _WORDS.get((torch.device(device), int(tiles)), 0)
+
+
+def compaction_launched(device, tiles: int) -> None:
+    """A compaction over ``tiles`` tiles was launched: the next call uses
+    the other set of words."""
+    key = (torch.device(device), int(tiles))
+    _WORDS[key] = 1 - _WORDS.get(key, 0)
+
+
+def check_columns(n: int, name: str) -> None:
+    if not 1 <= n < _SCAN_VALUE:
+        raise ValueError(f"{name} must have 1 to {_SCAN_VALUE - 1} columns, got {n}")
 
 
 def compact_cuda(data: torch.Tensor, keep: torch.Tensor, capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K9's compaction on the card: ``csrc/clean.cu`` ``mmf_compact``, one
+    launch (the keep flags scanned, the kept columns scattered, the slots
+    after them zeroed)."""
     K.check(data, torch.float32, "data", contiguous=False)
     K.check(keep, torch.bool, "keep")
     if data.shape[0] != CHANNELS or data.stride(1) != 1 or keep.shape != (data.shape[1],):
         raise ValueError("data must be [16, N] (unit column stride) and keep [N]")
+    n = data.shape[1]
+    check_columns(n, "data")
+    if capacity < 0:
+        raise ValueError("capacity must not be negative")
     dev = data.device
     out = torch.empty((CHANNELS, capacity), dtype=torch.float32, device=dev)
-    n = data.shape[1]
-    counts, offsets = compaction_scratch(n, dev)
     count = torch.empty((), dtype=torch.int32, device=dev)
-    f = K.fn("clean", "mmf_compact", [K.P, K.I, K.I, K.P, K.P, K.P, K.P, K.I, K.I, K.P])
-    K.call("compact", f, K.ptr(data), data.stride(0), n, K.ptr(keep), K.ptr(counts),
-           K.ptr(offsets), K.ptr(out), out.stride(0), capacity, K.ptr(count))
+    words, parity = compaction_words(dev, scan_tiles(n))
+    f = K.fn("clean", "mmf_compact", [K.P, K.L, K.I, K.P, K.P, K.L, K.I, K.P, K.P, K.I])
+    K.call("compact", f, K.ptr(data), data.stride(0), n, K.ptr(keep), K.ptr(out), out.stride(0),
+           capacity, K.ptr(count), K.ptr(words), parity)
+    compaction_launched(dev, scan_tiles(n))
     return out, count
 
 
@@ -162,6 +193,70 @@ def compact(data: torch.Tensor, keep: torch.Tensor, capacity: int) -> Tuple[torc
     K.record("compact", data=data, keep=keep, capacity=capacity)
     impl = compact_cuda if data.is_cuda else compact_plain
     return impl(data, keep, capacity)
+
+
+def compact_segments_plain(gsrc: torch.Tensor, osrc: torch.Tensor, counts: torch.Tensor,
+                           gdst: torch.Tensor, odst: torch.Tensor) -> torch.Tensor:
+    """Plain twin of ``compact_segments``: ``compact_plain`` segment by
+    segment, each into its destination."""
+    segs = [(gsrc, gdst)] + [(osrc[:, k], odst[k]) for k in range(osrc.shape[1])]
+    cnts = []
+    for m, (src, dst) in enumerate(segs):
+        size = src.shape[1]
+        keep = (torch.arange(size, dtype=torch.int32, device=src.device) < counts[m]) \
+            & (src[ALIVE] > 0)
+        d, c = compact_plain(src, keep, size)
+        dst.copy_(d)
+        cnts.append(c)
+    return torch.stack(cnts)
+
+
+def compact_segments_cuda(gsrc: torch.Tensor, osrc: torch.Tensor, counts: torch.Tensor,
+                          gdst: torch.Tensor, odst: torch.Tensor) -> torch.Tensor:
+    """K9's repack of every segment on the card: ``csrc/clean.cu``
+    ``mmf_compact_segments``, one launch; each segment's keep formed in the
+    kernel."""
+    for t, name in ((gsrc, "gsrc"), (osrc, "osrc"), (gdst, "gdst"), (odst, "odst")):
+        K.check(t, torch.float32, name, contiguous=False)
+    K.check(counts, torch.int32, "counts")
+    S = osrc.shape[1]
+    bg, bo = gsrc.shape[1], osrc.shape[2]
+    if gsrc.shape[0] != CHANNELS or osrc.shape[0] != CHANNELS or gdst.shape != gsrc.shape \
+            or tuple(odst.shape) != (S, CHANNELS, bo) or counts.shape != (1 + S,):
+        raise ValueError("gsrc, gdst must be [16, Bg], osrc [16, S, Bo], odst [S, 16, Bo], "
+                         "counts [1 + S]")
+    if any(t.numel() and t.stride(-1) != 1 for t in (gsrc, osrc, gdst, odst)):
+        raise ValueError("surfel columns must have unit stride")
+    if gsrc.data_ptr() == gdst.data_ptr() or (S and osrc.data_ptr() == odst.data_ptr()):
+        raise ValueError("the compaction's destinations must not be its sources")
+    if S > _MAX_SLOTS:
+        raise ValueError(f"at most {_MAX_SLOTS} slot segments, got {S}")
+    check_columns(bg, "gsrc")
+    if S:
+        check_columns(bo, "osrc")
+    dev = gsrc.device
+    counts_out = torch.empty((1 + S,), dtype=torch.int32, device=dev)
+    tiles = scan_tiles(bg) + S * scan_tiles(bo)
+    words, parity = compaction_words(dev, tiles)
+    f = K.fn("clean", "mmf_compact_segments",
+             [K.P, K.L, K.P, K.L, K.I, K.P, K.L, K.L, K.P, K.L, K.L, K.I, K.I, K.P, K.P, K.P, K.I])
+    K.call("compact.segments", f, K.ptr(gsrc), gsrc.stride(0), K.ptr(gdst), gdst.stride(0), bg,
+           K.ptr(osrc), osrc.stride(0), osrc.stride(1), K.ptr(odst), odst.stride(1),
+           odst.stride(0), bo, S, K.ptr(counts), K.ptr(counts_out), K.ptr(words), parity)
+    compaction_launched(dev, tiles)
+    return counts_out
+
+
+def compact_segments(gsrc: torch.Tensor, osrc: torch.Tensor, counts: torch.Tensor,
+                     gdst: torch.Tensor, odst: torch.Tensor) -> torch.Tensor:
+    """The multi-model repack: the global segment ``gsrc`` [16, Bg] and
+    every slot segment of ``osrc`` [16, S, Bo], each slot below its count
+    with ALIVE > 0 kept, packed in order into ``gdst`` [16, Bg] and ``odst``
+    [S, 16, Bo] (which must not be the sources), the slots after them zeroed;
+    returns the new counts [1 + S] int32."""
+    K.record("compact.segments", gsrc=gsrc, osrc=osrc, counts=counts, gdst=gdst, odst=odst)
+    impl = compact_segments_cuda if gsrc.is_cuda else compact_segments_plain
+    return impl(gsrc, osrc, counts, gdst, odst)
 
 
 def init_from_frame(frame: FrameSurfels, capacity: int) -> SurfelMap:

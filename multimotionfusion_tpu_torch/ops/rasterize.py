@@ -451,7 +451,6 @@ def render_depths_plain(st: DepthStores, T_inv, maxd, conf, cam_c: CameraModel, 
     return depth.reshape(M, hc, wc)
 
 
-_DEPTH_SCRATCH = {}  # (device, cells) -> K13's int32 keys, KEY_INVALID between calls
 RENDER_DEPTHS_MAX_MODELS = 32  # csrc/zbuffer.cu RD_MAX_M
 
 
@@ -459,10 +458,7 @@ def depth_scratch(device, cells: int) -> torch.Tensor:
     """K13's keys on ``device``: [cells] int32, all ``_KEY_INVALID`` between
     calls (set once here; each launch leaves every key it read so), so no
     call fills them. One stream at a time, as the kernel's header says."""
-    key = (torch.device(device), int(cells))
-    if key not in _DEPTH_SCRATCH:
-        _DEPTH_SCRATCH[key] = torch.full((cells,), _KEY_INVALID, dtype=torch.int32, device=device)
-    return _DEPTH_SCRATCH[key]
+    return K.scratch("zbuffer.depth_keys", cells, torch.int32, device, _KEY_INVALID)
 
 
 def render_depths_cuda(st: DepthStores, T_inv, maxd, conf, cam_c: CameraModel, time,

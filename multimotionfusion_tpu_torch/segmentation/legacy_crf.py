@@ -12,13 +12,15 @@ first-index argmax -> the labels back on the pixels (K24b) -> the largest
 component of each label at full resolution (K17) -> the new label's size
 gates.
 
-- ``crf_plan`` (K24c, ``csrc/legacy_crf.cu`` ``mmf_lcrf_plan``): the
-  depth range (a fixed-order min / max), the gates, the unaries with their
-  clamps, the features, both [S, S] kernel matrices with their row sums and
-  symmetric normalisation, and Q0 = softmax(-unary);
-- ``crf_iterate`` (K24c ``mmf_lcrf_iterate``): one mean-field step, both
-  [S, S] x [S, L] products in the kernel, and on the last step the
-  first-index argmax.
+- ``crf_plan`` (K24c, ``csrc/legacy_crf.cu`` ``mmf_lcrf_plan``, two
+  launches): the depth range (min / max, exact in any order), the gates, the
+  unaries with their clamps, the features, both [S, S] kernel matrices with
+  their row sums and symmetric normalisation, and Q0 = softmax(-unary);
+- ``mean_field`` (K24c ``mmf_lcrf_mean_field``, through
+  ``crf_mean_field_cuda``): every mean-field step in one cooperative
+  launch, both [S, S] x [S, L] products in the kernel, Q after each step and
+  the last step's first-index argmax;
+- ``crf_iterate_cuda`` (K24c ``mmf_lcrf_iterate``): one step, for the checks.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 PyTorch version (``*_plain``, the reference's expressions in its order;
@@ -152,13 +154,33 @@ def crf_plan_cuda(lows, mean_color, mean_xy, active, allow_new: bool) -> CrfPlan
     feat = torch.empty((s, 6), dtype=F32, device=dev)
     ks = torch.empty((s, s), dtype=F32, device=dev)
     ka = torch.empty((s, s), dtype=F32, device=dev)
-    dinv = torch.empty((2, s), dtype=F32, device=dev)
+    dinv = K.scratch("legacy_crf.dinv", 2 * s, F32, dev)  # the row factors, within a call
     q0 = torch.empty((s, nl), dtype=F32, device=dev)
     f = K.fn("legacy_crf", "mmf_lcrf_plan", [K.P, K.P, K.P, K.P, K.I, K.I, K.I] + [K.P] * 6)
     K.call("legacy_crf.plan", f, K.ptr(lows), K.ptr(mean_color), K.ptr(mean_xy), K.ptr(active),
            m, s, int(allow_new), K.ptr(unary), K.ptr(feat), K.ptr(ks), K.ptr(ka), K.ptr(dinv),
            K.ptr(q0))
     return CrfPlan(unary, feat, ks, ka, q0)
+
+
+def crf_mean_field_cuda(plan: CrfPlan, iterations: int):
+    """K24c's ``iterations`` >= 1 mean-field steps on the card in one launch
+    (``mmf_lcrf_mean_field``): (Q after each step [iterations, S, L], the
+    last step's first-index argmax [S] int32)."""
+    s, nl = plan.q0.shape
+    if iterations < 1 or nl > MAX_LABELS:
+        raise ValueError(f"at least one step and at most {MAX_LABELS} labels")
+    for t, name in ((plan.q0, "q0"), (plan.unary, "unary"), (plan.k_smooth, "k_smooth"),
+                    (plan.k_app, "k_app")):
+        K.check(t, F32, name)
+    hist = torch.empty((iterations, s, nl), dtype=F32, device=plan.q0.device)
+    lbl = torch.empty((s,), dtype=I32, device=plan.q0.device)
+    f = K.fn("legacy_crf", "mmf_lcrf_mean_field",
+             [K.P, K.P, K.P, K.P, K.I, K.I, K.F, K.F, K.I, K.P, K.P])
+    K.call("legacy_crf.mean_field", f, K.ptr(plan.q0), K.ptr(plan.unary), K.ptr(plan.k_smooth),
+           K.ptr(plan.k_app), s, nl, WEIGHT_SMOOTHNESS, WEIGHT_APPEARANCE, iterations,
+           K.ptr(hist), K.ptr(lbl))
+    return hist, lbl
 
 
 def crf_iterate_cuda(q: torch.Tensor, plan: CrfPlan, want_labels: bool = False):
@@ -185,23 +207,18 @@ def crf_plan(lows, mean_color, mean_xy, active, allow_new: bool) -> CrfPlan:
     return impl(lows, mean_color, mean_xy, active, allow_new)
 
 
-def crf_iterate(q: torch.Tensor, plan: CrfPlan, want_labels: bool = False):
-    """(Q after one step, its first-index argmax [S] int32 or None)."""
-    K.record("legacy_crf.iterate", q=q, plan=plan, want_labels=want_labels)
-    if q.is_cuda:
-        return crf_iterate_cuda(q, plan, want_labels)
-    q = crf_iterate_plain(q, plan)
-    return q, torch.argmax(q, dim=-1).to(I32) if want_labels else None
-
-
 def mean_field(plan: CrfPlan, iterations: int) -> torch.Tensor:
-    """[S] int32 first-index argmax of Q after ``iterations`` steps."""
-    q, lbl = plan.q0, None
-    for it in range(iterations):
-        q, lbl = crf_iterate(q, plan, want_labels=it == iterations - 1)
-    if lbl is None:  # no iteration: Q0's argmax
-        lbl = torch.argmax(q, dim=-1).to(I32)
-    return lbl
+    """[S] int32 first-index argmax of Q after ``iterations`` steps (on the
+    card every step in one launch)."""
+    if iterations < 1:  # no iteration: Q0's argmax
+        return torch.argmax(plan.q0, dim=-1).to(I32)
+    K.record("legacy_crf.mean_field", plan=plan, iterations=iterations)
+    if plan.q0.is_cuda:
+        return crf_mean_field_cuda(plan, iterations)[1]
+    q = plan.q0
+    for _ in range(iterations):
+        q = crf_iterate_plain(q, plan)
+    return torch.argmax(q, dim=-1).to(I32)
 
 
 def legacy_crf_segmentation(

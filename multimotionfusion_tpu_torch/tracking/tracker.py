@@ -329,7 +329,7 @@ def update_cuda(table: TrackTable, kps: Keypoints, depth, time: int, cam: Camera
                 cfg: KeypointConfig, pair: bool = True):
     """Three launches: the match tiles and the mutual test (the tracks'
     ``in_history`` computed in the first), then the update."""
-    if K.capturing():
+    if K.capturing("mutual_match"):
         K.record("mutual_match", q_desc=kps.desc, t_desc=table.desc, q_valid=kps.valid,
                  t_valid=in_history(table, time), max_dist=cfg.match_dist_gate)
     match_idx, tcol, _ = _match_cuda(kps.desc, table.desc, kps.valid, None,

@@ -25,7 +25,8 @@ A second 160x120 run, of the multi-model engine with external masks
 (chip_smoke.py's five orbiting spheres, 24 frames: five spawns and a
 compaction frame), records the inputs of the multi-model kernels at its
 last frame (K11 per level with its owner prep, K5's M-wide steps, K12, K14
-fuse and clean, K10 composite) and of the composite odometry loop, which
+fuse and clean, K10 composite; K9's repack of every segment at the
+compaction frame before it) and of the composite odometry loop, which
 runs on the card against the plain loop on the CPU.
 
 A third run, of the flow-CRF multi-model engine on tests/test_five_movers.py's
@@ -97,6 +98,7 @@ CASES = (
        ("gn_step", checks.check_gn_step),
        ("track", checks.check_track), ("zbuffer", checks.check_zbuffer),
        ("fuse", checks.check_fuse), ("clean", checks.check_clean),
+       ("clean.in_place", lambda a: checks.check_clean(a, in_place=True)),
        ("clean.compact", checks.check_clean), ("compact", checks.check_compact),
        ("splat_resolve", checks.check_splat)]
     + [(f"gn_reduce.L{lvl}", lambda a, lvl=lvl: checks.check_gn(a, lvl)) for lvl in LEVELS]
@@ -112,7 +114,10 @@ NOT_KERNELS = ("track", "sparse", "so3_reduce", "so3_step")
 
 def _capture_key(name: str) -> str:
     """Recorded inputs and launch key of a case (a pyramid side builds every
-    level in one launch; its cases check one level each)."""
+    level in one launch; its cases check one level each; the in-place clean
+    replays the flag frame's record)."""
+    if name == "clean.in_place":
+        return "clean"
     return name.rsplit(".", 1)[0] if name.startswith("pyramid.") else name
 
 
@@ -161,7 +166,8 @@ MULTI_CASES = (
        ("multi_so3_iteration", checks.check_so3_iteration),
        ("multi_track", checks.check_multi_track), ("zbuffer.flat", checks.check_zbuffer_flat),
        ("fuse_flat", checks.check_fuse_flat), ("clean_flat", checks.check_clean_flat),
-       ("splat_resolve.composite", checks.check_splat)]
+       ("splat_resolve.composite", checks.check_splat),
+       ("compact.segments", checks.check_compact_segments)]
 )
 
 
@@ -180,10 +186,13 @@ def captured_multi():
     K.reset_launches()
     eng = MultiMotionFusionTorch(cfg, device="cuda")
     for i, f in enumerate(frames):
-        if i == MULTI_FRAMES:
+        if i in (MULTI_FRAMES - 1, MULTI_FRAMES):
             K.start_capture()
         eng.process_frame(f)
+        if i == MULTI_FRAMES - 1:  # tick 24 repacks the stores
+            repack = K.stop_capture()["compact.segments"]
     out = checks.derive_so3(K.stop_capture())
+    out["compact.segments"] = repack
     torch.cuda.synchronize()
     assert eng.finish()["active_objects"] == 5.0
     for name, _ in MULTI_CASES:
@@ -386,7 +395,7 @@ def captured_legacy():
     out = K.stop_capture()
     torch.cuda.synchronize()
     for key in ("gn_reduce.error_images", "slic.centres", "slic.assign", "sp.downsample",
-                "sp.upsample", "legacy_crf.plan", "legacy_crf.iterate", "components"):
+                "sp.upsample", "legacy_crf.plan", "legacy_crf.mean_field", "components"):
         assert K.LAUNCHES.get(key, 0) > 0, key
     return out
 
@@ -500,6 +509,23 @@ def test_k13_k19_hand_made_cases(name):
     the keys' scratch all KEY_INVALID after every call; K19's patch_score on
     ``checks.SCORE_CASES`` (487x651, 9x11, all border, constant, sign-flipping
     steps, sizes one off the 32 x 20 tile): bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
+    r = getattr(checks, f"check_{name}")("cuda")
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("name", ["clean_cases", "lcrf_cases"])
+def test_k7_k9_k24c_hand_made_cases(name):
+    """K7/K9 on ``checks.CLEAN_CASES``, ``COMPACT_CASES`` and
+    ``SEGMENT_CASES`` (the flag frame into a map and in place, the
+    compaction frame, ``compact`` and the multi-model repack, each
+    compaction after a call its wrapper refuses over as many tiles):
+    bit-equal to the plain versions, the verdicts' scratch clean after every
+    launch; K24c on ``checks.LCRF_CASES`` (1 to 8,040 superpixels, 2 to 16
+    labels, NaN and +-inf errors, ties): within ``check_lcrf_plan``'s and
+    ``check_lcrf_iterate``'s tolerances, the one-launch mean field bit-equal
+    to the one-step chain."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA): the kernels have no CPU mode")
     r = getattr(checks, f"check_{name}")("cuda")

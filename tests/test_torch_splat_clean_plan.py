@@ -1,5 +1,6 @@
-"""The staged windows of K10 (``csrc/splat_resolve.cu``) and of K14's clean
-pixel pass (``csrc/fuse_flat.cu``), and the clean's in-place rule.
+"""The staged windows of K10 (``csrc/splat_resolve.cu``) and of K14's and
+K9's clean pixel passes (``csrc/fuse_flat.cu``, ``csrc/clean.cu``), and the
+clean's in-place rule.
 
 A block of one thread a pixel owns a ``TILE`` = (32, 8) pixel tile and
 stages it widened by ``halo(window)``; each pixel then reads its window's taps
@@ -38,7 +39,8 @@ WINDOWS = tuple(range(1, R.STAGE_MAX_WINDOW + 1))
 SIZES = ((9, 11), (17, 23), (37, 61), (61, 37), (120, 160), (487, 651))
 # (source, tile width, tile height, largest window, shared array length) names
 KERNELS = (("splat_resolve", "TW", "TH", "MAX_WINDOW", "STAGED"),
-           ("fuse_flat", "CTW", "CTH", "CLEAN_MAX_WINDOW", "CLEAN_STAGED"))
+           ("fuse_flat", "CTW", "CTH", "CLEAN_MAX_WINDOW", "CLEAN_STAGED"),
+           ("clean", "CTW", "CTH", "CLEAN_MAX_WINDOW", "CLEAN_STAGED"))
 
 
 def cu_constants(name: str) -> dict:

@@ -60,7 +60,12 @@ records, as they are and as edited copies (``depths_score_variants``: K13
 in one launch, without the warp's runs, with other columns a thread and
 blocks; patch_score with other tiles and cut after each phase), warm and
 cold, with their launches a call; ``--baseline DIR`` adds another tree's
-two sources. Each copy is
+two sources. ``clean``, ``compact`` and ``lcrf``: K7/K9 (``csrc/clean.cu``:
+the flag frame into the bucket and in place, the compaction frame,
+``compact``, the multi-model repack) on the inputs the static and flow-CRF
+runs record and K24c (``csrc/legacy_crf.cu``: the plan and the ten-step mean
+field) on the legacy run's, as they are and as edited copies
+(``clean_lcrf_variants``). Each copy is
 written and built with the build's flags in ``DIR/build/variants``; an
 edit whose text is no longer in the source stops the script. Prints JSON
 lines.
@@ -955,19 +960,226 @@ def depths_score_variants(tree, torch, K, C, R, SP, only, names=None, baseline=N
             K._libs[lib_name] = kept
 
 
+# K7/K9 (csrc/clean.cu) and K24c (csrc/legacy_crf.cu) as edited copies
+# where a flag frame's copy runs: all of it in the surfel pass (no copy
+# blocks), or all of it in the pixel pass's launch
+PIXEL_COPY = ("constexpr unsigned PIXEL_COPY = (1u << PX) | (1u << PY) | (1u << PZ) | (1u << CR) | "
+              "(1u << CG) |\n                                (1u << CB) | (1u << INIT_T);")
+
+
+LCRF_MARKS = [
+    ("start", "  extern __shared__ float smem[];", 0, True),
+    ("step t staged", "    __syncthreads();  // Q staged (and the rows), the last pass's messages "
+     "read", "1 + 3 * t", True),
+    ("step t rows done", "    if (t + 1 < a.steps) cg::this_grid().sync();", "2 + 3 * t", False),
+    ("step t barrier passed", "    if (t + 1 < a.steps) cg::this_grid().sync();",
+     "3 + 3 * t", True),
+]
+LCRF_LABELS = {0: "start"}
+LCRF_LABELS.update({1 + 3 * t + k: f"step {t} {what}" for t in range(10)
+                    for k, what in enumerate(("staged", "rows done", "barrier passed"))})
+
+
+def clean_lcrf_sources(csrc):
+    """({variant: K7/K9 source}, {variant: K24c source}) of the ``clean``,
+    ``compact`` and ``lcrf`` parts."""
+    csrc_clean = open(os.path.join(csrc, "clean.cu")).read()
+    lsrc = open(os.path.join(csrc, "legacy_crf.cu")).read()
+    pixels = "  pixels<<<copy_blocks + tiles, CLEAN_THREADS, 0, stream>>>(pa, verdicts);\n"
+    clean = {
+        "as_is": csrc_clean,
+        "runtime_window": patch(csrc_clean, "auto pixels = window == 4 ? pixel_pass<4> : "
+                                "pixel_pass<0>;", "auto pixels = pixel_pass<0>;"),
+        "fill_launch": patch(csrc_clean, pixels,
+                             "  fill_verdicts<<<(B + THREADS - 1) / THREADS, THREADS, 0, "
+                             "stream>>>(verdicts, B);\n" + pixels),
+        "copy_in_surfel_pass": patch(csrc_clean, PIXEL_COPY,
+                                     "constexpr unsigned PIXEL_COPY = 0u;"),
+        "copy_in_pixel_launch": patch(csrc_clean, PIXEL_COPY,
+                                      "constexpr unsigned PIXEL_COPY = 0xffffu & ~((1u << CONF) | "
+                                      "(1u << ALIVE));"),
+        # diagnostics whose outputs differ: the pixel pass alone, the second
+        # launch alone
+        "pixel_pass_only": patch(csrc_clean, "  KeepArgs k{count, time, conf_thr, grace, "
+                                 "time_delta, conf_p};\n",
+                                 "  KeepArgs k{count, time, conf_thr, grace, time_delta, "
+                                 "conf_p};\n  if (H > 0) return (int)cudaGetLastError();\n"),
+        "second_launch_only": patch(csrc_clean, pixels, ""),
+        "pixel_tiles_only": patches(csrc_clean, [(PIXEL_COPY, "constexpr unsigned PIXEL_COPY = 0u;"), (
+            "  KeepArgs k{count, time, conf_thr, grace, time_delta, conf_p};\n",
+            "  KeepArgs k{count, time, conf_thr, grace, time_delta, conf_p};\n"
+            "  if (H > 0) return (int)cudaGetLastError();\n")]),
+        "no_tail_zeroing": patch(csrc_clean, "  for (int z = s.n - e_incl + threadIdx.x; z < s.n - "
+                                 "e_before && z < s.cap; z += CT)\n    zero_column(s.dst, "
+                                 "s.dst_rs, z);\n", ""),
+    }
+    sync = "    if (t + 1 < a.steps) cg::this_grid().sync();\n"
+    lcrf = {
+        "as_is": lsrc,
+        "unstaged": patch(lsrc, "const bool staged = q_bytes <= STAGE_MAX;",
+                          "const bool staged = false;"),
+        "rows_from_l2": patch(lsrc, "for (int rows = staged && q_bytes + msg_bytes + row_bytes <= "
+                              "FIELD_MAX_SMEM; rows >= 0; --rows) {",
+                              "for (int rows = 0; rows >= 0; --rows) {"),
+        "row_batch_1": patch(lsrc, "constexpr int ROW_BATCH = 8;", "constexpr int ROW_BATCH = 1;"),
+        "row_batch_4": patch(lsrc, "constexpr int ROW_BATCH = 8;", "constexpr int ROW_BATCH = 4;"),
+        "stage_batch_1": patch(lsrc, "constexpr int STAGE_BATCH = 8;",
+                               "constexpr int STAGE_BATCH = 1;"),
+        "labels_8_a_warp": patch(lsrc, "constexpr int FIELD_LG = 4;", "constexpr int FIELD_LG = 8;"),
+        "labels_2_a_warp": patch(lsrc, "constexpr int FIELD_LG = 4;", "constexpr int FIELD_LG = 2;"),
+        "plan_one_row_a_block": patch(lsrc, "constexpr int PLAN_ROWS = 8;",
+                                      "constexpr int PLAN_ROWS = 1;"),
+        "stamps": stamped(lsrc, LCRF_MARKS),
+        # diagnostics whose outputs differ: no grid barrier; the plan's first
+        # launch alone
+        "no_barrier": patch(lsrc, sync, ""),
+        "plan_sums_only": patch(lsrc, "  plan_rows<<<row_blocks, THREADS, 0, stream>>>(a);\n", ""),
+    }
+    return clean, lcrf
+
+
+def clean_lcrf_variants(tree, torch, K, C, FU, SM, LC, only, names=None):
+    """K7/K9's flag frame (into the bucket and in place), compaction frame,
+    ``compact`` and multi-model repack, and K24c's plan and ten-step mean
+    field, on the inputs chip_smoke.py's static, flow-CRF and legacy runs
+    record, as they are and as edited copies (``clean_lcrf_sources``):
+    the pixel pass's window at run time, the parent's fill launch put back,
+    the flag frame's whole copy in the surfel pass (no copy blocks) or in
+    the pixel pass's launch; the mean field with its kernel rows read
+    from the L2 at every step, with Q read from the L2,
+    with one or four row terms loaded at a time and one staging load at a
+    time, eight or two labels a warp, the plan at one row a block, and with
+    globaltimer stamps (thread 0 of the first 16 blocks: each step's
+    staging, rows and barrier); as diagnostics whose outputs differ, the
+    pixel pass alone, the second launch alone, the compaction without its
+    tail zeroing, the pixel tiles alone (no copy blocks), the mean field
+    without its grid barrier and the plan's
+    first launch alone. Each reading chip_smoke's
+    (``_device_profile``), the median of three, with the launches a call and
+    whether the outputs equal the source's."""
+    import dataclasses
+
+    import chip_smoke as S
+    from multimotionfusion_tpu_torch.ops import rasterize as R
+
+    reads, fns = {}, {}
+    if only & {"clean", "compact"}:
+        cfg, frames, gt = S.static_frames(S.N_FRAMES)
+        captured = S.run_engine(K, cfg, frames, gt)[2]
+        f_cfg, f_frames = S.multi_frames(1 + S.MULTI_FRAMES, masks=False)
+        f_captured = S.run_multi_flow(K, f_cfg, f_frames)[2]
+        for key in ("clean", "clean.compact"):
+            (data, count, index, dl, depth, mask, mask_id, cam, t, td, conf, cfg_s,
+             compact) = C.args(key, captured[key])
+            args = (SM.SurfelMap(data, count), R.IndexMap(index, dl), depth, mask, mask_id, cam,
+                    t, td, conf, cfg_s, compact)
+            out = torch.empty_like(data)
+            fns[f"{key}[bucket]"] = ("clean", lambda args=args, out=out: list(
+                FU.clean_cuda(*args, out=out)), None)
+            if key == "clean":  # fresh copies of the map, 91 calls a variant
+                pool, used = [data.clone() for _ in range(100)], [0]
+
+                def in_place(args=args, pool=pool, used=used, count=count):
+                    used[0] += 1
+                    d = pool[(used[0] - 1) % len(pool)]
+                    r = FU.clean_cuda(SM.SurfelMap(d, count), *args[1:], out=d)
+                    return [r.data, r.count]
+
+                def refill(pool=pool, used=used, data=data):
+                    for x in pool[:min(used[0], len(pool))]:
+                        x.copy_(data)
+                    used[0] = 0
+
+                fns["clean[in place]"] = ("clean", in_place, refill)
+        ca = C.args("compact", captured["compact"])
+        fns["compact"] = ("compact", lambda: list(SM.compact_cuda(*ca)), None)
+        gsrc, osrc, counts, gdst, odst = C.args("compact.segments",
+                                                f_captured["compact.segments"])
+        gk, ok_ = gdst.clone(), odst.clone()
+        fns["compact.segments"] = ("compact", lambda: [
+            SM.compact_segments_cuda(gsrc, osrc, counts, gk, ok_), gk, ok_], None)
+    if "lcrf" in only:
+        f_cfg, f_frames = S.multi_frames(1 + S.MULTI_FRAMES, masks=False)
+        g_cfg = dataclasses.replace(f_cfg, segmentation=dataclasses.replace(
+            f_cfg.segmentation, mode="crf"))
+        g_captured = S.run_multi_legacy(K, g_cfg, f_frames)[2]
+        la = C.args("legacy_crf.plan", g_captured["legacy_crf.plan"])
+        plan = LC.crf_plan_cuda(*la)
+        print(json.dumps({"kernel": "legacy_crf", "superpixels": plan.q0.shape[0],
+                          "labels": plan.q0.shape[1]}))
+        fns["legacy_crf.plan"] = ("lcrf", lambda: list(LC.crf_plan_cuda(*la)), None)
+        fns["legacy_crf.mean_field[10]"] = ("lcrf", lambda: list(
+            LC.crf_mean_field_cuda(plan, 10)), None)
+    csrc = os.path.join(tree, "multimotionfusion_tpu_torch", "csrc")
+    clean_src, lcrf_src = clean_lcrf_sources(csrc)
+    for lib_name, part, variants in (("clean", "clean", clean_src),
+                                     ("legacy_crf", "lcrf", lcrf_src)):
+        mine = {k: v for k, v in fns.items() if v[0] == part
+                or (part == "clean" and v[0] == "compact")}
+        if not mine:
+            continue
+        if names:
+            variants = {k: v for k, v in variants.items() if k in names or k == "as_is"}
+        kept, ref = K._libs[lib_name], {}
+        built = {name: build(tree, f"{lib_name}_{name}", text) for name, text in variants.items()}
+        try:
+            for name in variants:
+                if built[name] is None:
+                    continue
+                K._libs[lib_name] = built[name]
+                for what, (_, fn, refill) in mine.items():
+                    # the persistent scratch as a fresh process has it: a
+                    # diagnostic that drops a launch leaves verdicts voted or
+                    # scan words used that the next launch expects reset
+                    torch.cuda.synchronize()
+                    for (sname, _dev), buf in K._SCRATCH.items():
+                        if sname.startswith("compaction.scan."):
+                            buf.zero_()
+                        elif sname == "clean.verdicts":
+                            buf.fill_(FU.VERDICT_NONE)
+                    SM._WORDS.clear()
+                    if refill is not None:
+                        refill()
+                    out = [x.clone() for x in fn()]
+                    torch.cuda.synchronize()
+                    ref.setdefault(what, out)
+                    same = all(a.shape == b.shape and torch.equal(
+                        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+                        for a, b in zip(out, ref[what]))
+                    reads[(what, name)] = [S._device_profile(fn) for _ in range(3)]
+                    runs = [r[0] * 1e3 if r[0] is not None else None
+                            for r in reads[(what, name)]]
+                    valid = sorted(r for r in runs if r is not None)
+                    print(json.dumps({"kernel": what, "variant": name,
+                                      "device_us": valid[len(valid) // 2] if valid else None,
+                                      "device_us_runs": runs,
+                                      "launches_per_call": reads[(what, name)][0][1],
+                                      "equal_to_as_is": same,
+                                      "ptxas": ptxas_summary(LOGS.get(f"{lib_name}_{name}", ""))}),
+                          flush=True)
+                    if name == "stamps" and what == "legacy_crf.mean_field[10]":
+                        _busy(torch)
+                        fn()
+                        torch.cuda.synchronize()
+                        report(what, built[name], LCRF_LABELS)
+        finally:
+            K._libs[lib_name] = kept
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--only",
-                    default="flow,tracks,finish,select,nms,levels,splat,owner,depths,score",
+                    default="flow,tracks,finish,select,nms,levels,splat,owner,depths,score,"
+                            "clean,compact,lcrf",
                     help="comma-separated: flow, tracks, finish, select, nms, levels, splat, "
-                         "owner, depths, score")
+                         "owner, depths, score, clean, compact, lcrf")
     ap.add_argument("--baseline", default="",
                     help="another tree whose K13 and K19 sources the depths and score parts "
                          "also run (variant 'baseline')")
     ap.add_argument("--variants", default="",
-                    help="comma-separated: the owner, depths and score parts' variants to run "
-                         "(default all)")
+                    help="comma-separated: the owner, depths, score, clean and lcrf parts' "
+                         "variants to run (default all)")
     args = ap.parse_args()
     tree, only = os.path.abspath(args.tree), set(args.only.split(","))
     sys.path.insert(0, tree)
@@ -1007,6 +1219,11 @@ def main() -> int:
     names = set(filter(None, args.variants.split(",")))
     if "owner" in only:
         owner_variants(tree, torch, K, C, MO, FC, names)
+    if only & {"clean", "compact", "lcrf"}:
+        from multimotionfusion_tpu_torch.model import surfel_map as SM
+        from multimotionfusion_tpu_torch.segmentation import legacy_crf as LC
+
+        clean_lcrf_variants(tree, torch, K, C, FU, SM, LC, only, names)
     if "depths" in only or "score" in only:
         depths_score_variants(tree, torch, K, C, R, SP, only, names,
                               os.path.abspath(args.baseline) if args.baseline else None)

@@ -39,11 +39,21 @@ frame_depth_c, p_proj, behind and unary), K13 per call
 (``rasterize.render_depths_cuda``: the depth, and in a tree whose K13 keeps
 its keys in a persistent scratch, ``rasterize.depth_scratch``, whether that
 scratch holds only KEY_INVALID after the call) and K19's patch_score per
-call (``superpoint.patch_score_cuda``: score and blurred intensity), digests
+call (``superpoint.patch_score_cuda``: score and blurred intensity), K7/K9
+per clean (``fusion.clean_cuda``: the map and the count), per compaction
+(``surfel_map.compact_cuda``, and the multi-model repack segment by segment:
+``compact_segments_cuda``'s destinations and counts, or in a tree before it
+the engine's ``compact_cuda`` a segment) and K24c per plan
+(``legacy_crf.crf_plan_cuda``: its five outputs), per mean-field step (Q:
+``crf_mean_field_cuda``'s history step by step, or a tree's one-step
+``crf_iterate_cuda`` calls) and per mean field (the labels), digests
 prefixed with the tensor's shape. The relocalisation run (chip_smoke.run_reloc) adds the
 fern-scale K2 calls (80x60 and 40x30). The cases (``checks.FILTER_CASES``,
 ``checks.PYRAMID_CASES``, ``checks.SPLAT_CASES``,
 ``checks.CLEAN_FLAT_CASES``, ``checks.DEPTH_CASES``, ``checks.SCORE_CASES``,
+``checks.CLEAN_CASES`` (flag frame and compaction frame, each into a copy
+of one map), ``checks.COMPACT_CASES``, ``checks.SEGMENT_CASES`` and
+``checks.LCRF_CASES`` (the plan and ten steps),
 taken from this checkout's ``checks.py``
 whatever the tree) run through the tree's public wrappers, a run each. The outputs
 are kept on the card during a run, so recording adds no host read to the
@@ -70,6 +80,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def record(tree: str, out: str) -> int:
     sys.path.insert(0, tree)
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -79,6 +90,7 @@ def record(tree: str, out: str) -> int:
     from multimotionfusion_tpu_torch import engine_multi as EM
     from multimotionfusion_tpu_torch import kernels as K
     from multimotionfusion_tpu_torch.model import fusion as FU
+    from multimotionfusion_tpu_torch.model import surfel_map as SM
     from multimotionfusion_tpu_torch.odometry import levels as LV
     from multimotionfusion_tpu_torch.odometry import multi as MO
     from multimotionfusion_tpu_torch.odometry import rgbd
@@ -87,6 +99,7 @@ def record(tree: str, out: str) -> int:
     from multimotionfusion_tpu_torch.ops import ransac as RS
     from multimotionfusion_tpu_torch.segmentation import flow as FL
     from multimotionfusion_tpu_torch.segmentation import flow_crf as FC
+    from multimotionfusion_tpu_torch.segmentation import legacy_crf as LC
     from multimotionfusion_tpu_torch.tracking import superpoint as SP
     from multimotionfusion_tpu_torch.tracking import tracker as TR
 
@@ -148,6 +161,40 @@ def record(tree: str, out: str) -> int:
         return out
 
     wrap_labelled(R, "render_depths_cuda", depth_fields)
+    wrap_labelled(FU, "clean_cuda", lambda r: [("map", r.data), ("count", r.count)])
+    wrap_labelled(SM, "compact_cuda", lambda r: zip(("map", "count"), r))
+    wrap_labelled(LC, "crf_plan_cuda", lambda r: zip(r._fields, r))
+    if hasattr(SM, "compact_segments_cuda"):  # one launch: recorded segment by segment
+        segments = SM.compact_segments_cuda
+
+        def compact_segments(gsrc, osrc, counts, gdst, odst):
+            res = segments(gsrc, osrc, counts, gdst, odst)
+            dsts = [gdst] + [odst[k] for k in range(odst.shape[0])]
+            labelled["compact_cuda"] += [[("map", d.clone()), ("count", res[m].clone())]
+                                         for m, d in enumerate(dsts)]
+            return res
+
+        SM.compact_segments_cuda = compact_segments
+    if hasattr(LC, "crf_mean_field_cuda"):  # one launch: recorded step by step
+        field = LC.crf_mean_field_cuda
+
+        def mean_field(plan, iterations):
+            hist, lbl = field(plan, iterations)
+            labelled["lcrf_step"] += [[("q", q.clone())] for q in hist]
+            labelled["lcrf_labels"].append([("labels", lbl.clone())])
+            return hist, lbl
+
+        LC.crf_mean_field_cuda = mean_field
+    one_step = LC.crf_iterate_cuda
+
+    def crf_step(q, plan, want_labels=False):
+        out, lbl = one_step(q, plan, want_labels)
+        labelled["lcrf_step"].append([("q", out.clone())])
+        if lbl is not None:
+            labelled["lcrf_labels"].append([("labels", lbl.clone())])
+        return out, lbl
+
+    LC.crf_iterate_cuda = crf_step
     match, update = TR.mutual_match, TR.update
     in_update = []  # a tree whose update calls the public mutual_match
 
@@ -299,6 +346,37 @@ def record(tree: str, out: str) -> int:
     for name, h, w, kind in cases.SCORE_CASES:
         SP.patch_score_cuda(*cases.score_inputs(h, w, kind, "cuda"))
         collect(f"score_case.{name}")
+    for name, h, w, B, window, gate, skip, kind in cases.CLEAN_CASES:
+        data, count, index, dl, *rest = cases.clean_inputs(h, w, B, window, gate, kind, "cuda")
+        flag = None if skip is None else torch.tensor(skip, device="cuda")
+        out0 = torch.from_numpy(np.random.default_rng(1).normal(
+            0.0, 1.0, (16, B)).astype(np.float32)).cuda()
+        for compact in (False, True):
+            FU.clean_cuda(SM.SurfelMap(data.clone(), count), R.IndexMap(index, dl), *rest,
+                          compact, out0.clone(), flag)
+        collect(f"clean_case.{name}")
+    for name, n, cap, kind in cases.COMPACT_CASES:
+        SM.compact_cuda(*cases.compact_case_inputs(n, cap, kind, "cuda"))
+        collect(f"compact_case.{name}")
+    for name, bg, bo, slots in cases.SEGMENT_CASES:
+        gsrc, osrc, counts, gdst, odst = cases.segment_case_inputs(bg, bo, slots, "cuda")
+        if hasattr(SM, "compact_segments_cuda"):
+            SM.compact_segments_cuda(gsrc, osrc, counts, gdst, odst)
+        else:  # the engine's loop before the one-launch repack
+            for m, src in enumerate([gsrc] + [osrc[:, k] for k in range(slots)]):
+                size = src.shape[1]
+                keep = (torch.arange(size, device="cuda") < counts[m]) & (src[SM.ALIVE] > 0)
+                SM.compact_cuda(src, keep, size)
+        collect(f"segment_case.{name}")
+    for name, n_sp, M, allow_new, kind in cases.LCRF_CASES:
+        plan = LC.crf_plan_cuda(*cases.lcrf_inputs(n_sp, M, allow_new, kind, "cuda"))
+        if hasattr(LC, "crf_mean_field_cuda"):
+            LC.crf_mean_field_cuda(plan, cases.LCRF_CASE_STEPS)
+        else:
+            q = plan.q0
+            for it in range(cases.LCRF_CASE_STEPS):
+                q, _ = LC.crf_iterate_cuda(q, plan, it == cases.LCRF_CASE_STEPS - 1)
+        collect(f"lcrf_case.{name}")
     torch.save({"tree": tree, "gpu": S._gpu_line(), "runs": runs}, out)
     print(json.dumps({"tree": tree, "out": out, "calls": {
         tag: {k: len(next(iter(v.values()))) for k, v in rec.items()} for tag, rec in runs.items()}}))
